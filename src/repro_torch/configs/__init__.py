@@ -1,0 +1,45 @@
+"""Architecture registry of the port: ``get_config(arch_id)``.
+
+The port serves dense attention-only stacks with RoPE, RMSNorm and a SwiGLU
+MLP: ``qwen3-0.6b`` and the Llama-2 family.  The JAX package's other
+architectures need layers the port does not have yet; ``get_config`` names
+the ROADMAP item that brings each of them.
+"""
+from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
+                                      MoEConfig, ShapeConfig, reduced)
+from repro_torch.configs.llama2 import CONFIGS as _llama2
+from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
+
+REGISTRY = {_qwen3.name: _qwen3, **_llama2}
+
+# arch -> the later slice of the port (ROADMAP Queue 1) that brings it
+LATER = {
+    "qwen2-1.5b": "dense extensions (qkv-bias serving at full size)",
+    "h2o-danube-1.8b": "dense extensions (sliding-window paged attention)",
+    "granite-20b": "dense extensions (layernorm, GELU MLP, sinusoidal "
+                   "positions)",
+    "musicgen-medium": "other mixers and inputs (frame embeddings, "
+                       "sinusoidal positions)",
+    "qwen2-vl-2b": "other mixers and inputs (M-RoPE, vision embeddings)",
+    "deepseek-moe-16b": "MoE and expert parallelism",
+    "dbrx-132b": "MoE and expert parallelism",
+    "rwkv6-1.6b": "other mixers and inputs (RWKV-6 and its WKV kernel)",
+    "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid), after MoE",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in REGISTRY:
+        return REGISTRY[name]
+    if name in LATER:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet; it arrives with the "
+            f"'{LATER[name]}' slice of the PyTorch port (ROADMAP Queue 1). "
+            f"Ported: {sorted(REGISTRY)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "MambaConfig", "ShapeConfig", "SHAPES",
+    "reduced", "REGISTRY", "LATER", "get_config",
+]

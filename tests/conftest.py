@@ -74,6 +74,8 @@ _install_hypothesis_stub()
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device equivalence tests (minutes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 @pytest.fixture
