@@ -11,10 +11,11 @@ order; any failure ends the run with a non-zero exit and no result line:
 2. build    — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
               (one ``nvcc`` per source, started together).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes, in f32 and bf16, with the stated
-              tolerance; times the kernel, the plain version and one PyTorch
-              library call computing the same function (L2 flushed before
-              every timed launch), beside the least time the card could take.
+              the serving and training paths' shapes, in f32 and bf16, with
+              the stated tolerance; times the kernel, the plain version and
+              one PyTorch library call computing the same function (L2
+              flushed before every timed launch), beside the least time the
+              card could take.
 4. serve    — qwen3-0.6b at full width and depth (28 layers, f32, random
               weights from a seed) serves 12 requests over 8 slots (prompts
               of 17-200 tokens, 48 greedy new tokens) through the paged
@@ -24,7 +25,15 @@ order; any failure ends the run with a non-zero exit and no result line:
               Then the served tokens are fed again (teacher forcing) through
               the kernel path and the plain ``"torch"`` path on the same
               weights, and every step's logits must agree.
-5. report   — one JSON line listing every kernel, then the device line
+5. train    — qwen3-0.6b at full width and depth (f32, seed 0) takes 6 AdamW
+              steps on synthetic batches of 8 x 512 tokens through
+              ``train_loop`` on the kernels.  Counters zeroed just before and
+              read just after: per step 57 RMSNorm forward and 57 backward
+              launches, 28 each of the flash-attention forward, dq and dk/dv.
+              Every loss must be finite and the last below the first.  Then,
+              from the same initial weights and one batch, the loss and every
+              gradient of the kernel path must agree with the plain path's.
+6. report   — one JSON line listing every kernel, then the device line
               ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -45,13 +54,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import Batcher, SyntheticSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
+from repro_torch.train import TrainConfig, train_loop  # noqa: E402
+from repro_torch.train.trainer import batch_to_device  # noqa: E402
 
 # published H100 SXM peaks (dense): device memory, f32 outside the tensor
 # cores, bf16 tensor cores
@@ -61,8 +74,19 @@ PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # order and rsqrt/exp rounding; bf16 outputs round an f32 value that may
 # differ in its last bits, i.e. by up to one bf16 ulp (2^-8..2^-7 relative)
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# gradients, relative to the tensor's scale (max |plain|): f32 sums the
+# same terms in another order over up to S * G of them; bf16 outputs are
+# rounded once, at the end, and may differ by one bf16 ulp
+GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LOGIT_ATOL = 1e-3         # f32 logits after 28 layers, kernel vs plain path
 MIN_AGREEMENT = 0.95      # greedy argmax agreement under teacher forcing
+# train phase, kernel path vs plain path from the same weights and batch,
+# f32 through 28 layers: loss within 1e-4; every gradient within 1e-3 of
+# its leaf's scale (the JAX kernel tests' bar, tests/test_kernels.py)
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 512      # the JAX train CLI's defaults
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
 SEED = 0
 
@@ -102,14 +126,24 @@ def max_err(a, b, dtype):
     return err.max().item(), bool((err <= atol + rtol * b.abs()).all())
 
 
+def rel_err(a, b):
+    """max |a - b| over the scale of b (max |b|)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def rmsnorm_phase(dev, flush, gen):
+    """RMSNorm forward at the serving path's decode rows (8, 32 and a ragged
+    37 of d 1024) and the training path's (B x S = 4096, and an odd 4099
+    rows)."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for n, d in ((8, 1024), (32, 1024), (37, 1024)):
+        for n, d in ((8, 1024), (32, 1024), (37, 1024), (4096, 1024),
+                     (4099, 1024)):
             x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
             s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
             y, rstd = rms.rmsnorm_cuda(x, s, 1e-6)
@@ -123,7 +157,8 @@ def rmsnorm_phase(dev, flush, gen):
             bnd, by = bound_ms(2 * n * d * isz + 4 * d + 4 * n, 4 * n * d,
                                dtype)
             w = s.to(dtype)
-            row = dict(dtype=str(dtype).split(".")[-1], shape=f"({n},{d})",
+            row = dict(name="rmsnorm", dtype=str(dtype).split(".")[-1],
+                       shape=f"({n},{d})",
                        max_abs_err=err,
                        ms=time_ms(lambda: rms.rmsnorm_cuda(x, s, 1e-6), flush),
                        plain_ms=time_ms(lambda: rms.rmsnorm_plain(x, s, 1e-6),
@@ -225,6 +260,153 @@ def flash_decode_phase(dev, flush, gen):
     return rows
 
 
+def rmsnorm_bwd_phase(dev, flush, gen):
+    """RMSNorm backward at the training path's rows (B x S = 4096 of d
+    1024) and a ragged row count (not a multiple of the 16-row CTA)."""
+    rows = []
+    eps = 1e-6
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d in ((4096, 1024), (4099, 1024)):
+            x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+            gy = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+            s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            _, rstd = rms.rmsnorm_plain(x, s, eps)
+            dx, ds = rms.rmsnorm_bwd_cuda(x, s, rstd, gy)
+            dx0, ds0 = rms.rmsnorm_bwd_plain(x, s, rstd, gy)
+            torch.cuda.synchronize()
+            err, ok = max_err(dx, dx0, dtype)
+            ds_rel = rel_err(ds, ds0)
+            check(ok and ds_rel <= GRAD_REL_TOL[torch.float32],
+                  f"rmsnorm backward {dtype} ({n},{d}): |ddx| {err:.3g}, "
+                  f"dscale rel {ds_rel:.3g} over tolerance")
+            isz = x.element_size()
+            bnd, by = bound_ms(3 * n * d * isz + 4 * n + 8 * d, 11 * n * d,
+                               dtype)
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_()
+                w = s.to(dtype).detach().requires_grad_()
+                y = F.rms_norm(xr, (d,), w, eps)
+                lib = time_ms(lambda: torch.autograd.grad(
+                    y, (xr, w), gy, retain_graph=True), flush)
+            row = dict(name="rmsnorm_bwd", dtype=str(dtype).split(".")[-1],
+                       shape=f"({n},{d})",
+                       max_abs_err=max(err, (ds - ds0).abs().max().item()),
+                       ms=time_ms(lambda: rms.rmsnorm_bwd_cuda(x, s, rstd, gy),
+                                  flush),
+                       plain_ms=time_ms(
+                           lambda: rms.rmsnorm_bwd_plain(x, s, rstd, gy),
+                           flush),
+                       library_ms=lib, bound_ms=bnd, bound_by=by)
+            rows.append(row)
+            print(f"[kernels] rmsnorm_bwd {row['dtype']} {row['shape']}: "
+                  f"dx err {err:.3g}, dscale rel {ds_rel:.3g}; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"F.rms_norm backward {lib:.4f} ms, bound {bnd:.5f} ms "
+                  f"({by})")
+    return rows
+
+
+def visible_pairs(S, window):
+    """(query, key) pairs a causal (windowed) attention computes per head."""
+    n = torch.arange(1, S + 1)
+    if window:
+        n = n.clamp(max=window)
+    return int(n.sum())
+
+
+# B, S, H, Kv, D, window: the training shape (timed), then ragged S, a
+# sliding window and MQA (checked, not timed)
+FLASH_CASES = [(8, 512, 16, 8, 128, 0), (2, 300, 16, 8, 128, 0),
+               (2, 300, 16, 8, 128, 128), (2, 512, 16, 1, 128, 0)]
+
+
+def flash_phase(dev, flush, gen):
+    """Flash-attention forward (o, lse), dq and dk/dv kernels against their
+    plain versions; the backward kernels take the plain forward's lse and
+    delta, so each kernel is held alone."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (B, S, H, Kv, D, window) in enumerate(FLASH_CASES):
+            q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
+                                       device=dev).to(dtype)
+                           for h in (H, Kv, Kv, H))
+            o, lse = fa.forward_cuda(q, k, v, True, window)
+            o0, lse0 = fa.forward_plain(q, k, v, True, window)
+            delta = fa.attention_delta(o0, do)
+            args = (q, k, v, do, lse0, delta, True, window)
+            dq, (dk, dv) = fa.dq_cuda(*args), fa.dkv_cuda(*args)
+            dq0, (dk0, dv0) = fa.dq_plain(*args), fa.dkv_plain(*args)
+            torch.cuda.synchronize()
+            e_o, ok = max_err(o, o0, dtype)
+            e_lse = (lse - lse0).abs().max().item()
+            rels = {"dq": rel_err(dq, dq0), "dk": rel_err(dk, dk0),
+                    "dv": rel_err(dv, dv0)}
+            shape = f"B{B} S{S} H{H} Kv{Kv} D{D} causal window{window}"
+            dt = str(dtype).split(".")[-1]
+            check(ok and e_lse <= 1e-5 and max(rels.values())
+                  <= GRAD_REL_TOL[dtype],
+                  f"flash attention {dt} {shape}: |do| {e_o:.3g}, |dlse| "
+                  f"{e_lse:.3g}, grads rel {rels} over tolerance")
+            print(f"[kernels] flash_attention {dt} {shape}: o err {e_o:.3g}"
+                  f", lse err {e_lse:.3g}; dq/dk/dv rel err "
+                  + "/".join(f"{r:.3g}" for r in rels.values()))
+            base = dict(dtype=dt, shape=shape, timed=ci == 0)
+            errs = {"flash_attention": max(e_o, e_lse),
+                    "flash_attention_dq": (dq - dq0).abs().max().item(),
+                    "flash_attention_dkv": max((dk - dk0).abs().max().item(),
+                                               (dv - dv0).abs().max().item())}
+            if ci:
+                rows += [dict(base, name=n, max_abs_err=e)
+                         for n, e in errs.items()]
+                continue
+            isz = q.element_size()
+            pairs = visible_pairs(S, window) * B * H
+            q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
+            row_bytes = B * H * S * 4
+            bounds = {
+                "flash_attention": bound_ms(2 * q_bytes + 2 * kv_bytes
+                                            + row_bytes, 4 * D * pairs, dtype),
+                "flash_attention_dq": bound_ms(3 * q_bytes + 2 * kv_bytes
+                                               + 2 * row_bytes, 6 * D * pairs,
+                                               dtype),
+                "flash_attention_dkv": bound_ms(2 * q_bytes + 4 * kv_bytes
+                                                + 2 * row_bytes,
+                                                8 * D * pairs, dtype)}
+            qs, ks, vs, dos = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v, do))
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), flush, 20)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+                out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, dos, retain_graph=True), flush, 20)
+            timings = {
+                "flash_attention": (
+                    lambda: fa.forward_cuda(q, k, v, True, window),
+                    lambda: fa.forward_plain(q, k, v, True, window),
+                    lib_fwd, "forward"),
+                "flash_attention_dq": (lambda: fa.dq_cuda(*args),
+                                       lambda: fa.dq_plain(*args), lib_bwd,
+                                       "backward"),
+                "flash_attention_dkv": (lambda: fa.dkv_cuda(*args),
+                                        lambda: fa.dkv_plain(*args), lib_bwd,
+                                        "backward")}
+            for name, (kern, plain, lib, lib_what) in timings.items():
+                bnd, by = bounds[name]
+                row = dict(base, name=name, max_abs_err=errs[name],
+                           ms=time_ms(kern, flush, 20),
+                           plain_ms=time_ms(plain, flush, 20),
+                           library_ms=lib, bound_ms=bnd, bound_by=by)
+                rows.append(row)
+                print(f"[kernels] {name} {dt} {shape}: kernel "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                      f"SDPA {lib_what} {lib:.4f} ms, bound {bnd:.5f} ms "
+                      f"({by})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width, then teacher-forced logits
 # ---------------------------------------------------------------------------
@@ -312,13 +494,15 @@ def serve_phase(dev):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     fwd, steps = eng.stats["forward_calls"], eng.stats["decode_steps"]
-    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * fwd,
+    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * fwd, "rmsnorm_bwd": 0,
               "flash_decode": cfg.n_layers * steps,
-              "flash_decode_combine": cfg.n_layers * steps}
+              "flash_decode_combine": cfg.n_layers * steps,
+              "flash_attention": 0, "flash_attention_dq": 0,
+              "flash_attention_dkv": 0}
     print(f"[serve] {fwd} forward calls ({steps} decode steps); launches "
           f"{counts}, expected {expect}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
-    check(all(v > 0 for v in counts.values()), f"a kernel never ran: {counts}")
+    check(fwd > 0 and steps > 0, f"{fwd} forward calls, {steps} decode steps")
 
     gens = np.stack([done[r] for r in rids])
     check(gens.shape == (n_req, n_new), f"served shape {gens.shape}")
@@ -357,39 +541,151 @@ def serve_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: train at full width and depth, then kernel vs plain gradients
+# ---------------------------------------------------------------------------
+
+class _Events(tel.Sink):
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event):
+        self.events.append(event)
+
+
+def loss_and_grads(cfg, params, batch, rt):
+    for p in params.parameters():
+        p.grad = None
+    loss, _ = tfm.loss_fn(cfg, params, batch, rt)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def train_phase(dev, card):
+    cfg = get_config("qwen3-0.6b")
+    tc = TrainConfig(steps=TRAIN_STEPS, warmup=max(TRAIN_STEPS // 20, 1),
+                     log_every=1)
+    rt = Runtime()                              # the kernel path
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    batches = Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+                      TRAIN_BATCH)
+    rec = tel.Recorder()
+    spans = rec.add_sink(_Events())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
+                                            telemetry=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_norm, L, n = 2 * cfg.n_layers + 1, cfg.n_layers, TRAIN_STEPS
+    expect = {"rmsnorm": n_norm * n, "rmsnorm_bwd": n_norm * n,
+              "flash_decode": 0, "flash_decode_combine": 0,
+              "flash_attention": L * n, "flash_attention_dq": L * n,
+              "flash_attention_dkv": L * n}
+    print(f"[train] {n} steps; launches {counts}, expected {expect}")
+    check(counts == expect, f"launch counts {counts} != expected {expect}")
+    losses = [h["loss"] for h in history]
+    check(len(losses) == n and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    def durs(name):
+        return [e["dur"] for e in spans.events if e["name"] == name]
+
+    steps_s = durs("train/step")
+    p50 = statistics.median(steps_s)
+    # host spans per step, first step (one-time set-up) left out
+    host = {name: statistics.mean(durs(f"train/{name}")[1:]) for name in
+            ("dispatch", "data", "wait")}
+    res = dict(steps=n, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
+               step_s=steps_s, step_p50_s=p50, host_span_s=host,
+               tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, wall_s=wall,
+               peak_mem_gib=peak / 2 ** 30, launches=counts)
+    print(f"[train] {cfg.name} f32, {TRAIN_BATCH}x{TRAIN_SEQ} tokens/step: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step p50 "
+          f"{p50 * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in steps_s)}"
+          f" ms), {res['tok_s']:.0f} tokens/s at p50; host spans per step "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in host.items())
+          + f"; peak memory {res['peak_mem_gib']:.2f} GiB; on {card}")
+    del params, opt_state
+
+    # the same initial weights and one batch through both paths
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    batch = batch_to_device(next(iter(Batcher(
+        SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+        TRAIN_BATCH))), dev)
+    loss_k, grads_k = loss_and_grads(cfg, params, batch, rt)
+    loss_p, grads_p = loss_and_grads(
+        cfg, params, batch, Runtime(attn_impl="torch", norm_impl="torch"))
+    rels = {name: rel_err(grads_k[name], grads_p[name]) for name in grads_k}
+    worst = max(rels, key=rels.get)
+    res.update(loss_kernel=loss_k, loss_plain=loss_p,
+               grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
+               grad_rel_err_median=statistics.median(rels.values()))
+    print(f"[train] kernel vs plain path ({time.perf_counter() - t0:.1f}s): "
+          f"loss {loss_k:.6f} vs {loss_p:.6f} (|diff| "
+          f"{abs(loss_k - loss_p):.3g}, tol {TRAIN_LOSS_ATOL}); gradients "
+          f"rel err max {rels[worst]:.3g} ({worst}), median "
+          f"{res['grad_rel_err_median']:.3g} over {len(rels)} leaves (tol "
+          f"{TRAIN_GRAD_REL})")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
+          f"loss differs by {abs(loss_k - loss_p):.3g}")
+    check(rels[worst] <= TRAIN_GRAD_REL,
+          f"gradient {worst} differs by {rels[worst]:.3g} of its scale")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:33"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:36"),
     "flash_decode_combine": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_decode.py:147"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:60"),
+    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:102"),
+    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:134"),
 }
-# the case each kernel's line reports: the serving path's f32 decode shape
-REPORTED = {"rmsnorm": ("float32", "(8,1024)", None),
-            "flash_decode": ("float32", None, 4),
-            "flash_decode_combine": ("float32", None, 4)}
+# the case each kernel's line reports, f32 throughout: the serving path's
+# decode shape (the RMSNorm forward's training rows are printed beside it),
+# the training path's norm rows and attention shape
+REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
+            "rmsnorm_bwd": dict(shape="(4096,1024)"),
+            "flash_decode": dict(n_splits=4),
+            "flash_decode_combine": dict(n_splits=4),
+            "flash_attention": dict(timed=True),
+            "flash_attention_dq": dict(timed=True),
+            "flash_attention_dkv": dict(timed=True)}
 
 
-def kernels_line(rms_rows, fd_rows, launches, card):
+def kernels_line(rows, launches, card):
     out = []
     for name, (src, replaces) in SOURCES.items():
-        rows = ([dict(r, name="rmsnorm") for r in rms_rows]
-                if name == "rmsnorm" else
-                [r for r in fd_rows if r["name"] == name])
-        dtype, shape, splits = REPORTED[name]
-        rep = next(r for r in rows if r["dtype"] == dtype
-                   and (shape is None or r["shape"] == shape)
-                   and (splits is None or r["n_splits"] == splits))
+        mine = [r for r in rows if r["name"] == name]
+        rep = next(r for r in mine if r["dtype"] == "float32" and all(
+            r.get(k) == v for k, v in REPORTED[name].items()))
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
+            "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "float32"),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"], "dtype": dtype,
+            "library_ms": rep["library_ms"], "dtype": "float32",
             "shape": rep["shape"], "card": card})
     return {"kernels": out}
 
@@ -423,8 +719,10 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     with torch.no_grad():
-        rms_rows = rmsnorm_phase(dev, flush, gen)
-        fd_rows = flash_decode_phase(dev, flush, gen)
+        rows = rmsnorm_phase(dev, flush, gen)
+        rows += rmsnorm_bwd_phase(dev, flush, gen)
+        rows += flash_decode_phase(dev, flush, gen)
+        rows += flash_phase(dev, flush, gen)
     del flush
     print(f"[kernels] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -432,13 +730,21 @@ def main(argv=None):
     served = serve_phase(dev)
     print(f"[serve] ok in {time.perf_counter() - t0:.1f}s")
 
-    line = kernels_line(rms_rows, fd_rows, served["launches"], card)
+    t0 = time.perf_counter()
+    trained = train_phase(dev, card)
+    print(f"[train] ok in {time.perf_counter() - t0:.1f}s")
+
+    # each kernel's launches on the main paths: the serve phase's run plus
+    # the train phase's run, each counted from 0
+    launches = {k: served["launches"].get(k, 0) + trained["launches"][k]
+                for k in trained["launches"]}
+    line = kernels_line(rows, launches, card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": rms_rows + fd_rows, "serve": served,
-             "build_s": took, "total_s": time.perf_counter() - t_start},
-            indent=1))
+            {"card": card, "kernels": rows, "serve": served,
+             "train": trained, "build_s": took,
+             "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,11 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm", "flash_decode")
+SOURCES = ("rmsnorm", "flash_decode", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper CTA may use
 
 # name -> loaded library; a process loads each library once
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -35,6 +37,16 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+def on_cpu(t) -> bool:
+    """True for a CPU tensor (it takes a kernel's plain version), False for
+    a CUDA tensor (it takes the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def nvcc_path() -> str:

@@ -27,7 +27,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper CTA may use
 
 # launches of the CUDA kernels (plain-version calls do not count)
 LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
@@ -135,10 +134,10 @@ def split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
             raise ValueError(f"{name} must be contiguous on {dev}")
     G = H // Kv
     nb = tbl.shape[1]
-    if split_smem_bytes(G, D, bs) > SMEM_LIMIT:
+    if split_smem_bytes(G, D, bs) > build.SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, bs={bs} needs "
                          f"{split_smem_bytes(G, D, bs)} B of shared memory "
-                         f"per CTA (limit {SMEM_LIMIT})")
+                         f"per CTA (limit {build.SMEM_LIMIT})")
     splits, bps = plan_splits(nb, n_splits)
     acc = torch.empty((B * Kv, splits, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((B * Kv, splits, G), dtype=torch.float32, device=dev)

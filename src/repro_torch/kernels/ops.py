@@ -4,34 +4,36 @@ A tensor on the CPU goes to the kernel's plain PyTorch version (that is how
 the tests run here).  A tensor on a CUDA device launches the kernel, or the
 launch raises: there is no fallback from the card to the plain version.
 Model code reaches these through ``Runtime.norm_impl == "kernel"`` /
-``Runtime.attn_impl == "kernel"``.
+``Runtime.attn_impl == "kernel"``.  ``rmsnorm`` and ``attention`` are
+differentiable on both devices: their backward is a kernel too.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels.build import on_cpu as _on_cpu
 
-
-def _on_cpu(t) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
-    raise ValueError(f"no kernel for device {t.device}")
+_COUNTERS = (_rms.LAUNCHES, _fd.LAUNCHES, _fa.LAUNCHES)
 
 
 def rmsnorm_forward(x, scale, *, eps=1e-6):
     """x (..., d), scale (d,) -> (rmsnorm(x) * scale, rstd (n,) f32)."""
-    x2 = x.reshape(-1, x.shape[-1])
-    fn = _rms.rmsnorm_plain if _on_cpu(x) else _rms.rmsnorm_cuda
-    y, rstd = fn(x2, scale, eps)
-    return y.reshape(x.shape), rstd
+    return _rms.RMSNormFn.apply(x, scale, eps)
 
 
 def rmsnorm(x, scale, *, eps=1e-6):
     return rmsnorm_forward(x, scale, eps=eps)[0]
+
+
+def attention(q, k, v, *, causal=True, window=0):
+    """Self-attention over positions 0..S-1: q (B, S, H, D), k/v
+    (B, S, Kv, D) with Kv | H -> (B, S, H, D) in q's type.  The CUDA
+    kernels take head dims ``flash_attention.HEAD_DIMS`` and raise for
+    any other."""
+    return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):
@@ -49,10 +51,10 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
-    return {**_rms.LAUNCHES, **_fd.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_rms.LAUNCHES, _fd.LAUNCHES):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0

@@ -12,6 +12,26 @@ import torch
 NEG_INF = -1e30
 
 
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """q (B, Sq, H, D), k/v (B, Skv, Kv, D) -> (B, Sq, H, D); f32 softmax."""
+    B, Sq, H, D = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (D ** -0.5)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > (q_pos[:, None] - window)
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pool, v_pool, tbl, ctx, *, window=0):
     """Decode attention over a paged KV cache (f32 softmax oracle).
 

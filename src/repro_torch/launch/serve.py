@@ -18,7 +18,6 @@ is a lower bound; time the run without it.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import time
@@ -39,36 +38,18 @@ def decode_breakdown(prof, steps_per_segment: int, top: int = 12):
     """Device time inside the engine's ``serve/decode_segment`` spans.
 
     Each segment ends by reading its tokens back, so every kernel it
-    launched has finished before its span closes: a kernel belongs to the
-    segment its start falls in.  -> {wall and device ms per decode step,
-    busy share, top kernels by device time}; device numbers are None when
-    the profiler recorded no kernels.
+    launched has finished before its span closes.  -> {wall and device ms
+    per decode step, busy share, top kernels by device time}; device
+    numbers are None when the profiler recorded no kernels.
     """
-    from torch.autograd import DeviceType
-    evs = prof.events()
-    segs = sorted((e.time_range.start, e.time_range.end) for e in evs
-                  if e.name == "serve/decode_segment"
-                  and e.device_type == DeviceType.CPU)
-    kern = [e for e in evs if e.device_type == DeviceType.CUDA
-            and e.name != "serve/decode_segment"]
-    wall = sum(t1 - t0 for t0, t1 in segs)
-    busy, by_name = 0.0, collections.Counter()
-    counts = collections.Counter()
-    for e in kern:
-        s0 = e.time_range.start
-        for t0, t1 in segs:
-            if t0 <= s0 < t1:
-                dur = min(e.time_range.end, t1) - s0
-                busy += dur
-                by_name[e.name] += dur
-                counts[e.name] += 1
-                break
-    steps = len(segs) * steps_per_segment
-    out = {"decode_segments": len(segs), "decode_steps": steps,
+    n_seg, wall, busy, by_name, counts = tel.device_time_in_spans(
+        prof, "serve/decode_segment")
+    steps = n_seg * steps_per_segment
+    out = {"decode_segments": n_seg, "decode_steps": steps,
            "wall_ms_per_step": wall / 1e3 / max(steps, 1),
            "device_ms_per_step": None, "device_busy_share": None,
            "kernel_launches_per_step": None, "top_kernels": []}
-    if kern and steps:
+    if counts and steps:
         out.update(
             device_ms_per_step=busy / 1e3 / steps,
             device_busy_share=busy / wall,
@@ -172,15 +153,8 @@ def profile_run(engine, prompts, args, device):
             torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     os.makedirs(args.profile, exist_ok=True)
-    sorts = ["self_cpu_time_total"]
-    if device.type == "cuda":
-        sorts.insert(0, "self_device_time_total")
-    averages = prof.key_averages()
-    with open(os.path.join(args.profile, "ops.txt"), "w") as f:
-        for sort in sorts:
-            f.write(f"sorted by {sort}\n")
-            f.write(averages.table(sort_by=sort, row_limit=40))
-            f.write("\n\n")
+    tel.write_op_table(prof, os.path.join(args.profile, "ops.txt"),
+                       device.type == "cuda")
     rep = decode_breakdown(prof, engine.steps_per_tick)
     rep.update(kernels=args.kernels, batch=args.batch,
                prompt_len=args.prompt_len, n_new=args.n_new,

@@ -20,13 +20,19 @@ from repro_torch.kernels import ops as kernel_ops
 class Runtime:
     """Numerics and implementation choice (orthogonal to ModelConfig).
 
-    ``"kernel"`` routes RMSNorm and paged decode attention through the
-    hand-written kernels (their plain versions on CPU tensors); ``"torch"``
-    keeps the plain PyTorch layer code everywhere.
+    ``"kernel"`` routes RMSNorm, training attention and paged decode
+    attention through the hand-written kernels (their plain versions on
+    CPU tensors); ``"torch"`` keeps the plain PyTorch layer code
+    everywhere.  The chunk sizes shape the plain cache-less attention:
+    sequences up to ``attn_min_chunked_len`` attend densely, longer ones
+    in (q, kv) chunks with an online softmax.
     """
     compute_dtype: torch.dtype = torch.float32
     attn_impl: str = "kernel"           # 'kernel' | 'torch'
     norm_impl: str = "kernel"           # 'kernel' | 'torch'
+    attn_q_chunk: int = 1024            # query chunk for blocked attention
+    attn_kv_chunk: int = 1024           # kv chunk for blocked attention
+    attn_min_chunked_len: int = 2048    # below this, plain masked attention
 
 
 def _randn(gen, shape, scale, device):

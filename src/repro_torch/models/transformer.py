@@ -1,5 +1,6 @@
-"""Decoder-only model over a paged KV cache: the dense, attention-only part
-of the JAX package's ``models/transformer.py``.
+"""Decoder-only model, cache-less (training) or over a paged KV cache
+(serving): the dense, attention-only part of the JAX package's
+``models/transformer.py``.
 
 A model is a stack of layers; each layer = (RMSNorm -> attention ->
 residual, RMSNorm -> MLP -> residual).  Parameters live in an
@@ -115,25 +116,52 @@ def _apply_layer(cfg, lp, h, rope_ang, rt: Runtime, cache, paged):
     return h + apply_mlp(cfg, lp["ffn"], x, rt)
 
 
-def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime, cache):
+def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
+            cache=None):
     """-> logits (B, S, vocab).
 
-    batch: tokens (B, S) and pos, the absolute position of the first token:
-    (1, 1) for a prefill chunk, (B, 1) for a decode step (broadcast over
-    S).  cache: {'layers': [{'k_pool', 'v_pool'}] per layer, updated in
-    place, 'paged': {'tbl' (B, max_blocks) int32, 'ctx' (B,) int32}}.
+    Without a cache (training): batch {'tokens' (B, S)} at positions
+    0..S-1, every layer attends causally over the sequence.
+
+    With a paged cache (serving): batch also holds pos, the absolute
+    position of the first token: (1, 1) for a prefill chunk, (B, 1) for a
+    decode step (broadcast over S).  cache: {'layers': [{'k_pool',
+    'v_pool'}] per layer, updated in place, 'paged': {'tbl' (B,
+    max_blocks) int32, 'ctx' (B,) int32}}.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = batch["pos"] + torch.arange(S, dtype=torch.int32,
-                                            device=tokens.device)[None]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    if cache is not None:
+        positions = batch["pos"] + positions
     positions = positions.expand(B, S)
 
     h = embed_tokens(params.embed, tokens, rt)
     rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
                 if cfg.rope == "rope" else None)
-    paged = cache["paged"]
-    for lp, lc in zip(params.layers, cache["layers"], strict=True):
+    paged = cache["paged"] if cache is not None else None
+    layer_caches = (cache["layers"] if cache is not None
+                    else [None] * len(params.layers))
+    for lp, lc in zip(params.layers, layer_caches, strict=True):
         h = _apply_layer(cfg, lp, h, rope_ang, rt, lc, paged)
     h = apply_norm(params.final_norm, h, cfg.norm_eps, rt)
     return lm_logits(params.embed, h, rt)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime):
+    """Next-token cross entropy in f32; labels < 0 are masked.
+    -> (loss, {'nll', 'aux', 'ntok'}), all 0-d tensors on the batch's
+    device (``aux``, the MoE load-balance loss, is 0 for a dense stack)."""
+    logits = forward(cfg, params, batch, rt)
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    return nll + aux, {"nll": nll, "aux": aux, "ntok": mask.sum()}

@@ -6,10 +6,12 @@ histograms with exact nearest-rank p50/p99, the JSONL and Chrome-trace
 sinks behind ``--metrics_jsonl`` / ``--trace``, the :class:`Recorder` and
 the no-op ``NULL`` recorder.  Spans enter
 ``torch.profiler.record_function`` so host spans line up with the device
-kernels in a ``torch.profiler`` trace.
+kernels in a ``torch.profiler`` trace; ``device_time_in_spans`` reads a
+profile that way.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -392,3 +394,57 @@ class _NullRecorder(Recorder):
 
 
 NULL = _NullRecorder()
+
+
+# ---------------------------------------------------------------------------
+# profiler reading
+# ---------------------------------------------------------------------------
+
+def device_time_in_spans(prof, span: str):
+    """Device kernels of a ``torch.profiler`` run, by the host span they
+    started in.  Each ``span`` must end after the kernels it launched have
+    finished (a sync inside it), so a kernel belongs to the span its start
+    falls in.  The device-side copies of the host spans (user annotations
+    on the GPU timeline) are not kernels and are skipped.  -> (number of
+    spans, their wall µs, device-busy µs inside them, µs by kernel name,
+    launches by kernel name)."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    segs = sorted((e.time_range.start, e.time_range.end) for e in evs
+                  if e.name == span and e.device_type == DeviceType.CPU)
+    busy, by_name = 0.0, collections.Counter()
+    counts = collections.Counter()
+    for e in evs:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        s0 = e.time_range.start
+        for t0, t1 in segs:
+            if t0 <= s0 < t1:
+                dur = min(e.time_range.end, t1) - s0
+                busy += dur
+                by_name[e.name] += dur
+                counts[e.name] += 1
+                break
+    return len(segs), sum(t1 - t0 for t0, t1 in segs), busy, by_name, counts
+
+
+def host_time_in_span(prof, span: str) -> float:
+    """Host µs spent in every ``span`` of a ``torch.profiler`` run (its
+    host-side events only)."""
+    from torch.autograd import DeviceType
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.name == span and e.device_type == DeviceType.CPU)
+
+
+def write_op_table(prof, path: str, device_times: bool) -> None:
+    """``prof.key_averages()`` sorted by device time (when the profile has
+    device times) and by host time, into the text file ``path``."""
+    sorts = ["self_cpu_time_total"]
+    if device_times:
+        sorts.insert(0, "self_device_time_total")
+    averages = prof.key_averages()
+    with open(path, "w") as f:
+        for sort in sorts:
+            f.write(f"sorted by {sort}\n")
+            f.write(averages.table(sort_by=sort, row_limit=40))
+            f.write("\n\n")

@@ -208,3 +208,23 @@ def test_paged_attend(Sq):
                          _with_sink(pool_v), torch.tensor(tbl),
                          torch.tensor(q_pos), torch.tensor(n_valid))
     _close(t, j)
+
+
+# ---------------------------------------------------------------------------
+# cache-less attention (training): dense and chunked plain paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,window,min_chunked", [
+    (40, 0, 2048),        # dense
+    (40, 0, 16),          # chunked, 16/8 chunks, S padded to 48
+    (37, 12, 16),         # chunked with a sliding window, ragged S
+])
+def test_sdpa_causal_plain_paths(S, window, min_chunked):
+    q = _randn(2, S, 4, 16)
+    k, v = _randn(2, S, 2, 16), _randn(2, S, 2, 16)
+    chunks = dict(attn_q_chunk=16, attn_kv_chunk=8,
+                  attn_min_chunked_len=min_chunked)
+    trt = dataclasses.replace(TRT["torch"], **chunks)
+    jrt = dataclasses.replace(JRT, **chunks)
+    _close(ta.sdpa_causal(*map(torch.tensor, (q, k, v)), window, trt),
+           ja.sdpa_causal(*map(jnp.asarray, (q, k, v)), window, jrt))

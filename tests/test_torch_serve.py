@@ -277,7 +277,9 @@ def test_unported_archs_name_their_slice():
 def test_port_imports_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.']\n"
             "import repro_torch, repro_torch.serve.engine, "
-            "repro_torch.launch.serve, chip_smoke\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.train.trainer, repro_torch.optim, "
+            "repro_torch.data, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
