@@ -11,7 +11,8 @@ order; any failure ends the run with a non-zero exit and no result line:
 2. build    — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
               (one ``nvcc`` per source, started together).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the serving and training paths' shapes, in f32 and bf16, with
+              the serving and training paths' shapes (WKV-6 at rwkv6-1.6b's
+              B 8, T 512, H 32, N 64), in f32 and bf16, with
               the stated tolerance; times the kernel, the plain version and
               one PyTorch library call computing the same function (L2
               flushed before every timed launch), beside the least time the
@@ -33,12 +34,26 @@ order; any failure ends the run with a non-zero exit and no result line:
               Every loss must be finite and the last below the first.  Then,
               from the same initial weights and one batch, the loss and every
               gradient of the kernel path must agree with the plain path's.
-6. report   — one JSON line listing every kernel, then the device line
+6. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
+              d_model 2048, d_ff 7168, vocab 65536; f32, seed 0, WKV chunk
+              32 as the train CLI): 6 AdamW steps (lr 1e-4) of 8 x 512
+              tokens, exactly 24 WKV-6 launches per step and none of any
+              other kernel; then kernel path vs plain path at a batch of
+              2 x 512: the loss within 1e-4, and the gradient errors'
+              median and maximum over the leaves within 1e-3 or 4x the
+              plain path's own when its WKV outputs are perturbed by a
+              relative 1e-7 (the kernel's rounding; at full depth the
+              backward amplifies it in the first layers), then at 2
+              layers of full width every gradient within 1e-3.  The
+              earlier phases' tensors are freed first.
+7. report   — one JSON line listing every kernel, then the device line
               ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -60,8 +75,11 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
 from repro_torch.train import TrainConfig, train_loop  # noqa: E402
 from repro_torch.train.trainer import batch_to_device  # noqa: E402
@@ -85,8 +103,32 @@ MIN_AGREEMENT = 0.95      # greedy argmax agreement under teacher forcing
 # its leaf's scale (the JAX kernel tests' bar, tests/test_kernels.py)
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
+# rwkv6-1.6b at full depth from random weights: its backward amplifies a
+# 1e-7 relative change of the WKV outputs (the kernel's rounding against
+# the plain version) into gradient changes of up to ~0.4-0.6 of a leaf's
+# scale in the first layers (measured on an H100).  There the kernel
+# path's gradient errors, their median and their maximum over the leaves,
+# are held to FLOOR_FACTOR times the plain path's own under such a change
+# (a leaf's own movement is too noisy a yardstick: the kernel's rounding
+# moved one leaf 10x further than the random perturbation did); at 2
+# layers of the same width every leaf is held to the plain 1e-3 bar
+WKV_NOISE_REL = 1e-7
+FLOOR_FACTOR = 4
+RWKV_SHALLOW_LAYERS = 2
 TRAIN_STEPS = 6
 TRAIN_BATCH, TRAIN_SEQ = 8, 512      # the JAX train CLI's defaults
+RWKV_STEPS = 6
+RWKV_CHUNK = 32                      # the train CLIs' WKV chunk
+# rwkv6-1.6b from random weights: at lr 3e-4 with one warmup step its loss
+# spikes (11.6 -> 16.2 at step 3, 11.8 at step 4) before it falls
+RWKV_LR = 1e-4
+RWKV_CHECK_BATCH = 2                 # kernel vs plain gradients, 2 x 512
+# WKV-6 kernel vs plain, relative to the output's scale: f32 1e-4 (the
+# chunked form multiplies e^{lc} by e^{-lc} factors whose rounding the
+# kernel's sequential sums and the plain matmuls expose differently);
+# bf16: the same f32 value rounded once, so 2 bf16 ulps, or 1e-5 of scale
+# where an output is so small that 2 ulps fall below the f32 rounding
+WKV_REL_TOL = 1e-4
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
 SEED = 0
 
@@ -407,6 +449,100 @@ def flash_phase(dev, flush, gen):
     return rows
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+def wkv6_ops(B, T, H, N, chunk):
+    """f32 operations the chunked WKV-6 needs for these shapes: per chunk
+    the strictly lower qp·kpᵀ and its product with v (C(C-1)/2 pairs of N
+    multiply-adds each) and the state's decay; per token the log, cumsum
+    and exps (~10 per channel), the u diagonal and its product with v
+    (~5 per channel), qp·S and the state's kᵀv (2 N² multiply-adds)."""
+    nc = -(-T // chunk)
+    per_head = nc * (2 * chunk * (chunk - 1) * N + 2 * N * N) \
+        + T * (15 * N + 4 * N * N)
+    return B * H * per_head
+
+
+# B, T, H, chunk (N 64): the rwkv6-1.6b training shape (timed), then chunk
+# 16 and 64, ragged T and T below the chunk (checked, not timed)
+WKV_CASES = [(8, 512, 32, RWKV_CHUNK), (2, 512, 32, 16), (2, 512, 32, 64),
+             (2, 300, 32, 32), (2, 20, 32, 64)]
+
+
+def wkv6_phase(dev, flush, gen):
+    """WKV-6 kernel against its plain version, y and the final state, with
+    the JAX kernel tests' input distribution (decay per step e^{-0.03} to
+    e^{-0.4}, harder than the model's w0 in [-6, -4))."""
+    rows = []
+    N = 64
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (B, T, H, chunk) in enumerate(WKV_CASES):
+            r, k, v = ((0.5 * torch.randn(B, T, H, N, generator=gen,
+                                          device=dev)).to(dtype)
+                       for _ in range(3))
+            w = torch.exp(-torch.exp(0.5 * torch.randn(
+                B, T, H, N, generator=gen, device=dev) - 2.5))
+            u = 0.3 * torch.randn(H, N, generator=gen, device=dev)
+            args = (r, k, v, w, u)
+            y, st = wkv.wkv6_cuda(*args, chunk)
+            y0, st0 = wkv.wkv6_plain(*args, None, chunk)
+            torch.cuda.synchronize()
+            e_y, e_s = rel_err(y, y0), rel_err(st, st0)
+            if dtype == torch.float32:
+                ok = e_y <= WKV_REL_TOL
+            else:
+                a, b = y.float(), y0.float()
+                ok = bool(((a - b).abs() <= torch.maximum(
+                    2 * bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                    1e-5 * b.abs().max())).all())
+            dt = str(dtype).split(".")[-1]
+            shape = f"B{B} T{T} H{H} N{N} chunk{chunk}"
+            check(ok and e_s <= WKV_REL_TOL,
+                  f"wkv6 {dt} {shape}: y rel err {e_y:.3g}, state rel err "
+                  f"{e_s:.3g} over tolerance")
+            err = max((y.float() - y0.float()).abs().max().item(),
+                      (st - st0).abs().max().item())
+            print(f"[kernels] wkv6 {dt} {shape}: y rel err {e_y:.3g}, state "
+                  f"rel err {e_s:.3g}")
+            base = dict(name="wkv6", dtype=dt, shape=shape, timed=ci == 0,
+                        max_abs_err=err)
+            if ci:
+                rows.append(base)
+                continue
+            isz = r.element_size()
+            n = B * T * H * N
+            bnd, by = bound_ms(4 * n * isz + 4 * n + 4 * H * N
+                               + 4 * B * H * N * N,
+                               wkv6_ops(B, T, H, N, chunk), dtype)
+            # the backward the training step runs: the plain chunked form
+            # replayed under autograd (WKV6Fn), not a kernel
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in args]
+                y_fn, _ = wkv.WKV6Fn.apply(*leaves, chunk)
+                gy = torch.randn(y_fn.shape, generator=gen, device=dev
+                                 ).to(dtype)
+                bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    y_fn, leaves, gy, retain_graph=True), flush, 10)
+            row = dict(base,
+                       ms=time_ms(lambda: wkv.wkv6_cuda(*args, chunk), flush,
+                                  20),
+                       plain_ms=time_ms(
+                           lambda: wkv.wkv6_plain(*args, None, chunk), flush,
+                           20),
+                       library_ms=None, bound_ms=bnd, bound_by=by,
+                       backward_ms=bwd_ms)
+            rows.append(row)
+            print(f"[kernels] wkv6 {dt} {shape}: kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, no library call, bound "
+                  f"{bnd:.5f} ms ({by}); backward (plain replay) "
+                  f"{bwd_ms:.4f} ms")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width, then teacher-forced logits
 # ---------------------------------------------------------------------------
@@ -498,7 +634,7 @@ def serve_phase(dev):
               "flash_decode": cfg.n_layers * steps,
               "flash_decode_combine": cfg.n_layers * steps,
               "flash_attention": 0, "flash_attention_dq": 0,
-              "flash_attention_dkv": 0}
+              "flash_attention_dkv": 0, "wkv6": 0}
     print(f"[serve] {fwd} forward calls ({steps} decode steps); launches "
           f"{counts}, expected {expect}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
@@ -563,12 +699,16 @@ def loss_and_grads(cfg, params, batch, rt):
     return loss.item(), grads
 
 
-def train_phase(dev, card):
-    cfg = get_config("qwen3-0.6b")
-    tc = TrainConfig(steps=TRAIN_STEPS, warmup=max(TRAIN_STEPS // 20, 1),
-                     log_every=1)
-    rt = Runtime()                              # the kernel path
+def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
+                check_batch, tag, floor=0.0):
+    """``steps`` AdamW steps (peak ``lr``) of ``cfg`` at full width and
+    depth on batches of TRAIN_BATCH x TRAIN_SEQ through ``train_loop`` on
+    the kernel path ``rt``, launch counts held to ``expect`` (per step);
+    then :func:`grad_check` at ``check_batch`` x TRAIN_SEQ."""
+    tc = TrainConfig(steps=steps, warmup=max(steps // 20, 1), log_every=1,
+                     opt=AdamWConfig(lr=lr))
     params = tfm.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
     batches = Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
                       TRAIN_BATCH)
     rec = tel.Recorder()
@@ -583,15 +723,11 @@ def train_phase(dev, card):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    n_norm, L, n = 2 * cfg.n_layers + 1, cfg.n_layers, TRAIN_STEPS
-    expect = {"rmsnorm": n_norm * n, "rmsnorm_bwd": n_norm * n,
-              "flash_decode": 0, "flash_decode_combine": 0,
-              "flash_attention": L * n, "flash_attention_dq": L * n,
-              "flash_attention_dkv": L * n}
-    print(f"[train] {n} steps; launches {counts}, expected {expect}")
+    expect = {k: v * steps for k, v in expect.items()}
+    print(f"[{tag}] {steps} steps; launches {counts}, expected {expect}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
     losses = [h["loss"] for h in history]
-    check(len(losses) == n and all(np.isfinite(losses)),
+    check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
@@ -603,42 +739,112 @@ def train_phase(dev, card):
     # host spans per step, first step (one-time set-up) left out
     host = {name: statistics.mean(durs(f"train/{name}")[1:]) for name in
             ("dispatch", "data", "wait")}
-    res = dict(steps=n, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
+    res = dict(arch=cfg.name, params=n_params, steps=steps, lr=lr,
+               batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
                step_s=steps_s, step_p50_s=p50, host_span_s=host,
                tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, wall_s=wall,
                peak_mem_gib=peak / 2 ** 30, launches=counts)
-    print(f"[train] {cfg.name} f32, {TRAIN_BATCH}x{TRAIN_SEQ} tokens/step: "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step p50 "
-          f"{p50 * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in steps_s)}"
-          f" ms), {res['tok_s']:.0f} tokens/s at p50; host spans per step "
+    print(f"[{tag}] {cfg.name} ({n_params / 1e9:.3f} B parameters) f32, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens/step: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step p50 {p50 * 1e3:.1f} ms "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in steps_s)} ms), "
+          f"{res['tok_s']:.0f} tokens/s at p50; host spans per step "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in host.items())
           + f"; peak memory {res['peak_mem_gib']:.2f} GiB; on {card}")
-    del params, opt_state
+    del params, opt_state, history, batches
+    torch.cuda.empty_cache()
 
-    # the same initial weights and one batch through both paths
+    res.update(grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor))
+    return res
+
+
+@contextlib.contextmanager
+def wkv_output_noise(rel, dev):
+    """Within the block, the plain WKV output is multiplied by (1 + rel *
+    N(0, 1)) (seeded): a perturbation the size of the kernel's measured
+    rounding difference, to read how far the gradients move for it."""
+    plain = rwkv_lib.wkv_chunked
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def noisy(r, k, v, w, u, state, chunk):
+        y, s = plain(r, k, v, w, u, state, chunk)
+        eps = torch.randn(y.shape, generator=gen, device=y.device)
+        return y * (1 + rel * eps), s
+
+    rwkv_lib.wkv_chunked = noisy
+    try:
+        yield
+    finally:
+        rwkv_lib.wkv_chunked = plain
+
+
+def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0):
+    """The loss and every gradient of the kernel path ``rt`` against the
+    plain path from the same initial weights and one batch of
+    ``check_batch`` x TRAIN_SEQ: each leaf's error within TRAIN_GRAD_REL
+    of its scale.  With ``floor`` > 0 the plain path runs a second time
+    with its WKV outputs perturbed by a relative ``floor``, and the median
+    and the maximum of the leaves' errors are instead each held to
+    TRAIN_GRAD_REL or FLOOR_FACTOR times the same statistic of the leaves'
+    movement under that perturbation, whichever is larger."""
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=SEED, device=dev)
     batch = batch_to_device(next(iter(Batcher(
         SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
-        TRAIN_BATCH))), dev)
+        check_batch))), dev)
     loss_k, grads_k = loss_and_grads(cfg, params, batch, rt)
-    loss_p, grads_p = loss_and_grads(
-        cfg, params, batch, Runtime(attn_impl="torch", norm_impl="torch"))
+    loss_p, grads_p = loss_and_grads(cfg, params, batch, plain_rt)
     rels = {name: rel_err(grads_k[name], grads_p[name]) for name in grads_k}
+    del grads_k
+    res = dict(layers=cfg.n_layers, check_batch=check_batch,
+               loss_kernel=loss_k, loss_plain=loss_p)
+    if floor:
+        with wkv_output_noise(floor, dev):
+            loss_n, grads_n = loss_and_grads(cfg, params, batch, plain_rt)
+        moved = {name: rel_err(grads_n[name], grads_p[name])
+                 for name in grads_n}
+        del grads_n
+        worst_n = max(moved, key=moved.get)
+        res.update(noise_rel=floor, loss_noise=loss_n,
+                   noise_grad_rel_err_max=moved[worst_n],
+                   noise_grad_rel_err_worst_leaf=worst_n,
+                   noise_grad_rel_err_median=statistics.median(
+                       moved.values()))
     worst = max(rels, key=rels.get)
-    res.update(loss_kernel=loss_k, loss_plain=loss_p,
-               grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
-               grad_rel_err_median=statistics.median(rels.values()))
-    print(f"[train] kernel vs plain path ({time.perf_counter() - t0:.1f}s): "
+    res.update(grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
+               grad_rel_err_median=statistics.median(rels.values()),
+               leaves=len(rels),
+               leaves_within_grad_rel=sum(r <= TRAIN_GRAD_REL
+                                          for r in rels.values()))
+    print(f"[{tag}] kernel vs plain path, {cfg.n_layers} layers, "
+          f"{check_batch}x{TRAIN_SEQ} ({time.perf_counter() - t0:.1f}s): "
           f"loss {loss_k:.6f} vs {loss_p:.6f} (|diff| "
           f"{abs(loss_k - loss_p):.3g}, tol {TRAIN_LOSS_ATOL}); gradients "
           f"rel err max {rels[worst]:.3g} ({worst}), median "
-          f"{res['grad_rel_err_median']:.3g} over {len(rels)} leaves (tol "
-          f"{TRAIN_GRAD_REL})")
+          f"{res['grad_rel_err_median']:.3g}; "
+          f"{res['leaves_within_grad_rel']} of {len(rels)} leaves within "
+          f"{TRAIN_GRAD_REL}")
+    if floor:
+        print(f"[{tag}] plain path vs itself with its WKV outputs perturbed "
+              f"by a relative {floor}: loss |diff| "
+              f"{abs(res['loss_noise'] - loss_p):.3g}; gradients rel err max "
+              f"{res['noise_grad_rel_err_max']:.3g} ({worst_n}), median "
+              f"{res['noise_grad_rel_err_median']:.3g}; the kernel path's "
+              f"median and max held to max({TRAIN_GRAD_REL}, "
+              f"{FLOOR_FACTOR} x these)")
     check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
           f"loss differs by {abs(loss_k - loss_p):.3g}")
-    check(rels[worst] <= TRAIN_GRAD_REL,
-          f"gradient {worst} differs by {rels[worst]:.3g} of its scale")
+    if floor:
+        for stat in ("median", "max"):
+            got, own = (res[f"{pre}grad_rel_err_{stat}"]
+                        for pre in ("", "noise_"))
+            bar = max(TRAIN_GRAD_REL, FLOOR_FACTOR * own)
+            check(got <= bar, f"gradient error {stat} {got:.3g} over "
+                              f"{bar:.3g} ({FLOOR_FACTOR} x the plain path's "
+                              f"own {own:.3g})")
+    else:
+        check(rels[worst] <= TRAIN_GRAD_REL,
+              f"gradient {worst} differs by {rels[worst]:.3g} of its scale")
     return res
 
 
@@ -659,17 +865,20 @@ SOURCES = {
                            "src/repro/kernels/flash_attention.py:102"),
     "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:134"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6.py:24"),
 }
 # the case each kernel's line reports, f32 throughout: the serving path's
 # decode shape (the RMSNorm forward's training rows are printed beside it),
-# the training path's norm rows and attention shape
+# the training paths' norm rows, attention shape and WKV-6 shape
 REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "rmsnorm_bwd": dict(shape="(4096,1024)"),
             "flash_decode": dict(n_splits=4),
             "flash_decode_combine": dict(n_splits=4),
             "flash_attention": dict(timed=True),
             "flash_attention_dq": dict(timed=True),
-            "flash_attention_dkv": dict(timed=True)}
+            "flash_attention_dkv": dict(timed=True),
+            "wkv6": dict(timed=True)}
 
 
 def kernels_line(rows, launches, card):
@@ -723,6 +932,7 @@ def main(argv=None):
         rows += rmsnorm_bwd_phase(dev, flush, gen)
         rows += flash_decode_phase(dev, flush, gen)
         rows += flash_phase(dev, flush, gen)
+        rows += wkv6_phase(dev, flush, gen)
     del flush
     print(f"[kernels] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -731,19 +941,45 @@ def main(argv=None):
     print(f"[serve] ok in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    trained = train_phase(dev, card)
+    cfg = get_config("qwen3-0.6b")
+    n_norm, L = 2 * cfg.n_layers + 1, cfg.n_layers
+    trained = train_phase(
+        dev, card, cfg, TRAIN_STEPS, AdamWConfig().lr, Runtime(),
+        Runtime(attn_impl="torch", norm_impl="torch"),
+        {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "flash_decode": 0,
+         "flash_decode_combine": 0, "flash_attention": L,
+         "flash_attention_dq": L, "flash_attention_dkv": L, "wkv6": 0},
+        TRAIN_BATCH, "train")
     print(f"[train] ok in {time.perf_counter() - t0:.1f}s")
 
+    # free the qwen3 phase's tensors before the larger model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-1.6b")
+    rwkv_trained = train_phase(
+        dev, card, cfg, RWKV_STEPS, RWKV_LR, Runtime(rwkv_chunk=RWKV_CHUNK),
+        Runtime(attn_impl="torch", norm_impl="torch", rwkv_chunk=RWKV_CHUNK),
+        {k: 0 for k in ops.launch_counts()} | {"wkv6": cfg.n_layers},
+        RWKV_CHECK_BATCH, "rwkv6", floor=WKV_NOISE_REL)
+    rwkv_trained["shallow"] = grad_check(
+        dev, dataclasses.replace(cfg, n_layers=RWKV_SHALLOW_LAYERS),
+        Runtime(rwkv_chunk=RWKV_CHUNK),
+        Runtime(attn_impl="torch", norm_impl="torch", rwkv_chunk=RWKV_CHUNK),
+        RWKV_CHECK_BATCH, "rwkv6")
+    print(f"[rwkv6] ok in {time.perf_counter() - t0:.1f}s")
+
     # each kernel's launches on the main paths: the serve phase's run plus
-    # the train phase's run, each counted from 0
-    launches = {k: served["launches"].get(k, 0) + trained["launches"][k]
-                for k in trained["launches"]}
+    # each train phase's run, each counted from 0
+    launches = {k: served["launches"][k] + trained["launches"][k]
+                + rwkv_trained["launches"][k] for k in trained["launches"]}
     line = kernels_line(rows, launches, card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "serve": served,
-             "train": trained, "build_s": took,
+             "train": trained, "train_rwkv6": rwkv_trained, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

@@ -5,12 +5,14 @@ The JAX tree (``repro.models.transformer.init_params``) holds ``embed``,
 ``final_norm``, ``prefix`` (a list of per-layer dicts) and ``blocks`` (a
 list of ``period`` dicts whose leaves are stacked on dim 0 over the scanned
 repeats): layer ``start + b * period + pos`` is ``blocks[pos][...][b]``.
-The port keeps one ParameterDict per layer, so the bridge unstacks.
+The port keeps one ParameterDict per layer, so the bridge unstacks; leaves
+may sit at any depth (the RWKV-6 mixer nests ``ln_x``).
 
 Weights keep the JAX orientation, (in, out), and the port applies them as
 ``x @ W``: nothing is transposed either way, and a round trip is exact.
 Gradients and the AdamW moments are dicts keyed by ``named_parameters``
-names (``embed.tok``, ``layers.3.mixer.wq``); they map onto the same tree.
+names (``embed.tok``, ``layers.3.mixer.wq``, ``layers.3.mixer.ln_x.scale``);
+they map onto the same tree, nested at every dot.
 With tied embeddings ``embed.tok`` carries the sum of the gather's and the
 LM head's gradients, in both packages.  Both directions speak numpy, so
 this module needs no JAX.
@@ -27,55 +29,64 @@ from repro_torch.models.transformer import Params, layer_plan
 
 
 def _tensors(d, index=None, device="cpu"):
+    """A dict of arrays, nested to any depth -> the same dict of tensors;
+    with ``index``, each leaf's entry ``index`` on its stacked dim 0."""
     out = {}
     for k, v in d.items():
-        a = np.asarray(v if index is None else np.asarray(v)[index])
-        out[k] = torch.tensor(a, device=device)
+        if isinstance(v, dict):
+            out[k] = _tensors(v, index, device)
+        else:
+            a = np.asarray(v if index is None else np.asarray(v)[index])
+            out[k] = torch.tensor(a, device=device)
     return out
 
 
-def _layer(tree_layer, index=None, device="cpu"):
-    return {name: _tensors(sub, index, device)
-            for name, sub in tree_layer.items()}
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
     """JAX params pytree (leaves as numpy arrays) -> port ``Params``."""
     prefix, blocks = tree["prefix"], tree["blocks"]
     period = len(blocks)
-    n_blocks = (next(iter(next(iter(blocks[0].values())).values())).shape[0]
-                if period else 0)
-    layers = [_layer(lp, device=device) for lp in prefix]
+    n_blocks = np.shape(_first_leaf(blocks[0]))[0] if period else 0
+    layers = [_tensors(lp, device=device) for lp in prefix]
     for b in range(n_blocks):
         for pos in range(period):
-            layers.append(_layer(blocks[pos], b, device))
+            layers.append(_tensors(blocks[pos], b, device))
     return Params(_tensors(tree["embed"], device=device),
                   _tensors(tree["final_norm"], device=device), layers)
 
 
+def _stack(trees):
+    """Same-shaped nested dicts -> one nested dict of leaves stacked on a
+    new dim 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def _to_jax_tree(named: Dict[str, np.ndarray], cfg: ModelConfig
                  ) -> Dict[str, Any]:
-    """{'embed.tok': a, 'layers.3.mixer.wq': a, ...} -> the JAX tree, with
-    the scanned layers stacked as ``layer_plan`` stacks them."""
-    embed, final, by_layer = {}, {}, {}
+    """{'embed.tok': a, 'layers.3.mixer.wq': a, 'layers.3.mixer.ln_x.scale':
+    a, ...} -> the JAX tree (names nest at every dot), with the scanned
+    layers stacked as ``layer_plan`` stacks them."""
+    tree: Dict[str, Any] = {}
     for name, a in named.items():
-        parts = name.split(".")
-        if parts[0] == "embed":
-            embed[parts[1]] = a
-        elif parts[0] == "final_norm":
-            final[parts[1]] = a
-        else:
-            by_layer.setdefault(int(parts[1]), {}).setdefault(
-                parts[2], {})[parts[3]] = a
-    layers = [by_layer[i] for i in sorted(by_layer)]
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    by_layer = tree.get("layers", {})
+    layers = [by_layer[str(i)] for i in range(len(by_layer))]
     prefix, start, period, n_blocks = layer_plan(cfg)
-    blocks = []
-    for pos in range(period if n_blocks else 0):
-        reps = [layers[start + b * period + pos] for b in range(n_blocks)]
-        blocks.append({name: {k: np.stack([r[name][k] for r in reps])
-                              for k in reps[0][name]}
-                       for name in reps[0]})
-    return {"embed": embed, "final_norm": final,
+    blocks = [_stack([layers[start + b * period + pos]
+                      for b in range(n_blocks)])
+              for pos in range(period if n_blocks else 0)]
+    return {"embed": tree["embed"], "final_norm": tree["final_norm"],
             "prefix": [layers[i] for i in prefix], "blocks": blocks}
 
 

@@ -1,16 +1,19 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The port serves dense attention-only stacks with RoPE, RMSNorm and a SwiGLU
-MLP: ``qwen3-0.6b`` and the Llama-2 family.  The JAX package's other
-architectures need layers the port does not have yet; ``get_config`` names
-the ROADMAP item that brings each of them.
+The port runs dense attention-only stacks with RoPE, RMSNorm and a SwiGLU
+MLP (``qwen3-0.6b`` and the Llama-2 family) and the uniform RWKV-6 stack
+of ``rwkv6-1.6b`` (training; its recurrent serving comes with the static
+engine).  The JAX package's other architectures need layers the port does
+not have yet; ``get_config`` names the ROADMAP item that brings each of
+them.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
 from repro_torch.configs.llama2 import CONFIGS as _llama2
 from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
+from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
-REGISTRY = {_qwen3.name: _qwen3, **_llama2}
+REGISTRY = {_qwen3.name: _qwen3, _rwkv6.name: _rwkv6, **_llama2}
 
 # arch -> the later slice of the port (ROADMAP Queue 1) that brings it
 LATER = {
@@ -23,7 +26,6 @@ LATER = {
     "qwen2-vl-2b": "other mixers and inputs (M-RoPE, vision embeddings)",
     "deepseek-moe-16b": "MoE and expert parallelism",
     "dbrx-132b": "MoE and expert parallelism",
-    "rwkv6-1.6b": "other mixers and inputs (RWKV-6 and its WKV kernel)",
     "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid), after MoE",
 }
 

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm", "flash_decode", "flash_attention")
+SOURCES = ("rmsnorm", "flash_decode", "flash_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,7 +5,9 @@ the tests run here).  A tensor on a CUDA device launches the kernel, or the
 launch raises: there is no fallback from the card to the plain version.
 Model code reaches these through ``Runtime.norm_impl == "kernel"`` /
 ``Runtime.attn_impl == "kernel"``.  ``rmsnorm`` and ``attention`` are
-differentiable on both devices: their backward is a kernel too.
+differentiable on both devices: their backward is a kernel too.  ``wkv6``
+is differentiable as well; its backward replays the plain chunked version
+through autograd, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.build import on_cpu as _on_cpu
 
-_COUNTERS = (_rms.LAUNCHES, _fd.LAUNCHES, _fa.LAUNCHES)
+_COUNTERS = (_rms.LAUNCHES, _fd.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
 
 
 def rmsnorm_forward(x, scale, *, eps=1e-6):
@@ -47,6 +50,14 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):
         acc, m, l = _fd.split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits)
         out = _fd.combine_cuda(acc, m, l, q.dtype)
     return out.reshape(q.shape)
+
+
+def wkv6(r, k, v, w, u, *, chunk=64):
+    """Chunked WKV-6 from a zero state: r/k/v (B, T, H, N), w (B, T, H, N)
+    f32, u (H, N) -> (y (B, T, H, N) in r's type, final state (B, H, N, N)
+    f32).  The CUDA kernel takes N in ``wkv6.HEAD_DIMS`` and chunk in
+    ``wkv6.CHUNKS`` and raises for any other."""
+    return _wkv.WKV6Fn.apply(r, k, v, w, u, chunk)
 
 
 def launch_counts() -> Dict[str, int]:

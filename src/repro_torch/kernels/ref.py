@@ -1,6 +1,7 @@
 """Plain PyTorch oracles, in the layouts of the JAX package's
 ``kernels/ref.py``: attention is (B, S, H, D) with GQA via
-n_kv_heads | n_heads; paged pools are (P, bs, Kv, D).
+n_kv_heads | n_heads; paged pools are (P, bs, Kv, D); the WKV-6 state is
+(B, H, N, N), key channel by value channel.
 
 These are the correctness ground truth the kernels' plain versions (beside
 each kernel, in the kernel's own order of arithmetic) are held against.
@@ -65,3 +66,21 @@ def rmsnorm_ref(x, scale, eps=1e-6):
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, state):
+    """Sequential RWKV-6 recurrence (f32), one token at a time.
+
+    r/k/v/w (B, T, H, N); u (H, N); state (B, H, N, N) mapping key channel
+    -> value channel.  -> (y (B, T, H, N) f32, final state f32)."""
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    S = state.float()
+    uk = u.float()[None]
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = torch.einsum("bhn,bhm->bhnm", k_t, v_t)
+        ys.append(torch.einsum("bhn,bhnm->bhm", r_t, S)
+                  + torch.einsum("bhn,bhn,bhm->bhm", r_t, uk * k_t, v_t))
+        S = w_t[..., None] * S + kv
+    return torch.stack(ys, dim=1), S

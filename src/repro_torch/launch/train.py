@@ -3,7 +3,9 @@
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``: RMSNorm forward/backward and flash-attention
-forward/backward) or the plain PyTorch layers (``--kernels torch``);
+forward/backward for attention stacks such as ``qwen3-0.6b``; the WKV-6
+forward for ``rwkv6-1.6b``, whose backward replays the plain chunked form)
+or the plain PyTorch layers (``--kernels torch``);
 ``--device cpu`` runs on the host, where the kernel path uses each
 kernel's plain version.  Without a card and without ``--device cpu`` it
 raises.  Weights are random, from ``--seed``; the data is the seeded
@@ -51,9 +53,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--kernels", default="cuda", choices=sorted(IMPLS),
-                    help="cuda: RMSNorm and flash attention (forward and "
-                         "backward) on the hand-written kernels; torch: "
-                         "plain PyTorch layers")
+                    help="cuda: the hand-written kernels (RMSNorm and "
+                         "flash attention forward and backward; the WKV-6 "
+                         "forward of RWKV-6 stacks); torch: plain PyTorch "
+                         "layers")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace/Perfetto JSON of the run's "
                          "spans here")
@@ -69,7 +72,8 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     impl = IMPLS[args.kernels]
-    rt = Runtime(attn_impl=impl, norm_impl=impl,
+    # WKV-6 chunk 32, as the JAX train CLI sets it
+    rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=32,
                  attn_min_chunked_len=max(2048, args.seq_len + 1)
                  if args.seq_len <= 2048 else 2048)
     src = (SyntheticSource(cfg.vocab_size, seed=args.seed)

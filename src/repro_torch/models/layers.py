@@ -20,12 +20,15 @@ from repro_torch.kernels import ops as kernel_ops
 class Runtime:
     """Numerics and implementation choice (orthogonal to ModelConfig).
 
-    ``"kernel"`` routes RMSNorm, training attention and paged decode
-    attention through the hand-written kernels (their plain versions on
-    CPU tensors); ``"torch"`` keeps the plain PyTorch layer code
+    ``"kernel"`` routes RMSNorm, training attention, paged decode
+    attention and the cache-less WKV-6 through the hand-written kernels
+    (their plain versions on CPU tensors); ``"torch"`` keeps the plain
+    PyTorch layer code
     everywhere.  The chunk sizes shape the plain cache-less attention:
     sequences up to ``attn_min_chunked_len`` attend densely, longer ones
-    in (q, kv) chunks with an online softmax.
+    in (q, kv) chunks with an online softmax.  ``rwkv_chunk`` is the
+    chunk length of the WKV-6 recurrence, on the kernel and the plain path
+    alike (it is part of the result: it sets the order of rounding).
     """
     compute_dtype: torch.dtype = torch.float32
     attn_impl: str = "kernel"           # 'kernel' | 'torch'
@@ -33,6 +36,7 @@ class Runtime:
     attn_q_chunk: int = 1024            # query chunk for blocked attention
     attn_kv_chunk: int = 1024           # kv chunk for blocked attention
     attn_min_chunked_len: int = 2048    # below this, plain masked attention
+    rwkv_chunk: int = 64                # WKV-6 chunk length
 
 
 def _randn(gen, shape, scale, device):

@@ -1,23 +1,25 @@
 """Decoder-only model, cache-less (training) or over a paged KV cache
-(serving): the dense, attention-only part of the JAX package's
-``models/transformer.py``.
+(serving): the dense attention-only and the RWKV-6 parts of the JAX
+package's ``models/transformer.py``.
 
-A model is a stack of layers; each layer = (RMSNorm -> attention ->
-residual, RMSNorm -> MLP -> residual).  Parameters live in an
-:class:`Params` module whose ``layers`` is an ``nn.ModuleList`` with one
-entry per layer; a Python loop over it replaces the JAX package's
-``lax.scan`` over stacked blocks (``layer_plan`` is kept: the bridge uses
-it to map the JAX stack onto layers).
+A model is a stack of layers; each layer = (norm -> mixer -> residual,
+norm -> FFN -> residual): attention and an MLP, or RWKV-6 time mix and
+channel mix.  Parameters live in an :class:`Params` module whose
+``layers`` is an ``nn.ModuleList`` with one entry per layer; a Python loop
+over it replaces the JAX package's ``lax.scan`` over stacked blocks
+(``layer_plan`` is kept: the bridge uses it to map the JAX stack onto
+layers).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (Runtime, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_mlp,
                                        init_norm, lm_logits, rope_angles)
@@ -47,30 +49,44 @@ def layer_plan(cfg: ModelConfig):
     return list(range(L)), L, 1, 0
 
 
+def _all_attention(cfg: ModelConfig) -> bool:
+    return all(_sig(cfg, i) == ("attn", False) for i in range(cfg.n_layers))
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model covers dense attention-only stacks with token
-    inputs and RoPE (or no positions)."""
-    bad = [i for i in range(cfg.n_layers) if _sig(cfg, i) != ("attn", False)]
-    if bad or cfg.input_mode != "tokens" or cfg.rope not in ("rope", "none") \
+    """The port's model covers token-input stacks that are dense
+    attention-only with RoPE (or no positions), or uniform RWKV-6 with
+    layernorm and no positions."""
+    rwkv = (all(_sig(cfg, i) == ("rwkv6", False)
+                for i in range(cfg.n_layers))
+            and cfg.rope == "none" and cfg.norm == "layernorm")
+    attn = _all_attention(cfg) and cfg.rope in ("rope", "none")
+    if not (rwkv or attn) or cfg.input_mode != "tokens" \
             or cfg.pos_embed != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention-only stacks with "
-            "token inputs and RoPE; other layers come with later slices "
-            "(ROADMAP Queue 1)")
+            f"{cfg.name}: the port runs token-input stacks that are dense "
+            "attention-only with RoPE, or uniform RWKV-6; other layers "
+            "come with later slices (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
-def _pdict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+def _pdict(tree: Dict[str, Any]) -> nn.ParameterDict:
+    """Tensors become parameters; a nested dict becomes a nested
+    ParameterDict (a submodule), so ``named_parameters`` gives
+    ``mixer.ln_x.scale``."""
+    return nn.ParameterDict({k: _pdict(v) if isinstance(v, dict)
+                             else nn.Parameter(v) for k, v in tree.items()})
 
 
 class Params(nn.Module):
     """Model parameters: ``embed`` {'tok', ['lm_head']}, ``final_norm``
-    {'scale'}, and ``layers[i]`` {'norm1', 'norm2', 'mixer', 'ffn'}, each a
-    ParameterDict in the JAX package's names and (in, out) layouts."""
+    {'scale'[, 'bias']}, and ``layers[i]`` {'norm1', 'norm2', 'mixer',
+    'ffn'}, each a ParameterDict (nested where the JAX tree nests, as the
+    RWKV-6 mixer's ``ln_x``) in the JAX package's names and (in, out)
+    layouts."""
 
     def __init__(self, embed, final_norm, layers: List[Dict[str, Dict]]):
         super().__init__()
@@ -85,10 +101,15 @@ class Params(nn.Module):
         return self.embed["tok"].device
 
 
-def _init_layer(cfg: ModelConfig, gen, device):
-    return {"norm1": init_norm(cfg, device), "norm2": init_norm(cfg, device),
-            "mixer": attn_lib.init_attention(cfg, gen, device),
-            "ffn": init_mlp(cfg, gen, device)}
+def _init_layer(cfg: ModelConfig, i: int, gen, device):
+    p = {"norm1": init_norm(cfg, device), "norm2": init_norm(cfg, device)}
+    if cfg.layer_kind(i) == "rwkv6":
+        p["mixer"] = rwkv_lib.init_rwkv_time_mix(cfg, gen, device)
+        p["ffn"] = rwkv_lib.init_rwkv_channel_mix(cfg, gen, device)
+    else:
+        p["mixer"] = attn_lib.init_attention(cfg, gen, device)
+        p["ffn"] = init_mlp(cfg, gen, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -99,7 +120,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    layers = [_init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+    layers = [_init_layer(cfg, i, gen, device) for i in range(cfg.n_layers)]
     return Params(init_embed(cfg, gen, device), init_norm(cfg, device),
                   layers)
 
@@ -108,8 +129,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, lp, h, rope_ang, rt: Runtime, cache, paged):
+def _apply_layer(cfg, kind, lp, h, rope_ang, rt: Runtime, cache, paged):
     x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
+    if kind == "rwkv6":
+        h = h + rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt)[0]
+        x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
+        return h + rwkv_lib.rwkv_channel_mix(cfg, lp["ffn"], x, rt)[0]
     h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
                                      cache=cache, paged=paged)
     x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
@@ -121,7 +146,7 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     """-> logits (B, S, vocab).
 
     Without a cache (training): batch {'tokens' (B, S)} at positions
-    0..S-1, every layer attends causally over the sequence.
+    0..S-1, every layer mixes causally over the sequence.
 
     With a paged cache (serving): batch also holds pos, the absolute
     position of the first token: (1, 1) for a prefill chunk, (B, 1) for a
@@ -129,6 +154,11 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     'v_pool'}] per layer, updated in place, 'paged': {'tbl' (B,
     max_blocks) int32, 'ctx' (B,) int32}}.
     """
+    if cache is not None and not _all_attention(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: only attention-only stacks serve from a paged "
+            "cache; recurrent state comes with the static-engine slice of "
+            "the port (ROADMAP Queue 1 item 3)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
@@ -142,8 +172,10 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     paged = cache["paged"] if cache is not None else None
     layer_caches = (cache["layers"] if cache is not None
                     else [None] * len(params.layers))
-    for lp, lc in zip(params.layers, layer_caches, strict=True):
-        h = _apply_layer(cfg, lp, h, rope_ang, rt, lc, paged)
+    for i, (lp, lc) in enumerate(zip(params.layers, layer_caches,
+                                     strict=True)):
+        h = _apply_layer(cfg, cfg.layer_kind(i), lp, h, rope_ang, rt, lc,
+                         paged)
     h = apply_norm(params.final_norm, h, cfg.norm_eps, rt)
     return lm_logits(params.embed, h, rt)
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trms
+from repro_torch.kernels import wkv6 as twkv
 
 CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
          "float": ctypes.c_float}
@@ -27,7 +28,8 @@ CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
 
 @pytest.mark.parametrize("name,module", [("rmsnorm", trms),
                                          ("flash_decode", tfd),
-                                         ("flash_attention", tfa)])
+                                         ("flash_attention", tfa),
+                                         ("wkv6", twkv)])
 def test_c_entry_points_match_bindings(name, module):
     """Every entry point the Python side declares exists in the source with
     the same argument types, in order (ctypes would silently cut a pointer
@@ -209,3 +211,93 @@ def test_cuda_attention_refuses_uncompiled_head_dim():
     q, k, v, _ = _attn_case(dev, torch.float32, 1, 64, 4, 2, 64)
     with pytest.raises(ValueError, match="head dim 64"):
         sdpa_causal(q, k, v, 0, Runtime())
+
+
+def _wkv_case(dev, dtype, B, T, H, N=64, seed=0):
+    """The JAX kernel tests' distribution: r/k/v ~ N(0, 0.5²) in ``dtype``,
+    w = exp(-exp(N(0, 0.5²) - 2.5)) and u ~ N(0, 0.3²) in f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(B, T, H, N, generator=g, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(B, T, H, N, generator=g,
+                                               device=dev) - 2.5))
+    u = 0.3 * torch.randn(H, N, generator=g, device=dev)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+# (B, T, H, chunk): whole chunks, ragged T, T shorter than the chunk
+WKV_CASES = [(2, 128, 4, 16), (2, 128, 4, 32), (1, 200, 3, 64),
+             (2, 100, 2, 32), (1, 20, 2, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_cuda_wkv6_matches_plain(case, dtype):
+    """The WKV-6 kernel against its plain version on the card, y and the
+    final state.  f32: within 1e-4 of scale (the chunked form multiplies
+    e^{lc} by e^{-lc} factors whose f32 rounding the kernel's sequential
+    sums and the plain version's matmuls expose differently).  bf16: the
+    same f32 arithmetic rounded once, so within 2 bf16 ulps, or 1e-5 of
+    scale where an output is so small that 2 ulps fall below the f32
+    rounding; the state is f32 in both."""
+    dev = _card()
+    B, T, H, chunk = case
+    args = _wkv_case(dev, dtype, B, T, H)
+    y, s = twkv.wkv6_cuda(*args, chunk)
+    y0, s0 = twkv.wkv6_plain(*args, None, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert _rel_err(s, s0) < 1e-4
+    if dtype == torch.float32:
+        assert _rel_err(y, y0) < 1e-4
+    else:
+        a, b = y.float(), y0.float()
+        bound = torch.maximum(2 * _bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                              1e-5 * b.abs().max())
+        assert bool(((a - b).abs() <= bound).all())
+    # the same inputs give the same bits again
+    y2, s2 = twkv.wkv6_cuda(*args, chunk)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_autograd_matches_plain():
+    """ops.wkv6 on the card launches the kernel, carries a grad_fn, and its
+    gradients (the plain chunked form replayed through autograd) equal
+    autograd through the plain version, for cotangents on y and state."""
+    dev = _card()
+    args = _wkv_case(dev, torch.float32, 2, 96, 2, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    gy = torch.randn(args[0].shape, generator=g, device=dev)
+    gs = torch.randn(2, 2, 64, 64, generator=g, device=dev)
+    grads, launches = [], []
+    for fn in (lambda *a: ops.wkv6(*a, chunk=32),
+               lambda *a: twkv.wkv6_plain(*a, None, 32)):
+        leaves = [t.clone().requires_grad_() for t in args]
+        before = twkv.LAUNCHES["wkv6"]
+        y, s = fn(*leaves)
+        assert y.grad_fn is not None
+        ((y * gy).sum() + (s * gs).sum()).backward()
+        grads.append([y, s] + [t.grad for t in leaves])
+        launches.append(twkv.LAUNCHES["wkv6"] - before)
+    assert launches == [1, 0]      # one forward kernel; the backward is plain
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_refuses_uncompiled_cases():
+    """A head dim or chunk without a compiled kernel raises on the card;
+    the model's kernel route never falls back to the plain version."""
+    dev = _card()
+    with pytest.raises(ValueError, match="head dim 32"):
+        twkv.wkv6_cuda(*_wkv_case(dev, torch.float32, 1, 16, 2, N=32), 16)
+    with pytest.raises(ValueError, match="chunk 8"):
+        twkv.wkv6_cuda(*_wkv_case(dev, torch.float32, 1, 16, 2), 8)

@@ -20,11 +20,14 @@ from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.rmsnorm import _rmsnorm_backward as jax_rmsnorm_backward
 from repro.kernels.rmsnorm import _rmsnorm_forward as jax_rmsnorm_forward
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro.kernels.rwkv6 import wkv6 as jax_wkv6
+from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trms
+from repro_torch.kernels import wkv6 as twkv
 
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -273,3 +276,127 @@ def test_wrappers_refuse_other_devices():
         tfd.split_cuda(q, k_pool, v_pool, tbl, ctx, 2)
     with pytest.raises(ValueError):
         ops.rmsnorm(x.to("meta"), torch.ones(8, device="meta"))
+    rkvw = [torch.zeros(1, 16, 2, 64) for _ in range(4)]
+    with pytest.raises(ValueError):
+        twkv.wkv6_cuda(*rkvw, torch.zeros(2, 64), 32)
+
+
+# ---------------------------------------------------------------------------
+# WKV-6
+# ---------------------------------------------------------------------------
+
+def _wkv_case(B, T, H, N, seed=0, dtype=np.float32):
+    """The JAX kernel tests' distribution: r/k/v ~ N(0, 0.5²), decay
+    w = exp(-exp(N(0, 0.5²) - 2.5)) (per-step log w from -0.03 to -0.4),
+    u ~ N(0, 0.3²)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, T, H, N), dtype=np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(0.5 * rng.standard_normal((B, T, H, N),
+                                                 dtype=np.float32) - 2.5))
+    u = 0.3 * rng.standard_normal((H, N), dtype=np.float32)
+    return [a.astype(np.float32) for a in (r, k, v, w, u)]
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+WKV_CASES = [(2, 64, 2, 32, 16), (1, 100, 3, 64, 32),    # ragged T
+             (2, 33, 2, 16, 8), (1, 128, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_matches_pallas(case):
+    """y and the final state from a zero state: the plain version (what
+    ``ops.wkv6`` runs on the CPU) against the Pallas kernel in interpret
+    mode (the same chunked formula: 1e-4, observed <= 4e-6 at output scales
+    of 5-12) and against both sequential oracles (1e-3, the JAX test's
+    bar)."""
+    B, T, H, N, chunk = case
+    arrays = _wkv_case(B, T, H, N)
+    y, s = ops.wkv6(*map(torch.tensor, arrays), chunk=chunk)
+    assert y.shape == (B, T, H, N) and s.shape == (B, H, N, N)
+    yj, sj = jax_wkv6(*map(jnp.asarray, arrays), chunk=chunk, interpret=True)
+    s0 = np.zeros((B, H, N, N), np.float32)
+    yr, sr = jref.wkv6_ref(*map(jnp.asarray, arrays), jnp.asarray(s0))
+    yt, st = tref.wkv6_ref(*map(torch.tensor, arrays), torch.tensor(s0))
+    for (a, b), bar in (((y, yj), 1e-4), ((s, sj), 1e-4), ((y, yr), 1e-3),
+                        ((s, sr), 1e-3), ((yt, yr), 1e-4), ((st, sr), 1e-4)):
+        assert np.max(np.abs(_np(a) - _np(b))) < bar
+
+
+def test_wkv6_bf16_matches_pallas():
+    """bf16 r/k/v, f32 w and u: both compute in f32 and round y to bf16
+    once, so they agree within one bf16 ulp; the state is f32 in both."""
+    B, T, H, N, chunk = 2, 64, 2, 64, 32
+    r, k, v, w, u = _wkv_case(B, T, H, N, seed=4)
+    bt = [torch.tensor(a).to(torch.bfloat16) for a in (r, k, v)]
+    y, s = ops.wkv6(*bt, torch.tensor(w), torch.tensor(u), chunk=chunk)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    yj, sj = jax_wkv6(*(jnp.asarray(a, jnp.bfloat16) for a in (r, k, v)),
+                      jnp.asarray(w), jnp.asarray(u), chunk=chunk,
+                      interpret=True)
+    assert yj.dtype == jnp.bfloat16
+    assert _rel(y, yj) < REL_TOL["bf16"]
+    a, b = _np(y), _np(yj)
+    assert np.all(np.abs(a - b) <= _bf16_ulp(np.maximum(np.abs(a),
+                                                         np.abs(b))))
+    assert _rel(s, sj) < REL_TOL["f32"]
+
+
+def test_wkv6_plain_carries_state():
+    """The state orientation (decay scales rows, the key channel) and its
+    carry: two calls joined by the state equal one call, and a non-zero
+    initial state matches the sequential oracle and the JAX chunked form.
+    A transposed decay would pass a one-chunk y test from a zero state."""
+    B, T, H, N, chunk = 2, 96, 2, 32, 16
+    r, k, v, w, u = map(torch.tensor, _wkv_case(B, T, H, N, seed=5))
+    s0 = torch.tensor(0.3 * np.random.default_rng(6).standard_normal(
+        (B, H, N, N)).astype(np.float32))
+    y, s = twkv.wkv6_plain(r, k, v, w, u, s0, chunk)
+    cut = 40                                   # not a chunk multiple
+    y1, s1 = twkv.wkv6_plain(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut],
+                             u, s0, chunk)
+    y2, s2 = twkv.wkv6_plain(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:],
+                             u, s1, chunk)
+    assert _rel(torch.cat([y1, y2], 1), y) < 1e-5 and _rel(s2, s) < 1e-5
+    yr, sr = tref.wkv6_ref(r, k, v, w, u, s0)
+    assert _rel(y, yr) < 1e-5 and _rel(s, sr) < 1e-5
+    yj, sj = jax_wkv_chunked(*(jnp.asarray(a.numpy()) for a in
+                               (r, k, v, w, u, s0)), chunk)
+    assert _rel(y, yj) < 1e-5 and _rel(s, sj) < 1e-5
+    # the decay scales the rows of S (the key channel n): one step with
+    # k = 0 leaves S_1 = w[n] * S_0[n, m]
+    _, s_one = twkv.wkv6_plain(r[:, :1], 0 * k[:, :1], v[:, :1], w[:, :1],
+                               u, s0, chunk)
+    assert _rel(s_one, w[:, 0, :, :, None] * s0) < 1e-6
+
+
+@pytest.mark.parametrize("with_state_grad", [True, False])
+def test_wkv6_grads_match_jax_vjp(with_state_grad):
+    """``WKV6Fn``'s backward (autograd through the plain chunked form)
+    against ``jax.vjp`` of the Pallas ``wkv6`` (whose backward replays the
+    jnp chunked form): r, k, v, w and u within 1e-3 of each gradient's
+    scale (the JAX kernel tests' bar; observed ~1e-6)."""
+    B, T, H, N, chunk = 2, 80, 2, 32, 16       # ragged last chunk
+    arrays = _wkv_case(B, T, H, N, seed=7)
+    rng = np.random.default_rng(8)
+    gy = rng.standard_normal((B, T, H, N)).astype(np.float32)
+    gs = (rng.standard_normal((B, H, N, N)).astype(np.float32)
+          if with_state_grad else np.zeros((B, H, N, N), np.float32))
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    y, s = ops.wkv6(*leaves, chunk=chunk)
+    assert y.grad_fn is not None
+    loss = (y * torch.tensor(gy)).sum()
+    if with_state_grad:
+        loss = loss + (s * torch.tensor(gs)).sum()
+    loss.backward()
+    _, pullback = jax.vjp(
+        lambda *a: jax_wkv6(*a, chunk=chunk, interpret=True),
+        *map(jnp.asarray, arrays))
+    jgrads = pullback((jnp.asarray(gy), jnp.asarray(gs)))
+    for t, g in zip(leaves, jgrads):
+        assert t.grad.shape == g.shape
+        assert _rel(t.grad, g) < 1e-3
