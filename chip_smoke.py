@@ -16,7 +16,11 @@ order; any failure ends the run with a non-zero exit and no result line:
               the stated tolerance; times the kernel, the plain version and
               one PyTorch library call computing the same function (L2
               flushed before every timed launch), beside the least time the
-              card could take.
+              card could take (the f32 flash backward kernels at the
+              3xTF32 rate of the tensor cores they use).  At the training
+              shape it also times ``attention_delta``, prints dq + dk/dv +
+              delta against SDPA's backward, and names the kernels SDPA's
+              backward ran (torch.profiler).
 4. serve    — qwen3-0.6b at full width and depth (28 layers, f32, random
               weights from a seed) serves 12 requests over 8 slots (prompts
               of 17-200 tokens, 48 greedy new tokens) through the paged
@@ -88,6 +92,12 @@ from repro_torch.train.trainer import batch_to_device  # noqa: E402
 # cores, bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# dense TF32 tensor cores.  The flash backward kernels multiply there: f32
+# operands as 3xTF32 (three MMAs per product, so 495 / 3 = 165 TFLOP/s of
+# f32 products); bf16 operands are exact in TF32, so a product of two
+# inputs takes one MMA and a product with the f32 p or ds two
+TF32_OPS_S = 495e12
+F32_3XTF32_OPS_S = TF32_OPS_S / 3
 # |kernel - plain| <= atol + rtol * |plain|: f32 differs only by summation
 # order and rsqrt/exp rounding; bf16 outputs round an f32 value that may
 # differ in its last bits, i.e. by up to one bf16 ulp (2^-8..2^-7 relative)
@@ -138,11 +148,28 @@ def check(ok, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bound_ms(n_bytes, n_ops, dtype):
+def bound_ms(n_bytes, n_ops, dtype, ops_s=None):
+    """The larger of the bytes over the memory rate and the operations over
+    ``ops_s`` (default: PEAK_OPS_S of ``dtype``), in ms."""
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = n_ops / PEAK_OPS_S[dtype]
+    t_ops = n_ops / (ops_s or PEAK_OPS_S[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches, by device
+    time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0
+            and str(getattr(e, "device_type", "CUDA")).endswith("CUDA")]
+    rows.sort(key=lambda e: -e.device_time_total)
+    return [(e.key, e.device_time_total / 1e3) for e in rows]
 
 
 def time_ms(fn, flush, iters=50):
@@ -405,15 +432,34 @@ def flash_phase(dev, flush, gen):
             pairs = visible_pairs(S, window) * B * H
             q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
             row_bytes = B * H * S * 4
-            bounds = {
-                "flash_attention": bound_ms(2 * q_bytes + 2 * kv_bytes
-                                            + row_bytes, 4 * D * pairs, dtype),
-                "flash_attention_dq": bound_ms(3 * q_bytes + 2 * kv_bytes
-                                               + 2 * row_bytes, 6 * D * pairs,
-                                               dtype),
-                "flash_attention_dkv": bound_ms(2 * q_bytes + 4 * kv_bytes
-                                                + 2 * row_bytes,
-                                                8 * D * pairs, dtype)}
+            # the backward kernels multiply on the tensor cores.  f32: bound
+            # at the 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S)
+            # kept beside it in bound_peak_ms.  bf16: bound at the card's
+            # bf16 rate; the kernels run it on TF32 MMAs (one per product
+            # of two inputs, two with p or ds), whose bound is noted in
+            # bound_arith
+            dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+            dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+            bwd = {"flash_attention_dq": (dq_bytes, 6 * D * pairs,
+                                          8 * D * pairs),
+                   "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
+                                           12 * D * pairs)}
+            bounds = {"flash_attention": bound_ms(
+                2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * D * pairs, dtype)}
+            notes = {}
+            for name, (n_bytes, n_ops, tf32_mmas) in bwd.items():
+                if dtype == torch.float32:
+                    bounds[name] = bound_ms(n_bytes, n_ops, dtype,
+                                            F32_3XTF32_OPS_S)
+                    notes[name] = dict(
+                        bound_arith="3xTF32",
+                        bound_peak_ms=bound_ms(n_bytes, n_ops, dtype)[0])
+                else:
+                    bounds[name] = bound_ms(n_bytes, n_ops, dtype)
+                    tf32 = bound_ms(n_bytes, tf32_mmas, dtype, TF32_OPS_S)[0]
+                    notes[name] = dict(bound_arith=(
+                        f"bf16 tensor cores; on the TF32 MMAs the kernel "
+                        f"runs {tf32:.5f} ms"))
             qs, ks, vs, dos = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))
             lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
@@ -422,8 +468,11 @@ def flash_phase(dev, flush, gen):
                 leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
                 out = F.scaled_dot_product_attention(
                     *leaves, is_causal=True, enable_gqa=True)
-                lib_bwd = time_ms(lambda: torch.autograd.grad(
-                    out, leaves, dos, retain_graph=True), flush, 20)
+                sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    out, leaves, dos, retain_graph=True)
+                lib_bwd = time_ms(sdpa_bwd, flush, 20)
+                lib_kernels = cuda_kernel_names(sdpa_bwd)
+            delta_ms = time_ms(lambda: fa.attention_delta(o0, do), flush, 20)
             timings = {
                 "flash_attention": (
                     lambda: fa.forward_cuda(q, k, v, True, window),
@@ -441,11 +490,26 @@ def flash_phase(dev, flush, gen):
                            ms=time_ms(kern, flush, 20),
                            plain_ms=time_ms(plain, flush, 20),
                            library_ms=lib, bound_ms=bnd, bound_by=by)
+                row.update(notes.get(name, {}))
+                arith = "".join(f"; {k} {v:.5f} ms" if isinstance(v, float)
+                                else f"; {v}"
+                                for k, v in notes.get(name, {}).items())
                 rows.append(row)
                 print(f"[kernels] {name} {dt} {shape}: kernel "
                       f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                       f"SDPA {lib_what} {lib:.4f} ms, bound {bnd:.5f} ms "
-                      f"({by})")
+                      f"({by}{arith})")
+            t_dq, t_dkv = rows[-2]["ms"], rows[-1]["ms"]
+            ours = t_dq + t_dkv + delta_ms
+            rows.append(dict(base, name="attention_delta", ms=delta_ms,
+                             sdpa_backward_ms=lib_bwd,
+                             sdpa_backward_kernels=lib_kernels))
+            print(f"[kernels] flash backward {dt} {shape}: dq + dk/dv + "
+                  f"delta {ours:.4f} ms ({t_dq:.4f} + {t_dkv:.4f} + "
+                  f"{delta_ms:.4f}) vs SDPA backward {lib_bwd:.4f} ms "
+                  f"({ours / lib_bwd:.3f}x)")
+            print(f"[kernels] SDPA backward {dt} kernels (device ms): "
+                  + "; ".join(f"{k} {t:.4f}" for k, t in lib_kernels[:4]))
     return rows
 
 

@@ -11,9 +11,9 @@
 //                         1e-30)); the TPU carried (m, l, acc) across a
 //                         sequential grid axis in VMEM scratch.
 //   flash_bwd_dq_kernel   _flash_bwd_dq_kernel (from _flash_backward).
-//                         Grid (q blocks, H, B): p = exp(s - lse),
+//                         Grid (H, B, q blocks): p = exp(s - lse),
 //                         ds = p * (dp - delta) * scale, dq += ds k.
-//   flash_bwd_dkv_kernel  _flash_bwd_dkv_kernel.  Grid (kv blocks, Kv, B):
+//   flash_bwd_dkv_kernel  _flash_bwd_dkv_kernel.  Grid (Kv, B, kv blocks):
 //                         one CTA per 64 kv rows of one kv head loops over
 //                         the G query heads of that kv head and their q
 //                         blocks (the TPU's flattened (group, q block)
@@ -35,20 +35,57 @@
 // Bound on the H100: operations.  At the training shape (S 512, D 128) the
 // causal forward does ~S/2 * D * 4 operations per query row against ~D * 4
 // bytes read per row: far above the f32 ridge (~20 operations per byte).
-// The inputs may be bf16, but all products are f32 FMAs outside the tensor
-// cores (the f32 training path must not round through TF32), so the peak
-// that bounds it is the 67 TFLOP/s f32 SIMT rate.  The design keeps every
-// tile of a CTA in shared memory as f32 (64 rows x (D + 1): the odd row
-// stride makes both the row-wise and the column-wise reads of one layout
-// free of bank conflicts, so no transposed copy is needed), and each of the
-// 256 threads computes a 4 x 4 piece of the 64 x 64 score tile and a
-// 4 x (D / 16) piece of each 64 x D output, rows ty + 16 a and columns
-// tx + 16 b.  Shared memory per CTA (D 128): forward 116 KB, dq 149 KB,
-// dk/dv 166 KB, so the launch raises the dynamic limit first.  Tensor-core
-// products for bf16 (wgmma) and TMA double buffering are later work.
+//
+// The forward keeps every tile of a CTA in shared memory as f32 (64 rows x
+// (D + 1): the odd row stride makes both the row-wise and the column-wise
+// reads of one layout free of bank conflicts) and each of its 256 threads
+// computes a 4 x 4 piece of the 64 x 64 score tile and a 4 x (D / 16) piece
+// of the 64 x D output with scalar f32 FMAs, so the 67 TFLOP/s f32 SIMT
+// rate bounds it; it reads ~3-4 FMAs per shared load, which holds it near
+// 20 % of that.  116 KB of shared memory per CTA (D 128).
+//
+// The backward multiplies on the tensor cores.  The f32 path must keep f32
+// products (TF32 alone, 10 mantissa bits, would miss the 1e-4 gradient
+// tolerance), so each f32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi), both rounded to nearest (cvt.rna's rounding), and a b is
+// summed as a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 ("3xTF32", CUTLASS's
+// OpMultiplyAddFastF32): three mma.sync.m16n8k8 TF32 per product, so the
+// bound is 495 / 3 = 165 TFLOP/s.  bf16 inputs are exact in TF32: their lo
+// parts are zero and skipped, so q k^T and do v^T take one MMA and the
+// products with p or ds two.  The kernels run at ~20 % of that bound: every
+// f32 fragment value costs a shared load and five ALU instructions of
+// splitting for the 3 MMAs it feeds.  The design:
+// - Tiles: a warp owns 16 rows of the CTA's own rows (query rows for dq,
+//   kv rows for dk/dv) and walks tiles of 32 streamed rows (kv rows for
+//   dq; q rows of the G query heads for dk/dv).  All tiles are f32 in
+//   shared memory, [rows][D] with an XOR swizzle (swz) that keeps the
+//   fragment reads of both orientations conflict-free, so no transposed
+//   copy is needed; bf16 tiles arrive in a bf16 staging buffer and are
+//   widened once per tile.
+// - p and ds never leave the registers in dq: the C fragment of s / dp is
+//   the A fragment of dq += ds k once its 8 columns are read in the order
+//   0, 2, 4, 6 | 1, 3, 5, 7, which the matching B fragment reads too.
+// - dk/dv splits each 16-row block over a warp pair: one warp computes
+//   s^T, p and dv, the other dp^T, ds and dk, p passing through shared
+//   memory, so each warp holds one D-wide accumulator (two spilled).
+// - The products that reduce over rows (dq, dk, dv) sum each streamed tile
+//   in a fresh accumulator and add it to the running sum in IEEE f32: the
+//   tensor cores' own accumulation truncates, which over the S or G * S
+//   rows of a long sum cost up to 7e-5 of scale.
+// - The next streamed tile is copied with cp.async (16 bytes per copy,
+//   zero-filled past S) into a second buffer while the current one is
+//   multiplied.
+// - Shared memory per CTA (D 128): dq 192 KB (8 warps, 128 query rows; one
+//   CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs per SM).
+//   The grid puts the block index on its slowest axis, heaviest first (the
+//   last q block for dq, kv block 0 for dk/dv), so the causal tail is short.
+// wgmma (TF32 only K-major from shared memory), TMA and producer warps are
+// later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -226,120 +263,399 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// backward: shared pieces (tensor-core products, swizzled f32 tiles,
+// asynchronous copies)
+// ---------------------------------------------------------------------------
+
+// Warps per CTA (each owns 16 of the CTA's own rows) and rows per streamed
+// tile, for dq and for dk/dv; chosen by timing on an H100 (PERF.md).
+constexpr int kDqWarps = 8, kDqStream = 32;
+constexpr int kDkvWarps = 4, kDkvStream = 32;
+
+// Index of element (r, c) of a [rows][D] f32 tile whose columns are XOR-
+// swizzled in 4-column steps within each 32-column group.  Reads of both
+// fragment shapes below (8 rows x 4 columns; 4 or 8 rows x 8 columns in the
+// order 0, 2, 4, 6 | 1, 3, 5, 7) hit 32 distinct banks, so one layout of a
+// tile serves both orientations of every product.  16-byte chunks stay
+// whole, which the 16-byte copies need.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + (c ^ ((((r & 3) ^ ((r >> 2) & 1)) << 3) | (r & 4)));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds.  For finite x that is adding half a
+// TF32 ulp to the bits of |x| and clearing the 13 low bits: two integer
+// instructions, which ran faster on an H100 than the cvt (PERF.md).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// N operand registers of one mma.sync.  With kSplit each value x is held as
+// hi = tf32(x) and lo = tf32(x - hi) (3xTF32: a*b ~ a_hi*b_hi + a_hi*b_lo +
+// a_lo*b_hi, f32 accuracy); without, x is exact in TF32 (a bf16 input) and
+// only hi is kept.
+template <int N, bool kSplit>
+struct Frag {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    if constexpr (kSplit) {
+      hi[i] = to_tf32(x);
+      lo[i] = to_tf32(x - __uint_as_float(hi[i]));
+    } else {
+      hi[i] = __float_as_uint(x);
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[j] += a b[j] on the tensor cores for N independent accumulators: the
+// small cross terms first, then hi*hi, each term over all N before the
+// next, so that no MMA waits on the one issued just before it
+template <int N, bool kSA, bool kSB>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const Frag<4, kSA>& a,
+                                     const Frag<2, kSB> (&b)[N]) {
+  if constexpr (kSA) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(d[j], a.lo, b[j].hi);
+  }
+  if constexpr (kSB) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(d[j], a.hi, b[j].lo);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], a.hi, b[j].hi);
+}
+
+// acc += part in IEEE f32.  The tensor cores add into their accumulator
+// with truncation, which biases a long sum (dq over S keys, dk/dv over G * S
+// queries); so the products that reduce over rows sum each streamed tile
+// into a fresh accumulator and add it to the running sum here.
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// Fragment layouts of m16n8k8 (lane = 4 g + tq): A (16 x 8) holds (g, tq),
+// (g + 8, tq), (g, tq + 4), (g + 8, tq + 4); B (8 x 8) holds (k tq, n g),
+// (k tq + 4, n g); C (16 x 8) holds (g, 2 tq), (g, 2 tq + 1), (g + 8, 2 tq),
+// (g + 8, 2 tq + 1).
+//
+// A: rows r0.. and columns k0.. of a tile
+template <int D, bool kS>
+__device__ __forceinline__ void frag_a(Frag<4, kS>& a, const float* t, int r0,
+                                       int k0, int g, int tq) {
+  a.set(0, t[swz<D>(r0 + g, k0 + tq)]);
+  a.set(1, t[swz<D>(r0 + g + 8, k0 + tq)]);
+  a.set(2, t[swz<D>(r0 + g, k0 + tq + 4)]);
+  a.set(3, t[swz<D>(r0 + g + 8, k0 + tq + 4)]);
+}
+// B whose n runs along the tile's rows n0.. and k along its columns k0..
+// (s = q k^T: k is stored [kv][d], reduced over d)
+template <int D, bool kS>
+__device__ __forceinline__ void frag_b_nk(Frag<2, kS>& b, const float* t,
+                                          int n0, int k0, int g, int tq) {
+  b.set(0, t[swz<D>(n0 + g, k0 + tq)]);
+  b.set(1, t[swz<D>(n0 + g, k0 + tq + 4)]);
+}
+// A C fragment reused as the A of the next product: its 8 columns become
+// the reduced index in the order 0, 2, 4, 6 | 1, 3, 5, 7, so the registers
+// only change places (p and ds never leave the registers)
+__device__ __forceinline__ void frag_a_from_c(Frag<4, true>& a,
+                                              const float (&c)[4]) {
+  a.set(0, c[0]);
+  a.set(1, c[2]);
+  a.set(2, c[1]);
+  a.set(3, c[3]);
+}
+// the B that goes with it: k runs along the tile's rows k0.. in that order,
+// n along its columns n0.. (dq = ds k: k stored [kv][d], reduced over kv)
+template <int D, bool kS>
+__device__ __forceinline__ void frag_b_kn(Frag<2, kS>& b, const float* t,
+                                          int k0, int n0, int g, int tq) {
+  b.set(0, t[swz<D>(k0 + 2 * tq, n0 + g)]);
+  b.set(1, t[swz<D>(k0 + 2 * tq + 1, n0 + g)]);
+}
+
+// acc (16 rows x D) += a t over the 8 NT rows of tile t, a given as NT A
+// fragments taken from C fragments: the second product of each kernel
+// (dq += ds k, dv += p^T do, dk += ds^T q).  Four column blocks at a time
+// sum into fresh accumulators, added to acc in f32 (add4).
+template <int D, int NT, bool kS>
+__device__ __forceinline__ void reduce_rows(float (&acc)[D / 8][4],
+                                            const Frag<4, true> (&a)[NT],
+                                            const float* t, int g, int tq) {
+  constexpr int kGroup = 4;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += kGroup) {
+    float part[kGroup][4];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<2, kS> bf[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+        frag_b_kn<D>(bf[i], t, 8 * j, 8 * (n0 + i), g, tq);
+      mma3(part, a[j], bf);
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) add4(acc[n0 + i], part[i]);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// asynchronous global -> shared copies; a copy that is not valid writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// R rows from row0 of a (.., S, heads, D) tensor (src points at the row-0
+// element of the head), 16 bytes per copy: f32 straight into a swizzled
+// tile, bf16 into a plain [R][D] staging buffer (widen_rows converts it).
+// Rows >= S are zero-filled.
+template <typename T, int D, int R, int kThr>
+__device__ __forceinline__ void copy_rows_async(void* dst, const T* src,
+                                                int64_t row_stride, int row0,
+                                                int S) {
+  constexpr int kPer = 16 / sizeof(T), kChunks = D / kPer;
+  for (int e = threadIdx.x; e < R * kChunks; e += kThr) {
+    const int r = e / kChunks, c = (e % kChunks) * kPer, s = row0 + r;
+    const T* from = src + static_cast<int64_t>(s < S ? s : 0) * row_stride + c;
+    void* to;
+    if constexpr (std::is_same<T, float>::value)
+      to = static_cast<float*>(dst) + swz<D>(r, c);
+    else
+      to = static_cast<T*>(dst) + r * D + c;
+    cp_async16(to, from, s < S);
+  }
+}
+
+__device__ __forceinline__ float4 widen4(uint2 raw) {
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// a bf16 staging buffer [R][D] -> the swizzled f32 tile (exact)
+template <int D, int R, int kThr>
+__device__ __forceinline__ void widen_rows(float* dst,
+                                           const __nv_bfloat16* src) {
+  for (int e = threadIdx.x; e < R * D / 8; e += kThr) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c);
+    *reinterpret_cast<float4*>(dst + swz<D>(r, c)) =
+        widen4(make_uint2(raw.x, raw.y));
+    *reinterpret_cast<float4*>(dst + swz<D>(r, c + 4)) =
+        widen4(make_uint2(raw.z, raw.w));
+  }
+}
+
+// R rows as copy_rows_async, but loaded now (the CTA's own tiles, read
+// once) and widened to f32 on the way
+template <typename T, int D, int R, int kThr>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          int64_t row_stride, int row0,
+                                          int S) {
+  for (int e = threadIdx.x; e < R * D / 4; e += kThr) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4, s = row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) {
+      const T* from = src + static_cast<int64_t>(s) * row_stride + c;
+      if constexpr (std::is_same<T, float>::value)
+        x = *reinterpret_cast<const float4*>(from);
+      else
+        x = widen4(*reinterpret_cast<const uint2*>(from));
+    }
+    *reinterpret_cast<float4*>(dst + swz<D>(r, c)) = x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// shared memory of a CTA with `rows` own rows and R rows per streamed tile:
+// f32 tiles (double-buffered for f32 inputs; for bf16 one f32 tile plus two
+// bf16 staging buffers), and for dk/dv (`dkv`) p and the streamed rows' lse
+// and delta
+template <typename T, int D, int R>
+constexpr size_t bwd_smem_bytes(int rows, bool dkv) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  return (2 * rows * D + 2 * (kF32 ? 2 : 1) * R * D) * sizeof(float) +
+         (kF32 ? 0 : 4 * R * D * sizeof(T)) +
+         (dkv ? (rows * R + 4 * R) * sizeof(float) : 0);
+}
+
+// ---------------------------------------------------------------------------
 // backward: dq (q-block-major)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// Grid (H, B, q blocks), the last q block (the most causal work) first.
+// Each of the W warps owns 16 of the CTA's 16 W query rows; the CTA walks
+// the visible kv tiles of BK rows, the next one in flight (cp.async) while
+// it computes:
+// s = q k^T and dp = do v^T into C fragments, then in registers
+// p = exp(s * scale - lse), ds = p (dp - delta) scale, dq += ds k.
+template <typename T, int D, int W, int BK>
+__global__ void __launch_bounds__(32 * W, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int S, int H, int Kv, int causal, int window,
                     float scale) {
-  constexpr int DC = D / 16;
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [64][LD]
-  float* do_s = q_s + kBlock * LD;     // [64][LD]
-  float* k_s = do_s + kBlock * LD;     // [64][LD]
-  float* v_s = k_s + kBlock * LD;      // [64][LD]
-  float* ds_s = v_s + kBlock * LD;     // [64][kLdP]
+  constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kBufs = kF32 ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* q_s = reinterpret_cast<float*>(bwd_smem);  // [BQ][D]
+  float* do_s = q_s + BQ * D;                        // [BQ][D]
+  float* k_s = do_s + BQ * D;                        // [kBufs][BK][D]
+  float* v_s = k_s + kBufs * BK * D;                 // [kBufs][BK][D]
+  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * D);  // bf16 [2][2][BK][D]
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
   const int kvh = h / (H / Kv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qb * kBlock;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            tq = threadIdx.x & 3, wr = 16 * warp;
+  const int q0 = qb * BQ;
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(Kv) * D;
   const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
   const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
   const int64_t r_base = (static_cast<int64_t>(b) * H + h) * S;
 
-  load_tile<T, D>(q_s, q + q_base, q_rs, q0, S);
-  load_tile<T, D>(do_s, dout + q_base, q_rs, q0, S);
-  float lse_r[4], delta_r[4], acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    lse_r[a] = qp < S ? lse[r_base + qp] : 0.f;
-    delta_r[a] = qp < S ? delta[r_base + qp] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBlock, S) - 1;
-  const int kb_end = causal ? q_last / kBlock + 1 : (S + kBlock - 1) / kBlock;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kt_end = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
   const int first = q0 - window + 1;
-  const int kb_begin = (window && first > 0) ? first / kBlock : 0;
+  const int kt_begin = (window && first > 0) ? first / BK : 0;
 
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int k0 = kb * kBlock;
-    __syncthreads();
-    load_tile<T, D>(k_s, k + k_base, k_rs, k0, S);
-    load_tile<T, D>(v_s, v + k_base, k_rs, k0, S);
-    __syncthreads();
+  auto prefetch = [&](int kt, int buf) {
+    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * D)
+                    : static_cast<void*>(stage + 2 * buf * BK * D);
+    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * D)
+                    : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
+    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
+    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
+  };
+  prefetch(kt_begin, 0);
+  cp_async_commit();
+  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, q0, S);
+  load_rows<T, D, BQ, kThr>(do_s, dout + q_base, q_rs, q0, S);
 
-    float s[4][4], dp[4][4];
+  int qp[2];
+  float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 2; ++i) {
+    qp[i] = q0 + wr + g + 8 * i;
+    lse_r[i] = qp[i] < S ? lse[r_base + qp[i]] : 0.f;
+    delta_r[i] = qp[i] < S ? delta[r_base + qp[i]] : 0.f;
+  }
+  float acc[DT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
-#pragma unroll 2
-    for (int dd = 0; dd < D; ++dd) {
-      float qa[4], da[4], kj[4], vj[4];
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = q_s[(ty + 16 * a) * LD + dd];
-        da[a] = do_s[(ty + 16 * a) * LD + dd];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kj[j] = k_s[(tx + 16 * j) * LD + dd];
-        vj[j] = v_s[(tx + 16 * j) * LD + dd];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[a][j] += qa[a] * kj[j];
-          dp[a][j] += da[a] * vj[j];
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qp = q0 + ty + 16 * a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(qp, k0 + tx + 16 * j, S, causal, window)
-                            ? expf(s[a][j] * scale - lse_r[a]) : 0.f;
-        ds_s[(ty + 16 * a) * kLdP + tx + 16 * j] =
-            p * (dp[a][j] - delta_r[a]) * scale;
-      }
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-#pragma unroll 4
-    for (int j = 0; j < kBlock; ++j) {
-      float sa[4], kc[DC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = ds_s[(ty + 16 * a) * kLdP + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kc[c] = k_s[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[a][c] += sa[a] * kc[c];
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    __syncthreads();                 // every warp is done with buffer buf ^ 1
+    if (kt + 1 < kt_end) prefetch(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();              // this thread's copies of tile kt
+    __syncthreads();                 // everyone's
+    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * D;
+    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * D;
+    if constexpr (!kF32) {
+      widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
+      widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
+      __syncthreads();
     }
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      Frag<4, kF32> qa, da;
+      Frag<2, kF32> kf[NT], vf[NT];
+      frag_a<D>(qa, q_s, wr, 8 * kk, g, tq);
+      frag_a<D>(da, do_s, wr, 8 * kk, g, tq);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        frag_b_nk<D>(kf[j], kt_s, 8 * j, 8 * kk, g, tq);
+        frag_b_nk<D>(vf[j], vt_s, 8 * j, 8 * kk, g, tq);
+      }
+      mma3(s, qa, kf);
+      mma3(dp, da, vf);
+    }
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
+        const float p = visible(qp[i], kp, S, causal, window)
+                            ? expf(s[j][e] * scale - lse_r[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - delta_r[i]) * scale;   // ds
+      }
+    Frag<4, true> a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], s[j]);
+    reduce_rows<D, NT, kF32>(acc, a, kt_s, g, tq);
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    if (qp >= S) continue;
-    T* row = dq + q_base + static_cast<int64_t>(qp) * q_rs;
+  for (int i = 0; i < 2; ++i) {
+    if (qp[i] >= S) continue;
+    T* row = dq + q_base + static_cast<int64_t>(qp[i]) * q_rs;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = from_float<T>(acc[a][c]);
+    for (int n = 0; n < DT; ++n)
+      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -347,138 +663,168 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward: dk, dv (kv-block-major, the G query heads folded into the loop)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// Grid (Kv, B, kv blocks), kv block 0 (the most causal work) first.  The W
+// warps form W / 2 pairs, and pair i owns kv rows 16 i .. 16 i + 15 of the
+// CTA's 8 W.  The CTA walks the G query heads of its kv head and their
+// visible q tiles of BQ rows in one flattened loop, the next tile (q, do,
+// lse, delta) in flight while it computes.  Per tile, warp i computes
+// s^T = k q^T, p = exp(s^T scale - lse) (handed to its partner through
+// shared memory) and dv += p^T do; warp i + W / 2 computes dp^T = v do^T,
+// then ds = p (dp^T - delta) scale and dk += ds^T q.  The two halves run
+// the same instructions on other tiles, and each warp keeps one D-wide
+// accumulator in registers instead of two.  No atomics: the result is the
+// same bits from run to run.
+template <typename T, int D, int W, int BQ>
+__global__ void __launch_bounds__(32 * W, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int H, int Kv, int causal,
                      int window, float scale) {
-  constexpr int DC = D / 16;
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* k_s = smem;                   // [64][LD] this CTA's kv rows
-  float* v_s = k_s + kBlock * LD;      // [64][LD]
-  float* q_s = v_s + kBlock * LD;      // [64][LD] the current q block
-  float* do_s = q_s + kBlock * LD;     // [64][LD]
-  float* p_s = do_s + kBlock * LD;     // [64 kv][kLdP] p^T
-  float* ds_s = p_s + kBlock * kLdP;   // [64 kv][kLdP] ds^T
-  float* lse_s = ds_s + kBlock * kLdP; // [64]
-  float* delta_s = lse_s + kBlock;     // [64]
+  constexpr int kThr = 32 * W, BKV = 8 * W, NT = BQ / 8, DT = D / 8;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kBufs = kF32 ? 2 : 1;
+  static_assert(W % 2 == 0 && 2 * BQ <= kThr, "warp pairs; lse/delta copies");
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* k_s = reinterpret_cast<float*>(bwd_smem);  // [BKV][D]
+  float* v_s = k_s + BKV * D;                        // [BKV][D]
+  float* q_s = v_s + BKV * D;                        // [kBufs][BQ][D]
+  float* do_s = q_s + kBufs * BQ * D;                // [kBufs][BQ][D]
+  float* p_s = do_s + kBufs * BQ * D;                // [BKV * BQ] p, by lane
+  float* lse_s = p_s + BKV * BQ;                     // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                   // [2][BQ]
+  T* stage = reinterpret_cast<T*>(delta_s + 2 * BQ);  // bf16 [2][2][BQ][D]
 
-  const int kb = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;
   const int G = H / Kv;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k0 = kb * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool dk_half = warp >= W / 2;      // this warp computes dk, not dv
+  const int wr = 16 * (warp % (W / 2));    // its pair's rows
+  const int k0 = kb * BKV;
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(Kv) * D;
   const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
 
-  load_tile<T, D>(k_s, k + k_base, k_rs, k0, S);
-  load_tile<T, D>(v_s, v + k_base, k_rs, k0, S);
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+  const int nqt = (S + BQ - 1) / BQ;
+  const int k_last = min(k0 + BKV, S) - 1;
+  const int qt_begin = causal ? k0 / BQ : 0;
+  const int qt_end =
+      window ? min(nqt, (k_last + window - 1) / BQ + 1) : nqt;
+  const int nt = qt_end - qt_begin, n_it = G * nt;
 
-  const int nq = (S + kBlock - 1) / kBlock;
-  const int k_last = min(k0 + kBlock, S) - 1;
-  const int qb_begin = causal ? k0 / kBlock : 0;
-  const int qb_end = window ? min(nq, (k_last + window - 1) / kBlock + 1) : nq;
+  auto prefetch = [&](int it, int buf) {
+    const int hh = kvh * G + it / nt, q0 = (qt_begin + it % nt) * BQ;
+    const int64_t q_base = (static_cast<int64_t>(b) * S * H + hh) * D;
+    const int64_t r_base = (static_cast<int64_t>(b) * H + hh) * S;
+    void* qd = kF32 ? static_cast<void*>(q_s + buf * BQ * D)
+                    : static_cast<void*>(stage + 2 * buf * BQ * D);
+    void* dd = kF32 ? static_cast<void*>(do_s + buf * BQ * D)
+                    : static_cast<void*>(stage + (2 * buf + 1) * BQ * D);
+    copy_rows_async<T, D, BQ, kThr>(qd, q + q_base, q_rs, q0, S);
+    copy_rows_async<T, D, BQ, kThr>(dd, dout + q_base, q_rs, q0, S);
+    const int i = threadIdx.x % BQ, qp = q0 + i;
+    const int64_t at = r_base + (qp < S ? qp : 0);
+    if (threadIdx.x < BQ)
+      cp_async4(lse_s + buf * BQ + i, lse + at, qp < S);
+    else if (threadIdx.x < 2 * BQ)
+      cp_async4(delta_s + buf * BQ + i, delta + at, qp < S);
+  };
+  if (n_it > 0) prefetch(0, 0);
+  cp_async_commit();
+  load_rows<T, D, BKV, kThr>(k_s, k + k_base, k_rs, k0, S);
+  load_rows<T, D, BKV, kThr>(v_s, v + k_base, k_rs, k0, S);
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
-    const int64_t r_base = (static_cast<int64_t>(b) * H + h) * S;
-    for (int qb = qb_begin; qb < qb_end; ++qb) {
-      const int q0 = qb * kBlock;
+  int kp[2];
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kp[i] = k0 + wr + g + 8 * i;
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // this lane's C fragments of p, one float4 per 8 q columns
+  float4* p_mine = reinterpret_cast<float4*>(p_s) + (wr / 16) * NT * 32 + lane;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    __syncthreads();                 // every warp is done with buffer buf ^ 1
+    if (it + 1 < n_it) prefetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* qt_s = q_s + (kF32 ? buf : 0) * BQ * D;
+    const float* dt_s = do_s + (kF32 ? buf : 0) * BQ * D;
+    if constexpr (!kF32) {
+      widen_rows<D, BQ, kThr>(q_s, stage + 2 * buf * BQ * D);
+      widen_rows<D, BQ, kThr>(do_s, stage + (2 * buf + 1) * BQ * D);
       __syncthreads();
-      load_tile<T, D>(q_s, q + q_base, q_rs, q0, S);
-      load_tile<T, D>(do_s, dout + q_base, q_rs, q0, S);
-      if (threadIdx.x < kBlock) {
-        const int qp = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qp < S ? lse[r_base + qp] : 0.f;
-        delta_s[threadIdx.x] = qp < S ? delta[r_base + qp] : 0.f;
-      }
-      __syncthreads();
+    }
+    const float* ls = lse_s + buf * BQ;
+    const float* dl = delta_s + buf * BQ;
+    const int q0 = (qt_begin + it % nt) * BQ;
 
-      // s^T and dp^T: rows are this CTA's kv positions, columns q rows
-      float st[4][4], dpt[4][4];
+    // s^T = k q^T (dv half) or dp^T = v do^T (dk half)
+    const float* a_t = dk_half ? v_s : k_s;
+    const float* b_t = dk_half ? dt_s : qt_s;
+    float c[NT][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[a][j] = dpt[a][j] = 0.f;
-#pragma unroll 2
-      for (int dd = 0; dd < D; ++dd) {
-        float ka[4], va[4], qj[4], dj[4];
+      for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          ka[a] = k_s[(ty + 16 * a) * LD + dd];
-          va[a] = v_s[(ty + 16 * a) * LD + dd];
+    for (int kk = 0; kk < DT; ++kk) {
+      Frag<4, kF32> af;
+      Frag<2, kF32> bf[NT];
+      frag_a<D>(af, a_t, wr, 8 * kk, g, tq);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        frag_b_nk<D>(bf[j], b_t, 8 * j, 8 * kk, g, tq);
+      mma3(c, af, bf);
+    }
+    if (!dk_half) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * tq + (e & 1);
+          c[j][e] = visible(q0 + r, kp[e >> 1], S, causal, window)
+                        ? expf(c[j][e] * scale - ls[r]) : 0.f;   // p
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qj[j] = q_s[(tx + 16 * j) * LD + dd];
-          dj[j] = do_s[(tx + 16 * j) * LD + dd];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[a][j] += ka[a] * qj[j];
-            dpt[a][j] += va[a] * dj[j];
-          }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int kp = k0 + ty + 16 * a;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx + 16 * j;
-          const float p = visible(q0 + r, kp, S, causal, window)
-                              ? expf(st[a][j] * scale - lse_s[r]) : 0.f;
-          p_s[(ty + 16 * a) * kLdP + r] = p;
-          ds_s[(ty + 16 * a) * kLdP + r] = p * (dpt[a][j] - delta_s[r]) * scale;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 2
-      for (int r = 0; r < kBlock; ++r) {
-        float pa[4], sa[4], dor[DC], qr[DC];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pa[a] = p_s[(ty + 16 * a) * kLdP + r];
-          sa[a] = ds_s[(ty + 16 * a) * kLdP + r];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dor[c] = do_s[r * LD + tx + 16 * c];
-          qr[c] = q_s[r * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv_acc[a][c] += pa[a] * dor[c];
-            dk_acc[a][c] += sa[a] * qr[c];
-          }
+        p_mine[32 * j] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
       }
     }
+    __syncthreads();                 // p of every pair is in shared memory
+    if (dk_half) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 p = p_mine[32 * j];
+        const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * tq + (e & 1);
+          c[j][e] = pe[e] * (c[j][e] - dl[r]) * scale;            // ds
+        }
+      }
+    }
+
+    // dv += p^T do (dv half) or dk += ds^T q (dk half)
+    const float* b2_t = dk_half ? qt_s : dt_s;
+    Frag<4, true> a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], c[j]);
+    reduce_rows<D, NT, kF32>(acc, a, b2_t, g, tq);
   }
 
+  T* out = dk_half ? dk : dv;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int kp = k0 + ty + 16 * a;
-    if (kp >= S) continue;
-    const int64_t off = k_base + static_cast<int64_t>(kp) * k_rs;
+  for (int i = 0; i < 2; ++i) {
+    if (kp[i] >= S) continue;
+    T* row = out + k_base + static_cast<int64_t>(kp[i]) * k_rs;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[off + tx + 16 * c] = from_float<T>(dk_acc[a][c]);
-      dv[off + tx + 16 * c] = from_float<T>(dv_acc[a][c]);
-    }
+    for (int n = 0; n < DT; ++n)
+      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -488,13 +834,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D> constexpr size_t fwd_smem() {
   return (3 * kBlock * (D + 1) + kBlock * kLdP) * sizeof(float);
-}
-template <int D> constexpr size_t dq_smem() {
-  return (4 * kBlock * (D + 1) + kBlock * kLdP) * sizeof(float);
-}
-template <int D> constexpr size_t dkv_smem() {
-  return (4 * kBlock * (D + 1) + 2 * kBlock * kLdP + 2 * kBlock) *
-         sizeof(float);
 }
 
 template <typename Kernel>
@@ -522,10 +861,13 @@ template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int S, int H,
            int Kv, int causal, int window, float scale, cudaStream_t st) {
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, dq_smem<D>());
+  constexpr int W = kDqWarps, R = kDqStream;
+  constexpr size_t smem = bwd_smem_bytes<T, D, R>(16 * W, false);
+  auto* kernel = flash_bwd_dq_kernel<T, D, W, R>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem<D>(), st>>>(
+  dim3 grid(H, B, (S + 16 * W - 1) / (16 * W));
+  kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -538,10 +880,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
             int S, int H, int Kv, int causal, int window, float scale,
             cudaStream_t st) {
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>());
+  constexpr int W = kDkvWarps, R = kDkvStream;
+  constexpr size_t smem = bwd_smem_bytes<T, D, R>(8 * W, true);
+  auto* kernel = flash_bwd_dkv_kernel<T, D, W, R>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + kBlock - 1) / kBlock, Kv, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, dkv_smem<D>(), st>>>(
+  dim3 grid(Kv, B, (S + 8 * W - 1) / (8 * W));
+  kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -9,21 +9,30 @@ logsumexp residual) and the FlashAttention-2 backward of
 ``_flash_bwd_dkv_kernel`` (kv-block-major, the G query heads of a kv head
 folded into its loop).  What bounds them on the H100: operations — at the
 training shape each query row does ~S/2·D·4 f32 operations per ~D·4 bytes
-it reads.  The CUDA kernels (``csrc/flash_attention.cu``) keep 64-row tiles
-of q, k, v (and do) in shared memory as f32, skip the kv or q blocks that
-the causal and window bounds leave invisible, and mask the ragged edge of
-S themselves, so the TPU's padding of S to a block multiple (``_dims``)
-does not carry over.  dk/dv accumulate in registers across the G query
-heads: no atomics, the same bits from run to run.
+it reads.  The forward (``csrc/flash_attention.cu``) keeps 64-row f32
+tiles in shared memory and multiplies with scalar f32 FMAs.  The two
+backward kernels multiply on the tensor cores (``mma.sync`` m16n8k8 TF32;
+f32 operands split into two TF32 parts, "3xTF32", which keeps f32
+accuracy), keep p and ds in registers between their two products, and
+stream the next kv tile (dq) or q/do tile (dk/dv) into shared memory with
+``cp.async`` while they compute.  All three skip the kv or q blocks that
+the causal and window bounds leave invisible and mask the ragged edge of S
+themselves, so the TPU's padding of S to a block multiple (``_dims``) does
+not carry over.  dk/dv accumulate in registers across the G query heads:
+no atomics, the same bits from run to run.
 
 Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Kv, D), query
 head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, S) f32 — the
-JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.
+JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.  The
+backward kernels read rows with 16-byte copies, so their tensors must
+start on a 16-byte boundary (fresh allocations do).
 
-The plain versions walk the same 64-position blocks in a Python loop with
-the kernels' update, so the card compares like with like.  They visit
-every block, the kernels only the visible ones: a fully masked block is an
-exact no-op of the update, so both give the same numbers.
+The plain versions walk 64-position blocks in a Python loop with the
+kernels' update (the forward's blocks; the backward kernels group the same
+f32 terms in tiles of 32 streamed rows), so the card compares like with
+like.  They visit every block, the kernels only the visible ones: a fully
+masked block is an exact no-op of the update, so both give the same
+numbers.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-BLOCK = 64                  # query rows and kv rows per tile
+BLOCK = 64                  # rows per block of the plain versions
 HEAD_DIMS = (128,)          # head dims the CUDA kernels are compiled for
 
 # launches of the CUDA kernels (plain-version calls do not count)
@@ -198,6 +207,14 @@ def _check_residuals(q, tensors, what):
                              f"{dtype or q.dtype} on {q.device}")
 
 
+def _check_aligned(tensors, what):
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte "
+                             f"boundary (the kernel copies 16 bytes at a "
+                             f"time)")
+
+
 def _lib():
     return build.load("flash_attention", _SIGNATURES)
 
@@ -228,6 +245,8 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
                          ("lse", lse, (B, H, S), torch.float32),
                          ("delta", delta, (B, H, S), torch.float32)),
                      "flash-attention dq")
+    _check_aligned((("q", q), ("k", k), ("v", v), ("do", do)),
+                   "flash-attention dq")
     dq = torch.empty_like(q)
     lib = _lib()
     code = getattr(lib, f"flash_attn_dq_{_SUFFIX[q.dtype]}")(
@@ -246,6 +265,8 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
                          ("lse", lse, (B, H, S), torch.float32),
                          ("delta", delta, (B, H, S), torch.float32)),
                      "flash-attention dk/dv")
+    _check_aligned((("q", q), ("k", k), ("v", v), ("do", do)),
+                   "flash-attention dk/dv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _lib()
     code = getattr(lib, f"flash_attn_dkv_{_SUFFIX[q.dtype]}")(

@@ -209,6 +209,104 @@ def test_flash_plain_skips_no_visible_block():
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' arithmetic: f32 products as 3xTF32 on tensor cores
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
+    from zero, on the int32 view of its bits: the backward kernels'
+    ``to_tf32`` (cvt.rna.tf32.f32's rounding)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels multiply f32 operands: each split into hi + lo,
+    a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums (the products of two
+    11-bit significands are exact in f32), a_lo b_lo dropped."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _flash_bwd_np(q, k, v, do, lse, delta, mm):
+    """dq, dk, dv of the plain backward (``dq_plain``, ``dkv_plain``), causal,
+    whole-sequence, with every product taken by ``mm``."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    scale = D ** -0.5
+    mask = np.tril(np.ones((S, S), bool))
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = k[b, :, h // G], v[b, :, h // G]
+            s = mm(q[b, :, h], kh.T)
+            p = np.where(mask, np.exp(s * scale - lse[b, h, :, None]), 0)
+            dp = mm(do[b, :, h], vh.T)
+            ds = p * (dp - delta[b, h, :, None]) * scale
+            dq[b, :, h] = mm(ds, kh)
+            dk[b, :, h // G] += mm(ds.T, q[b, :, h])
+            dv[b, :, h // G] += mm(p.T, do[b, :, h])
+    return dq, dk, dv
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """The integer form of the split's rounding equals rounding to 11
+    significant bits, ties away from zero, on random values, exact ties
+    and values near powers of two; hi + lo holds x to 2^-21 of |x|."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.standard_normal(20000) * 10.0 ** rng.integers(-30, 30, 20000),
+        (1 + (2 * np.arange(1, 200) - 1) * 2.0 ** -11) * 3.0,   # ties
+        -(1 + (2 * np.arange(1, 200) - 1) * 2.0 ** -11),
+        np.nextafter(np.float32(2.0) ** np.arange(-20, 20), np.float32(0)),
+    ]).astype(np.float32)
+    m, e = np.frexp(x.astype(np.float64))          # |m| in [0.5, 1)
+    want = np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2 ** 11 + 0.5),
+                    e - 11).astype(np.float32)
+    assert np.array_equal(_tf32(x), want)
+    hi, lo = _split(x)
+    assert np.all(np.abs((hi.astype(np.float64) + lo) - x)
+                  <= 2.0 ** -21 * np.abs(x))
+
+
+def test_flash_backward_3xtf32_keeps_f32_accuracy():
+    """dq/dk/dv with every product split as the backward kernels split it
+    (3xTF32) stay within 1e-5 of scale of the f64 result, like plain f32
+    products; one TF32 product (hi * hi) would not."""
+    B, S, H, Kv, D = 1, 130, 4, 2, 128
+    rng = np.random.default_rng(0)
+    q, k, v, do = (rng.standard_normal((B, S, h, D)).astype(np.float32)
+                   for h in (H, Kv, Kv, H))
+    q64, k64, v64, do64 = (t.astype(np.float64) for t in (q, k, v, do))
+    # lse and delta from the f64 forward, handed to every version in f32
+    G, scale = H // Kv, D ** -0.5
+    s = np.einsum("bqhd,bkhd->bhqk", q64, np.repeat(k64, G, axis=2)) * scale
+    s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    o = np.einsum("bhqk,bkhd->bqhd", np.exp(s - lse[..., None]),
+                  np.repeat(v64, G, axis=2))
+    delta = (do64 * o).sum(-1).transpose(0, 2, 1)
+    ref = _flash_bwd_np(q64, k64, v64, do64, lse, delta, np.matmul)
+    lse32, delta32 = lse.astype(np.float32), delta.astype(np.float32)
+    args = (q, k, v, do, lse32, delta32)
+    for got, want in zip(_flash_bwd_np(*args, _mm3), ref):
+        assert _rel(got, want) < 1e-5
+    # the plain f32 versions of the port meet the same bar
+    plain = (tfa.dq_plain(*(torch.tensor(a) for a in args), True, 0),
+             *tfa.dkv_plain(*(torch.tensor(a) for a in args), True, 0))
+    for got, want in zip(plain, ref):
+        assert _rel(got, want) < 1e-5
+    one = _flash_bwd_np(*args, lambda a, b: _tf32(a) @ _tf32(b))
+    assert max(_rel(got, want) for got, want in zip(one, ref)) > 1e-4
+
+
+# ---------------------------------------------------------------------------
 # flash-decode over a paged cache
 # ---------------------------------------------------------------------------
 
