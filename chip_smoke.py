@@ -16,8 +16,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               the stated tolerance; times the kernel, the plain version and
               one PyTorch library call computing the same function (L2
               flushed before every timed launch), beside the least time the
-              card could take (the f32 flash backward kernels at the
-              3xTF32 rate of the tensor cores they use).  At the training
+              card could take (the f32 flash kernels at the 3xTF32 rate
+              of the tensor cores they use); a second launch of the flash
+              forward and of WKV-6 must give the same bits.  At the training
               shape it also times ``attention_delta``, prints dq + dk/dv +
               delta against SDPA's backward, and names the kernels SDPA's
               backward ran (torch.profiler).
@@ -92,7 +93,7 @@ from repro_torch.train.trainer import batch_to_device  # noqa: E402
 # cores, bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# dense TF32 tensor cores.  The flash backward kernels multiply there: f32
+# dense TF32 tensor cores.  The flash kernels multiply there: f32
 # operands as 3xTF32 (three MMAs per product, so 495 / 3 = 165 TFLOP/s of
 # f32 products); bf16 operands are exact in TF32, so a product of two
 # inputs takes one MMA and a product with the f32 p or ds two
@@ -400,6 +401,7 @@ def flash_phase(dev, flush, gen):
                                        device=dev).to(dtype)
                            for h in (H, Kv, Kv, H))
             o, lse = fa.forward_cuda(q, k, v, True, window)
+            o2, lse2 = fa.forward_cuda(q, k, v, True, window)
             o0, lse0 = fa.forward_plain(q, k, v, True, window)
             delta = fa.attention_delta(o0, do)
             args = (q, k, v, do, lse0, delta, True, window)
@@ -416,6 +418,9 @@ def flash_phase(dev, flush, gen):
                   <= GRAD_REL_TOL[dtype],
                   f"flash attention {dt} {shape}: |do| {e_o:.3g}, |dlse| "
                   f"{e_lse:.3g}, grads rel {rels} over tolerance")
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"flash forward {dt} {shape}: a second launch on the same "
+                  f"inputs gave other bits")
             print(f"[kernels] flash_attention {dt} {shape}: o err {e_o:.3g}"
                   f", lse err {e_lse:.3g}; dq/dk/dv rel err "
                   + "/".join(f"{r:.3g}" for r in rels.values()))
@@ -432,22 +437,23 @@ def flash_phase(dev, flush, gen):
             pairs = visible_pairs(S, window) * B * H
             q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
             row_bytes = B * H * S * 4
-            # the backward kernels multiply on the tensor cores.  f32: bound
+            # all three kernels multiply on the tensor cores.  f32: bound
             # at the 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S)
             # kept beside it in bound_peak_ms.  bf16: bound at the card's
             # bf16 rate; the kernels run it on TF32 MMAs (one per product
             # of two inputs, two with p or ds), whose bound is noted in
             # bound_arith
+            fwd_bytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
             dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
             dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
-            bwd = {"flash_attention_dq": (dq_bytes, 6 * D * pairs,
-                                          8 * D * pairs),
-                   "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
-                                           12 * D * pairs)}
-            bounds = {"flash_attention": bound_ms(
-                2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * D * pairs, dtype)}
-            notes = {}
-            for name, (n_bytes, n_ops, tf32_mmas) in bwd.items():
+            work = {"flash_attention": (fwd_bytes, 4 * D * pairs,
+                                        6 * D * pairs),
+                    "flash_attention_dq": (dq_bytes, 6 * D * pairs,
+                                           8 * D * pairs),
+                    "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
+                                            12 * D * pairs)}
+            bounds, notes = {}, {}
+            for name, (n_bytes, n_ops, tf32_mmas) in work.items():
                 if dtype == torch.float32:
                     bounds[name] = bound_ms(n_bytes, n_ops, dtype,
                                             F32_3XTF32_OPS_S)
@@ -553,6 +559,7 @@ def wkv6_phase(dev, flush, gen):
             u = 0.3 * torch.randn(H, N, generator=gen, device=dev)
             args = (r, k, v, w, u)
             y, st = wkv.wkv6_cuda(*args, chunk)
+            y2, st2 = wkv.wkv6_cuda(*args, chunk)
             y0, st0 = wkv.wkv6_plain(*args, None, chunk)
             torch.cuda.synchronize()
             e_y, e_s = rel_err(y, y0), rel_err(st, st0)
@@ -568,6 +575,9 @@ def wkv6_phase(dev, flush, gen):
             check(ok and e_s <= WKV_REL_TOL,
                   f"wkv6 {dt} {shape}: y rel err {e_y:.3g}, state rel err "
                   f"{e_s:.3g} over tolerance")
+            check(torch.equal(y, y2) and torch.equal(st, st2),
+                  f"wkv6 {dt} {shape}: a second launch on the same inputs "
+                  f"gave other bits")
             err = max((y.float() - y0.float()).abs().max().item(),
                       (st - st0).abs().max().item())
             print(f"[kernels] wkv6 {dt} {shape}: y rel err {e_y:.3g}, state "

@@ -4,8 +4,8 @@
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
 //
 //   flash_fwd_kernel      _flash_kernel (called from _flash_forward).
-//                         Grid (q blocks, H, B): one CTA per 64 query rows
-//                         of one head walks the kv blocks in a loop with a
+//                         Grid (H, B, q blocks): one CTA per 16 W query rows
+//                         of one head walks the visible kv tiles with a
 //                         running (m, l, acc) online softmax and writes
 //                         o = acc / max(l, 1e-30) and lse = m + log(max(l,
 //                         1e-30)); the TPU carried (m, l, acc) across a
@@ -14,7 +14,7 @@
 //                         Grid (H, B, q blocks): p = exp(s - lse),
 //                         ds = p * (dp - delta) * scale, dq += ds k.
 //   flash_bwd_dkv_kernel  _flash_bwd_dkv_kernel.  Grid (Kv, B, kv blocks):
-//                         one CTA per 64 kv rows of one kv head loops over
+//                         one CTA per 8 W kv rows of one kv head loops over
 //                         the G query heads of that kv head and their q
 //                         blocks (the TPU's flattened (group, q block)
 //                         sequential axis): dv += p^T do, dk += ds^T q.
@@ -27,58 +27,56 @@
 // < S, causal k <= q, window k > q - window; query rows >= S are masked
 // too and never written.  The TPU pads S up to a block multiple and visits
 // every block; here each CTA masks the ragged edge itself (rows past S are
-// zero-filled in shared memory) and loops only over the blocks that the
-// causal and window bounds leave visible.  A fully masked block is an
-// exact no-op of the online update (alpha = 1, p = 0), so the bounds change
-// no number.
+// zero-filled in shared memory) and loops only over the tiles that the
+// causal and window bounds leave visible.  A fully masked tile is an exact
+// no-op of the online update (alpha = 1, p = 0), so the bounds change no
+// number.
 //
 // Bound on the H100: operations.  At the training shape (S 512, D 128) the
 // causal forward does ~S/2 * D * 4 operations per query row against ~D * 4
-// bytes read per row: far above the f32 ridge (~20 operations per byte).
+// bytes read per row, far above the ridge of any of the card's rates.
 //
-// The forward keeps every tile of a CTA in shared memory as f32 (64 rows x
-// (D + 1): the odd row stride makes both the row-wise and the column-wise
-// reads of one layout free of bank conflicts) and each of its 256 threads
-// computes a 4 x 4 piece of the 64 x 64 score tile and a 4 x (D / 16) piece
-// of the 64 x D output with scalar f32 FMAs, so the 67 TFLOP/s f32 SIMT
-// rate bounds it; it reads ~3-4 FMAs per shared load, which holds it near
-// 20 % of that.  116 KB of shared memory per CTA (D 128).
-//
-// The backward multiplies on the tensor cores.  The f32 path must keep f32
-// products (TF32 alone, 10 mantissa bits, would miss the 1e-4 gradient
-// tolerance), so each f32 operand x is split into hi = tf32(x) and lo =
-// tf32(x - hi), both rounded to nearest (cvt.rna's rounding), and a b is
-// summed as a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 ("3xTF32", CUTLASS's
-// OpMultiplyAddFastF32): three mma.sync.m16n8k8 TF32 per product, so the
-// bound is 495 / 3 = 165 TFLOP/s.  bf16 inputs are exact in TF32: their lo
-// parts are zero and skipped, so q k^T and do v^T take one MMA and the
-// products with p or ds two.  The kernels run at ~20 % of that bound: every
-// f32 fragment value costs a shared load and five ALU instructions of
-// splitting for the 3 MMAs it feeds.  The design:
-// - Tiles: a warp owns 16 rows of the CTA's own rows (query rows for dq,
-//   kv rows for dk/dv) and walks tiles of 32 streamed rows (kv rows for
-//   dq; q rows of the G query heads for dk/dv).  All tiles are f32 in
-//   shared memory, [rows][D] with an XOR swizzle (swz) that keeps the
-//   fragment reads of both orientations conflict-free, so no transposed
-//   copy is needed; bf16 tiles arrive in a bf16 staging buffer and are
-//   widened once per tile.
-// - p and ds never leave the registers in dq: the C fragment of s / dp is
-//   the A fragment of dq += ds k once its 8 columns are read in the order
-//   0, 2, 4, 6 | 1, 3, 5, 7, which the matching B fragment reads too.
+// All three kernels multiply on the tensor cores.  The f32 path must keep
+// f32 products (TF32 alone, 10 mantissa bits, would miss the 1e-5 output
+// and 1e-4 gradient tolerances), so each f32 operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest (cvt.rna's
+// rounding), and a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi in f32
+// ("3xTF32", CUTLASS's OpMultiplyAddFastF32): three mma.sync.m16n8k8 TF32
+// per product, so the bound is 495 / 3 = 165 TFLOP/s.  bf16 inputs are
+// exact in TF32: their lo parts are zero and skipped, so q k^T and do v^T
+// take one MMA and the products with p or ds two.  The kernels run at
+// ~20 % of that bound: every f32 fragment value costs a shared load and
+// five ALU instructions of splitting for the 3 MMAs it feeds.  The design:
+// - Tiles: a warp owns 16 rows of the CTA's own rows (query rows for the
+//   forward and dq, kv rows for dk/dv) and walks tiles of streamed rows (kv
+//   rows for the forward and dq; q rows of the G query heads for dk/dv).
+//   All tiles are f32 in shared memory, [rows][D] with an XOR swizzle (swz)
+//   that keeps the fragment reads of both orientations conflict-free, so
+//   no transposed copy is needed; bf16 tiles arrive in a bf16 staging
+//   buffer and are widened once per tile.
+// - p and ds never leave the registers in the forward and dq: the C
+//   fragment of s / dp is the A fragment of o += p v / dq += ds k once its
+//   8 columns are read in the order 0, 2, 4, 6 | 1, 3, 5, 7, which the
+//   matching B fragment reads too.  The forward's online softmax runs on
+//   the C fragments: a row's 4 lanes (tq) share its maximum and sum by two
+//   shuffles.
 // - dk/dv splits each 16-row block over a warp pair: one warp computes
 //   s^T, p and dv, the other dp^T, ds and dk, p passing through shared
 //   memory, so each warp holds one D-wide accumulator (two spilled).
-// - The products that reduce over rows (dq, dk, dv) sum each streamed tile
-//   in a fresh accumulator and add it to the running sum in IEEE f32: the
+// - The products that reduce over rows (o, dq, dk, dv) sum each streamed
+//   tile in a fresh accumulator and add it to the running sum in IEEE f32
+//   (the forward as acc * alpha + tile, the plain version's update): the
 //   tensor cores' own accumulation truncates, which over the S or G * S
 //   rows of a long sum cost up to 7e-5 of scale.
 // - The next streamed tile is copied with cp.async (16 bytes per copy,
 //   zero-filled past S) into a second buffer while the current one is
 //   multiplied.
-// - Shared memory per CTA (D 128): dq 192 KB (8 warps, 128 query rows; one
-//   CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs per SM).
-//   The grid puts the block index on its slowest axis, heaviest first (the
-//   last q block for dq, kv block 0 for dk/dv), so the causal tail is short.
+// - Shared memory per CTA (D 128, f32): forward 96 KB (4 warps, 64 query
+//   rows, 32-row kv tiles; two CTAs per SM), dq 192 KB (8 warps, 128 query
+//   rows; one CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs
+//   per SM).  The grid puts the block index on its slowest axis, heaviest
+//   first (the last q block for the forward and dq, kv block 0 for dk/dv),
+//   so the causal tail is short.
 // wgmma (TF32 only K-major from shared memory), TMA and producer warps are
 // later work.
 #include <cuda_bf16.h>
@@ -89,23 +87,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlock = 64;           // query rows and kv rows per tile
-constexpr int kLdP = kBlock + 1;     // row stride of the 64 x 64 tiles
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
                                         int window) {
@@ -115,160 +97,16 @@ __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
   return m;
 }
 
-// 64 rows starting at row0 of a (.., S, heads, D) tensor (src points at the
-// row-0 element of the head) -> dst [64][D + 1] f32; rows >= S read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int S) {
-  for (int e = threadIdx.x; e < kBlock * D; e += kThreads) {
-    const int r = e / D, c = e % D, s = row0 + r;
-    dst[r * (D + 1) + c] =
-        s < S ? to_float(src[static_cast<int64_t>(s) * row_stride + c]) : 0.f;
-  }
-}
-
-// max and sum over the 16 lanes (tx) that share a row
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int Kv, int causal,
-                 int window, float scale) {
-  constexpr int DC = D / 16;
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [64][LD]
-  float* k_s = q_s + kBlock * LD;      // [64][LD]
-  float* v_s = k_s + kBlock * LD;      // [64][LD]
-  float* p_s = v_s + kBlock * LD;      // [64][kLdP] probabilities
-
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Kv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qb * kBlock;
-  const int64_t q_rs = static_cast<int64_t>(H) * D;
-  const int64_t k_rs = static_cast<int64_t>(Kv) * D;
-  const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
-  const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
-
-  load_tile<T, D>(q_s, q + q_base, q_rs, q0, S);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBlock, S) - 1;
-  const int kb_end = causal ? q_last / kBlock + 1 : (S + kBlock - 1) / kBlock;
-  const int first = q0 - window + 1;
-  const int kb_begin = (window && first > 0) ? first / kBlock : 0;
-
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int k0 = kb * kBlock;
-    __syncthreads();                   // the last block's tiles are done
-    load_tile<T, D>(k_s, k + k_base, k_rs, k0, S);
-    load_tile<T, D>(v_s, v + k_base, k_rs, k0, S);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
-      float qa[4], kj[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = q_s[(ty + 16 * a) * LD + dd];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kj[j] = k_s[(tx + 16 * j) * LD + dd];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[a][j] += qa[a] * kj[j];
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qp = q0 + ty + 16 * a;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[a][j] = visible(qp, k0 + tx + 16 * j, S, causal, window)
-                      ? s[a][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[a][j]);
-      }
-      const float m_new = fmaxf(m[a], row_max(mx));
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(qp, k0 + tx + 16 * j, S, causal, window)
-                            ? expf(s[a][j] - m_new) : 0.f;
-        p_s[(ty + 16 * a) * kLdP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[a] = l[a] * alpha + row_sum(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBlock; ++j) {
-      float pa[4], vc[DC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = p_s[(ty + 16 * a) * kLdP + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vc[c] = v_s[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[a][c] += pa[a] * vc[c];
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    if (qp >= S) continue;
-    const float denom = fmaxf(l[a], 1e-30f);
-    T* orow = o + q_base + static_cast<int64_t>(qp) * q_rs;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      orow[tx + 16 * c] = from_float<T>(acc[a][c] / denom);
-    if (tx == 0)
-      lse[(static_cast<int64_t>(b) * H + h) * S + qp] = m[a] + logf(denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: shared pieces (tensor-core products, swizzled f32 tiles,
-// asynchronous copies)
+// shared pieces (tensor-core products, swizzled f32 tiles, asynchronous
+// copies)
 // ---------------------------------------------------------------------------
 
 // Warps per CTA (each owns 16 of the CTA's own rows) and rows per streamed
-// tile, for dq and for dk/dv; chosen by timing on an H100 (PERF.md).
+// tile, for the forward, dq and dk/dv; chosen by timing on an H100
+// (PERF.md).  The plain forward walks kFwdStream-row blocks too
+// (flash_attention.py FWD_BLOCK), so both rescale at the same points.
+constexpr int kFwdWarps = 4, kFwdStream = 32;
 constexpr int kDqWarps = 8, kDqStream = 32;
 constexpr int kDkvWarps = 4, kDkvStream = 32;
 
@@ -330,6 +168,25 @@ __device__ __forceinline__ void mma3(float (&d)[N][4], const Frag<4, kSA>& a,
   if constexpr (kSB) {
 #pragma unroll
     for (int j = 0; j < N; ++j) mma_tf32(d[j], a.hi, b[j].lo);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], a.hi, b[j].hi);
+}
+
+// as mma3, with the small cross terms summed in their own accumulators dl
+// (added to d by the caller): the running sum d then takes one truncating
+// tensor-core accumulation per k step instead of three
+template <int N, bool kSA, bool kSB>
+__device__ __forceinline__ void mma3(float (&d)[N][4], float (&dl)[N][4],
+                                     const Frag<4, kSA>& a,
+                                     const Frag<2, kSB> (&b)[N]) {
+  if constexpr (kSA) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(dl[j], a.lo, b[j].hi);
+  }
+  if constexpr (kSB) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(dl[j], a.hi, b[j].lo);
   }
 #pragma unroll
   for (int j = 0; j < N; ++j) mma_tf32(d[j], a.hi, b[j].hi);
@@ -515,16 +372,186 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// shared memory of a CTA with `rows` own rows and R rows per streamed tile:
-// f32 tiles (double-buffered for f32 inputs; for bf16 one f32 tile plus two
-// bf16 staging buffers), and for dk/dv (`dkv`) p and the streamed rows' lse
-// and delta
+// shared memory of a CTA with `own` f32 tiles of `rows` own rows and R rows
+// per streamed tile: two streamed f32 tiles (double-buffered for f32
+// inputs; for bf16 one f32 tile each plus two bf16 staging buffers), and
+// for dk/dv (`dkv`) p and the streamed rows' lse and delta
 template <typename T, int D, int R>
-constexpr size_t bwd_smem_bytes(int rows, bool dkv) {
+constexpr size_t tile_smem_bytes(int own, int rows, bool dkv) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  return (2 * rows * D + 2 * (kF32 ? 2 : 1) * R * D) * sizeof(float) +
+  return (own * rows * D + 2 * (kF32 ? 2 : 1) * R * D) * sizeof(float) +
          (kF32 ? 0 : 4 * R * D * sizeof(T)) +
          (dkv ? (rows * R + 4 * R) * sizeof(float) : 0);
+}
+
+// ---------------------------------------------------------------------------
+// forward (q-block-major)
+// ---------------------------------------------------------------------------
+
+// Grid (H, B, q blocks), the last q block (the most causal work) first.
+// Each of the W warps owns 16 of the CTA's 16 W query rows; the CTA walks
+// the visible kv tiles of BK rows, the next one in flight (cp.async) while
+// it computes s = q k^T into C fragments, then in registers the online
+// softmax (m, l per row; p = exp(s * scale - m_new), alpha = exp(m -
+// m_new)) and acc = acc * alpha + p v, the tile's p v summed in a fresh
+// accumulator.
+template <typename T, int D, int W, int BK>
+__global__ void __launch_bounds__(32 * W, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int Kv, int causal,
+                 int window, float scale) {
+  constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kBufs = kF32 ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  float* q_s = reinterpret_cast<float*>(fwd_smem);  // [BQ][D]
+  float* k_s = q_s + BQ * D;                         // [kBufs][BK][D]
+  float* v_s = k_s + kBufs * BK * D;                 // [kBufs][BK][D]
+  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * D);  // bf16 [2][2][BK][D]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
+  const int kvh = h / (H / Kv);
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            tq = threadIdx.x & 3, wr = 16 * warp;
+  const int q0 = qb * BQ;
+  const int64_t q_rs = static_cast<int64_t>(H) * D;
+  const int64_t k_rs = static_cast<int64_t>(Kv) * D;
+  const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
+  const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
+
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kt_end = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+  const int first = q0 - window + 1;
+  const int kt_begin = (window && first > 0) ? first / BK : 0;
+
+  auto prefetch = [&](int kt, int buf) {
+    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * D)
+                    : static_cast<void*>(stage + 2 * buf * BK * D);
+    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * D)
+                    : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
+    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
+    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
+  };
+  prefetch(kt_begin, 0);
+  cp_async_commit();
+  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, q0, S);
+
+  // this lane's two rows (g and g + 8 of the warp's 16)
+  int qp[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qp[i] = q0 + wr + g + 8 * i;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    __syncthreads();                 // every warp is done with buffer buf ^ 1
+    if (kt + 1 < kt_end) prefetch(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();              // this thread's copies of tile kt
+    __syncthreads();                 // everyone's
+    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * D;
+    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * D;
+    if constexpr (!kF32) {
+      widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
+      widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
+      __syncthreads();
+    }
+
+    // s: hi * hi terms in s, the cross terms in sl (half the error of
+    // one accumulator, at the same speed on an H100)
+    float s[NT][4], sl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      Frag<4, kF32> qa;
+      Frag<2, kF32> kf[NT];
+      frag_a<D>(qa, q_s, wr, 8 * kk, g, tq);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        frag_b_nk<D>(kf[j], kt_s, 8 * j, 8 * kk, g, tq);
+      mma3(s, sl, qa, kf);
+    }
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) add4(s[j], sl[j]);
+    }
+
+    // online softmax on the C fragments: element e of s[j] is row i = e / 2
+    // (g or g + 8), key k0 + 8 j + 2 tq + e % 2; a row's 4 lanes share
+    // its maximum and sum
+    const int k0 = kt * BK;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
+        s[j][e] = visible(qp[i], kp, S, causal, window) ? s[j][e] * scale
+                                                        : kNegInf;
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
+        s[j][e] = visible(qp[i], kp, S, causal, window)
+                      ? expf(s[j][e] - m[i]) : 0.f;         // p
+        sum[i] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // acc += p v, the tile summed in fresh accumulators (reduce_rows)
+    Frag<4, true> a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], s[j]);
+    reduce_rows<D, NT, kF32>(acc, a, vt_s, g, tq);
+  }
+
+  const int64_t r_base = (static_cast<int64_t>(b) * H + h) * S;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qp[i] >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* row = o + q_base + static_cast<int64_t>(qp[i]) * q_rs;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i] / denom,
+                acc[n][2 * i + 1] / denom);
+    if (tq == 0) lse[r_base + qp[i]] = m[i] + logf(denom);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -832,10 +859,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launches
 // ---------------------------------------------------------------------------
 
-template <int D> constexpr size_t fwd_smem() {
-  return (3 * kBlock * (D + 1) + kBlock * kLdP) * sizeof(float);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -847,10 +870,13 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int S, int H, int Kv, int causal, int window, float scale,
         cudaStream_t st) {
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, fwd_smem<D>());
+  constexpr int W = kFwdWarps, R = kFwdStream;
+  constexpr size_t smem = tile_smem_bytes<T, D, R>(1, 16 * W, false);
+  auto* kernel = flash_fwd_kernel<T, D, W, R>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), st>>>(
+  dim3 grid(H, B, (S + 16 * W - 1) / (16 * W));
+  kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       S, H, Kv, causal, window, scale);
@@ -862,7 +888,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int S, int H,
            int Kv, int causal, int window, float scale, cudaStream_t st) {
   constexpr int W = kDqWarps, R = kDqStream;
-  constexpr size_t smem = bwd_smem_bytes<T, D, R>(16 * W, false);
+  constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 16 * W, false);
   auto* kernel = flash_bwd_dq_kernel<T, D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -881,7 +907,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             int S, int H, int Kv, int causal, int window, float scale,
             cudaStream_t st) {
   constexpr int W = kDkvWarps, R = kDkvStream;
-  constexpr size_t smem = bwd_smem_bytes<T, D, R>(8 * W, true);
+  constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 8 * W, true);
   auto* kernel = flash_bwd_dkv_kernel<T, D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -9,30 +9,30 @@ logsumexp residual) and the FlashAttention-2 backward of
 ``_flash_bwd_dkv_kernel`` (kv-block-major, the G query heads of a kv head
 folded into its loop).  What bounds them on the H100: operations — at the
 training shape each query row does ~S/2·D·4 f32 operations per ~D·4 bytes
-it reads.  The forward (``csrc/flash_attention.cu``) keeps 64-row f32
-tiles in shared memory and multiplies with scalar f32 FMAs.  The two
-backward kernels multiply on the tensor cores (``mma.sync`` m16n8k8 TF32;
-f32 operands split into two TF32 parts, "3xTF32", which keeps f32
-accuracy), keep p and ds in registers between their two products, and
-stream the next kv tile (dq) or q/do tile (dk/dv) into shared memory with
-``cp.async`` while they compute.  All three skip the kv or q blocks that
-the causal and window bounds leave invisible and mask the ragged edge of S
-themselves, so the TPU's padding of S to a block multiple (``_dims``) does
-not carry over.  dk/dv accumulate in registers across the G query heads:
-no atomics, the same bits from run to run.
+it reads.  All three (``csrc/flash_attention.cu``) multiply on the tensor
+cores (``mma.sync`` m16n8k8 TF32; f32 operands split into two TF32 parts,
+"3xTF32", which keeps f32 accuracy), keep p (and ds) in registers between
+their two products, and stream the next kv tile (forward, dq) or q/do
+tile (dk/dv) into shared memory with ``cp.async`` while they compute.
+All three skip the kv or q blocks that the causal and window bounds leave
+invisible and mask the ragged edge of S themselves, so the TPU's padding
+of S to a block multiple (``_dims``) does not carry over.  dk/dv
+accumulate in registers across the G query heads: no atomics, the same
+bits from run to run.
 
 Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Kv, D), query
 head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, S) f32 — the
 JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.  The
-backward kernels read rows with 16-byte copies, so their tensors must
-start on a 16-byte boundary (fresh allocations do).
+kernels read rows with 16-byte copies, so their tensors must start on a
+16-byte boundary (fresh allocations do).
 
-The plain versions walk 64-position blocks in a Python loop with the
-kernels' update (the forward's blocks; the backward kernels group the same
-f32 terms in tiles of 32 streamed rows), so the card compares like with
-like.  They visit every block, the kernels only the visible ones: a fully
-masked block is an exact no-op of the update, so both give the same
-numbers.
+The plain versions walk blocks of positions in a Python loop with the
+kernels' update: the forward ``FWD_BLOCK`` kv positions per online-softmax
+step, as the kernel streams them, so both rescale at the same points; the
+backward ``BLOCK`` (its kernels group the same f32 terms in tiles of 32
+streamed rows).  So the card compares like with like.  They visit every
+block, the kernels only the visible ones: a fully masked block is an
+exact no-op of the update, so both give the same numbers.
 """
 from __future__ import annotations
 
@@ -43,7 +43,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-BLOCK = 64                  # rows per block of the plain versions
+BLOCK = 64                  # rows per block of the plain backward
+FWD_BLOCK = 32              # kv rows per step of the plain forward (the
+#                             kernel's streamed tile, kFwdStream)
 HEAD_DIMS = (128,)          # head dims the CUDA kernels are compiled for
 
 # launches of the CUDA kernels (plain-version calls do not count)
@@ -83,7 +85,7 @@ def _grouped(q, Kv):
 
 def forward_plain(q, k, v, causal=True, window=0):
     """-> (o (B, S, H, D) in q's type, lse (B, H, S) f32): an online
-    softmax over the kv blocks in order."""
+    softmax over the FWD_BLOCK-row kv blocks in order."""
     B, S, H, D = q.shape
     Kv = k.shape[2]
     G = H // Kv
@@ -95,8 +97,8 @@ def forward_plain(q, k, v, causal=True, window=0):
     m = torch.full((B, Kv, G, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Kv, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Kv, G, S, D), dtype=torch.float32, device=dev)
-    for k0 in range(0, S, BLOCK):
-        kb, vb = kf[:, k0:k0 + BLOCK], vf[:, k0:k0 + BLOCK]
+    for k0 in range(0, S, FWD_BLOCK):
+        kb, vb = kf[:, k0:k0 + FWD_BLOCK], vf[:, k0:k0 + FWD_BLOCK]
         mask = _visible(q_pos, torch.arange(k0, k0 + kb.shape[1], device=dev),
                         S, causal, window)
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kb) * scale
@@ -226,6 +228,7 @@ def _stream(t):
 def forward_cuda(q, k, v, causal=True, window=0):
     """Launch the forward kernel; same contract as :func:`forward_plain`."""
     B, S, H, Kv, D = _check(q, k, v, "flash-attention forward")
+    _check_aligned((("q", q), ("k", k), ("v", v)), "flash-attention forward")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()

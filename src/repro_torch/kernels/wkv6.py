@@ -18,11 +18,17 @@ training shape — about 2·C·N + 4·N² f32 operations per token and head, for
 4·N input values and N output values, so ~11 operations per byte at C 32
 against the card's ~20 f32 operations per byte.  The kernel
 (``csrc/wkv6.cu``) runs one CTA per (batch, head) with the chunk loop
-inside it, the TPU's sequential minor grid axis; the (N, N) f32 state
-stays in shared memory from chunk to chunk.  It reads r/k/v/w in their
-(B, T, H, N) layout (stride H·N per token), so the TPU wrapper's transpose
-to (B·H, T, N) and its padding of T are not needed: rows past T act as
-identity steps (w = 1, k = 0) and write nothing.
+inside it, the TPU's sequential minor grid axis, and keeps the (N, N) f32
+state on chip from chunk to chunk: half its threads hold it in registers
+and update it while the other half compute qp·S from a copy in shared
+memory.  Every product runs on register tiles, and the next chunk's tiles
+are copied in (``cp.async``) while the current one computes.  Each output
+is summed in the same order as in the kernel's first version, so the
+outputs are the same bits.  It reads r/k/v/w in their (B, T, H, N) layout
+(stride H·N per token), so the TPU wrapper's transpose to (B·H, T, N) and
+its padding of T are not needed: rows past T act as identity steps (w = 1,
+k = 0) and write nothing.  Its 16-byte copies need r, k, v and w to start
+on a 16-byte boundary (fresh allocations do).
 
 The backward is not a kernel, as in the JAX package (``_wkv6_bwd_rule``):
 ``WKV6Fn`` replays :func:`wkv6_plain` from a zero state through autograd.
@@ -126,6 +132,11 @@ def wkv6_cuda(r, k, v, w, u, chunk=64):
     r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
     w32 = w.to(torch.float32).contiguous()
     u32 = u.to(torch.float32).contiguous()
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w32)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6 kernel: {name} must start on a 16-byte "
+                             f"boundary (the kernel copies 16 bytes at a "
+                             f"time)")
     y = torch.empty_like(r)
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     lib = build.load("wkv6", _SIGNATURES)

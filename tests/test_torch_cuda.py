@@ -163,6 +163,11 @@ ATTN_CASES = [  # B, S, H, Kv, D, causal, window
     (1, 200, 16, 2, 128, True, 0),    # G = 8 query heads per kv head
     (1, 300, 4, 2, 128, True, 48),    # a window narrower than a tile
     (1, 300, 4, 2, 128, False, 0),    # not causal, ragged
+    # edges of the forward's tiles (64 own rows, 32 streamed rows)
+    (2, 31, 4, 2, 128, True, 0),      # one streamed tile, not full
+    (2, 33, 4, 2, 128, True, 0),      # one row into the second tile
+    (1, 129, 4, 2, 128, True, 0),     # one row into the third q block
+    (1, 129, 4, 2, 128, True, 32),    # a window of one streamed tile
 ]
 
 
@@ -200,6 +205,19 @@ def test_cuda_flash_attention_matches_plain(case, dtype):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, tfa.dq_cuda(q, k, v, do, lse0, delta, causal,
                                        window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_forward_is_deterministic(dtype):
+    """The forward kernel at a training shape (every CTA on the card busy)
+    gives the same o and lse bits on every launch."""
+    dev = _card()
+    q, k, v, _ = _attn_case(dev, dtype, 4, 512, 16, 8, 128, seed=5)
+    o, lse = tfa.forward_cuda(q, k, v, True, 0)
+    for _ in range(3):
+        o2, lse2 = tfa.forward_cuda(q, k, v, True, 0)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
@@ -249,9 +267,13 @@ def _bf16_ulp(x):
                       - 7)
 
 
-# (B, T, H, chunk): whole chunks, ragged T, T shorter than the chunk
+# (B, T, H, chunk): whole chunks, ragged T, T shorter than the chunk;
+# then edges of the prefetch and of the CTAs: one token, one token past a
+# chunk, T a multiple of the chunk, and B * H far below the SM count
 WKV_CASES = [(2, 128, 4, 16), (2, 128, 4, 32), (1, 200, 3, 64),
-             (2, 100, 2, 32), (1, 20, 2, 64)]
+             (2, 100, 2, 32), (1, 20, 2, 64),
+             (2, 1, 3, 32), (2, 33, 3, 32), (1, 65, 2, 64), (1, 64, 2, 16),
+             (1, 96, 1, 32)]
 
 
 @pytest.mark.cuda
@@ -283,6 +305,19 @@ def test_cuda_wkv6_matches_plain(case, dtype):
     # the same inputs give the same bits again
     y2, s2 = twkv.wkv6_cuda(*args, chunk)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wkv6_is_deterministic(dtype):
+    """The WKV-6 kernel at a training shape gives the same y and state bits
+    on every launch."""
+    dev = _card()
+    args = _wkv_case(dev, dtype, 4, 512, 32, seed=6)
+    y, s = twkv.wkv6_cuda(*args, 32)
+    for _ in range(3):
+        y2, s2 = twkv.wkv6_cuda(*args, 32)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
 @pytest.mark.cuda

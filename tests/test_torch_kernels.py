@@ -200,8 +200,8 @@ def test_flash_plain_skips_no_visible_block():
                                                 dtype=np.float32))
                for _ in range(3))
     o, lse = tfa.forward_plain(q, k, v, True, 64)
-    # rows 192..255 see keys 129..255 only: blocks 0 and 1 are invisible
-    # to them, blocks 2 and 3 hold every key they see
+    # rows 192..255 see keys 129..255 only: the blocks of keys 0..127 are
+    # invisible to them, and the cut keeps the later blocks whole
     o_cut, lse_cut = tfa.forward_plain(q[:, 128:], k[:, 128:], v[:, 128:],
                                        True, 64)
     assert torch.equal(o[:, 192:], o_cut[:, 64:])
@@ -304,6 +304,78 @@ def test_flash_backward_3xtf32_keeps_f32_accuracy():
         assert _rel(got, want) < 1e-5
     one = _flash_bwd_np(*args, lambda a, b: _tf32(a) @ _tf32(b))
     assert max(_rel(got, want) for got, want in zip(one, ref)) > 1e-4
+
+
+def _flash_fwd_np(q, k, v, mm, block):
+    """(o, lse) of the causal forward as the kernel computes it: the kv
+    positions in tiles of ``block``, the online softmax per tile, and
+    acc = acc * alpha + (p v of the tile); every product taken by ``mm``."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    scale = D ** -0.5
+    neg = q.dtype.type(-1e30)
+    o, lse = np.zeros_like(q), np.zeros((B, H, S), q.dtype)
+    pos = np.arange(S)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = k[b, :, h // G], v[b, :, h // G]
+            m = np.full(S, neg, q.dtype)
+            l, acc = np.zeros(S, q.dtype), np.zeros((S, D), q.dtype)
+            for k0 in range(0, S, block):
+                vis = pos[k0:k0 + block][None, :] <= pos[:, None]
+                s = np.where(vis, mm(q[b, :, h], kh[k0:k0 + block].T) * scale,
+                             neg)
+                m_new = np.maximum(m, s.max(-1))
+                alpha = np.exp(m - m_new)
+                p = np.where(vis, np.exp(s - m_new[:, None]), 0).astype(q.dtype)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + mm(p, vh[k0:k0 + block])
+                m = m_new
+            denom = np.maximum(l, 1e-30)
+            o[b, :, h] = acc / denom[:, None]
+            lse[b, h] = m + np.log(denom)
+    return o, lse
+
+
+def test_flash_forward_3xtf32_keeps_f32_accuracy():
+    """o and lse with every product split as the forward kernel splits it
+    (3xTF32), in its tile order and update, stay within 1e-5 of scale of
+    the f64 result, like the plain f32 forward; one TF32 product
+    (hi * hi) would not."""
+    B, S, H, Kv, D = 1, 130, 4, 2, 128
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((B, S, h, D)).astype(np.float32)
+               for h in (H, Kv, Kv))
+    ref = _flash_fwd_np(*(t.astype(np.float64) for t in (q, k, v)),
+                        np.matmul, tfa.FWD_BLOCK)
+    got = _flash_fwd_np(q, k, v, _mm3, tfa.FWD_BLOCK)
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < 1e-5
+    plain = tfa.forward_plain(*(torch.tensor(t) for t in (q, k, v)), True, 0)
+    for a, b in zip(plain, ref):
+        assert _rel(a, b) < 1e-5
+    one = _flash_fwd_np(q, k, v, lambda a, b: _tf32(a) @ _tf32(b),
+                        tfa.FWD_BLOCK)
+    assert _rel(one[0], ref[0]) > 1e-4
+
+
+@pytest.mark.parametrize("S,window", [(31, 0), (33, 0), (129, 0),
+                                      (97, 40)])
+def test_flash_forward_tile_edges_match_pallas(S, window):
+    """The plain forward walks the kernel's FWD_BLOCK-row kv tiles, not the
+    backward's 64: at S just below and above a tile, past several tiles,
+    and with a window narrower than two tiles, it still equals the Pallas
+    forward (interpret mode) and the oracle."""
+    case = (2, S, 4, 2, 32, window)
+    q, k, v, _ = _flash_inputs(case, seed=4)
+    jin = [jnp.asarray(a) for a in (q, k, v)]
+    out_j, res = jax_flash_forward(*jin, True, window, 128, 256, True)
+    lse_j = np.asarray(res[-1]).reshape(2, 4, -1)[:, :, :S]
+    tin = [torch.tensor(a) for a in (q, k, v)]
+    o, lse = tfa.forward_plain(*tin, True, window)
+    assert _rel(o, out_j) < REL_TOL["f32"]
+    assert np.max(np.abs(lse.numpy() - lse_j)) < 1e-5
+    assert _rel(o, tref.attention_ref(*tin, window=window)) < REL_TOL["f32"]
 
 
 # ---------------------------------------------------------------------------
