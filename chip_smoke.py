@@ -15,13 +15,18 @@ order; any failure ends the run with a non-zero exit and no result line:
               B 8, T 512, H 32, N 64), in f32 and bf16, with
               the stated tolerance; times the kernel, the plain version and
               one PyTorch library call computing the same function (L2
-              flushed before every timed launch), beside the least time the
+              flushed before every timed launch, the device kept busy
+              until the host has queued it), beside the least time the
               card could take (the f32 flash kernels at the 3xTF32 rate
               of the tensor cores they use); a second launch of the flash
-              forward and of WKV-6 must give the same bits.  At the training
-              shape it also times ``attention_delta``, prints dq + dk/dv +
-              delta against SDPA's backward, and names the kernels SDPA's
-              backward ran (torch.profiler).
+              forward, WKV-6, the RMSNorm backward and the flash-decode
+              split must give the same bits.  The RMSNorm backward is also
+              held at d 4096, a ragged d 1001 and 5 rows, and its two
+              launches' device times are printed (torch.profiler);
+              flash-decode is also held and timed at B 8, ctx 4096.  At
+              the training shape it also times ``attention_delta``, prints
+              dq + dk/dv + delta against SDPA's backward, and names the
+              kernels SDPA's backward ran.
 4. serve    — qwen3-0.6b at full width and depth (28 layers, f32, random
               weights from a seed) serves 12 requests over 8 slots (prompts
               of 17-200 tokens, 48 greedy new tokens) through the paged
@@ -141,6 +146,11 @@ RWKV_CHECK_BATCH = 2                 # kernel vs plain gradients, 2 x 512
 # where an output is so small that 2 ulps fall below the f32 rounding
 WKV_REL_TOL = 1e-4
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
+# after the flush the device spins this long (~0.5 ms at the H100's ~2 GHz)
+# before the start event, so the host's part of the timed call (a
+# wrapper's checks and allocations) is done before the device gets there
+# and only device time falls between the events
+SPIN_CYCLES = 1_000_000
 SEED = 0
 
 
@@ -173,6 +183,20 @@ def cuda_kernel_names(fn):
     return [(e.key, e.device_time_total / 1e3) for e in rows]
 
 
+def kernel_split_ms(fn, flush, match, iters=20):
+    """Mean device time per call of each CUDA kernel ``fn`` launches whose
+    name contains ``match`` (torch.profiler), L2 flushed before each call:
+    -> {kernel name: ms}."""
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+    fn()
+    return {k.replace("void ", "").replace("(anonymous namespace)::", "")
+            .split("(")[0]: t / iters
+            for k, t in cuda_kernel_names(calls) if match in k}
+
+
 def time_ms(fn, flush, iters=50):
     """Median device time of one call, L2 flushed before each call."""
     for _ in range(3):
@@ -182,6 +206,7 @@ def time_ms(fn, flush, iters=50):
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -245,16 +270,17 @@ def rmsnorm_phase(dev, flush, gen):
     return rows
 
 
-def decode_case(dev, dtype, gen):
-    """B 8, H 16, Kv 8, D 128, bs 16; ragged ctx up to 320 (a full table of
-    20 blocks), permuted pool blocks, -1 table tails."""
-    B, H, Kv, D, bs, nb = 8, 16, 8, 128, 16, 20
+def decode_case(dev, dtype, gen, B=8, nb=20, ctx=(320, 1, 17, 100, 255, 64,
+                                                   200, 33)):
+    """H 16, Kv 8, D 128, bs 16: by default the serving shape, ragged ctx
+    up to 320 (a full table of 20 blocks); permuted pool blocks, -1 table
+    tails."""
+    H, Kv, D, bs = 16, 8, 128, 16
     P = B * nb + 5
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dtype)
     k_pool = torch.randn(P, bs, Kv, D, generator=gen, device=dev).to(dtype)
     v_pool = torch.randn(P, bs, Kv, D, generator=gen, device=dev).to(dtype)
-    ctx = torch.tensor([320, 1, 17, 100, 255, 64, 200, 33], dtype=torch.int32,
-                       device=dev)
+    ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
     perm = torch.randperm(P, generator=gen, device=dev)[:B * nb].view(B, nb)
     live = (ctx[:, None] + bs - 1) // bs
     tbl = torch.where(torch.arange(nb, device=dev)[None] < live,
@@ -262,93 +288,137 @@ def decode_case(dev, dtype, gen):
     return q, k_pool, v_pool, tbl, ctx
 
 
+# (splits, long context, decode_case arguments): the serving shape (its
+# splits 4 row is reported), then B 8 at ctx 4096 (256 blocks, 268 MB of
+# f32 K/V)
+DECODE_CASES = [((1, 4), False, {}),
+                ((4,), True, dict(B=8, nb=256, ctx=(4096,) * 8))]
+
+
 def flash_decode_phase(dev, flush, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        case = decode_case(dev, dtype, gen)
-        q, k_pool, v_pool, tbl, ctx = case
-        B, _, H, D = q.shape
-        Kv, isz = k_pool.shape[2], q.element_size()
-        G, nb = H // Kv, tbl.shape[1]
-        n_pos = int(ctx.sum())
-        # library yardstick: SDPA with GQA over K/V gathered by the table
-        kg = k_pool[tbl.clamp(min=0).long()].reshape(B, -1, Kv, D) \
-            .transpose(1, 2).contiguous()
-        vg = v_pool[tbl.clamp(min=0).long()].reshape(B, -1, Kv, D) \
-            .transpose(1, 2).contiguous()
-        mask = (torch.arange(kg.shape[2], device=dev)[None] < ctx[:, None]
-                )[:, None, None, :]
-        qs = q.transpose(1, 2).contiguous()
-        for n_splits in (1, 4):
-            splits, _ = fd.plan_splits(nb, n_splits)
-            parts = fd.split_cuda(*case, n_splits)
-            parts0 = fd.split_plain(*case, n_splits)
-            out_k = fd.combine_cuda(*parts, dtype)
-            torch.cuda.synchronize()
-            # split kernel: its partials, merged by the plain combine
-            e_split, ok1 = max_err(fd.combine_plain(*parts),
-                                   fd.combine_plain(*parts0), torch.float32)
-            # combine kernel: the same partials, merged by both
-            e_comb, ok2 = max_err(out_k, fd.combine_plain(*parts).to(dtype),
-                                  dtype)
-            check(ok1 and ok2, f"flash-decode {dtype} splits={n_splits}: "
-                               f"split err {e_split:.3g}, combine err "
-                               f"{e_comb:.3g} over tolerance")
-            part_bytes = B * Kv * splits * G * (D + 2) * 4
-            b_split, by_split = bound_ms(
-                B * H * D * isz + 2 * n_pos * Kv * D * isz + 4 * B * nb
-                + 4 * B + part_bytes, 4 * n_pos * H * D, dtype)
-            b_comb, by_comb = bound_ms(part_bytes + B * H * D * isz,
-                                       4 * B * H * D * splits, dtype)
-            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
-            shape = (f"B{B} H{H} Kv{Kv} D{D} bs16 ctx<=320 "
-                     f"splits{n_splits}")
-            dt = str(dtype).split(".")[-1]
-            split_row = dict(
-                name="flash_decode", dtype=dt, shape=shape,
-                max_abs_err=e_split, n_splits=n_splits,
-                ms=time_ms(lambda: fd.split_cuda(*case, n_splits), flush),
-                plain_ms=time_ms(lambda: fd.split_plain(*case, n_splits),
-                                 flush),
-                library_ms=sdpa_ms, bound_ms=b_split, bound_by=by_split)
-            comb_row = dict(
-                name="flash_decode_combine", dtype=dt, shape=shape,
-                max_abs_err=e_comb, n_splits=n_splits,
-                ms=time_ms(lambda: fd.combine_cuda(*parts, dtype), flush),
-                plain_ms=time_ms(lambda: fd.combine_plain(*parts).to(dtype),
-                                 flush),
-                library_ms=None, bound_ms=b_comb, bound_by=by_comb)
-            rows += [split_row, comb_row]
-            for r in (split_row, comb_row):
-                lib = ("" if r["library_ms"] is None
-                       else f", SDPA {r['library_ms']:.4f} ms")
-                print(f"[kernels] {r['name']} {dt} splits={n_splits}: err "
-                      f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, "
-                      f"plain {r['plain_ms']:.4f} ms{lib}, bound "
-                      f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        for splits_list, long_ctx, kw in DECODE_CASES:
+            case = decode_case(dev, dtype, gen, **kw)
+            rows += decode_rows(dev, flush, dtype, case, splits_list,
+                                long_ctx)
+            del case
     return rows
 
 
+def decode_rows(dev, flush, dtype, case, splits_list, long_ctx):
+    rows = []
+    q, k_pool, v_pool, tbl, ctx = case
+    B, _, H, D = q.shape
+    Kv, isz = k_pool.shape[2], q.element_size()
+    G, nb = H // Kv, tbl.shape[1]
+    n_pos = int(ctx.sum())
+    # library yardstick: SDPA with GQA over K/V gathered by the table
+    kg = k_pool[tbl.clamp(min=0).long()].reshape(B, -1, Kv, D) \
+        .transpose(1, 2).contiguous()
+    vg = v_pool[tbl.clamp(min=0).long()].reshape(B, -1, Kv, D) \
+        .transpose(1, 2).contiguous()
+    mask = (torch.arange(kg.shape[2], device=dev)[None] < ctx[:, None]
+            )[:, None, None, :]
+    qs = q.transpose(1, 2).contiguous()
+    dt = str(dtype).split(".")[-1]
+    ctx_s = f"ctx{int(ctx.max())}" if long_ctx else "ctx<=320"
+    for n_splits in splits_list:
+        splits, _ = fd.plan_splits(nb, n_splits)
+        parts = fd.split_cuda(*case, n_splits)
+        again = fd.split_cuda(*case, n_splits)
+        parts0 = fd.split_plain(*case, n_splits)
+        out_k = fd.combine_cuda(*parts, dtype)
+        torch.cuda.synchronize()
+        # split kernel: its partials, merged by the plain combine
+        e_split, ok1 = max_err(fd.combine_plain(*parts),
+                               fd.combine_plain(*parts0), torch.float32)
+        # combine kernel: the same partials, merged by both
+        e_comb, ok2 = max_err(out_k, fd.combine_plain(*parts).to(dtype),
+                              dtype)
+        check(ok1 and ok2, f"flash-decode {dtype} {ctx_s} splits="
+                           f"{n_splits}: split err {e_split:.3g}, combine "
+                           f"err {e_comb:.3g} over tolerance")
+        check(all(torch.equal(a, b) for a, b in zip(parts, again)),
+              f"flash-decode {dt} {ctx_s} splits={n_splits}: a second "
+              f"launch on the same inputs gave other bits")
+        del parts0, again
+        part_bytes = B * Kv * splits * G * (D + 2) * 4
+        b_split, by_split = bound_ms(
+            B * H * D * isz + 2 * n_pos * Kv * D * isz + 4 * B * nb
+            + 4 * B + part_bytes, 4 * n_pos * H * D, dtype)
+        b_comb, by_comb = bound_ms(part_bytes + B * H * D * isz,
+                                   4 * B * H * D * splits, dtype)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
+        shape = f"B{B} H{H} Kv{Kv} D{D} bs16 {ctx_s} splits{n_splits}"
+        split_row = dict(
+            name="flash_decode", dtype=dt, shape=shape, long_ctx=long_ctx,
+            max_abs_err=e_split, n_splits=n_splits,
+            ms=time_ms(lambda: fd.split_cuda(*case, n_splits), flush),
+            plain_ms=time_ms(lambda: fd.split_plain(*case, n_splits),
+                             flush, 5 if long_ctx else 50),
+            library_ms=sdpa_ms, bound_ms=b_split, bound_by=by_split)
+        comb_row = dict(
+            name="flash_decode_combine", dtype=dt, shape=shape,
+            long_ctx=long_ctx, max_abs_err=e_comb, n_splits=n_splits,
+            ms=time_ms(lambda: fd.combine_cuda(*parts, dtype), flush),
+            plain_ms=time_ms(lambda: fd.combine_plain(*parts).to(dtype),
+                             flush),
+            library_ms=None, bound_ms=b_comb, bound_by=by_comb)
+        rows += [split_row, comb_row]
+        for r in (split_row, comb_row):
+            lib = ("" if r["library_ms"] is None
+                   else f", SDPA {r['library_ms']:.4f} ms")
+            print(f"[kernels] {r['name']} {dt} {ctx_s} splits={n_splits}: "
+                  f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms{lib}, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                  f"{r['bound_ms'] / r['ms']:.3f} of it)")
+    return rows
+
+
+# (n, d), timed: the training path's rows (B x S = 4096 of d 1024, the
+# reported case) and a row count that is no multiple of the 16-row CTA;
+# then checked: 4 warps per row (d 4096), a ragged width off the 16-byte
+# vectors (d 1001), and fewer rows than one CTA takes
+RMS_BWD_CASES = [((4096, 1024), True), ((4099, 1024), True),
+                 ((4096, 4096), False), ((4096, 1001), False),
+                 ((5, 1024), False)]
+
+
 def rmsnorm_bwd_phase(dev, flush, gen):
-    """RMSNorm backward at the training path's rows (B x S = 4096 of d
-    1024) and a ragged row count (not a multiple of the 16-row CTA)."""
+    """RMSNorm backward against its plain version; a second launch must
+    give the same bits (dscale's partials are summed in a fixed order)."""
     rows = []
     eps = 1e-6
     for dtype in (torch.float32, torch.bfloat16):
-        for n, d in ((4096, 1024), (4099, 1024)):
+        for (n, d), timed in RMS_BWD_CASES:
             x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
             gy = torch.randn(n, d, generator=gen, device=dev).to(dtype)
             s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
             _, rstd = rms.rmsnorm_plain(x, s, eps)
             dx, ds = rms.rmsnorm_bwd_cuda(x, s, rstd, gy)
+            dx2, ds2 = rms.rmsnorm_bwd_cuda(x, s, rstd, gy)
             dx0, ds0 = rms.rmsnorm_bwd_plain(x, s, rstd, gy)
             torch.cuda.synchronize()
             err, ok = max_err(dx, dx0, dtype)
             ds_rel = rel_err(ds, ds0)
+            dt = str(dtype).split(".")[-1]
             check(ok and ds_rel <= GRAD_REL_TOL[torch.float32],
-                  f"rmsnorm backward {dtype} ({n},{d}): |ddx| {err:.3g}, "
+                  f"rmsnorm backward {dt} ({n},{d}): |ddx| {err:.3g}, "
                   f"dscale rel {ds_rel:.3g} over tolerance")
+            check(torch.equal(dx, dx2) and torch.equal(ds, ds2),
+                  f"rmsnorm backward {dt} ({n},{d}): a second launch on "
+                  f"the same inputs gave other bits")
+            row = dict(name="rmsnorm_bwd", dtype=dt, shape=f"({n},{d})",
+                       timed=timed,
+                       max_abs_err=max(err, (ds - ds0).abs().max().item()))
+            rows.append(row)
+            if not timed:
+                print(f"[kernels] rmsnorm_bwd {dt} ({n},{d}): dx err "
+                      f"{err:.3g}, dscale rel {ds_rel:.3g}; same bits twice")
+                continue
             isz = x.element_size()
             bnd, by = bound_ms(3 * n * d * isz + 4 * n + 8 * d, 11 * n * d,
                                dtype)
@@ -358,21 +428,22 @@ def rmsnorm_bwd_phase(dev, flush, gen):
                 y = F.rms_norm(xr, (d,), w, eps)
                 lib = time_ms(lambda: torch.autograd.grad(
                     y, (xr, w), gy, retain_graph=True), flush)
-            row = dict(name="rmsnorm_bwd", dtype=str(dtype).split(".")[-1],
-                       shape=f"({n},{d})",
-                       max_abs_err=max(err, (ds - ds0).abs().max().item()),
-                       ms=time_ms(lambda: rms.rmsnorm_bwd_cuda(x, s, rstd, gy),
+            row.update(ms=time_ms(lambda: rms.rmsnorm_bwd_cuda(x, s, rstd, gy),
                                   flush),
                        plain_ms=time_ms(
                            lambda: rms.rmsnorm_bwd_plain(x, s, rstd, gy),
                            flush),
                        library_ms=lib, bound_ms=bnd, bound_by=by)
-            rows.append(row)
-            print(f"[kernels] rmsnorm_bwd {row['dtype']} {row['shape']}: "
-                  f"dx err {err:.3g}, dscale rel {ds_rel:.3g}; kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                  f"F.rms_norm backward {lib:.4f} ms, bound {bnd:.5f} ms "
-                  f"({by})")
+            # the backward is two launches: the rows, then dscale's reduce
+            row["launch_split_ms"] = kernel_split_ms(
+                lambda: rms.rmsnorm_bwd_cuda(x, s, rstd, gy), flush, "rmsnorm")
+            print(f"[kernels] rmsnorm_bwd {dt} ({n},{d}): dx err {err:.3g}, "
+                  f"dscale rel {ds_rel:.3g}; kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, F.rms_norm backward "
+                  f"{lib:.4f} ms, bound {bnd:.5f} ms ({by}); device ms per "
+                  f"launch: " + "; ".join(
+                      f"{k} {t:.4f}"
+                      for k, t in row["launch_split_ms"].items()))
     return rows
 
 
@@ -947,8 +1018,8 @@ SOURCES = {
 # the training paths' norm rows, attention shape and WKV-6 shape
 REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "rmsnorm_bwd": dict(shape="(4096,1024)"),
-            "flash_decode": dict(n_splits=4),
-            "flash_decode_combine": dict(n_splits=4),
+            "flash_decode": dict(n_splits=4, long_ctx=False),
+            "flash_decode_combine": dict(n_splits=4, long_ctx=False),
             "flash_attention": dict(timed=True),
             "flash_attention_dq": dict(timed=True),
             "flash_attention_dkv": dict(timed=True),

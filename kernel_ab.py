@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""A/B of the port's flash-attention forward and WKV-6 kernels on one GPU:
-this tree's CUDA sources against those of another checkout (the parent
-commit, say, unpacked with ``git archive``).
+"""A/B of the port's redesigned kernels on one GPU: this tree's CUDA
+sources against those of another checkout (the parent commit, say,
+unpacked with ``git archive``).
 
     python3 kernel_ab.py --parent DIR [--out results.json]
 
-Builds ``flash_attention.cu`` and ``wkv6.cu`` from ``DIR/src/repro_torch/
-kernels/csrc`` with the same ``nvcc`` flags as this tree's (into
-``DIR/build/kernels``), then, on ``chip_smoke.py``'s cases:
+Builds ``flash_attention.cu``, ``wkv6.cu``, ``rmsnorm.cu`` and
+``flash_decode.cu`` from ``DIR/src/repro_torch/kernels/csrc`` with the
+same ``nvcc`` flags as this tree's (into ``DIR/build/kernels``), then, on
+``chip_smoke.py``'s cases:
 
 - holds each side's flash forward (o, lse) against ``forward_plain``;
 - holds this tree's WKV-6 outputs (y and the final state) against the
   other side's with ``torch.equal``, and both against ``wkv6_plain``;
-- times both sides at the training shapes (f32 and bf16; L2 flushed
-  before every launch) in the order other, this, this, other, and prints
-  the medians of each side's two readings.
+- holds each side's RMSNorm backward (dx, dscale) against
+  ``rmsnorm_bwd_plain`` at ``RMS_BWD_CASES``, and reads each side's two
+  launches' device times (torch.profiler);
+- holds each side's flash-decode split, merged by ``combine_plain``,
+  against ``combine_plain(split_plain(...))`` at ``DECODE_CASES`` (the
+  serving shape and B 8 at ctx 4096);
+- requires a second launch of this tree's kernels to give the same bits;
+- times both sides at the main paths' shapes (f32 and bf16; L2 flushed
+  before every launch, as ``chip_smoke.time_ms`` does) in the order
+  other, this, this, other, and prints the medians of each side's two
+  readings, beside the timing's own floor (a one-element fill).
 
 Needs CUDA; prints the card's name and power limit first.
 """
@@ -36,13 +45,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 
-MODULES = {"flash_attention": fa, "wkv6": wkv}
+MODULES = {"flash_attention": fa, "wkv6": wkv, "rmsnorm": rms,
+           "flash_decode": fd}
 
 
 def build_other(root: Path):
-    """The other checkout's two sources, built with this tree's flags ->
+    """The other checkout's sources, built with this tree's flags ->
     {name: loaded library}."""
     out = root / "build" / "kernels"
     out.mkdir(parents=True, exist_ok=True)
@@ -100,7 +112,13 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    res = {"card": card, "flash": [], "wkv6": []}
+    res = {"card": card, "flash": [], "wkv6": [], "rmsnorm_bwd": [],
+           "flash_decode": []}
+    # what the timing itself costs: a one-element fill, timed the same way
+    tiny = torch.empty(1, device=dev)
+    res["event_floor_ms"] = cs.time_ms(lambda: tiny.zero_(), flush)
+    print(f"[ab] event floor (a one-element fill) "
+          f"{res['event_floor_ms']:.4f} ms")
 
     def ab(name, fn):
         """(other ms, this ms): medians of the readings taken in the order
@@ -168,15 +186,89 @@ def main(argv=None):
                         "wkv6", lambda: wkv.wkv6_cuda(r, k, v, w, u, chunk))
                 res["wkv6"].append(row)
                 print(f"[wkv6] {json.dumps(row)}")
+        for dtype in (torch.float32, torch.bfloat16):
+            res["rmsnorm_bwd"] += rmsnorm_bwd_ab(dev, dtype, gen, flush, ab,
+                                                 other)
+            res["flash_decode"] += flash_decode_ab(dev, dtype, gen, flush,
+                                                   ab, other)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
     ok = all(r["this_o_within_tol"] and r["this_lse_err"] <= 1e-5
              and r["this_repeat_equal"] for r in res["flash"])
     same = all(r["y_equal"] and r["state_equal"] for r in res["wkv6"])
+    ok_new = all(r["this_ok"] and r["other_ok"] and r["this_repeat_equal"]
+                 for r in res["rmsnorm_bwd"] + res["flash_decode"])
     print(f"[ab] flash forward within tolerance and repeatable: {ok}; "
-          f"wkv6 bits equal to the other side's: {same}")
-    return 0 if ok else 1
+          f"wkv6 bits equal to the other side's: {same}; RMSNorm backward "
+          f"and flash-decode split within tolerance on both sides and "
+          f"repeatable here: {ok_new}")
+    return 0 if ok and ok_new else 1
+
+
+def rmsnorm_bwd_ab(dev, dtype, gen, flush, ab, other):
+    rows = []
+    for (n, d), timed in cs.RMS_BWD_CASES:
+        x, gy = (torch.randn(n, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        _, rstd = rms.rmsnorm_plain(x, s, 1e-6)
+        args = (x, s, rstd, gy)
+        dx0, ds0 = rms.rmsnorm_bwd_plain(*args)
+        row = dict(dtype=str(dtype).split(".")[-1], shape=f"({n},{d})")
+        for side in ("this", "other"):
+            with (using("rmsnorm", other["rmsnorm"]) if side == "other"
+                  else contextlib.nullcontext()):
+                dx, ds = rms.rmsnorm_bwd_cuda(*args)
+                dx2, ds2 = rms.rmsnorm_bwd_cuda(*args)
+                if timed:
+                    row[f"{side}_launch_split_ms"] = cs.kernel_split_ms(
+                        lambda: rms.rmsnorm_bwd_cuda(*args), flush,
+                        "rmsnorm")
+            torch.cuda.synchronize()
+            err, within = cs.max_err(dx, dx0, dtype)
+            ds_rel = cs.rel_err(ds, ds0)
+            row.update({f"{side}_dx_err": err, f"{side}_dscale_rel": ds_rel,
+                        f"{side}_ok": within and ds_rel <= 1e-4,
+                        f"{side}_repeat_equal": bool(
+                            torch.equal(dx, dx2) and torch.equal(ds, ds2))})
+        if timed:
+            row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
+                "rmsnorm", lambda: rms.rmsnorm_bwd_cuda(*args))
+        rows.append(row)
+        print(f"[rmsnorm_bwd] {json.dumps(row)}")
+    return rows
+
+
+def flash_decode_ab(dev, dtype, gen, flush, ab, other):
+    rows = []
+    for splits_list, long_ctx, kw in cs.DECODE_CASES:
+        case = cs.decode_case(dev, dtype, gen, **kw)
+        for n_splits in splits_list:
+            ref = fd.combine_plain(*fd.split_plain(*case, n_splits))
+            row = dict(dtype=str(dtype).split(".")[-1], long_ctx=long_ctx,
+                       n_splits=n_splits, ctx_max=int(case[4].max()))
+            for side in ("this", "other"):
+                with (using("flash_decode", other["flash_decode"])
+                      if side == "other" else contextlib.nullcontext()):
+                    parts = fd.split_cuda(*case, n_splits)
+                    again = fd.split_cuda(*case, n_splits)
+                    row[f"{side}_device_ms"] = sum(cs.kernel_split_ms(
+                        lambda: fd.split_cuda(*case, n_splits), flush,
+                        "split").values())
+                torch.cuda.synchronize()
+                err, within = cs.max_err(fd.combine_plain(*parts), ref,
+                                         torch.float32)
+                row.update({f"{side}_err": err, f"{side}_ok": within,
+                            f"{side}_repeat_equal": all(
+                                torch.equal(a, b)
+                                for a, b in zip(parts, again))})
+            row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
+                "flash_decode", lambda: fd.split_cuda(*case, n_splits))
+            rows.append(row)
+            print(f"[flash_decode] {json.dumps(row)}")
+        del case
+    return rows
 
 
 if __name__ == "__main__":

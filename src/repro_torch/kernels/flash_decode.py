@@ -5,17 +5,22 @@ Replaces the TPU kernel ``src/repro/kernels/flash_decode.py::_decode_kernel``
 (reached from ``flash_decode``) and the jnp logsumexp merge after it
 (``flash_decode.py:147-153``).  What bounds it on the H100: bytes — decode
 reads each cached K/V element once for one query token, 2·G operations per
-element.  The split kernel (``csrc/flash_decode.cu``) runs one CTA per
-(request·kv head, K-split): it reads its block ids from the table itself
-(the TPU's scalar-prefetch index map), loads each pool block once for all
-G query heads of its kv head, stops at the request's last valid block,
-and writes an f32 partial (acc, m, l); the combine kernel merges the splits
-and writes (B, 1, H, D) in q's type.  Shared memory bounds the shapes it
-takes — (2·G·D + 2·bs·D + G·bs + 3·G)·4 bytes per CTA — not the TPU's
+element.  The split kernel (``csrc/flash_decode.cu``) runs one CTA of
+``DECODE_WARPS`` warps per (request·kv head, K-split) and stops at the
+request's last valid position.  Each warp takes its own chunks of
+``DECODE_CHUNK`` positions (chunk c of the split goes to warp c %
+``DECODE_WARPS``), reads each K and V row once as one coalesced warp load
+for all G query heads of its kv head, and keeps its own online softmax
+(m, l, acc) in registers, updated once per chunk; the warps' states are
+merged in warp order into the split's f32 partial (acc, m, l).  The
+combine kernel merges the splits and writes (B, 1, H, D) in q's type.
+Registers bound the shapes the split takes — G ≤ ``MAX_G``, D ≤ ``MAX_D``
+— and shared memory the merge, ``split_smem_bytes``; not the TPU's
 ``head_dim % 8`` rule.
 
 The plain versions repeat the kernel's arithmetic in its order: the same
-split plan, the same per-block online-softmax update, the same merge.
+split plan, the same chunks per warp and online-softmax update per chunk,
+the same merge across warps, then across splits.
 """
 from __future__ import annotations
 
@@ -27,6 +32,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+DECODE_WARPS = 8          # warps per split CTA, each with its own softmax
+DECODE_CHUNK = 8          # positions a warp takes per step
+MAX_G = 16                # query heads per kv head the kernel holds
+MAX_D = 256               # head dim the kernel holds (8 values a lane)
 
 # launches of the CUDA kernels (plain-version calls do not count)
 LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
@@ -47,8 +56,9 @@ def plan_splits(nb: int, n_splits: int):
     return splits, -(-nb // splits)
 
 
-def split_smem_bytes(G: int, D: int, bs: int) -> int:
-    return (2 * G * D + 2 * bs * D + G * bs + 3 * G) * 4
+def split_smem_bytes(G: int, D: int) -> int:
+    """Shared memory of one split CTA: q, then every warp's (acc, m, l)."""
+    return (G * D + DECODE_WARPS * G * (D + 2)) * 4
 
 
 # ---------------------------------------------------------------------------
@@ -57,39 +67,54 @@ def split_smem_bytes(G: int, D: int, bs: int) -> int:
 
 def split_plain(q, k_pool, v_pool, tbl, ctx, n_splits):
     """-> partials acc (B*Kv, splits, G, D), m and l (B*Kv, splits, G), f32,
-    walking each split's blocks in order with the kernel's update."""
+    in the kernel's order: split s covers positions s·bps·bs .. + bps·bs
+    - 1; its chunk c of ``DECODE_CHUNK`` positions belongs to warp c %
+    ``DECODE_WARPS``, which updates its own (m, l, acc) once per chunk; then
+    the warps are merged in order."""
     B, _, H, D = q.shape
     P, bs, Kv, _ = k_pool.shape
     G = H // Kv
     nb = tbl.shape[1]
     splits, bps = plan_splits(nb, n_splits)
-    safe = tbl.clamp(0, P - 1).long()
-    if splits * bps != nb:                  # padded tail entries read block 0
-        safe = F.pad(safe, (0, splits * bps - nb))
-    blk = safe.reshape(B, splits, bps)
-    qg = q.reshape(B, Kv, G, D).float()
+    W, U = DECODE_WARPS, DECODE_CHUNK
+    span = bps * bs                          # positions per split
+    rounds = -(-span // (W * U))
     dev = q.device
-    m = torch.full((B, Kv, splits, G), NEG_INF, dtype=torch.float32,
+    s_i = torch.arange(splits, device=dev)[:, None, None]
+    w_i = torch.arange(W, device=dev)[None, :, None]
+    u_i = torch.arange(U, device=dev)[None, None, :]
+    # entries < 0 clamp to block 0; positions past the table read block 0
+    reach = ((splits - 1) * span + rounds * W * U - 1) // bs + 1
+    safe = F.pad(tbl.clamp(0, P - 1).long(), (0, max(reach - nb, 0)))
+    qg = q.reshape(B, Kv, G, D).float()
+    m = torch.full((B, Kv, splits, W, G), NEG_INF, dtype=torch.float32,
                    device=dev)
-    l = torch.zeros((B, Kv, splits, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Kv, splits, G, D), dtype=torch.float32, device=dev)
-    first = torch.arange(splits, device=dev)[:, None] * bps * bs \
-        + torch.arange(bs, device=dev)[None]                    # (splits, bs)
-    for j in range(bps):
-        k = k_pool[blk[:, :, j]].float()             # (B, splits, bs, Kv, D)
-        v = v_pool[blk[:, :, j]].float()
-        sc = torch.einsum("bkgd,bstkd->bksgt", qg, k) * (D ** -0.5)
-        k_pos = first + j * bs
-        mask = (k_pos[None] < ctx[:, None, None])[:, None, :, None, :]
+    l = torch.zeros((B, Kv, splits, W, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Kv, splits, W, G, D), dtype=torch.float32,
+                      device=dev)
+    for r in range(rounds):
+        off = (r * W + w_i) * U + u_i                       # (1, W, U)
+        pos = s_i * span + off                              # (splits, W, U)
+        live = (off < span) & (pos[None] < ctx[:, None, None, None])
+        blk = safe[:, pos // bs]                            # (B, splits, W, U)
+        k = k_pool[blk, pos % bs].float()           # (B, splits, W, U, Kv, D)
+        v = v_pool[blk, pos % bs].float()
+        mask = live[:, None, :, :, None, :]         # (B, 1, splits, W, 1, U)
+        sc = torch.einsum("bkgd,bswukd->bkswgu", qg, k) * (D ** -0.5)
         sc = torch.where(mask, sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.where(mask, torch.exp(sc - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(-1)
         m = m_new
-        acc = acc * alpha[..., None] + torch.einsum("bksgt,bstkd->bksgd", p, v)
-    return (acc.reshape(B * Kv, splits, G, D), m.reshape(B * Kv, splits, G),
-            l.reshape(B * Kv, splits, G))
+        acc = acc * alpha[..., None] + torch.einsum("bkswgu,bswukd->bkswgd",
+                                                    p, v)
+    m_cta = m.amax(3)                               # merge the warps in order
+    e = torch.exp(m - m_cta[:, :, :, None])
+    acc = (acc * e[..., None]).sum(3)
+    l = (l * e).sum(3)
+    return (acc.reshape(B * Kv, splits, G, D),
+            m_cta.reshape(B * Kv, splits, G), l.reshape(B * Kv, splits, G))
 
 
 def combine_plain(acc, m, l):
@@ -134,10 +159,13 @@ def split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
             raise ValueError(f"{name} must be contiguous on {dev}")
     G = H // Kv
     nb = tbl.shape[1]
-    if split_smem_bytes(G, D, bs) > build.SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D}, bs={bs} needs "
-                         f"{split_smem_bytes(G, D, bs)} B of shared memory "
-                         f"per CTA (limit {build.SMEM_LIMIT})")
+    if G > MAX_G or D > MAX_D:
+        raise ValueError(f"flash-decode split holds G <= MAX_G {MAX_G} query "
+                         f"heads per kv head and head dim D <= MAX_D {MAX_D} "
+                         f"in registers, got G={G}, D={D}")
+    if split_smem_bytes(G, D) > build.SMEM_LIMIT:
+        raise ValueError(f"G={G}, D={D} needs {split_smem_bytes(G, D)} B of "
+                         f"shared memory per CTA (limit {build.SMEM_LIMIT})")
     splits, bps = plan_splits(nb, n_splits)
     acc = torch.empty((B * Kv, splits, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((B * Kv, splits, G), dtype=torch.float32, device=dev)

@@ -13,9 +13,13 @@ also writes the per-row ``rstd`` for the backward.
 
 Backward: replaces ``_rmsnorm_bwd_kernel`` (reached from
 ``_rmsnorm_backward``).  Bound: bytes again (x and g read, dx written).
-The TPU kernel sums ``dscale`` in an output block its sequential grid
-revisits; here each CTA of ``BWD_ROWS`` rows writes a partial row and a
-second kernel sums the partials in order — deterministic, no atomics.
+One warp holds a row of up to 1024 columns in registers (a group of up to
+16 warps holds a wider one), reads x and g once as 16-byte vectors, and
+sums the row with warp shuffles; each CTA of ``BWD_ROWS`` rows writes one
+dscale partial, and a second kernel sums the partials in a fixed order
+(warp slot ``p % BWD_REDUCE_WARPS``, then the slots), so dscale has the
+same bits on every launch — no atomics.  The TPU kernel instead sums
+``dscale`` in an output block its sequential grid revisits.
 
 ``RMSNormFn`` saves (x, scale, rstd) from the forward, as the JAX
 ``custom_vjp`` does, and runs the backward kernel: on a CUDA tensor both
@@ -35,6 +39,8 @@ from repro_torch.kernels import build
 LAUNCHES = {"rmsnorm": 0, "rmsnorm_bwd": 0}
 
 BWD_ROWS = 16             # rows per CTA of the backward: one dscale partial
+BWD_REDUCE_WARPS = 32     # warp slots of the partials' reduce
+BWD_MAX_D = 16 * 32 * 32  # 16 warps of 32 lanes hold a row, 32 values a lane
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -56,7 +62,8 @@ def rmsnorm_plain(x2, scale, eps):
 def rmsnorm_bwd_plain(x2, scale, rstd, g2):
     """x2, g2 (n, d), scale (d,), rstd (n,) f32 -> (dx (n, d) in x2.dtype,
     dscale (d,) f32), in the kernel's order: per-row c = mean(g·s·x), and
-    dscale as partial sums over ``BWD_ROWS`` rows, then over the partials."""
+    dscale as partial sums over ``BWD_ROWS`` rows, then partial p added into
+    slot ``p % BWD_REDUCE_WARPS``, then the slots in order."""
     n, d = x2.shape
     xf, gf = x2.float(), g2.float()
     r = rstd[:, None]
@@ -64,7 +71,9 @@ def rmsnorm_bwd_plain(x2, scale, rstd, g2):
     c = (gs * xf).sum(-1, keepdim=True) / d
     dx = r * (gs - xf * (r * r) * c)
     parts = F.pad(gf * xf * r, (0, 0, 0, (-n) % BWD_ROWS))
-    dscale = parts.reshape(-1, BWD_ROWS, d).sum(1).sum(0)
+    parts = parts.reshape(-1, BWD_ROWS, d).sum(1)
+    parts = F.pad(parts, (0, 0, 0, (-parts.shape[0]) % BWD_REDUCE_WARPS))
+    dscale = parts.reshape(-1, BWD_REDUCE_WARPS, d).sum(0).sum(0)
     return dx.to(x2.dtype), dscale
 
 
@@ -112,9 +121,9 @@ def rmsnorm_bwd_cuda(x2, scale, rstd, g2):
     if rstd.shape != (n,) or rstd.dtype != torch.float32 \
             or rstd.device != x2.device:
         raise ValueError(f"rstd must be ({n},) f32 on {x2.device}")
-    if d * 4 > build.SMEM_LIMIT:
-        raise ValueError(f"rmsnorm backward keeps a {d}-wide f32 partial in "
-                         f"shared memory (limit {build.SMEM_LIMIT} B)")
+    if d > BWD_MAX_D:
+        raise ValueError(f"rmsnorm backward holds a row in the registers of "
+                         f"at most 16 warps: d {d} > BWD_MAX_D {BWD_MAX_D}")
     dx = torch.empty_like(x2)
     partial = torch.empty((-(-n // BWD_ROWS), d), dtype=torch.float32,
                           device=x2.device)

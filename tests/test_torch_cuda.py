@@ -143,6 +143,156 @@ def test_cuda_rmsnorm_output_carries_grad():
         assert _rel_err(a, b) < 1e-5
 
 
+# |kernel - plain| <= atol + rtol * |plain|, element by element: f32 differs
+# by summation order only; bf16 outputs may land one bf16 ulp apart
+ELEM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _close(a, b, dtype):
+    atol, rtol = ELEM_TOL[dtype]
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def _rms_bwd_case(dev, dtype, n, d, seed=0, offset=0):
+    """x, g (n, d) in ``dtype`` (starting ``offset`` elements into their
+    buffers), scale (d,), rstd (n,) from the plain forward."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, gy = ((3 * torch.randn(n * d + offset, generator=g, device=dev))
+             .to(dtype)[offset:].view(n, d) for _ in range(2))
+    s = torch.rand(d, generator=g, device=dev) + 0.5
+    _, rstd = trms.rmsnorm_plain(x, s, 1e-6)
+    return x, s, rstd, gy
+
+
+def _check_rms_bwd(case, dtype):
+    dx, ds = trms.rmsnorm_bwd_cuda(*case)
+    dx0, ds0 = trms.rmsnorm_bwd_plain(*case)
+    dx2, ds2 = trms.rmsnorm_bwd_cuda(*case)
+    torch.cuda.synchronize()
+    assert _close(dx, dx0, dtype)
+    assert _rel_err(ds, ds0) < 1e-5          # f32 partials either way
+    # the same inputs give the same bits again: fixed-order dscale
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+# the backward's edges: one row, rows below and just past its 16-row CTA,
+# a ragged count; widths of one warp per row (1001: no 16-byte vectors),
+# of 4 and of 8 warps per row
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1000, 1001, 4096, 8192])
+@pytest.mark.parametrize("n", [1, 15, 17, 4099])
+def test_cuda_rmsnorm_backward_edges(n, d, dtype):
+    dev = _card()
+    _check_rms_bwd(_rms_bwd_case(dev, dtype, n, d, seed=n + d), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(4096, 1024), (37, 256), (20, 16384),
+                                 (3, 100)])
+def test_cuda_rmsnorm_backward_shapes(n, d, dtype):
+    """The training shape, the narrowest and widest row tiles, and inputs
+    off a 16-byte boundary (scalar loads)."""
+    dev = _card()
+    _check_rms_bwd(_rms_bwd_case(dev, dtype, n, d, seed=d), dtype)
+    _check_rms_bwd(_rms_bwd_case(dev, dtype, n, d, seed=d, offset=1), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_backward_refuses_wide_rows():
+    dev = _card()
+    case = _rms_bwd_case(dev, torch.float32, 2, trms.BWD_MAX_D + 1)
+    with pytest.raises(ValueError, match="BWD_MAX_D"):
+        trms.rmsnorm_bwd_cuda(*case)
+
+
+def _decode_case(dev, dtype, G, D, ctx, Kv=2, bs=16, nb=64, seed=0,
+                 offset=0):
+    """Permuted pool blocks, -1 table tails; the pools start ``offset``
+    elements into their buffers."""
+    rng = np.random.default_rng(seed)
+    B = len(ctx)
+    P = B * nb + 3
+    ctx = np.array(ctx, np.int32)
+    perm = rng.permutation(P)[:B * nb].reshape(B, nb)
+    tbl = np.where(np.arange(nb)[None] < -(-ctx // bs)[:, None], perm, -1)
+    q = torch.tensor(rng.standard_normal((B, 1, G * Kv, D),
+                                         dtype=np.float32), device=dev)
+    pools = [torch.tensor(rng.standard_normal(P * bs * Kv * D + offset,
+                                              dtype=np.float32), device=dev)
+             .to(dtype)[offset:].view(P, bs, Kv, D) for _ in range(2)]
+    return [q.to(dtype), *pools, torch.tensor(tbl.astype(np.int32),
+                                              device=dev),
+            torch.tensor(ctx, device=dev)]
+
+
+def _check_decode(case, dtype, n_splits):
+    parts = tfd.split_cuda(*case, n_splits)
+    parts0 = tfd.split_plain(*case, n_splits)
+    again = tfd.split_cuda(*case, n_splits)
+    out = tfd.combine_cuda(*parts, dtype)
+    torch.cuda.synchronize()
+    ref = tfd.combine_plain(*parts0)
+    assert _close(tfd.combine_plain(*parts), ref, torch.float32)
+    assert (parts[1] - parts0[1]).abs().max().item() < 1e-5      # m
+    assert _rel_err(parts[2], parts0[2]) < 1e-5                   # l
+    assert _close(out, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(parts, again))
+
+
+# ctx of one position, exactly at a block edge, a full table of 1024
+# positions and a ragged one
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_splits", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_cuda_flash_decode_split_edges(G, D, n_splits, dtype):
+    dev = _card()
+    case = _decode_case(dev, dtype, G, D, (1, 32, 1024, 37), seed=G * D)
+    _check_decode(case, dtype, n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_long_context(dtype):
+    """B 8 at ctx 4096 (256 blocks), Kv 8, G 2, D 128, 4 splits."""
+    dev = _card()
+    case = _decode_case(dev, dtype, 2, 128, (4096,) * 8, Kv=8, nb=256,
+                        seed=7)
+    _check_decode(case, dtype, 4)
+
+
+# G, D, bs, nb, splits: head counts and widths between the compiled
+# tiles, a head dim off the 16-byte vectors, a block size that does not
+# divide the 8-position chunks, the widest tile
+ODD_DECODE = [(3, 99, 5, 7, 3), (5, 40, 8, 9, 2), (16, 256, 16, 6, 4),
+              (2, 128, 16, 5, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", ODD_DECODE)
+def test_cuda_flash_decode_odd_shapes(case, offset):
+    dev = _card()
+    G, D, bs, nb, n_splits = case
+    args = _decode_case(dev, torch.float32, G, D, (1, bs * 2, bs * nb - 1),
+                        bs=bs, nb=nb, seed=D, offset=offset)
+    _check_decode(args, torch.float32, n_splits)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_refuses_wide_tiles():
+    dev = _card()
+    for G, D, what in ((tfd.MAX_G + 1, 64, "MAX_G"),
+                       (2, tfd.MAX_D + 1, "MAX_D")):
+        case = _decode_case(dev, torch.float32, G, D, (16,), nb=2)
+        with pytest.raises(ValueError, match=what):
+            tfd.split_cuda(*case, 2)
+
+
 def _attn_case(dev, dtype, B, S, H, Kv, D, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)

@@ -128,6 +128,37 @@ def test_rmsnorm_backward_matches_pallas(lead, d, dtype):
     assert _rel(sl.grad, ds_j) < 1e-5
 
 
+# the CUDA backward's edges: one row, rows below and just past its 16-row
+# CTA, a ragged row count; widths of one warp (ragged, not a multiple of a
+# 16-byte vector), of 4 and of 8 warps per row
+RMS_BWD_EDGES = [(1, 1000), (15, 1001), (17, 4096), (4099, 1024), (33, 8192)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n,d", RMS_BWD_EDGES)
+def test_rmsnorm_backward_edges_match_pallas(n, d, dtype):
+    """``rmsnorm_bwd_plain`` (the kernel's order: 16-row partials, then
+    the reduce's warp slots) against the Pallas backward at the CUDA
+    kernel's edges; dscale sums up to 4099 rows and stays within 1e-5."""
+    rng = np.random.default_rng(n * 7 + d)
+    x = rng.standard_normal((n, d), dtype=np.float32) * 3
+    g = rng.standard_normal((n, d), dtype=np.float32)
+    scale = 1 + 0.1 * rng.standard_normal(d, dtype=np.float32)
+    eps = 1e-5
+    rows = 16 if n < 1024 else 1024        # Pallas grid steps, interpreted
+    xj, gj = jnp.asarray(x, JDT[dtype]), jnp.asarray(g, JDT[dtype])
+    _, res = jax_rmsnorm_forward(xj, jnp.asarray(scale), eps, rows, True)
+    dx_j, ds_j = jax_rmsnorm_backward(eps, rows, True, res, gj)
+    xt, gt = torch.tensor(x).to(TDT[dtype]), torch.tensor(g).to(TDT[dtype])
+    st = torch.tensor(scale)
+    _, rstd = trms.rmsnorm_plain(xt, st, eps)
+    dx, ds = trms.rmsnorm_bwd_plain(xt, st, rstd, gt)
+    assert dx.shape == (n, d) and ds.shape == (d,)
+    assert _rel(dx, np.asarray(jnp.asarray(dx_j, jnp.float32))[:n]) \
+        < REL_TOL[dtype]
+    assert _rel(ds, ds_j) < 1e-5
+
+
 # ---------------------------------------------------------------------------
 # flash attention (training): forward, and backward through the custom VJP
 # ---------------------------------------------------------------------------
@@ -412,6 +443,57 @@ def test_flash_decode_matches_pallas(heads, kv_heads, n_splits):
     assert np.max(np.abs(out.numpy() - oracle)) < 1e-5
     port_oracle = tref.paged_attention_ref(*map(torch.tensor, case))
     assert np.max(np.abs(port_oracle.numpy() - oracle)) < 1e-5
+
+
+def _decode_edges(G, D, dtype, seed=0):
+    """Kv 2, bs 16, a table of 8 blocks: contexts of one position, exactly
+    at a block edge, a full table and a ragged one; permuted pool blocks,
+    unallocated (-1) tails."""
+    rng = np.random.default_rng(seed)
+    B, Kv, bs, nb = 4, 2, 16, 8
+    P = B * nb + 3
+    q = rng.standard_normal((B, 1, G * Kv, D), dtype=np.float32)
+    pools = [rng.standard_normal((P, bs, Kv, D), dtype=np.float32)
+             for _ in range(2)]
+    ctx = np.array([1, 2 * bs, bs * nb, 37], np.int32)
+    perm = rng.permutation(P)[:B * nb].reshape(B, nb).astype(np.int32)
+    tbl = np.where(np.arange(nb)[None] < -(-ctx // bs)[:, None], perm, -1)
+    return [q, *pools, tbl.astype(np.int32), ctx]
+
+
+def _decode_vs_pallas(case, dtype, n_splits):
+    tin = [torch.tensor(a) for a in case]
+    tin[:3] = [t.to(TDT[dtype]) for t in tin[:3]]
+    out = ops.paged_decode_attention(*tin, n_splits=n_splits)
+    jin = [jnp.asarray(a) for a in case]
+    jin[:3] = [a.astype(JDT[dtype]) for a in jin[:3]]
+    pallas = jax_flash_decode(*jin, n_splits=n_splits, interpret=True)
+    assert out.shape == case[0].shape and out.dtype == TDT[dtype]
+    return _rel(out, pallas)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_flash_decode_edges_match_pallas(G, D, n_splits):
+    """``split_plain`` in the CUDA kernel's order (chunks of 8 positions
+    per warp, 8 warps, merged in order) against the Pallas kernel at the
+    kernel's edges: G, D, splits, ctx 1, ctx at a block edge."""
+    assert _decode_vs_pallas(_decode_edges(G, D, "f32"), "f32",
+                             n_splits) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_decode_long_context_matches_pallas(dtype):
+    """One request of 1024 positions over 64 blocks (16 rounds of the
+    kernel's 8 warps x 8 positions per split), and bf16 pools."""
+    rng = np.random.default_rng(4)
+    bs, nb, Kv, G, D = 16, 64, 1, 2, 64
+    case = [rng.standard_normal(s, dtype=np.float32) for s in
+            ((1, 1, G * Kv, D), (nb, bs, Kv, D), (nb, bs, Kv, D))]
+    case += [rng.permutation(nb)[None].astype(np.int32),
+             np.array([bs * nb], np.int32)]
+    assert _decode_vs_pallas(case, dtype, 4) < REL_TOL[dtype]
 
 
 def test_flash_decode_empty_splits_vanish():
