@@ -18,12 +18,16 @@ order; any failure ends the run with a non-zero exit and no result line:
               flushed before every timed launch, the device kept busy
               until the host has queued it), beside the least time the
               card could take (the f32 flash kernels at the 3xTF32 rate
-              of the tensor cores they use); a second launch of the flash
-              forward, WKV-6, the RMSNorm backward and the flash-decode
-              split must give the same bits.  The RMSNorm backward is also
-              held at d 4096, a ragged d 1001 and 5 rows, and its two
-              launches' device times are printed (torch.profiler);
-              flash-decode is also held and timed at B 8, ctx 4096.  At
+              of the tensor cores they use); a second launch of every
+              kernel but dq and dk/dv must give the same bits.  The
+              RMSNorm forward is also held at d 20000 (wider than a
+              16-warp team holds) and on inputs off a 16-byte boundary,
+              and its device time is printed (torch.profiler); the
+              backward at d 4096, a ragged d 1001 and 5 rows, with its two
+              launches' device times.  Flash-decode (one launch: the
+              splits merged inside a thread-block cluster) is held against
+              the plain splits and combine at splits 1, 2, 4 and 12, and
+              at B 8, ctx 4096, with its device time.  At
               the training shape it also times ``attention_delta``, prints
               dq + dk/dv + delta against SDPA's backward, and names the
               kernels SDPA's backward ran.
@@ -32,7 +36,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               of 17-200 tokens, 48 greedy new tokens) through the paged
               engine on the kernels.  Launch counters are zeroed just before
               and read just after: RMSNorm must launch 57 times per forward
-              call, flash-decode and its combine 28 times per decode step.
+              call, flash-decode 28 times per decode step.
               Then the served tokens are fed again (teacher forcing) through
               the kernel path and the plain ``"torch"`` path on the same
               weights, and every step's logits must agree.
@@ -231,40 +235,63 @@ def rel_err(a, b):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# (n, d, offset), checked but not timed: a width wider than a 16-warp team
+# holds (walked in slices), and inputs one element off a 16-byte boundary
+# (scalar loads)
+RMS_FWD_CHECKED = [(64, 20000, 0), (37, 1024, 1), (4099, 1024, 1)]
+
+
 def rmsnorm_phase(dev, flush, gen):
     """RMSNorm forward at the serving path's decode rows (8, 32 and a ragged
     37 of d 1024) and the training path's (B x S = 4096, and an odd 4099
-    rows)."""
+    rows), timed; then RMS_FWD_CHECKED.  A second launch must give the same
+    bits."""
     rows = []
+    timed = [(n, 1024, 0) for n in (8, 32, 37, 4096, 4099)]
     for dtype in (torch.float32, torch.bfloat16):
-        for n, d in ((8, 1024), (32, 1024), (37, 1024), (4096, 1024),
-                     (4099, 1024)):
-            x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        dt = str(dtype).split(".")[-1]
+        for n, d, offset in timed + RMS_FWD_CHECKED:
+            x = torch.randn(n * d + offset, generator=gen, device=dev
+                            ).to(dtype)[offset:].view(n, d)
             s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
             y, rstd = rms.rmsnorm_cuda(x, s, 1e-6)
+            y2, rstd2 = rms.rmsnorm_cuda(x, s, 1e-6)
             y0, rstd0 = rms.rmsnorm_plain(x, s, 1e-6)
             torch.cuda.synchronize()
             err, ok = max_err(y, y0, dtype)
             rerr, rok = max_err(rstd, rstd0, torch.float32)
-            check(ok and rok, f"rmsnorm {dtype} ({n},{d}): |dy| {err:.3g}, "
+            shape = f"({n},{d})" + (f" offset {offset}" if offset else "")
+            check(ok and rok, f"rmsnorm {dt} {shape}: |dy| {err:.3g}, "
                               f"|drstd| {rerr:.3g} over tolerance")
+            check(torch.equal(y, y2) and torch.equal(rstd, rstd2),
+                  f"rmsnorm {dt} {shape}: a second launch on the same "
+                  f"inputs gave other bits")
+            if (n, d, offset) not in timed:
+                rows.append(dict(name="rmsnorm", dtype=dt, shape=shape,
+                                 timed=False, max_abs_err=err))
+                print(f"[kernels] rmsnorm {dt} {shape}: err {err:.3g}, rstd "
+                      f"err {rerr:.3g}; same bits twice")
+                continue
             isz = x.element_size()
             bnd, by = bound_ms(2 * n * d * isz + 4 * d + 4 * n, 4 * n * d,
                                dtype)
             w = s.to(dtype)
-            row = dict(name="rmsnorm", dtype=str(dtype).split(".")[-1],
-                       shape=f"({n},{d})",
+            row = dict(name="rmsnorm", dtype=dt, shape=shape, timed=True,
                        max_abs_err=err,
                        ms=time_ms(lambda: rms.rmsnorm_cuda(x, s, 1e-6), flush),
+                       device_ms=sum(kernel_split_ms(
+                           lambda: rms.rmsnorm_cuda(x, s, 1e-6), flush,
+                           "rmsnorm_fwd").values()),
                        plain_ms=time_ms(lambda: rms.rmsnorm_plain(x, s, 1e-6),
                                         flush),
                        library_ms=time_ms(
                            lambda: F.rms_norm(x, (d,), w, 1e-6), flush),
                        bound_ms=bnd, bound_by=by)
             rows.append(row)
-            print(f"[kernels] rmsnorm {row['dtype']} {row['shape']}: "
+            print(f"[kernels] rmsnorm {dt} {shape}: "
                   f"err {err:.3g} (tol atol={TOL[dtype][0]} "
-                  f"rtol={TOL[dtype][1]}) kernel {row['ms']:.4f} ms, plain "
+                  f"rtol={TOL[dtype][1]}) kernel {row['ms']:.4f} ms "
+                  f"(device {row['device_ms']:.4f}), plain "
                   f"{row['plain_ms']:.4f} ms, F.rms_norm "
                   f"{row['library_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
     return rows
@@ -290,9 +317,9 @@ def decode_case(dev, dtype, gen, B=8, nb=20, ctx=(320, 1, 17, 100, 255, 64,
 
 # (splits, long context, decode_case arguments): the serving shape (its
 # splits 4 row is reported), then B 8 at ctx 4096 (256 blocks, 268 MB of
-# f32 K/V)
-DECODE_CASES = [((1, 4), False, {}),
-                ((4,), True, dict(B=8, nb=256, ctx=(4096,) * 8))]
+# f32 K/V); at splits 12 each CTA of a cluster of 4 takes 3 splits
+DECODE_CASES = [((1, 2, 4, 12), False, {}),
+                ((4, 12), True, dict(B=8, nb=256, ctx=(4096,) * 8))]
 
 
 def flash_decode_phase(dev, flush, gen):
@@ -307,11 +334,14 @@ def flash_decode_phase(dev, flush, gen):
 
 
 def decode_rows(dev, flush, dtype, case, splits_list, long_ctx):
+    """The one-launch kernel (splits and their merge) against the plain
+    splits merged by the plain combine; a second launch must give the same
+    bits."""
     rows = []
     q, k_pool, v_pool, tbl, ctx = case
     B, _, H, D = q.shape
     Kv, isz = k_pool.shape[2], q.element_size()
-    G, nb = H // Kv, tbl.shape[1]
+    nb = tbl.shape[1]
     n_pos = int(ctx.sum())
     # library yardstick: SDPA with GQA over K/V gathered by the table
     kg = k_pool[tbl.clamp(min=0).long()].reshape(B, -1, Kv, D) \
@@ -323,58 +353,41 @@ def decode_rows(dev, flush, dtype, case, splits_list, long_ctx):
     qs = q.transpose(1, 2).contiguous()
     dt = str(dtype).split(".")[-1]
     ctx_s = f"ctx{int(ctx.max())}" if long_ctx else "ctx<=320"
+    # bytes: q, the K/V rows below ctx, the table, ctx and the output (the
+    # splits' partials stay on chip)
+    bnd, by = bound_ms(2 * B * H * D * isz + 2 * n_pos * Kv * D * isz
+                       + 4 * B * nb + 4 * B, 4 * n_pos * H * D, dtype)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
     for n_splits in splits_list:
-        splits, _ = fd.plan_splits(nb, n_splits)
-        parts = fd.split_cuda(*case, n_splits)
-        again = fd.split_cuda(*case, n_splits)
-        parts0 = fd.split_plain(*case, n_splits)
-        out_k = fd.combine_cuda(*parts, dtype)
+        out = fd.decode_cuda(*case, n_splits)
+        again = fd.decode_cuda(*case, n_splits)
+        ref = fd.combine_plain(*fd.split_plain(*case, n_splits))
         torch.cuda.synchronize()
-        # split kernel: its partials, merged by the plain combine
-        e_split, ok1 = max_err(fd.combine_plain(*parts),
-                               fd.combine_plain(*parts0), torch.float32)
-        # combine kernel: the same partials, merged by both
-        e_comb, ok2 = max_err(out_k, fd.combine_plain(*parts).to(dtype),
-                              dtype)
-        check(ok1 and ok2, f"flash-decode {dtype} {ctx_s} splits="
-                           f"{n_splits}: split err {e_split:.3g}, combine "
-                           f"err {e_comb:.3g} over tolerance")
-        check(all(torch.equal(a, b) for a, b in zip(parts, again)),
+        err, ok = max_err(out, ref.reshape(out.shape), dtype)
+        check(ok, f"flash-decode {dt} {ctx_s} splits={n_splits}: err "
+                  f"{err:.3g} over tolerance")
+        check(torch.equal(out, again),
               f"flash-decode {dt} {ctx_s} splits={n_splits}: a second "
               f"launch on the same inputs gave other bits")
-        del parts0, again
-        part_bytes = B * Kv * splits * G * (D + 2) * 4
-        b_split, by_split = bound_ms(
-            B * H * D * isz + 2 * n_pos * Kv * D * isz + 4 * B * nb
-            + 4 * B + part_bytes, 4 * n_pos * H * D, dtype)
-        b_comb, by_comb = bound_ms(part_bytes + B * H * D * isz,
-                                   4 * B * H * D * splits, dtype)
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
+        del ref, again
         shape = f"B{B} H{H} Kv{Kv} D{D} bs16 {ctx_s} splits{n_splits}"
-        split_row = dict(
+        row = dict(
             name="flash_decode", dtype=dt, shape=shape, long_ctx=long_ctx,
-            max_abs_err=e_split, n_splits=n_splits,
-            ms=time_ms(lambda: fd.split_cuda(*case, n_splits), flush),
-            plain_ms=time_ms(lambda: fd.split_plain(*case, n_splits),
+            max_abs_err=err, n_splits=n_splits,
+            ms=time_ms(lambda: fd.decode_cuda(*case, n_splits), flush),
+            device_ms=sum(kernel_split_ms(
+                lambda: fd.decode_cuda(*case, n_splits), flush,
+                "flash_decode").values()),
+            plain_ms=time_ms(lambda: fd.decode_plain(*case, n_splits),
                              flush, 5 if long_ctx else 50),
-            library_ms=sdpa_ms, bound_ms=b_split, bound_by=by_split)
-        comb_row = dict(
-            name="flash_decode_combine", dtype=dt, shape=shape,
-            long_ctx=long_ctx, max_abs_err=e_comb, n_splits=n_splits,
-            ms=time_ms(lambda: fd.combine_cuda(*parts, dtype), flush),
-            plain_ms=time_ms(lambda: fd.combine_plain(*parts).to(dtype),
-                             flush),
-            library_ms=None, bound_ms=b_comb, bound_by=by_comb)
-        rows += [split_row, comb_row]
-        for r in (split_row, comb_row):
-            lib = ("" if r["library_ms"] is None
-                   else f", SDPA {r['library_ms']:.4f} ms")
-            print(f"[kernels] {r['name']} {dt} {ctx_s} splits={n_splits}: "
-                  f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms{lib}, bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}; "
-                  f"{r['bound_ms'] / r['ms']:.3f} of it)")
+            library_ms=sdpa_ms, bound_ms=bnd, bound_by=by)
+        rows.append(row)
+        print(f"[kernels] flash_decode {dt} {ctx_s} splits={n_splits}: "
+              f"err {err:.3g} kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"SDPA {sdpa_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
+              f"{bnd / row['ms']:.3f} of it); same bits twice")
     return rows
 
 
@@ -777,7 +790,6 @@ def serve_phase(dev):
     fwd, steps = eng.stats["forward_calls"], eng.stats["decode_steps"]
     expect = {"rmsnorm": (2 * cfg.n_layers + 1) * fwd, "rmsnorm_bwd": 0,
               "flash_decode": cfg.n_layers * steps,
-              "flash_decode_combine": cfg.n_layers * steps,
               "flash_attention": 0, "flash_attention_dq": 0,
               "flash_attention_dkv": 0, "wkv6": 0}
     print(f"[serve] {fwd} forward calls ({steps} decode steps); launches "
@@ -1001,9 +1013,7 @@ SOURCES = {
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:33"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                     "src/repro/kernels/flash_decode.py:36"),
-    "flash_decode_combine": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                             "src/repro/kernels/flash_decode.py:147"),
+                     "src/repro/kernels/flash_decode.py:36, :147-153"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:60"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1019,7 +1029,6 @@ SOURCES = {
 REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "rmsnorm_bwd": dict(shape="(4096,1024)"),
             "flash_decode": dict(n_splits=4, long_ctx=False),
-            "flash_decode_combine": dict(n_splits=4, long_ctx=False),
             "flash_attention": dict(timed=True),
             "flash_attention_dq": dict(timed=True),
             "flash_attention_dkv": dict(timed=True),
@@ -1092,7 +1101,7 @@ def main(argv=None):
         dev, card, cfg, TRAIN_STEPS, AdamWConfig().lr, Runtime(),
         Runtime(attn_impl="torch", norm_impl="torch"),
         {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "flash_decode": 0,
-         "flash_decode_combine": 0, "flash_attention": L,
+         "flash_attention": L,
          "flash_attention_dq": L, "flash_attention_dkv": L, "wkv6": 0},
         TRAIN_BATCH, "train")
     print(f"[train] ok in {time.perf_counter() - t0:.1f}s")

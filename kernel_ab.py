@@ -13,12 +13,15 @@ same ``nvcc`` flags as this tree's (into ``DIR/build/kernels``), then, on
 - holds each side's flash forward (o, lse) against ``forward_plain``;
 - holds this tree's WKV-6 outputs (y and the final state) against the
   other side's with ``torch.equal``, and both against ``wkv6_plain``;
-- holds each side's RMSNorm backward (dx, dscale) against
-  ``rmsnorm_bwd_plain`` at ``RMS_BWD_CASES``, and reads each side's two
-  launches' device times (torch.profiler);
-- holds each side's flash-decode split, merged by ``combine_plain``,
-  against ``combine_plain(split_plain(...))`` at ``DECODE_CASES`` (the
-  serving shape and B 8 at ctx 4096);
+- holds each side's RMSNorm forward (y, rstd) against ``rmsnorm_plain`` at
+  ``RMS_FWD_CASES``, and its backward (dx, dscale) against
+  ``rmsnorm_bwd_plain`` at ``RMS_BWD_CASES`` (each timed), and reads
+  each side's launches' device times (torch.profiler);
+- holds each side's flash-decode output against ``combine_plain(
+  split_plain(...))`` at ``DECODE_CASES`` (the serving shape and B 8 at
+  ctx 4096).  A side whose library has the split and combine kernels of
+  the two-launch design (before the merge moved into a cluster) runs them
+  back to back as one call;
 - requires a second launch of this tree's kernels to give the same bits;
 - times both sides at the main paths' shapes (f32 and bf16; L2 flushed
   before every launch, as ``chip_smoke.time_ms`` does) in the order
@@ -51,6 +54,18 @@ from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 
 MODULES = {"flash_attention": fa, "wkv6": wkv, "rmsnorm": rms,
            "flash_decode": fd}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the two-launch flash-decode's entry points: the split kernel writes each
+# split's f32 partial (acc, m, l), the combine kernel merges them
+TWO_LAUNCH_DECODE = {
+    **{f"flash_decode_split_{t}": [_P] * 8 + [_I] * 9 + [_F, _P]
+       for t in ("f32", "bf16")},
+    **{f"flash_decode_combine_{t}": [_P] * 4 + [_I] * 4 + [_P]
+       for t in ("f32", "bf16")}}
+# (n, d) of the RMSNorm forward's A/B: decode rows, a prefill chunk's,
+# the training rows; then wider rows (a team of 2 and 4 warps a row)
+RMS_FWD_CASES = [(8, 1024), (256, 1024), (4096, 1024), (4096, 2048),
+                 (4096, 4096)]
 
 
 def build_other(root: Path):
@@ -72,9 +87,11 @@ def build_other(root: Path):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the other {name}.cu")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in MODULES[name]._SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
+        for fn, argtypes in {**MODULES[name]._SIGNATURES,
+                             **TWO_LAUNCH_DECODE}.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         libs[name] = lib
@@ -112,19 +129,23 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    res = {"card": card, "flash": [], "wkv6": [], "rmsnorm_bwd": [],
-           "flash_decode": []}
+    res = {"card": card, "flash": [], "wkv6": [], "rmsnorm": [],
+           "rmsnorm_bwd": [], "flash_decode": []}
     # what the timing itself costs: a one-element fill, timed the same way
     tiny = torch.empty(1, device=dev)
     res["event_floor_ms"] = cs.time_ms(lambda: tiny.zero_(), flush)
     print(f"[ab] event floor (a one-element fill) "
           f"{res['event_floor_ms']:.4f} ms")
 
-    def ab(name, fn):
-        """(other ms, this ms): medians of the readings taken in the order
-        other, this, this, other."""
+    def ab(name, fn, other_fn=None):
+        """(other ms, this ms): means of the readings taken in the order
+        other, this, this, other.  The other side runs ``other_fn`` if
+        given, else ``fn`` on the other library."""
         t = []
         for side in ("other", "this", "this", "other"):
+            if side == "other" and other_fn is not None:
+                t.append(cs.time_ms(other_fn, flush, 20))
+                continue
             ctx = (using(name, other[name]) if side == "other"
                    else contextlib.nullcontext())
             with ctx:
@@ -187,6 +208,8 @@ def main(argv=None):
                 res["wkv6"].append(row)
                 print(f"[wkv6] {json.dumps(row)}")
         for dtype in (torch.float32, torch.bfloat16):
+            res["rmsnorm"] += rmsnorm_fwd_ab(dev, dtype, gen, flush, ab,
+                                             other)
             res["rmsnorm_bwd"] += rmsnorm_bwd_ab(dev, dtype, gen, flush, ab,
                                                  other)
             res["flash_decode"] += flash_decode_ab(dev, dtype, gen, flush,
@@ -198,16 +221,19 @@ def main(argv=None):
              and r["this_repeat_equal"] for r in res["flash"])
     same = all(r["y_equal"] and r["state_equal"] for r in res["wkv6"])
     ok_new = all(r["this_ok"] and r["other_ok"] and r["this_repeat_equal"]
-                 for r in res["rmsnorm_bwd"] + res["flash_decode"])
+                 for r in res["rmsnorm"] + res["rmsnorm_bwd"]
+                 + res["flash_decode"])
     print(f"[ab] flash forward within tolerance and repeatable: {ok}; "
-          f"wkv6 bits equal to the other side's: {same}; RMSNorm backward "
-          f"and flash-decode split within tolerance on both sides and "
-          f"repeatable here: {ok_new}")
+          f"wkv6 bits equal to the other side's: {same}; RMSNorm forward "
+          f"and backward and flash-decode within tolerance on both sides "
+          f"and repeatable here: {ok_new}")
     return 0 if ok and ok_new else 1
 
 
 def rmsnorm_bwd_ab(dev, dtype, gen, flush, ab, other):
     rows = []
+    # every case is timed; the per-launch device split only where
+    # chip_smoke.py times the case
     for (n, d), timed in cs.RMS_BWD_CASES:
         x, gy = (torch.randn(n, d, generator=gen, device=dev).to(dtype)
                  for _ in range(2))
@@ -232,39 +258,97 @@ def rmsnorm_bwd_ab(dev, dtype, gen, flush, ab, other):
                         f"{side}_ok": within and ds_rel <= 1e-4,
                         f"{side}_repeat_equal": bool(
                             torch.equal(dx, dx2) and torch.equal(ds, ds2))})
-        if timed:
-            row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
-                "rmsnorm", lambda: rms.rmsnorm_bwd_cuda(*args))
+        row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
+            "rmsnorm", lambda: rms.rmsnorm_bwd_cuda(*args))
         rows.append(row)
         print(f"[rmsnorm_bwd] {json.dumps(row)}")
     return rows
 
 
+def rmsnorm_fwd_ab(dev, dtype, gen, flush, ab, other):
+    rows = []
+    for n, d in RMS_FWD_CASES:
+        x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        s = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        y0, rstd0 = rms.rmsnorm_plain(x, s, 1e-6)
+        row = dict(dtype=str(dtype).split(".")[-1], shape=f"({n},{d})")
+        for side in ("this", "other"):
+            with (using("rmsnorm", other["rmsnorm"]) if side == "other"
+                  else contextlib.nullcontext()):
+                y, rstd = rms.rmsnorm_cuda(x, s, 1e-6)
+                y2, rstd2 = rms.rmsnorm_cuda(x, s, 1e-6)
+                row[f"{side}_device_ms"] = sum(cs.kernel_split_ms(
+                    lambda: rms.rmsnorm_cuda(x, s, 1e-6), flush,
+                    "rmsnorm_fwd").values())
+            torch.cuda.synchronize()
+            err, within = cs.max_err(y, y0, dtype)
+            rstd_err = (rstd - rstd0).abs().max().item()
+            row.update({f"{side}_y_err": err, f"{side}_rstd_err": rstd_err,
+                        f"{side}_ok": within and rstd_err <= 1e-5,
+                        f"{side}_repeat_equal": bool(
+                            torch.equal(y, y2) and torch.equal(rstd, rstd2))})
+        row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
+            "rmsnorm", lambda: rms.rmsnorm_cuda(x, s, 1e-6))
+        rows.append(row)
+        print(f"[rmsnorm] {json.dumps(row)}")
+    return rows
+
+
+def two_launch_decode(lib, q, k_pool, v_pool, tbl, ctx, n_splits):
+    """The two-launch design on ``lib``: split kernel, then combine kernel,
+    back to back -> (B, 1, H, D) in q's type."""
+    B, _, H, D = q.shape
+    P, bs, Kv, _ = k_pool.shape
+    G, nb = H // Kv, tbl.shape[1]
+    splits, bps = fd.plan_splits(nb, n_splits)
+    acc = torch.empty((B * Kv, splits, G, D), dtype=torch.float32,
+                      device=q.device)
+    m = torch.empty((B * Kv, splits, G), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    out = torch.empty_like(q)
+    sfx = fd._SUFFIX[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = getattr(lib, f"flash_decode_split_{sfx}")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
+        ctx.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Kv, G,
+        D, P, bs, nb, splits, bps, float(D ** -0.5), stream)
+    build.check(lib, "flash_decode", code, "two-launch decode: split")
+    code = getattr(lib, f"flash_decode_combine_{sfx}")(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), B * Kv,
+        splits, G, D, stream)
+    build.check(lib, "flash_decode", code, "two-launch decode: combine")
+    return out
+
+
 def flash_decode_ab(dev, dtype, gen, flush, ab, other):
     rows = []
+    lib = other["flash_decode"]
+    two_launch = not hasattr(lib, f"flash_decode_{fd._SUFFIX[dtype]}")
     for splits_list, long_ctx, kw in cs.DECODE_CASES:
         case = cs.decode_case(dev, dtype, gen, **kw)
         for n_splits in splits_list:
-            ref = fd.combine_plain(*fd.split_plain(*case, n_splits))
+            ref = fd.decode_plain(*case, n_splits)
             row = dict(dtype=str(dtype).split(".")[-1], long_ctx=long_ctx,
-                       n_splits=n_splits, ctx_max=int(case[4].max()))
+                       n_splits=n_splits, ctx_max=int(case[4].max()),
+                       other_two_launch=two_launch)
+            this = lambda: fd.decode_cuda(*case, n_splits)  # noqa: E731
+            theirs = ((lambda: two_launch_decode(lib, *case, n_splits))
+                      if two_launch else None)
             for side in ("this", "other"):
-                with (using("flash_decode", other["flash_decode"])
-                      if side == "other" else contextlib.nullcontext()):
-                    parts = fd.split_cuda(*case, n_splits)
-                    again = fd.split_cuda(*case, n_splits)
+                fn = theirs if side == "other" and two_launch else this
+                with (using("flash_decode", lib)
+                      if side == "other" and not two_launch
+                      else contextlib.nullcontext()):
+                    out, again = fn(), fn()
                     row[f"{side}_device_ms"] = sum(cs.kernel_split_ms(
-                        lambda: fd.split_cuda(*case, n_splits), flush,
-                        "split").values())
+                        fn, flush, "flash_decode").values())
                 torch.cuda.synchronize()
-                err, within = cs.max_err(fd.combine_plain(*parts), ref,
-                                         torch.float32)
+                err, within = cs.max_err(out, ref, dtype)
                 row.update({f"{side}_err": err, f"{side}_ok": within,
-                            f"{side}_repeat_equal": all(
-                                torch.equal(a, b)
-                                for a, b in zip(parts, again))})
+                            f"{side}_repeat_equal": bool(
+                                torch.equal(out, again))})
             row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
-                "flash_decode", lambda: fd.split_cuda(*case, n_splits))
+                "flash_decode", this, theirs)
             rows.append(row)
             print(f"[flash_decode] {json.dumps(row)}")
         del case

@@ -1,22 +1,25 @@
-"""Flash-decode over a paged KV cache: the hand-written CUDA split and
-combine kernels, their plain PyTorch versions, and their launch counters.
+"""Flash-decode over a paged KV cache: the hand-written CUDA kernel, its
+plain PyTorch version, and its launch counter.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_decode.py::_decode_kernel``
 (reached from ``flash_decode``) and the jnp logsumexp merge after it
-(``flash_decode.py:147-153``).  What bounds it on the H100: bytes — decode
-reads each cached K/V element once for one query token, 2·G operations per
-element.  The split kernel (``csrc/flash_decode.cu``) runs one CTA of
-``DECODE_WARPS`` warps per (request·kv head, K-split) and stops at the
-request's last valid position.  Each warp takes its own chunks of
-``DECODE_CHUNK`` positions (chunk c of the split goes to warp c %
-``DECODE_WARPS``), reads each K and V row once as one coalesced warp load
-for all G query heads of its kv head, and keeps its own online softmax
-(m, l, acc) in registers, updated once per chunk; the warps' states are
-merged in warp order into the split's f32 partial (acc, m, l).  The
-combine kernel merges the splits and writes (B, 1, H, D) in q's type.
-Registers bound the shapes the split takes — G ≤ ``MAX_G``, D ≤ ``MAX_D``
-— and shared memory the merge, ``split_smem_bytes``; not the TPU's
-``head_dim % 8`` rule.
+(``flash_decode.py:147-153``), in one launch.  What bounds it on the H100:
+bytes — decode reads each cached K/V element once for one query token,
+2·G operations per element.  The kernel (``csrc/flash_decode.cu``) runs one
+thread-block cluster of C = min(splits, ``MAX_CLUSTER``) CTAs of
+``DECODE_WARPS`` warps per (request, kv head); the CTA of rank r takes the
+K-splits r, r + C, ... and stops at the request's last valid position.
+Within a split each warp takes its own chunks of ``DECODE_CHUNK``
+positions (chunk c of the split goes to warp c % ``DECODE_WARPS``), reads
+each K and V row once as one coalesced warp load for all G query heads of
+its kv head, and keeps its own online softmax (m, l, acc) in registers,
+updated once per chunk; the warps' states are merged in warp order into
+the split's state, which stays in the CTA's shared memory.  Rank 0 of the
+cluster then reads every split's state through distributed shared memory,
+merges them in split order and writes (B, 1, H, D) in q's type: the
+partials never reach device memory.  Registers bound the shapes the kernel
+takes — G ≤ ``MAX_G``, D ≤ ``MAX_D`` — and shared memory the splits a CTA
+holds, ``decode_smem_bytes``; not the TPU's ``head_dim % 8`` rule.
 
 The plain versions repeat the kernel's arithmetic in its order: the same
 split plan, the same chunks per warp and online-softmax update per chunk,
@@ -32,21 +35,19 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-DECODE_WARPS = 8          # warps per split CTA, each with its own softmax
+DECODE_WARPS = 8          # warps per CTA, each with its own softmax
 DECODE_CHUNK = 8          # positions a warp takes per step
 MAX_G = 16                # query heads per kv head the kernel holds
 MAX_D = 256               # head dim the kernel holds (8 values a lane)
+MAX_CLUSTER = 4           # CTAs per cluster, at most
+NO_CLUSTER_FITS = -1      # the launch's code when no cluster fits the card
 
-# launches of the CUDA kernels (plain-version calls do not count)
-LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
+# launches of the CUDA kernel (plain-version calls do not count)
+LAUNCHES = {"flash_decode": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    **{fn: [_P] * 8 + [_I] * 9 + [_F, _P]
-       for fn in ("flash_decode_split_f32", "flash_decode_split_bf16")},
-    **{fn: [_P] * 4 + [_I] * 4 + [_P]
-       for fn in ("flash_decode_combine_f32", "flash_decode_combine_bf16")},
-}
+_SIGNATURES = {fn: [_P] * 6 + [_I] * 9 + [_F, _P]
+               for fn in ("flash_decode_f32", "flash_decode_bf16")}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -56,9 +57,11 @@ def plan_splits(nb: int, n_splits: int):
     return splits, -(-nb // splits)
 
 
-def split_smem_bytes(G: int, D: int) -> int:
-    """Shared memory of one split CTA: q, then every warp's (acc, m, l)."""
-    return (G * D + DECODE_WARPS * G * (D + 2)) * 4
+def decode_smem_bytes(G: int, D: int, splits: int) -> int:
+    """Shared memory of one CTA: q, every warp's (acc, m, l), then the
+    (acc, m, l) of each of the ceil(splits / C) splits the CTA holds."""
+    C = min(splits, MAX_CLUSTER)
+    return (G * D + (DECODE_WARPS + -(-splits // C)) * G * (D + 2)) * 4
 
 
 # ---------------------------------------------------------------------------
@@ -126,16 +129,19 @@ def combine_plain(acc, m, l):
     return out / l_tot.clamp_min(1e-30)[..., None]
 
 
+def decode_plain(q, k_pool, v_pool, tbl, ctx, n_splits):
+    """The kernel's function: -> (B, 1, H, D) in q's type."""
+    out = combine_plain(*split_plain(q, k_pool, v_pool, tbl, ctx, n_splits))
+    return out.to(q.dtype).reshape(q.shape)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-def _lib():
-    return build.load("flash_decode", _SIGNATURES)
-
-
-def split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
-    """Launch the split kernel; same contract as :func:`split_plain`."""
+def decode_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
+    """Launch the kernel; same contract as :func:`decode_plain`.  Raises on
+    anything it does not take."""
     B, Sq, H, D = q.shape
     P, bs, Kv, Dk = k_pool.shape
     dev = q.device
@@ -160,46 +166,27 @@ def split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
     G = H // Kv
     nb = tbl.shape[1]
     if G > MAX_G or D > MAX_D:
-        raise ValueError(f"flash-decode split holds G <= MAX_G {MAX_G} query "
+        raise ValueError(f"flash-decode holds G <= MAX_G {MAX_G} query "
                          f"heads per kv head and head dim D <= MAX_D {MAX_D} "
                          f"in registers, got G={G}, D={D}")
-    if split_smem_bytes(G, D) > build.SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D} needs {split_smem_bytes(G, D)} B of "
-                         f"shared memory per CTA (limit {build.SMEM_LIMIT})")
     splits, bps = plan_splits(nb, n_splits)
-    acc = torch.empty((B * Kv, splits, G, D), dtype=torch.float32, device=dev)
-    m = torch.empty((B * Kv, splits, G), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    lib = _lib()
-    code = getattr(lib, f"flash_decode_split_{_SUFFIX[q.dtype]}")(
+    smem = decode_smem_bytes(G, D, splits)
+    if smem > build.SMEM_LIMIT:
+        raise ValueError(f"flash-decode G={G}, D={D}, {splits} splits needs "
+                         f"{smem} B of shared memory per CTA (SMEM_LIMIT "
+                         f"{build.SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    lib = build.load("flash_decode", _SIGNATURES)
+    code = getattr(lib, f"flash_decode_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
-        ctx.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, Kv, G, D, P, bs, nb, splits, bps, float(D ** -0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "flash_decode", code, "flash-decode split launch")
+        ctx.data_ptr(), out.data_ptr(), B, Kv, G, D, P, bs, nb, splits, bps,
+        float(D ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    if code == NO_CLUSTER_FITS:
+        raise ValueError(f"flash-decode: no cluster of "
+                         f"{min(splits, MAX_CLUSTER)} CTAs with {smem} B of "
+                         f"shared memory each fits on "
+                         f"{torch.cuda.get_device_name(dev)} (G={G}, D={D}, "
+                         f"{splits} splits)")
+    build.check(lib, "flash_decode", code, "flash-decode launch")
     LAUNCHES["flash_decode"] += 1
-    return acc, m, l
-
-
-def combine_cuda(acc, m, l, out_dtype):
-    """Launch the combine kernel -> (B*Kv, G, D) in ``out_dtype``."""
-    BKv, splits, G, D = acc.shape
-    dev = acc.device
-    if dev.type != "cuda":
-        raise ValueError(f"combine kernel needs CUDA tensors, got {dev}")
-    if out_dtype not in _SUFFIX:
-        raise TypeError(f"combine writes f32/bf16, got {out_dtype}")
-    for name, t, shape in (("acc", acc, (BKv, splits, G, D)),
-                           ("m", m, (BKv, splits, G)),
-                           ("l", l, (BKv, splits, G))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 {shape} on {dev}")
-    out = torch.empty((BKv, G, D), dtype=out_dtype, device=dev)
-    lib = _lib()
-    code = getattr(lib, f"flash_decode_combine_{_SUFFIX[out_dtype]}")(
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-        BKv, splits, G, D, torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "flash_decode", code, "flash-decode combine launch")
-    LAUNCHES["flash_decode_combine"] += 1
     return out

@@ -43,13 +43,8 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):
     """Flash-decode over a paged KV cache.  q (B, 1, H, D); pools
     (P, bs, Kv, D); tbl (B, max_blocks) int32; ctx (B,) int32 valid
     positions per request -> (B, 1, H, D) in q's type."""
-    if _on_cpu(q):
-        acc, m, l = _fd.split_plain(q, k_pool, v_pool, tbl, ctx, n_splits)
-        out = _fd.combine_plain(acc, m, l).to(q.dtype)
-    else:
-        acc, m, l = _fd.split_cuda(q, k_pool, v_pool, tbl, ctx, n_splits)
-        out = _fd.combine_cuda(acc, m, l, q.dtype)
-    return out.reshape(q.shape)
+    decode = _fd.decode_plain if _on_cpu(q) else _fd.decode_cuda
+    return decode(q, k_pool, v_pool, tbl, ctx, n_splits)
 
 
 def wkv6(r, k, v, w, u, *, chunk=64):

@@ -5,11 +5,15 @@ autograd function that joins them.
 Forward: replaces the TPU kernel ``src/repro/kernels/rmsnorm.py::
 _rmsnorm_kernel`` (reached from ``_rmsnorm_forward``).  What bounds it on
 the H100: bytes — one read of x and one write of y per element, a few f32
-operations each.  The kernel (``csrc/rmsnorm.cu``) runs one CTA per row,
-reads the row once from device memory (the scale pass re-reads it from
-cache), accumulates in f32 and masks the ragged edge of any width, so the
-TPU's ``d % 128`` lane rule does not carry over.  Like the TPU kernel it
-also writes the per-row ``rstd`` for the backward.
+operations each.  The kernel (``csrc/rmsnorm.cu``) holds a row in the
+registers of one warp (a team of up to 16 warps for rows wider than 1024),
+loaded once as 16-byte vectors, sums its squares in f32 with warp shuffles
+and writes y from the same registers; several rows per CTA keep many rows
+in flight on each SM.  Any width runs: a ragged d (or an unaligned
+pointer) takes scalar loads over the same columns, so the TPU's ``d % 128``
+lane rule does not carry over, and rows wider than a 16-warp team holds are
+walked in slices and read a second time for the scale pass.  Like the TPU
+kernel it also writes the per-row ``rstd`` for the backward.
 
 Backward: replaces ``_rmsnorm_bwd_kernel`` (reached from
 ``_rmsnorm_backward``).  Bound: bytes again (x and g read, dx written).

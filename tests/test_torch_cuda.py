@@ -76,12 +76,14 @@ def test_cuda_kernels_match_plain(dtype, tol):
         assert (rstd - rstd0).abs().max().item() < 1e-5
     case = _paged_case(dev, dtype)
     for n_splits in (1, 2, 4):
-        parts = tfd.split_cuda(*case, n_splits)
-        out = tfd.combine_cuda(*parts, dtype)
+        out = tfd.decode_cuda(*case, n_splits)
+        again = tfd.decode_cuda(*case, n_splits)
         ref = tfd.combine_plain(*tfd.split_plain(*case, n_splits))
         torch.cuda.synchronize()
-        assert (tfd.combine_plain(*parts) - ref).abs().max().item() < 1e-5
+        ref = ref.reshape(out.shape)
+        assert out.dtype == dtype
         assert ((out.float() - ref).abs() <= tol + tol * ref.abs()).all()
+        assert torch.equal(out, again)
 
 
 def _card():
@@ -208,6 +210,34 @@ def test_cuda_rmsnorm_backward_refuses_wide_rows():
         trms.rmsnorm_bwd_cuda(*case)
 
 
+# the forward's edges: a ragged row count past the training rows; a width
+# wider than a 16-warp team holds (walked in slices); ragged widths; inputs
+# off a 16-byte boundary (scalar loads); few rows (a team of 2-16 warps a
+# row, 8 values a lane) and just more than the card's CTAs (rows share
+# CTAs, a warp a row)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,offset", [(4099, 1024, 0), (4099, 1024, 1),
+                                        (8, 1024, 1), (5, 20000, 0),
+                                        (5, 20000, 1), (33, 16385, 0),
+                                        (17, 1001, 0), (3, 100, 1),
+                                        (64, 4096, 0), (100, 2000, 1),
+                                        (256, 512, 0), (257, 1024, 0),
+                                        (600, 3000, 1)])
+def test_cuda_rmsnorm_forward_edges(n, d, offset, dtype):
+    dev = _card()
+    x, s, _, _ = _rms_bwd_case(dev, dtype, n, d, seed=n + d, offset=offset)
+    y, rstd = trms.rmsnorm_cuda(x, s, 1e-6)
+    y0, rstd0 = trms.rmsnorm_plain(x, s, 1e-6)
+    y2, rstd2 = trms.rmsnorm_cuda(x, s, 1e-6)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and rstd.dtype == torch.float32
+    assert _close(y, y0, dtype)
+    assert (rstd - rstd0).abs().max().item() < 1e-5
+    # the same inputs give the same bits again
+    assert torch.equal(y, y2) and torch.equal(rstd, rstd2)
+
+
 def _decode_case(dev, dtype, G, D, ctx, Kv=2, bs=16, nb=64, seed=0,
                  offset=0):
     """Permuted pool blocks, -1 table tails; the pools start ``offset``
@@ -229,17 +259,16 @@ def _decode_case(dev, dtype, G, D, ctx, Kv=2, bs=16, nb=64, seed=0,
 
 
 def _check_decode(case, dtype, n_splits):
-    parts = tfd.split_cuda(*case, n_splits)
-    parts0 = tfd.split_plain(*case, n_splits)
-    again = tfd.split_cuda(*case, n_splits)
-    out = tfd.combine_cuda(*parts, dtype)
+    """The one-launch output (the splits merged inside their cluster: no
+    partial reaches device memory) against the plain splits merged by the
+    plain combine, and its bits on a second launch."""
+    out = tfd.decode_cuda(*case, n_splits)
+    again = tfd.decode_cuda(*case, n_splits)
+    ref = tfd.combine_plain(*tfd.split_plain(*case, n_splits))
     torch.cuda.synchronize()
-    ref = tfd.combine_plain(*parts0)
-    assert _close(tfd.combine_plain(*parts), ref, torch.float32)
-    assert (parts[1] - parts0[1]).abs().max().item() < 1e-5      # m
-    assert _rel_err(parts[2], parts0[2]) < 1e-5                   # l
-    assert _close(out, ref, dtype)
-    assert all(torch.equal(a, b) for a, b in zip(parts, again))
+    assert out.shape == case[0].shape and out.dtype == dtype
+    assert _close(out, ref.reshape(out.shape), dtype)
+    assert torch.equal(out, again)
 
 
 # ctx of one position, exactly at a block edge, a full table of 1024
@@ -283,6 +312,29 @@ def test_cuda_flash_decode_odd_shapes(case, offset):
     _check_decode(args, torch.float32, n_splits)
 
 
+# more splits than a cluster holds (a CTA takes splits r, r + 4, ...), on
+# tables of 16 and more blocks
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_splits,nb", [(12, 16), (12, 40), (16, 16),
+                                         (16, 64)])
+def test_cuda_flash_decode_many_splits(n_splits, nb, dtype):
+    dev = _card()
+    case = _decode_case(dev, dtype, 2, 128, (1, 16 * nb, 37, 16 * nb - 5),
+                        nb=nb, seed=n_splits + nb)
+    _check_decode(case, dtype, n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_empty_splits(dtype):
+    """ctx 1 with 4 splits: three CTAs of each cluster have no position to
+    read; they still meet the cluster's barriers and contribute nothing."""
+    dev = _card()
+    case = _decode_case(dev, dtype, 2, 128, (1, 1, 2, 1), nb=8, seed=3)
+    _check_decode(case, dtype, 4)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_decode_refuses_wide_tiles():
     dev = _card()
@@ -290,7 +342,13 @@ def test_cuda_flash_decode_refuses_wide_tiles():
                        (2, tfd.MAX_D + 1, "MAX_D")):
         case = _decode_case(dev, torch.float32, G, D, (16,), nb=2)
         with pytest.raises(ValueError, match=what):
-            tfd.split_cuda(*case, 2)
+            tfd.decode_cuda(*case, 2)
+    # G 16, D 256 with 64 splits: 8 split states per CTA overflow its
+    # shared memory
+    case = _decode_case(dev, torch.float32, 16, 256, (16,), nb=64)
+    assert tfd.decode_smem_bytes(16, 256, 64) > build.SMEM_LIMIT
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        tfd.decode_cuda(*case, 64)
 
 
 def _attn_case(dev, dtype, B, S, H, Kv, D, seed=0):

@@ -67,8 +67,10 @@ REL_TOL = {"f32": 1e-5, "bf16": 1e-2}
 # RMSNorm forward
 # ---------------------------------------------------------------------------
 
+# d 20480: wider than the CUDA forward's 16-warp team holds (16384 f32),
+# so the kernel walks the row in slices; the plain version has no limit
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("d", [256, 1024])
+@pytest.mark.parametrize("d", [256, 1024, 20480])
 @pytest.mark.parametrize("lead", [(37,), (3, 13)])   # rows: no block multiple
 def test_rmsnorm_matches_pallas(lead, d, dtype):
     rng = np.random.default_rng(0)
@@ -445,6 +447,32 @@ def test_flash_decode_matches_pallas(heads, kv_heads, n_splits):
     assert np.max(np.abs(port_oracle.numpy() - oracle)) < 1e-5
 
 
+@pytest.mark.parametrize("n_splits", [12, 16])
+@pytest.mark.parametrize("nb", [16, 20])
+def test_flash_decode_many_splits_match_pallas(nb, n_splits):
+    """More splits than the CUDA kernel's cluster of 4 CTAs holds (a CTA
+    then takes splits r, r + 4, ...), on tables of 16 and 20 blocks: the
+    split plan (``plan_splits``: min(n_splits, nb) splits of ceil(nb /
+    splits) blocks, padded tail blocks masked) and the split-order merge
+    against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(nb + n_splits)
+    B, Kv, G, D, bs = 3, 2, 2, 32, 8
+    P = B * nb + 2
+    ctx = np.array([1, bs * nb, bs * nb // 2 + 3], np.int32)
+    perm = rng.permutation(P)[:B * nb].reshape(B, nb)
+    tbl = np.where(np.arange(nb)[None] < -(-ctx // bs)[:, None], perm, -1)
+    case = [rng.standard_normal((B, 1, G * Kv, D), dtype=np.float32),
+            *(rng.standard_normal((P, bs, Kv, D), dtype=np.float32)
+              for _ in range(2)), tbl.astype(np.int32), ctx]
+    assert tfd.plan_splits(nb, n_splits)[0] == min(n_splits, nb)
+    assert _decode_vs_pallas(case, "f32", n_splits) < 1e-5
+    # the merge of the splits' partials equals the merge of one split
+    tin = [torch.tensor(a) for a in case]
+    one = ops.paged_decode_attention(*tin, n_splits=1)
+    assert _rel(ops.paged_decode_attention(*tin, n_splits=n_splits),
+                one) < 1e-5
+
+
 def _decode_edges(G, D, dtype, seed=0):
     """Kv 2, bs 16, a table of 8 blocks: contexts of one position, exactly
     at a block edge, a full table and a ragged one; permuted pool blocks,
@@ -525,12 +553,22 @@ def test_wrappers_refuse_other_devices():
         tfa.forward_cuda(*qkv)
     q, k_pool, v_pool, tbl, ctx = map(torch.tensor, _paged_case(4, 2))
     with pytest.raises(ValueError):
-        tfd.split_cuda(q, k_pool, v_pool, tbl, ctx, 2)
+        tfd.decode_cuda(q, k_pool, v_pool, tbl, ctx, 2)
     with pytest.raises(ValueError):
         ops.rmsnorm(x.to("meta"), torch.ones(8, device="meta"))
     rkvw = [torch.zeros(1, 16, 2, 64) for _ in range(4)]
     with pytest.raises(ValueError):
         twkv.wkv6_cuda(*rkvw, torch.zeros(2, 64), 32)
+
+
+def test_flash_decode_has_one_launch_path():
+    """The splits and their merge are one kernel: no separate split or
+    combine launcher, no combine counter, and the C library's entry points
+    are the one-launch kernel's."""
+    for gone in ("split_cuda", "combine_cuda"):
+        assert not hasattr(tfd, gone)
+    assert set(tfd.LAUNCHES) == {"flash_decode"}
+    assert set(tfd._SIGNATURES) == {"flash_decode_f32", "flash_decode_bf16"}
 
 
 # ---------------------------------------------------------------------------
