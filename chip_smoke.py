@@ -48,7 +48,20 @@ order; any failure ends the run with a non-zero exit and no result line:
               Every loss must be finite and the last below the first.  Then,
               from the same initial weights and one batch, the loss and every
               gradient of the kernel path must agree with the plain path's.
-6. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
+6. strategy — qwen3-0.6b at full width and depth under ``fsdp_bf16``
+              (f32 master weights, bf16 compute) through the functions the
+              train CLI calls (``strategy.resolve`` -> ``to_plan`` ->
+              ``core.parallel.apply_plan``, FSDP2 on a 1-rank NCCL mesh ->
+              ``train_loop``): 6 AdamW steps of 8 x 512 tokens, each step
+              57 RMSNorm forward and backward launches and 28 each of the
+              flash forward, dq and dk/dv, every one on bf16 tensors; its
+              step p50, tokens/s, peak memory and host spans (dispatch
+              printed beside the f32 phase's).  Then the bf16 kernel path
+              against the bf16 plain path on one batch (loss within 2e-2,
+              every gradient within 0.15 of its scale, their median within
+              5e-2), and the bf16 loss within 2e-2 of the f32 plain
+              path's.
+7. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
               d_model 2048, d_ff 7168, vocab 65536; f32, seed 0, WKV chunk
               32 as the train CLI): 6 AdamW steps (lr 1e-4) of 8 x 512
               tokens, exactly 24 WKV-6 launches per step and none of any
@@ -60,14 +73,17 @@ order; any failure ends the run with a non-zero exit and no result line:
               backward amplifies it in the first layers), then at 2
               layers of full width every gradient within 1e-3.  The
               earlier phases' tensors are freed first.
-7. report   — one JSON line listing every kernel, then the device line
-              ``{"ok": true, "device": {...}}`` as the last line.
+8. report   — one JSON line listing every kernel (its f32 case, and a
+              ``bf16`` entry with the strategy phase's bf16 launches),
+              then the device line ``{"ok": true, "device": {...}}`` as
+              the last line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -77,12 +93,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import strategy  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.core import parallel as par  # noqa: E402
 from repro_torch.data import Batcher, SyntheticSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -90,11 +109,13 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
+from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
+from repro_torch.strategy.topology import mesh_shape  # noqa: E402
 from repro_torch.train import TrainConfig, train_loop  # noqa: E402
 from repro_torch.train.trainer import batch_to_device  # noqa: E402
 
@@ -149,6 +170,23 @@ RWKV_CHECK_BATCH = 2                 # kernel vs plain gradients, 2 x 512
 # bf16: the same f32 value rounded once, so 2 bf16 ulps, or 1e-5 of scale
 # where an output is so small that 2 ulps fall below the f32 rounding
 WKV_REL_TOL = 1e-4
+# strategy phase: qwen3-0.6b under this spec (f32 master weights, bf16
+# compute) through the train CLI's functions on a 1-rank NCCL mesh
+STRATEGY_SPEC = "fsdp_bf16"
+# its bf16 kernel path against the bf16 plain path from the same weights
+# and batch at full depth, set before the first run on the card: a kernel
+# output may differ from its plain version by one bf16 ulp (2^-8
+# relative), and 28 layers of bf16 products carry such differences on.
+# On the CPU at 2 layers the kernels' plain versions and the plain layers
+# differ in bf16 by up to 2.1e-2 of a leaf's scale (median 1.2e-2), about
+# what bf16 and f32 differ by; these bars catch a wrong kernel, not
+# rounding
+BF16_LOSS_ATOL = 2e-2
+BF16_GRAD_REL = 0.15
+BF16_GRAD_MEDIAN = 5e-2
+# the bf16 loss against the f32 plain path's, the JAX package's bar
+# (tests/test_precision.py::test_bf16_train_step_numerics_match_f32)
+BF16_VS_F32_REL = 2e-2
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
 # after the flush the device spins this long (~0.5 ms at the H100's ~2 GHz)
 # before the start event, so the host's part of the timed call (a
@@ -579,7 +617,9 @@ def flash_phase(dev, flush, gen):
                 row = dict(base, name=name, max_abs_err=errs[name],
                            ms=time_ms(kern, flush, 20),
                            plain_ms=time_ms(plain, flush, 20),
-                           library_ms=lib, bound_ms=bnd, bound_by=by)
+                           library_ms=lib, bound_ms=bnd, bound_by=by,
+                           sdpa_forward_ms=lib_fwd,
+                           sdpa_backward_ms=lib_bwd)
                 row.update(notes.get(name, {}))
                 arith = "".join(f"; {k} {v:.5f} ms" if isinstance(v, float)
                                 else f"; {v}"
@@ -864,7 +904,20 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
     then :func:`grad_check` at ``check_batch`` x TRAIN_SEQ."""
     tc = TrainConfig(steps=steps, warmup=max(steps // 20, 1), log_every=1,
                      opt=AdamWConfig(lr=lr))
-    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    res = run_steps(dev, card, cfg, rt, tc,
+                    tfm.init_params(cfg, seed=SEED, device=dev), expect, tag)
+    res.update(grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor))
+    return res
+
+
+def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
+              expect_bf16=None):
+    """Train ``params`` for ``tc.steps`` steps through ``train_loop`` (under
+    ``plan`` when given) on seeded synthetic batches; launch counts zeroed
+    just before and read just after, held to ``expect`` per step (and the
+    bf16 launches to ``expect_bf16``); losses finite and falling.  -> the
+    run's measurements; frees the run's tensors."""
+    steps = tc.steps
     n_params = sum(p.numel() for p in params.parameters())
     batches = Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
                       TRAIN_BATCH)
@@ -875,14 +928,19 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
-                                            telemetry=rec)
+                                            telemetry=rec, plan=plan)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    bf16 = ops.launch_counts(torch.bfloat16)
     peak = torch.cuda.max_memory_allocated(dev)
     expect = {k: v * steps for k, v in expect.items()}
-    print(f"[{tag}] {steps} steps; launches {counts}, expected {expect}")
+    print(f"[{tag}] {steps} steps; launches {counts}, expected {expect}; "
+          f"bf16 launches {bf16}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
+    if expect_bf16 is not None:
+        want = {k: v * steps for k, v in expect_bf16.items()}
+        check(bf16 == want, f"bf16 launch counts {bf16} != expected {want}")
     losses = [h["loss"] for h in history]
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
@@ -896,12 +954,14 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
     # host spans per step, first step (one-time set-up) left out
     host = {name: statistics.mean(durs(f"train/{name}")[1:]) for name in
             ("dispatch", "data", "wait")}
-    res = dict(arch=cfg.name, params=n_params, steps=steps, lr=lr,
+    res = dict(arch=cfg.name, params=n_params, steps=steps, lr=tc.opt.lr,
                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
                step_s=steps_s, step_p50_s=p50, host_span_s=host,
                tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, wall_s=wall,
-               peak_mem_gib=peak / 2 ** 30, launches=counts)
-    print(f"[{tag}] {cfg.name} ({n_params / 1e9:.3f} B parameters) f32, "
+               peak_mem_gib=peak / 2 ** 30, launches=counts,
+               launches_bf16=bf16, compute_dtype=str(rt.compute_dtype))
+    print(f"[{tag}] {cfg.name} ({n_params / 1e9:.3f} B parameters) "
+          f"{str(rt.compute_dtype).split('.')[-1]} compute, "
           f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens/step: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; step p50 {p50 * 1e3:.1f} ms "
           f"({', '.join(f'{t * 1e3:.1f}' for t in steps_s)} ms), "
@@ -909,9 +969,61 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in host.items())
           + f"; peak memory {res['peak_mem_gib']:.2f} GiB; on {card}")
     del params, opt_state, history, batches
+    gc.collect()
     torch.cuda.empty_cache()
+    return res
 
-    res.update(grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor))
+
+def strategy_phase(dev, card, expect):
+    """qwen3-0.6b at full width and depth under STRATEGY_SPEC through the
+    functions the train CLI calls (``resolve`` -> ``to_plan`` ->
+    ``apply_plan`` -> ``train_loop``) on a 1-rank NCCL group: TRAIN_STEPS
+    AdamW steps, every kernel launch held to ``expect`` per step and all
+    of them on bf16 tensors; then the bf16 kernel path against the bf16
+    plain path on one batch, and the bf16 loss against the f32 plain
+    path's."""
+    cfg = get_config("qwen3-0.6b")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        strat, _ = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape)
+        rt = par.make_runtime(cfg, plan, shape)
+        check(rt.compute_dtype == torch.bfloat16
+              and rt.param_dtype == torch.float32,
+              f"{STRATEGY_SPEC}: runtime dtypes {rt}")
+        print(f"[strategy] {strat.format()} on {topo.name} (mesh "
+              f"{mesh_shape(plan.mesh)}, {dist.get_world_size()} rank, "
+              f"{dist.get_backend()})")
+        tc = TrainConfig(steps=TRAIN_STEPS,
+                         warmup=max(TRAIN_STEPS // 20, 1), log_every=1,
+                         grad_accum=strat.grad_accum, opt=AdamWConfig())
+        res = run_steps(dev, card, cfg, rt, tc, par.apply_plan(
+            tfm.init_params(cfg, seed=SEED, device=dev), plan), expect,
+            "strategy", plan=plan, expect_bf16=expect)
+        res.update(spec=strat.format(), mesh=mesh_shape(plan.mesh),
+                   ranks=dist.get_world_size(), backend=dist.get_backend())
+    finally:
+        shutdown()
+    plain_rt = dataclasses.replace(rt, attn_impl="torch", norm_impl="torch")
+    res.update(grad_check(dev, cfg, rt, plain_rt, TRAIN_BATCH, "strategy",
+                          loss_atol=BF16_LOSS_ATOL, grad_rel=BF16_GRAD_REL,
+                          median_rel=BF16_GRAD_MEDIAN))
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    batch = batch_to_device(next(iter(Batcher(
+        SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+        TRAIN_BATCH))), dev)
+    with torch.no_grad():
+        loss32 = tfm.loss_fn(cfg, params, batch, Runtime(
+            attn_impl="torch", norm_impl="torch"))[0].item()
+    del params, batch
+    torch.cuda.empty_cache()
+    rel = abs(res["loss_kernel"] - loss32) / abs(loss32)
+    res.update(loss_f32_plain=loss32, bf16_vs_f32_rel=rel)
+    print(f"[strategy] bf16 kernel-path loss {res['loss_kernel']:.6f} vs f32 "
+          f"plain {loss32:.6f}: rel {rel:.3g} (tol {BF16_VS_F32_REL})")
+    check(rel <= BF16_VS_F32_REL, f"bf16 loss off the f32 loss by {rel:.3g}")
     return res
 
 
@@ -935,15 +1047,19 @@ def wkv_output_noise(rel, dev):
         rwkv_lib.wkv_chunked = plain
 
 
-def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0):
+def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0,
+               loss_atol=TRAIN_LOSS_ATOL, grad_rel=TRAIN_GRAD_REL,
+               median_rel=None):
     """The loss and every gradient of the kernel path ``rt`` against the
     plain path from the same initial weights and one batch of
-    ``check_batch`` x TRAIN_SEQ: each leaf's error within TRAIN_GRAD_REL
-    of its scale.  With ``floor`` > 0 the plain path runs a second time
-    with its WKV outputs perturbed by a relative ``floor``, and the median
-    and the maximum of the leaves' errors are instead each held to
-    TRAIN_GRAD_REL or FLOOR_FACTOR times the same statistic of the leaves'
-    movement under that perturbation, whichever is larger."""
+    ``check_batch`` x TRAIN_SEQ: the loss within ``loss_atol``, each
+    leaf's error within ``grad_rel`` of its scale (and, with
+    ``median_rel``, their median within it).  With ``floor`` > 0 the plain
+    path runs a second time with its WKV outputs perturbed by a relative
+    ``floor``, and the median and the maximum of the leaves' errors are
+    instead each held to ``grad_rel`` or FLOOR_FACTOR times the same
+    statistic of the leaves' movement under that perturbation, whichever
+    is larger."""
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=SEED, device=dev)
     batch = batch_to_device(next(iter(Batcher(
@@ -971,37 +1087,41 @@ def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0):
     res.update(grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
                grad_rel_err_median=statistics.median(rels.values()),
                leaves=len(rels),
-               leaves_within_grad_rel=sum(r <= TRAIN_GRAD_REL
+               leaves_within_grad_rel=sum(r <= grad_rel
                                           for r in rels.values()))
     print(f"[{tag}] kernel vs plain path, {cfg.n_layers} layers, "
           f"{check_batch}x{TRAIN_SEQ} ({time.perf_counter() - t0:.1f}s): "
           f"loss {loss_k:.6f} vs {loss_p:.6f} (|diff| "
-          f"{abs(loss_k - loss_p):.3g}, tol {TRAIN_LOSS_ATOL}); gradients "
+          f"{abs(loss_k - loss_p):.3g}, tol {loss_atol}); gradients "
           f"rel err max {rels[worst]:.3g} ({worst}), median "
           f"{res['grad_rel_err_median']:.3g}; "
           f"{res['leaves_within_grad_rel']} of {len(rels)} leaves within "
-          f"{TRAIN_GRAD_REL}")
+          f"{grad_rel}")
     if floor:
         print(f"[{tag}] plain path vs itself with its WKV outputs perturbed "
               f"by a relative {floor}: loss |diff| "
               f"{abs(res['loss_noise'] - loss_p):.3g}; gradients rel err max "
               f"{res['noise_grad_rel_err_max']:.3g} ({worst_n}), median "
               f"{res['noise_grad_rel_err_median']:.3g}; the kernel path's "
-              f"median and max held to max({TRAIN_GRAD_REL}, "
+              f"median and max held to max({grad_rel}, "
               f"{FLOOR_FACTOR} x these)")
-    check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
+    check(abs(loss_k - loss_p) <= loss_atol,
           f"loss differs by {abs(loss_k - loss_p):.3g}")
     if floor:
         for stat in ("median", "max"):
             got, own = (res[f"{pre}grad_rel_err_{stat}"]
                         for pre in ("", "noise_"))
-            bar = max(TRAIN_GRAD_REL, FLOOR_FACTOR * own)
+            bar = max(grad_rel, FLOOR_FACTOR * own)
             check(got <= bar, f"gradient error {stat} {got:.3g} over "
                               f"{bar:.3g} ({FLOOR_FACTOR} x the plain path's "
                               f"own {own:.3g})")
     else:
-        check(rels[worst] <= TRAIN_GRAD_REL,
+        check(rels[worst] <= grad_rel,
               f"gradient {worst} differs by {rels[worst]:.3g} of its scale")
+    if median_rel is not None:
+        check(res["grad_rel_err_median"] <= median_rel,
+              f"gradient errors' median {res['grad_rel_err_median']:.3g} "
+              f"over {median_rel}")
     return res
 
 
@@ -1035,21 +1155,35 @@ REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "wkv6": dict(timed=True)}
 
 
-def kernels_line(rows, launches, card):
+# the bf16 case of each kernel: the training rows for the RMSNorm forward
+REPORTED_BF16 = dict(REPORTED, rmsnorm=dict(shape="(4096,1024)"))
+
+
+def kernels_line(rows, launches, launches_bf16, card):
+    """One entry per kernel at its f32 reported case, with a ``bf16``
+    entry of the same keys at its bf16 case (launches: the strategy
+    phase's bf16 launches)."""
+    def pick(mine, dtype, reported):
+        return next(r for r in mine if r["dtype"] == dtype and all(
+            r.get(k) == v for k, v in reported.items()))
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
-        rep = next(r for r in mine if r["dtype"] == "float32" and all(
-            r.get(k) == v for k, v in REPORTED[name].items()))
+        rep = pick(mine, "float32", REPORTED[name])
+        b16 = pick(mine, "bfloat16", REPORTED_BF16[name])
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "float32"),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"], "dtype": "float32",
-            "shape": rep["shape"], "card": card})
+            **{k: rep[k] for k in keys}, "dtype": "float32",
+            "shape": rep["shape"], "card": card,
+            "bf16": {"launches": launches_bf16[name],
+                     "max_abs_err": max(r["max_abs_err"] for r in mine
+                                        if r["dtype"] == "bfloat16"),
+                     **{k: b16[k] for k in keys}, "shape": b16["shape"]}})
     return {"kernels": out}
 
 
@@ -1106,6 +1240,20 @@ def main(argv=None):
         TRAIN_BATCH, "train")
     print(f"[train] ok in {time.perf_counter() - t0:.1f}s")
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    strat = strategy_phase(
+        dev, card, {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
+                    "flash_decode": 0, "flash_attention": L,
+                    "flash_attention_dq": L, "flash_attention_dkv": L,
+                    "wkv6": 0})
+    print(f"[strategy] host train/dispatch per step: "
+          f"{strat['host_span_s']['dispatch'] * 1e3:.1f} ms under "
+          f"{strat['spec']} (FSDP2, bf16) vs "
+          f"{trained['host_span_s']['dispatch'] * 1e3:.1f} ms unsharded f32")
+    print(f"[strategy] ok in {time.perf_counter() - t0:.1f}s")
+
     # free the qwen3 phase's tensors before the larger model
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1127,13 +1275,15 @@ def main(argv=None):
     # each kernel's launches on the main paths: the serve phase's run plus
     # each train phase's run, each counted from 0
     launches = {k: served["launches"][k] + trained["launches"][k]
-                + rwkv_trained["launches"][k] for k in trained["launches"]}
-    line = kernels_line(rows, launches, card)
+                + strat["launches"][k] + rwkv_trained["launches"][k]
+                for k in trained["launches"]}
+    line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "serve": served,
-             "train": trained, "train_rwkv6": rwkv_trained, "build_s": took,
+             "train": trained, "train_strategy": strat,
+             "train_rwkv6": rwkv_trained, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

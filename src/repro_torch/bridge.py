@@ -15,7 +15,8 @@ names (``embed.tok``, ``layers.3.mixer.wq``, ``layers.3.mixer.ln_x.scale``);
 they map onto the same tree, nested at every dot.
 With tied embeddings ``embed.tok`` carries the sum of the gather's and the
 LM head's gradients, in both packages.  Both directions speak numpy, so
-this module needs no JAX.
+this module needs no JAX.  Towards JAX, a model sharded by FSDP2 (and its
+``DTensor`` gradients and moments) is gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Params, layer_plan
@@ -91,7 +93,11 @@ def _to_jax_tree(named: Dict[str, np.ndarray], cfg: ModelConfig
 
 
 def _numpy(named) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in named}
+    """(name, tensor) pairs -> {name: array}.  A sharded tensor
+    (``DTensor``) is gathered whole first: a collective, so every rank of
+    its mesh must convert the same tensors in the same order."""
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+            .detach().cpu().numpy() for k, v in named}
 
 
 def params_to_jax(params: Params, cfg: ModelConfig) -> Dict[str, Any]:

@@ -1,4 +1,5 @@
-"""Token data pipeline — a copy of the JAX package's ``data/pipeline.py``.
+"""Token data pipeline — a copy of the JAX package's ``data/pipeline.py``
+(``SyntheticSource`` draws its Zipfian pieces from a CDF built once).
 
 Two sources:
   * ``SyntheticSource`` — deterministic pseudo-corpus (a mixture of Zipfian
@@ -29,6 +30,10 @@ class SyntheticSource:
         # Zipfian unigram table
         ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
         self.probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+        # the CDF that ``rng.choice(p=probs)`` builds on every call, built
+        # once: the same draws, without a pass over the vocab per piece
+        self.cdf = np.cumsum(self.probs)
+        self.cdf /= self.cdf[-1]
         self.motifs = [self.rng.integers(0, vocab_size, size=motif_len)
                        for _ in range(n_motifs)]
 
@@ -37,7 +42,8 @@ class SyntheticSource:
             if self.rng.random() < 0.5:
                 yield self.motifs[int(self.rng.integers(len(self.motifs)))]
             else:
-                yield self.rng.choice(self.vocab, size=16, p=self.probs)
+                yield self.cdf.searchsorted(self.rng.random(16),
+                                            side="right")
 
 
 class BinTokenSource:

@@ -11,11 +11,13 @@ import subprocess
 import torch
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", local_rank=None) -> torch.device:
     """-> a ``torch.device``; raises when CUDA is asked for but absent.
 
-    On CUDA, TF32 is switched off for matmuls and cuDNN so f32 runs keep
-    full f32 products (the parity the tests and the chip check rely on).
+    ``local_rank`` (a rank's index on its host, as ``torchrun`` sets it)
+    picks the card ``cuda:<local_rank>``.  On CUDA, TF32 is switched off
+    for matmuls and cuDNN so f32 runs keep full f32 products (the parity
+    the tests and the chip check rely on).
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -23,6 +25,8 @@ def resolve_device(device="cuda") -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' "
                 "(--device cpu) to run on the host")
+        if local_rank is not None:
+            dev = torch.device("cuda", local_rank)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

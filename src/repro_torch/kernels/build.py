@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rmsnorm", "flash_decode", "flash_attention", "wkv6")
@@ -33,10 +35,21 @@ SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper CTA may use
 
 # name -> loaded library; a process loads each library once
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# launches on bf16 tensors by kernel, beside each module's LAUNCHES (which
+# count every launch)
+BF16_LAUNCHES: Dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+def count_launch(launches: Dict[str, int], name: str,
+                 dtype: torch.dtype) -> None:
+    """Count one launch of kernel ``name`` on ``dtype`` tensors."""
+    launches[name] += 1
+    if dtype == torch.bfloat16:
+        BF16_LAUNCHES[name] = BF16_LAUNCHES.get(name, 0) + 1
 
 
 def on_cpu(t) -> bool:

@@ -237,7 +237,7 @@ def forward_cuda(q, k, v, causal=True, window=0):
         lse.data_ptr(), B, S, H, Kv, D, int(bool(causal)), int(window),
         float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention forward launch")
-    LAUNCHES["flash_attention"] += 1
+    build.count_launch(LAUNCHES, "flash_attention", q.dtype)
     return o, lse
 
 
@@ -257,7 +257,7 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, Kv, D,
         int(bool(causal)), int(window), float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dq launch")
-    LAUNCHES["flash_attention_dq"] += 1
+    build.count_launch(LAUNCHES, "flash_attention_dq", q.dtype)
     return dq
 
 
@@ -278,7 +278,7 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
         B, S, H, Kv, D, int(bool(causal)), int(window), float(D ** -0.5),
         _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dk/dv launch")
-    LAUNCHES["flash_attention_dkv"] += 1
+    build.count_launch(LAUNCHES, "flash_attention_dkv", q.dtype)
     return dk, dv
 
 

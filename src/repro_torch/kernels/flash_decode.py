@@ -188,5 +188,5 @@ def decode_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
                          f"{torch.cuda.get_device_name(dev)} (G={G}, D={D}, "
                          f"{splits} splits)")
     build.check(lib, "flash_decode", code, "flash-decode launch")
-    LAUNCHES["flash_decode"] += 1
+    build.count_launch(LAUNCHES, "flash_decode", q.dtype)
     return out

@@ -13,6 +13,9 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rms
@@ -55,12 +58,20 @@ def wkv6(r, k, v, w, u, *, chunk=64):
     return _wkv.WKV6Fn.apply(r, k, v, w, u, chunk)
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches so far, by kernel."""
-    return {k: v for counts in _COUNTERS for k, v in counts.items()}
+def launch_counts(dtype=None) -> Dict[str, int]:
+    """Kernel launches so far, by kernel: all of them, or (``dtype``
+    ``torch.bfloat16``) those on bf16 tensors."""
+    counts = {k: v for c in _COUNTERS for k, v in c.items()}
+    if dtype is None:
+        return counts
+    if dtype != torch.bfloat16:
+        raise ValueError(f"launches are kept by dtype for bf16 only, not "
+                         f"{dtype}")
+    return {k: _build.BF16_LAUNCHES.get(k, 0) for k in counts}
 
 
 def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
+    _build.BF16_LAUNCHES.clear()

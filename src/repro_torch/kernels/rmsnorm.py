@@ -109,7 +109,7 @@ def rmsnorm_cuda(x2, scale, eps):
         x2.data_ptr(), s32.data_ptr(), y.data_ptr(), rstd.data_ptr(),
         n, d, float(eps), stream)
     build.check(lib, "rmsnorm", code, "rmsnorm kernel launch")
-    LAUNCHES["rmsnorm"] += 1
+    build.count_launch(LAUNCHES, "rmsnorm", x2.dtype)
     return y, rstd
 
 
@@ -139,7 +139,7 @@ def rmsnorm_bwd_cuda(x2, scale, rstd, g2):
         dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), n, d,
         torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(lib, "rmsnorm", code, "rmsnorm backward launch")
-    LAUNCHES["rmsnorm_bwd"] += 1
+    build.count_launch(LAUNCHES, "rmsnorm_bwd", x2.dtype)
     return dx, dscale
 
 

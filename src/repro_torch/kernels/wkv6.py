@@ -145,7 +145,7 @@ def wkv6_cuda(r, k, v, w, u, chunk=64):
         u32.data_ptr(), y.data_ptr(), state.data_ptr(), B, T, H, N, chunk,
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, "wkv6", code, "wkv6 kernel launch")
-    LAUNCHES["wkv6"] += 1
+    build.count_launch(LAUNCHES, "wkv6", r.dtype)
     return y, state
 
 

@@ -1,22 +1,42 @@
-"""Training CLI of the port, on one device:
+"""Training CLI of the port:
 ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20``
+
+Strategy selection goes through ``repro_torch.strategy``, as the JAX
+CLI's does:
+
+  --strategy auto        the planner picks the best strategy the port can
+                         run for (arch, topology, batch) with the copied
+                         cost model (``--objective``, throughput by default)
+  --strategy fsdp_bf16   an explicit spec: dp mode ``ddp``/``fsdp``/``hsdp``,
+                         ZeRO ``z0``/``z2``/``z3``, ``ovl``, ``ga<k>``,
+                         precision ``f32``/``bf16``/``fp8``; tp, cp, pp or
+                         ep above 1 raise ``StrategyError`` naming the
+                         slice that brings them
+
+``--topology host`` (the default) is every rank of this job as one island.
+The strategy runs through FSDP2 over the plan's ``DeviceMesh``: one rank
+on one card (a 1-rank NCCL group), N ranks under ``torchrun
+--standalone --nproc_per_node N -m repro_torch.launch.train ...`` (one
+card each, or gloo processes with ``--device cpu``).  Every rank builds
+the same global batch and trains its rows; rank 0 prints.
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``: RMSNorm forward/backward and flash-attention
-forward/backward for attention stacks such as ``qwen3-0.6b``; the WKV-6
-forward for ``rwkv6-1.6b``, whose backward replays the plain chunked form)
-or the plain PyTorch layers (``--kernels torch``);
-``--device cpu`` runs on the host, where the kernel path uses each
-kernel's plain version.  Without a card and without ``--device cpu`` it
-raises.  Weights are random, from ``--seed``; the data is the seeded
-synthetic corpus or a flat uint16 token file.  Prints a loss line per
-logging step, then ``done: loss a -> b``.  Parallelism strategies,
-topologies and checkpoints come with later slices (ROADMAP Queue 1).
+forward/backward for attention stacks such as ``qwen3-0.6b``, in f32 or
+bf16 as the policy computes; the WKV-6 forward for ``rwkv6-1.6b``, whose
+backward replays the plain chunked form) or the plain PyTorch layers
+(``--kernels torch``); ``--device cpu`` runs on the host, where the
+kernel path uses each kernel's plain version.  Without a card and without
+``--device cpu`` it raises.  Weights are random, from ``--seed``; the data
+is the seeded synthetic corpus or a flat uint16 token file.  Prints a loss
+line per logging step, then ``done: loss a -> b``.  Checkpoints come with
+a later slice (ROADMAP Queue 1).
 
 ``--profile DIR`` trains ``PROFILE_STEPS`` more steps (warm) under
 ``torch.profiler``, each ending in a device sync, writes the op table
-``DIR/ops.txt`` and prints one JSON line: wall and device-busy time per
-step, the host spans' time per step, and the kernels that fill the device.
+``DIR/ops.txt`` and prints one JSON line (rank 0): wall and device-busy
+time per step, the host spans' time per step, and the kernels that fill
+the device.
 """
 from __future__ import annotations
 
@@ -25,12 +45,19 @@ import dataclasses
 import json
 import os
 
+import torch
+import torch.distributed as dist
+
+from repro_torch import strategy as strategy_lib
 from repro_torch import telemetry as tel
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ShapeConfig, get_config, reduced
+from repro_torch.core import parallel as par
 from repro_torch.data import Batcher, BinTokenSource, SyntheticSource
 from repro_torch.device import card_description, resolve_device
-from repro_torch.models import Runtime, init_params
+from repro_torch.launch.mesh import init_distributed, local_rank, shutdown
+from repro_torch.models import init_params
 from repro_torch.optim import AdamWConfig
+from repro_torch.strategy.topology import mesh_shape
 from repro_torch.train import TrainConfig, train_loop
 
 IMPLS = {"cuda": "kernel", "torch": "torch"}
@@ -46,10 +73,19 @@ def main(argv=None):
     ap.add_argument("--seq_len", type=int, default=512)
     ap.add_argument("--global_batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--grad_accum", type=int, default=1)
+    ap.add_argument("--grad_accum", type=int, default=0,
+                    help="0 -> take it from the strategy spec (ga<k>)")
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' or a path to a flat uint16 token file")
     ap.add_argument("--log_every", type=int, default=10)
+    ap.add_argument("--topology", default="host",
+                    help="host | pod | multipod[<k>] (pod meshes need as "
+                         "many ranks)")
+    ap.add_argument("--strategy", default="auto",
+                    help="'auto' (planner) or a spec string like fsdp / "
+                         "hsdp_z2_ovl / ddp_ga2 / fsdp_bf16")
+    ap.add_argument("--objective", default="wps",
+                    choices=sorted(strategy_lib.OBJECTIVES))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--kernels", default="cuda", choices=sorted(IMPLS),
@@ -67,25 +103,51 @@ def main(argv=None):
                          "write ops.txt into this directory")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, local_rank())
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    init_distributed(device)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        shutdown()
+
+
+def _train(args, cfg, device):
+    main_rank = dist.get_rank() == 0
+    topo = strategy_lib.get_topology(args.topology)
+    shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
+    strat, planned = strategy_lib.resolve(args.strategy, cfg, topo, shape,
+                                          objective=args.objective)
+    plan = strat.to_plan(cfg, topo, shape)
+    if main_rank and planned is not None:
+        r = planned.report
+        print(f"[planner] chose {strat.format()} on {topo.name} "
+              f"({topo.n_devices}x {topo.hardware}): predicted "
+              f"{r.wps:,.0f} tok/s, mfu {r.mfu:.3f}, "
+              f"{r.memory_per_device / 2**30:.2f} GiB/dev")
+    elif main_rank:
+        print(f"[strategy] {strat.format()} on {topo.name} "
+              f"(mesh {mesh_shape(plan.mesh)})")
     impl = IMPLS[args.kernels]
-    # WKV-6 chunk 32, as the JAX train CLI sets it
-    rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=32,
-                 attn_min_chunked_len=max(2048, args.seq_len + 1)
-                 if args.seq_len <= 2048 else 2048)
+    # dtypes from the strategy's precision policy; WKV-6 chunk 32, as the
+    # JAX train CLI sets it
+    rt = par.make_runtime(cfg, plan, shape, attn_impl=impl, norm_impl=impl,
+                          rwkv_chunk=32,
+                          attn_min_chunked_len=max(2048, args.seq_len + 1)
+                          if args.seq_len <= 2048 else 2048)
     src = (SyntheticSource(cfg.vocab_size, seed=args.seed)
            if args.data == "synthetic" else BinTokenSource(args.data))
     batches = Batcher(src, args.seq_len, args.global_batch)
+    grad_accum = args.grad_accum or strat.grad_accum
     tc = TrainConfig(steps=args.steps, warmup=max(args.steps // 20, 1),
-                     log_every=args.log_every, grad_accum=args.grad_accum,
+                     log_every=args.log_every, grad_accum=grad_accum,
                      opt=AdamWConfig(lr=args.lr))
-    params = init_params(cfg, args.seed, device)
+    params = par.apply_plan(init_params(cfg, args.seed, device), plan)
 
     recorder = tel.NULL
-    if args.trace or args.metrics_jsonl:
+    if main_rank and (args.trace or args.metrics_jsonl):
         recorder = tel.Recorder()
         if args.metrics_jsonl:
             recorder.add_sink(tel.JsonlSink(args.metrics_jsonl))
@@ -93,24 +155,28 @@ def main(argv=None):
             recorder.add_sink(tel.ChromeTraceSink(
                 args.trace, process_name=f"train {cfg.name}"))
     where = card_description(device) if device.type == "cuda" else "cpu"
-    print(f"arch={cfg.name} seq_len={args.seq_len} "
-          f"global_batch={args.global_batch} grad_accum={args.grad_accum} "
-          f"kernels={args.kernels} device={device} ({where})")
+    if main_rank:
+        print(f"arch={cfg.name} seq_len={args.seq_len} "
+              f"global_batch={args.global_batch} grad_accum={grad_accum} "
+              f"kernels={args.kernels} ranks={dist.get_world_size()} "
+              f"device={device} ({where})")
     params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
-                                            telemetry=recorder)
+                                            telemetry=recorder, plan=plan)
     recorder.close()
-    if args.trace:
+    if main_rank and args.trace:
         print(f"[telemetry] trace written to {args.trace}")
     losses = [h["loss"] for h in history]
-    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"over {args.steps} steps")
+    if main_rank:
+        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"over {args.steps} steps")
     if args.profile:
-        profile_steps(cfg, rt, tc, batches, params, opt_state, args, device)
+        profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
+                      plan, main_rank)
     return history
 
 
 def profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
-                  top=12):
+                  plan, main_rank, top=12):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -118,7 +184,9 @@ def profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
     ptc = dataclasses.replace(tc, steps=PROFILE_STEPS, log_every=1)
     with profile(activities=acts) as prof:
         train_loop(cfg, rt, ptc, batches, params, opt_state,
-                   telemetry=tel.Recorder())
+                   telemetry=tel.Recorder(), plan=plan)
+    if not main_rank:
+        return
     os.makedirs(args.profile, exist_ok=True)
     tel.write_op_table(prof, os.path.join(args.profile, "ops.txt"),
                        device.type == "cuda")
@@ -130,7 +198,10 @@ def profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
            "host_span_ms_per_step": host, "device_ms_per_step": None,
            "device_busy_share": None, "kernel_launches_per_step": None,
            "top_kernels": [], "kernels": args.kernels,
-           "global_batch": args.global_batch, "seq_len": args.seq_len}
+           "global_batch": args.global_batch, "seq_len": args.seq_len,
+           "strategy": args.strategy, "ranks": dist.get_world_size(),
+           "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                            if device.type == "cuda" else None)}
     if counts:
         rep.update(
             device_ms_per_step=busy / 1e3 / n, device_busy_share=busy / wall,

@@ -9,9 +9,11 @@ explicit device, with the JAX package's distributions.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
 
@@ -29,14 +31,62 @@ class Runtime:
     in (q, kv) chunks with an online softmax.  ``rwkv_chunk`` is the
     chunk length of the WKV-6 recurrence, on the kernel and the plain path
     alike (it is part of the result: it sets the order of rounding).
+
+    The dtypes are a precision policy's (``core.parallel.make_runtime``):
+    parameters are stored in ``param_dtype`` (the master copy, f32 in
+    every policy), activations and products run in ``compute_dtype``,
+    gradients accumulate in ``grad_dtype``.  ``gather_dtype``, when set
+    (the fp8 policy on a plan that shards parameters), is the wire dtype
+    of each layer's gathered parameters: every floating leaf is rounded
+    through it to ``compute_dtype`` before the layer computes
+    (:func:`wire_round`).
     """
+    param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    grad_dtype: torch.dtype = torch.float32
+    gather_dtype: Optional[torch.dtype] = None
     attn_impl: str = "kernel"           # 'kernel' | 'torch'
     norm_impl: str = "kernel"           # 'kernel' | 'torch'
     attn_q_chunk: int = 1024            # query chunk for blocked attention
     attn_kv_chunk: int = 1024           # kv chunk for blocked attention
     attn_min_chunked_len: int = 2048    # below this, plain masked attention
     rwkv_chunk: int = 64                # WKV-6 chunk length
+
+
+class _WireRound(torch.autograd.Function):
+    """y = x -> wire dtype -> out dtype; the cotangent passes straight
+    through in x's dtype.  (The JAX package's transposes of the two casts
+    round the cotangent back through the same dtypes; that rounding is
+    elementwise, so it is applied to the gradient once it is summed over
+    the batch and the data-parallel ranks: :func:`wire_round_grad`.)"""
+
+    @staticmethod
+    def forward(ctx, x, wire, out):
+        ctx.dtype = x.dtype
+        return x.to(wire).to(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def wire_round(tree, wire: torch.dtype, out: torch.dtype):
+    """A (nested) dict of parameters -> the same dict with each floating
+    leaf rounded through ``wire`` to ``out``: the values a layer computes
+    from after an all-gather in ``wire`` (the JAX package's
+    ``make_param_gatherer`` with a ``comm_dtype``)."""
+    return {k: wire_round(v, wire, out) if isinstance(v, (dict, nn.Module))
+            else (_WireRound.apply(v, wire, out) if v.is_floating_point()
+                  else v)
+            for k, v in tree.items()}
+
+
+def wire_round_grad(g: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The gradient of a parameter that went through :func:`wire_round`,
+    summed over a microbatch, as the JAX package's transposes leave it:
+    rounded through ``compute_dtype`` and ``gather_dtype`` back to its own
+    dtype."""
+    return g.to(rt.compute_dtype).to(rt.gather_dtype).to(g.dtype)
 
 
 def _randn(gen, shape, scale, device):
@@ -128,7 +178,10 @@ def lm_logits(p, h, rt: Runtime):
         w = p["lm_head"].to(rt.compute_dtype)
     else:
         w = p["tok"].to(rt.compute_dtype).t()
-    return h @ w
+    # mixed types promote, as jnp.einsum does (an RWKV-6 stack's residual
+    # stream leaves its layers in f32)
+    ct = torch.promote_types(h.dtype, w.dtype)
+    return h.to(ct) @ w.to(ct)
 
 
 # ---------------------------------------------------------------------------

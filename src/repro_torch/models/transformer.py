@@ -5,10 +5,12 @@ package's ``models/transformer.py``.
 A model is a stack of layers; each layer = (norm -> mixer -> residual,
 norm -> FFN -> residual): attention and an MLP, or RWKV-6 time mix and
 channel mix.  Parameters live in an :class:`Params` module whose
-``layers`` is an ``nn.ModuleList`` with one entry per layer; a Python loop
-over it replaces the JAX package's ``lax.scan`` over stacked blocks
-(``layer_plan`` is kept: the bridge uses it to map the JAX stack onto
-layers).
+``layers`` is an ``nn.ModuleList`` of :class:`Layer` modules, one per
+layer; a Python loop calls them in turn, in place of the JAX package's
+``lax.scan`` over stacked blocks (``layer_plan`` is kept: the bridge uses
+it to map the JAX stack onto layers).  Every layer and the whole model
+are called as modules, so FSDP2's hooks on them fire on the training and
+the serving path alike.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (Runtime, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_mlp,
-                                       init_norm, lm_logits, rope_angles)
+                                       init_norm, lm_logits, rope_angles,
+                                       wire_round)
 
 
 # ---------------------------------------------------------------------------
@@ -81,24 +84,81 @@ def _pdict(tree: Dict[str, Any]) -> nn.ParameterDict:
                              else nn.Parameter(v) for k, v in tree.items()})
 
 
+class Layer(nn.Module):
+    """One layer: its ParameterDicts {'norm1', 'norm2', 'mixer', 'ffn'}
+    (submodules, read as ``layer["mixer"]``) and its forward.  The model
+    calls each layer as a module, so hooks on it fire: FSDP2 gathers a
+    layer's parameters in its forward pre-hook and frees them after it
+    (``core.parallel.apply_plan``).  A plain ``nn.Module``, not a
+    ``ModuleDict``: FSDP2 refuses to wrap container types."""
+
+    def __init__(self, parts: Dict[str, nn.ParameterDict]):
+        super().__init__()
+        for name, sub in parts.items():
+            self.add_module(name, sub)
+
+    def __getitem__(self, name: str) -> nn.ParameterDict:
+        return self._modules[name]
+
+    def items(self):
+        return self._modules.items()
+
+    def forward(self, cfg: ModelConfig, kind: str, h, rope_ang,
+                rt: Runtime, cache=None, paged=None):
+        lp = self
+        if rt.gather_dtype is not None:
+            lp = wire_round(self, rt.gather_dtype, rt.compute_dtype)
+        x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
+        if kind == "rwkv6":
+            h = h + rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt)[0]
+            x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
+            return h + rwkv_lib.rwkv_channel_mix(cfg, lp["ffn"], x, rt)[0]
+        h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
+                                         cache=cache, paged=paged)
+        x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
+        return h + apply_mlp(cfg, lp["ffn"], x, rt)
+
+
 class Params(nn.Module):
     """Model parameters: ``embed`` {'tok', ['lm_head']}, ``final_norm``
     {'scale'[, 'bias']}, and ``layers[i]`` {'norm1', 'norm2', 'mixer',
     'ffn'}, each a ParameterDict (nested where the JAX tree nests, as the
     RWKV-6 mixer's ``ln_x``) in the JAX package's names and (in, out)
-    layouts."""
+    layouts.  Calling it runs the model (:func:`forward`)."""
 
     def __init__(self, embed, final_norm, layers: List[Dict[str, Dict]]):
         super().__init__()
         self.embed = _pdict(embed)
         self.final_norm = _pdict(final_norm)
         self.layers = nn.ModuleList(
-            nn.ModuleDict({name: _pdict(sub) for name, sub in lp.items()})
+            Layer({name: _pdict(sub) for name, sub in lp.items()})
             for lp in layers)
 
     @property
     def device(self) -> torch.device:
         return self.embed["tok"].device
+
+    def forward(self, cfg: ModelConfig, batch, rt: Runtime, cache=None):
+        """-> logits (B, S, vocab); see :func:`forward`."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None]
+        if cache is not None:
+            positions = batch["pos"] + positions
+        positions = positions.expand(B, S)
+
+        h = embed_tokens(self.embed, tokens, rt)
+        rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+                    if cfg.rope == "rope" else None)
+        paged = cache["paged"] if cache is not None else None
+        layer_caches = (cache["layers"] if cache is not None
+                        else [None] * len(self.layers))
+        for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
+                                            strict=True)):
+            h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged)
+        h = apply_norm(self.final_norm, h, cfg.norm_eps, rt)
+        return lm_logits(self.embed, h, rt)
 
 
 def _init_layer(cfg: ModelConfig, i: int, gen, device):
@@ -129,18 +189,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, kind, lp, h, rope_ang, rt: Runtime, cache, paged):
-    x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
-    if kind == "rwkv6":
-        h = h + rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt)[0]
-        x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
-        return h + rwkv_lib.rwkv_channel_mix(cfg, lp["ffn"], x, rt)[0]
-    h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
-                                     cache=cache, paged=paged)
-    x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
-    return h + apply_mlp(cfg, lp["ffn"], x, rt)
-
-
 def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
             cache=None):
     """-> logits (B, S, vocab).
@@ -159,41 +207,30 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
             f"{cfg.name}: only attention-only stacks serve from a paged "
             "cache; recurrent state comes with the static-engine slice of "
             "the port (ROADMAP Queue 1 item 3)")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
-    if cache is not None:
-        positions = batch["pos"] + positions
-    positions = positions.expand(B, S)
-
-    h = embed_tokens(params.embed, tokens, rt)
-    rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-                if cfg.rope == "rope" else None)
-    paged = cache["paged"] if cache is not None else None
-    layer_caches = (cache["layers"] if cache is not None
-                    else [None] * len(params.layers))
-    for i, (lp, lc) in enumerate(zip(params.layers, layer_caches,
-                                     strict=True)):
-        h = _apply_layer(cfg, cfg.layer_kind(i), lp, h, rope_ang, rt, lc,
-                         paged)
-    h = apply_norm(params.final_norm, h, cfg.norm_eps, rt)
-    return lm_logits(params.embed, h, rt)
+    return params(cfg, batch, rt, cache)
 
 
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
 
-def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime):
+def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
+            denom=None):
     """Next-token cross entropy in f32; labels < 0 are masked.
     -> (loss, {'nll', 'aux', 'ntok'}), all 0-d tensors on the batch's
-    device (``aux``, the MoE load-balance loss, is 0 for a dense stack)."""
+    device (``aux``, the MoE load-balance loss, is 0 for a dense stack).
+
+    ``nll`` is the masked sum over ``denom``: by default this batch's
+    count of unmasked labels (``ntok``); a data-parallel step passes its
+    share of the global count, so that every rank's labels weigh alike."""
     logits = forward(cfg, params, batch, rt)
     labels = batch["labels"]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    nll = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
+    nll = ((lse - ll) * mask).sum() / denom
     aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     return nll + aux, {"nll": nll, "aux": aux, "ntok": mask.sum()}

@@ -8,7 +8,11 @@ host.  ``adamw_update`` updates parameters and moments in place under
 ``torch.no_grad()``: the JAX version returns new arrays, which here would
 hold a second copy of the weights and of both moments.
 ``torch.optim.AdamW`` is not used: it would decay norm scales and biases
-too, and it orders its arithmetic differently.
+too, and it orders its arithmetic differently.  Parameters sharded by
+FSDP2 (``DTensor``s) keep ``DTensor`` moments of their own placements;
+the update runs on the local shards (``to_local`` views), with no
+collective and no ``DTensor`` dispatch per op, and only the gradient norm
+sums over the ranks.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ from typing import Dict, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,18 +36,42 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A sharded parameter's (``DTensor``'s) local shard, else the tensor:
+    a view sharing its storage, so in-place updates reach the parameter."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def init_opt_state(params: nn.Module) -> Dict:
     """{'m': {name: zeros}, 'v': {name: zeros}, 'step': 0}; f32 moments
-    on each parameter's device, whatever the parameter's type."""
+    on each parameter's device, whatever the parameter's type.  A sharded
+    parameter's moments are ``DTensor``s with its placements, so each
+    rank allocates only its own shard."""
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.named_parameters()}
     return {"m": zeros(), "v": zeros(), "step": 0}
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tensors))
+    """sqrt of the sum of squares over every tensor's elements.  Sharded
+    tensors (``DTensor``s) add their local shards' squares, summed over
+    the mesh dimensions they are sharded on and not over replicas (which
+    hold the same values)."""
+    total, groups = None, {}
+    for x in tensors:
+        sq = torch.sum(torch.square(_local(x).float()))
+        total = sq if total is None else total + sq
+        if isinstance(x, DTensor):
+            for dim, place in enumerate(x.placements):
+                if place.is_shard() and x.device_mesh.size(dim) > 1:
+                    group = x.device_mesh.get_group(dim)
+                    groups[id(group)] = group
+    if total is None:
+        return torch.zeros(())
+    for group in groups.values():
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 # leaves that take no weight decay: norms, biases and 1-d mixer params
@@ -72,13 +102,15 @@ def adamw_update(cfg: AdamWConfig, params: nn.Module,
     bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
     lr = float(np.float32(cfg.lr) * np.float32(lr_scale))
     with torch.no_grad():
-        for n, p in named.items():
-            m, v = state["m"][n], state["v"][n]
-            gf = grads[n].float() * clip
+        for n, param in named.items():
+            # sharded leaves update their local shards in place
+            p, m, v = (_local(x) for x in (param, state["m"][n],
+                                           state["v"][n]))
+            gf = _local(grads[n]).float() * clip
             m.mul_(cfg.b1).add_(gf, alpha=1 - cfg.b1)
             v.mul_(cfg.b2).add_(gf * gf, alpha=1 - cfg.b2)
             u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            if cfg.weight_decay and _decay_mask(n) and p.ndim >= 2:
+            if cfg.weight_decay and _decay_mask(n) and param.ndim >= 2:
                 u = u + cfg.weight_decay * p.float()
             p.copy_(p.float() - lr * u)
     state["step"] = step

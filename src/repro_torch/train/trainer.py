@@ -1,13 +1,13 @@
-"""Training on one device: the train step with gradient accumulation and
-AdamW, and the loop that logs it — the single-device part of the JAX
-package's ``train/trainer.py``.
+"""Training: the train step with gradient accumulation and AdamW, on one
+device or data-parallel under a plan, and the loop that logs it — the
+port of the JAX package's ``train/trainer.py``.
 
 ``make_train_step`` maps (params, opt_state, batch) -> (params, opt_state,
 metrics); it updates the parameters and moments in place.  Metrics stay
 0-d tensors on the device: reading one waits for the device, so
 ``train_loop`` reads them only on logging steps.  Checkpoints, resume and
 fault injection come with the checkpointing slice; MFU and drift with the
-cost model (ROADMAP Queue 1).
+dry-run slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -16,13 +16,15 @@ import time
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import telemetry as tel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Runtime
+from repro_torch.models.layers import Runtime, wire_round_grad
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import linear_warmup_cosine
+from repro_torch.strategy.topology import mesh_shape
 
 
 @dataclasses.dataclass
@@ -34,16 +36,67 @@ class TrainConfig:
     opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
 
 
-def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig):
+class _DataParallel:
+    """This rank's part of a data-parallel step under ``plan``: which rows
+    of a microbatch it takes, and the sums over the data-parallel ranks.
+    (The port's plans have no model, pipe or expert axis, so the
+    data-parallel ranks are the whole process group, in mesh order.)"""
+
+    def __init__(self, plan):
+        shape = mesh_shape(plan.mesh)
+        coord = dict(zip(plan.mesh.mesh_dim_names,
+                         plan.mesh.get_coordinate()))
+        self.size, self.rank = 1, 0
+        for axis in plan.dp:
+            self.rank = self.rank * shape[axis] + coord[axis]
+            self.size *= shape[axis]
+
+    def rows(self, micro, ntok):
+        """-> (this rank's rows of ``micro``, the loss's divisor), given
+        the microbatch's count of unmasked labels ``ntok``.
+
+        The rows are the rank's 1/n of the microbatch, and each rank's
+        masked nll sum is divided by the global count over n: FSDP2's
+        mean of the n ranks' gradients is then the global masked mean's.
+        A microbatch whose rows do not split over the ranks is computed
+        whole on every rank (as the JAX package leaves a batch dim that
+        does not divide unsharded), over the global count.
+        """
+        n, B = self.size, micro["labels"].shape[0]
+        denom = ntok.clamp_min(1.0)
+        if B % n:
+            return micro, denom
+        r, b = self.rank, B // n
+        return {k: v[r * b:(r + 1) * b] for k, v in micro.items()}, denom / n
+
+    def mean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of each rank's ``values``."""
+        dist.all_reduce(values)
+        return values / self.size
+
+
+def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
+                    plan=None):
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {'loss', 'nll', 'aux', 'ntok', 'grad_norm', 'lr'}).
 
     With ``grad_accum`` > 1 the batch splits into that many microbatches
-    along dim 0; their gradients are summed (autograd accumulates into
-    ``.grad``) and divided by the count, ``ntok`` is summed and every
-    other metric averaged.  The lr scale is read from the step count
-    before the update."""
+    along dim 0; their gradients are summed in ``rt.grad_dtype`` and
+    divided by the count, ``ntok`` is summed and every other metric
+    averaged.  The lr scale is read from the step count before the update.
+
+    Under a ``plan`` (``params`` wrapped by ``core.parallel.apply_plan``)
+    every rank gets the same global batch; of each microbatch a rank takes
+    its 1/n of the rows (``_DataParallel.rows``), and FSDP2 reduces the
+    gradients after every microbatch's backward.  The metrics are the
+    global ones: loss, nll and aux averaged over the ranks, ntok counted
+    over the global batch, grad_norm over every shard.  With a wire dtype
+    (``rt.gather_dtype``, the fp8 policy) each microbatch's gradients of
+    the layers' parameters are rounded through it once they are reduced
+    (``wire_round_grad``), as the JAX package's casts round the summed
+    cotangent."""
     ga = max(tc.grad_accum, 1)
+    dp = _DataParallel(plan) if plan is not None else None
 
     def train_step(params, opt_state, batch):
         B = batch["labels"].shape[0]
@@ -51,34 +104,54 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig):
             raise ValueError(f"batch {B} does not split into "
                              f"grad_accum={tc.grad_accum}")
         named = dict(params.named_parameters())
+        # the layers' parameters, which a wire dtype rounds
+        wired = ({f"layers.{n}" for n, _ in params.layers.named_parameters()}
+                 if rt.gather_dtype is not None else ())
         for p in named.values():
             p.grad = None
         mb = B // ga
         loss_sum, msum = None, None
+        grads: Dict[str, torch.Tensor] = {}
         for i in range(ga):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics = tfm.loss_fn(cfg, params, micro, rt)
+            denom, ntok = None, None
+            if dp is not None:
+                ntok = (micro["labels"] >= 0).sum().float()
+                micro, denom = dp.rows(micro, ntok)
+            loss, metrics = tfm.loss_fn(cfg, params, micro, rt, denom)
             loss.backward()
             loss, metrics = loss.detach(), {k: v.detach()
                                             for k, v in metrics.items()}
+            if ntok is not None:
+                metrics["ntok"] = ntok
             if loss_sum is None:
                 loss_sum, msum = loss, metrics
             else:
                 loss_sum = loss_sum + loss
                 msum = {k: msum[k] + metrics[k] for k in msum}
-        grads: Dict[str, torch.Tensor] = {}
-        for n, p in named.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[n] = g.div_(ga) if ga > 1 else g
+            # accumulate in rt.grad_dtype, as the JAX step casts its first
+            # microbatch's gradients
+            for n, p in named.items():
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if n in wired:
+                    g = wire_round_grad(g, rt)
+                g = g.to(rt.grad_dtype)
+                grads[n] = g if i == 0 else grads[n].add_(g)
+                p.grad = None
+        if ga > 1:
+            for g in grads.values():
+                g.div_(ga)
         lr_scale = linear_warmup_cosine(opt_state["step"], tc.warmup,
                                         tc.steps)
         params, opt_state, opt_metrics = adamw_update(
             tc.opt, params, grads, opt_state, lr_scale)
-        for p in named.values():
-            p.grad = None
         out = {"loss": loss_sum / ga,
                **{k: v if k == "ntok" else v / ga for k, v in msum.items()},
                **opt_metrics}
+        if dp is not None:
+            keys = ("loss", "nll", "aux")
+            means = dp.mean(torch.stack([out[k] for k in keys]))
+            out.update(zip(keys, means.unbind()))
         return params, opt_state, out
 
     return train_step
@@ -98,7 +171,7 @@ def batch_to_device(batch, device: torch.device):
 
 def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
                params, opt_state=None,
-               telemetry: tel.Recorder = tel.NULL):
+               telemetry: tel.Recorder = tel.NULL, plan=None):
     """Train ``params`` (on their device) for ``tc.steps`` steps on the
     numpy batches of ``batches``; -> (params, opt_state, history).
 
@@ -108,11 +181,13 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
     for the device only on logging steps (every ``log_every`` and the
     first), where it prints a loss line, appends the metrics to
     ``history`` and sets the ``train/wps`` and ``train/steps_per_s``
-    gauges over the window since the last log.
+    gauges over the window since the last log.  Under a ``plan`` every
+    rank trains (see :func:`make_train_step`) and rank 0 prints.
     """
     device = params.device
     opt_state = opt_state if opt_state is not None else init_opt_state(params)
-    step_fn = make_train_step(cfg, rt, tc)
+    step_fn = make_train_step(cfg, rt, tc, plan)
+    prints = not dist.is_initialized() or dist.get_rank() == 0
     it = iter(batches)
     batch = batch_to_device(next(it), device)
     tokens_per_step = batch["labels"].numel()
@@ -135,9 +210,10 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
             now = time.time()
             m["steps_per_s"] = (step + 1) / (now - t0)
             history.append({"step": step + 1, **m})
-            print(f"step {step + 1:5d}  loss {m['loss']:.4f}"
-                  f"  gnorm {m['grad_norm']:.3f}"
-                  f"  {m['steps_per_s']:.2f} it/s", flush=True)
+            if prints:
+                print(f"step {step + 1:5d}  loss {m['loss']:.4f}"
+                      f"  gnorm {m['grad_norm']:.3f}"
+                      f"  {m['steps_per_s']:.2f} it/s", flush=True)
             n_win, dt_win = step + 1 - win_start, now - win_t0
             if n_win > 0 and dt_win > 0:
                 telemetry.gauge("train/wps", tokens_per_step * n_win / dt_win)
