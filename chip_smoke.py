@@ -30,7 +30,12 @@ order; any failure ends the run with a non-zero exit and no result line:
               at B 8, ctx 4096, with its device time.  At
               the training shape it also times ``attention_delta``, prints
               dq + dk/dv + delta against SDPA's backward, and names the
-              kernels SDPA's backward ran.
+              kernels SDPA's backward ran.  Then the flash forward, dq,
+              dk/dv and WKV-6 at the per-rank shapes of tensor
+              parallelism (qwen3's H 8/4/2/1 with Kv 4/2/1/1 at tp
+              2/4/8/16, rwkv6's H 16/8/4 at tp 2/4/8; B 8, S 512), in f32
+              and bf16, each against its plain version and timed beside
+              its bound.
 4. serve    — qwen3-0.6b at full width and depth (28 layers, f32, random
               weights from a seed) serves 12 requests over 8 slots (prompts
               of 17-200 tokens, 48 greedy new tokens) through the paged
@@ -51,8 +56,13 @@ order; any failure ends the run with a non-zero exit and no result line:
 6. strategy — qwen3-0.6b at full width and depth under ``fsdp_bf16``
               (f32 master weights, bf16 compute) through the functions the
               train CLI calls (``strategy.resolve`` -> ``to_plan`` ->
-              ``core.parallel.apply_plan``, FSDP2 on a 1-rank NCCL mesh ->
-              ``train_loop``): 6 AdamW steps of 8 x 512 tokens, each step
+              ``core.parallel.apply_plan``, the tensor-parallel lowering:
+              every parameter a ``DTensor`` on the (data 1, model 1) NCCL
+              mesh with ``param_placements``' placement on the model axis,
+              checked, under FSDP2 -> ``train_loop``; no tensor-parallel
+              collective may run on a model axis of 1, and the layers'
+              ``to_local`` views are timed on the host): 6 AdamW steps of
+              8 x 512 tokens, each step
               57 RMSNorm forward and backward launches and 28 each of the
               flash forward, dq and dk/dv, every one on bf16 tensors; its
               step p50, tokens/s, peak memory and host spans (dispatch
@@ -95,6 +105,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -110,6 +121,7 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
@@ -512,82 +524,98 @@ FLASH_CASES = [(8, 512, 16, 8, 128, 0), (2, 300, 16, 8, 128, 0),
                (2, 300, 16, 8, 128, 128), (2, 512, 16, 1, 128, 0)]
 
 
+def flash_case(dev, gen, dtype, B, S, H, Kv, D, window):
+    """Random q/k/v/do of one shape through the flash forward, dq and dk/dv
+    kernels and their plain versions (the backward kernels take the plain
+    forward's lse and delta, so each kernel is held alone), each held to
+    its tolerance, the forward also to its own bits on a second launch ->
+    (q, k, v, do, the plain lse and o, the backward's arguments, each
+    kernel's max |kernel - plain|, the shape's label)."""
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
+                               device=dev).to(dtype)
+                   for h in (H, Kv, Kv, H))
+    o, lse = fa.forward_cuda(q, k, v, True, window)
+    o2, lse2 = fa.forward_cuda(q, k, v, True, window)
+    o0, lse0 = fa.forward_plain(q, k, v, True, window)
+    delta = fa.attention_delta(o0, do)
+    args = (q, k, v, do, lse0, delta, True, window)
+    dq, (dk, dv) = fa.dq_cuda(*args), fa.dkv_cuda(*args)
+    dq0, (dk0, dv0) = fa.dq_plain(*args), fa.dkv_plain(*args)
+    torch.cuda.synchronize()
+    e_o, ok = max_err(o, o0, dtype)
+    e_lse = (lse - lse0).abs().max().item()
+    rels = {"dq": rel_err(dq, dq0), "dk": rel_err(dk, dk0),
+            "dv": rel_err(dv, dv0)}
+    shape = f"B{B} S{S} H{H} Kv{Kv} D{D} causal window{window}"
+    dt = str(dtype).split(".")[-1]
+    check(ok and e_lse <= 1e-5 and max(rels.values())
+          <= GRAD_REL_TOL[dtype],
+          f"flash attention {dt} {shape}: |do| {e_o:.3g}, |dlse| "
+          f"{e_lse:.3g}, grads rel {rels} over tolerance")
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          f"flash forward {dt} {shape}: a second launch on the same "
+          f"inputs gave other bits")
+    print(f"[kernels] flash_attention {dt} {shape}: o err {e_o:.3g}"
+          f", lse err {e_lse:.3g}; dq/dk/dv rel err "
+          + "/".join(f"{r:.3g}" for r in rels.values()))
+    errs = {"flash_attention": max(e_o, e_lse),
+            "flash_attention_dq": (dq - dq0).abs().max().item(),
+            "flash_attention_dkv": max((dk - dk0).abs().max().item(),
+                                       (dv - dv0).abs().max().item())}
+    return q, k, v, do, o0, args, errs, shape
+
+
+def flash_bounds(dtype, B, S, H, Kv, D, window):
+    """-> ({kernel: (bound ms, bound by)}, {kernel: notes}) of the flash
+    forward, dq and dk/dv at one shape."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    pairs = visible_pairs(S, window) * B * H
+    q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
+    row_bytes = B * H * S * 4
+    # all three kernels multiply on the tensor cores.  f32: bound at the
+    # 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S) kept beside it
+    # in bound_peak_ms.  bf16: bound at the card's bf16 rate; the kernels
+    # run it on TF32 MMAs (one per product of two inputs, two with p or
+    # ds), whose bound is noted in bound_arith
+    fwd_bytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
+    dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+    dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+    work = {"flash_attention": (fwd_bytes, 4 * D * pairs, 6 * D * pairs),
+            "flash_attention_dq": (dq_bytes, 6 * D * pairs, 8 * D * pairs),
+            "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
+                                    12 * D * pairs)}
+    bounds, notes = {}, {}
+    for name, (n_bytes, n_ops, tf32_mmas) in work.items():
+        if dtype == torch.float32:
+            bounds[name] = bound_ms(n_bytes, n_ops, dtype, F32_3XTF32_OPS_S)
+            notes[name] = dict(
+                bound_arith="3xTF32",
+                bound_peak_ms=bound_ms(n_bytes, n_ops, dtype)[0])
+        else:
+            bounds[name] = bound_ms(n_bytes, n_ops, dtype)
+            tf32 = bound_ms(n_bytes, tf32_mmas, dtype, TF32_OPS_S)[0]
+            notes[name] = dict(bound_arith=(
+                f"bf16 tensor cores; on the TF32 MMAs the kernel runs "
+                f"{tf32:.5f} ms"))
+    return bounds, notes
+
+
 def flash_phase(dev, flush, gen):
     """Flash-attention forward (o, lse), dq and dk/dv kernels against their
-    plain versions; the backward kernels take the plain forward's lse and
-    delta, so each kernel is held alone."""
+    plain versions (:func:`flash_case`); at the training shape each is
+    timed beside its plain version, its bound and SDPA."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for ci, (B, S, H, Kv, D, window) in enumerate(FLASH_CASES):
-            q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
-                                       device=dev).to(dtype)
-                           for h in (H, Kv, Kv, H))
-            o, lse = fa.forward_cuda(q, k, v, True, window)
-            o2, lse2 = fa.forward_cuda(q, k, v, True, window)
-            o0, lse0 = fa.forward_plain(q, k, v, True, window)
-            delta = fa.attention_delta(o0, do)
-            args = (q, k, v, do, lse0, delta, True, window)
-            dq, (dk, dv) = fa.dq_cuda(*args), fa.dkv_cuda(*args)
-            dq0, (dk0, dv0) = fa.dq_plain(*args), fa.dkv_plain(*args)
-            torch.cuda.synchronize()
-            e_o, ok = max_err(o, o0, dtype)
-            e_lse = (lse - lse0).abs().max().item()
-            rels = {"dq": rel_err(dq, dq0), "dk": rel_err(dk, dk0),
-                    "dv": rel_err(dv, dv0)}
-            shape = f"B{B} S{S} H{H} Kv{Kv} D{D} causal window{window}"
+            q, k, v, do, o0, args, errs, shape = flash_case(
+                dev, gen, dtype, B, S, H, Kv, D, window)
             dt = str(dtype).split(".")[-1]
-            check(ok and e_lse <= 1e-5 and max(rels.values())
-                  <= GRAD_REL_TOL[dtype],
-                  f"flash attention {dt} {shape}: |do| {e_o:.3g}, |dlse| "
-                  f"{e_lse:.3g}, grads rel {rels} over tolerance")
-            check(torch.equal(o, o2) and torch.equal(lse, lse2),
-                  f"flash forward {dt} {shape}: a second launch on the same "
-                  f"inputs gave other bits")
-            print(f"[kernels] flash_attention {dt} {shape}: o err {e_o:.3g}"
-                  f", lse err {e_lse:.3g}; dq/dk/dv rel err "
-                  + "/".join(f"{r:.3g}" for r in rels.values()))
             base = dict(dtype=dt, shape=shape, timed=ci == 0)
-            errs = {"flash_attention": max(e_o, e_lse),
-                    "flash_attention_dq": (dq - dq0).abs().max().item(),
-                    "flash_attention_dkv": max((dk - dk0).abs().max().item(),
-                                               (dv - dv0).abs().max().item())}
             if ci:
                 rows += [dict(base, name=n, max_abs_err=e)
                          for n, e in errs.items()]
                 continue
-            isz = q.element_size()
-            pairs = visible_pairs(S, window) * B * H
-            q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
-            row_bytes = B * H * S * 4
-            # all three kernels multiply on the tensor cores.  f32: bound
-            # at the 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S)
-            # kept beside it in bound_peak_ms.  bf16: bound at the card's
-            # bf16 rate; the kernels run it on TF32 MMAs (one per product
-            # of two inputs, two with p or ds), whose bound is noted in
-            # bound_arith
-            fwd_bytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
-            dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
-            dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
-            work = {"flash_attention": (fwd_bytes, 4 * D * pairs,
-                                        6 * D * pairs),
-                    "flash_attention_dq": (dq_bytes, 6 * D * pairs,
-                                           8 * D * pairs),
-                    "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
-                                            12 * D * pairs)}
-            bounds, notes = {}, {}
-            for name, (n_bytes, n_ops, tf32_mmas) in work.items():
-                if dtype == torch.float32:
-                    bounds[name] = bound_ms(n_bytes, n_ops, dtype,
-                                            F32_3XTF32_OPS_S)
-                    notes[name] = dict(
-                        bound_arith="3xTF32",
-                        bound_peak_ms=bound_ms(n_bytes, n_ops, dtype)[0])
-                else:
-                    bounds[name] = bound_ms(n_bytes, n_ops, dtype)
-                    tf32 = bound_ms(n_bytes, tf32_mmas, dtype, TF32_OPS_S)[0]
-                    notes[name] = dict(bound_arith=(
-                        f"bf16 tensor cores; on the TF32 MMAs the kernel "
-                        f"runs {tf32:.5f} ms"))
+            bounds, notes = flash_bounds(dtype, B, S, H, Kv, D, window)
             qs, ks, vs, dos = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))
             lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
@@ -667,55 +695,70 @@ WKV_CASES = [(8, 512, 32, RWKV_CHUNK), (2, 512, 32, 16), (2, 512, 32, 64),
              (2, 300, 32, 32), (2, 20, 32, 64)]
 
 
+def wkv6_case(dev, gen, dtype, B, T, H, chunk, N=64):
+    """Random r/k/v/w/u of one shape, with the JAX kernel tests' input
+    distribution (decay per step e^{-0.03} to e^{-0.4}, harder than the
+    model's w0 in [-6, -4)), through the WKV-6 kernel and its plain
+    version: y and the final state held to their tolerance, and to their
+    own bits on a second launch -> (the inputs, max |kernel - plain|, the
+    shape's label)."""
+    r, k, v = ((0.5 * torch.randn(B, T, H, N, generator=gen,
+                                  device=dev)).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(
+        B, T, H, N, generator=gen, device=dev) - 2.5))
+    u = 0.3 * torch.randn(H, N, generator=gen, device=dev)
+    args = (r, k, v, w, u)
+    y, st = wkv.wkv6_cuda(*args, chunk)
+    y2, st2 = wkv.wkv6_cuda(*args, chunk)
+    y0, st0 = wkv.wkv6_plain(*args, None, chunk)
+    torch.cuda.synchronize()
+    e_y, e_s = rel_err(y, y0), rel_err(st, st0)
+    if dtype == torch.float32:
+        ok = e_y <= WKV_REL_TOL
+    else:
+        a, b = y.float(), y0.float()
+        ok = bool(((a - b).abs() <= torch.maximum(
+            2 * bf16_ulp(torch.maximum(a.abs(), b.abs())),
+            1e-5 * b.abs().max())).all())
+    dt = str(dtype).split(".")[-1]
+    shape = f"B{B} T{T} H{H} N{N} chunk{chunk}"
+    check(ok and e_s <= WKV_REL_TOL,
+          f"wkv6 {dt} {shape}: y rel err {e_y:.3g}, state rel err "
+          f"{e_s:.3g} over tolerance")
+    check(torch.equal(y, y2) and torch.equal(st, st2),
+          f"wkv6 {dt} {shape}: a second launch on the same inputs "
+          f"gave other bits")
+    err = max((y.float() - y0.float()).abs().max().item(),
+              (st - st0).abs().max().item())
+    print(f"[kernels] wkv6 {dt} {shape}: y rel err {e_y:.3g}, state "
+          f"rel err {e_s:.3g}")
+    return args, err, shape
+
+
+def wkv6_bound(dtype, B, T, H, chunk, N=64):
+    """(bound ms, bound by) of the WKV-6 forward at one shape."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    n = B * T * H * N
+    return bound_ms(4 * n * isz + 4 * n + 4 * H * N + 4 * B * H * N * N,
+                    wkv6_ops(B, T, H, N, chunk), dtype)
+
+
 def wkv6_phase(dev, flush, gen):
-    """WKV-6 kernel against its plain version, y and the final state, with
-    the JAX kernel tests' input distribution (decay per step e^{-0.03} to
-    e^{-0.4}, harder than the model's w0 in [-6, -4))."""
+    """WKV-6 kernel against its plain version (:func:`wkv6_case`); at the
+    training shape timed beside its plain version, its bound and the
+    backward the training step runs."""
     rows = []
-    N = 64
     for dtype in (torch.float32, torch.bfloat16):
         for ci, (B, T, H, chunk) in enumerate(WKV_CASES):
-            r, k, v = ((0.5 * torch.randn(B, T, H, N, generator=gen,
-                                          device=dev)).to(dtype)
-                       for _ in range(3))
-            w = torch.exp(-torch.exp(0.5 * torch.randn(
-                B, T, H, N, generator=gen, device=dev) - 2.5))
-            u = 0.3 * torch.randn(H, N, generator=gen, device=dev)
-            args = (r, k, v, w, u)
-            y, st = wkv.wkv6_cuda(*args, chunk)
-            y2, st2 = wkv.wkv6_cuda(*args, chunk)
-            y0, st0 = wkv.wkv6_plain(*args, None, chunk)
-            torch.cuda.synchronize()
-            e_y, e_s = rel_err(y, y0), rel_err(st, st0)
-            if dtype == torch.float32:
-                ok = e_y <= WKV_REL_TOL
-            else:
-                a, b = y.float(), y0.float()
-                ok = bool(((a - b).abs() <= torch.maximum(
-                    2 * bf16_ulp(torch.maximum(a.abs(), b.abs())),
-                    1e-5 * b.abs().max())).all())
+            args, err, shape = wkv6_case(dev, gen, dtype, B, T, H, chunk)
             dt = str(dtype).split(".")[-1]
-            shape = f"B{B} T{T} H{H} N{N} chunk{chunk}"
-            check(ok and e_s <= WKV_REL_TOL,
-                  f"wkv6 {dt} {shape}: y rel err {e_y:.3g}, state rel err "
-                  f"{e_s:.3g} over tolerance")
-            check(torch.equal(y, y2) and torch.equal(st, st2),
-                  f"wkv6 {dt} {shape}: a second launch on the same inputs "
-                  f"gave other bits")
-            err = max((y.float() - y0.float()).abs().max().item(),
-                      (st - st0).abs().max().item())
-            print(f"[kernels] wkv6 {dt} {shape}: y rel err {e_y:.3g}, state "
-                  f"rel err {e_s:.3g}")
             base = dict(name="wkv6", dtype=dt, shape=shape, timed=ci == 0,
                         max_abs_err=err)
             if ci:
                 rows.append(base)
                 continue
-            isz = r.element_size()
-            n = B * T * H * N
-            bnd, by = bound_ms(4 * n * isz + 4 * n + 4 * H * N
-                               + 4 * B * H * N * N,
-                               wkv6_ops(B, T, H, N, chunk), dtype)
+            bnd, by = wkv6_bound(dtype, B, T, H, chunk)
             # the backward the training step runs: the plain chunked form
             # replayed under autograd (WKV6Fn), not a kernel
             with torch.enable_grad():
@@ -738,6 +781,52 @@ def wkv6_phase(dev, flush, gen):
                   f"plain {row['plain_ms']:.4f} ms, no library call, bound "
                   f"{bnd:.5f} ms ({by}); backward (plain replay) "
                   f"{bwd_ms:.4f} ms")
+    return rows
+
+
+# the per-rank shapes of tensor parallelism at the training shape: qwen3-
+# 0.6b's 16 heads and 8 KV heads over a model axis of tp 2, 4 and 8, and
+# of 16 with its KV heads replicated (a rank takes the KV head of its one
+# query head); rwkv6-1.6b's 32 WKV heads over tp 2, 4 and 8
+TP_FLASH_CASES = [(2, 8, 4), (4, 4, 2), (8, 2, 1), (16, 1, 1)]  # tp, H, Kv
+TP_WKV_CASES = [(2, 16), (4, 8), (8, 4)]                          # tp, H
+
+
+def tp_kernels_phase(dev, flush, gen):
+    """The flash forward, dq and dk/dv and WKV-6 at the per-rank shapes of
+    tensor parallelism, in f32 and bf16: each against its plain version
+    (:func:`flash_case`, :func:`wkv6_case`) and timed beside its bound."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        for tp, H, Kv in TP_FLASH_CASES:
+            B, S, D = TRAIN_BATCH, TRAIN_SEQ, 128
+            q, k, v, do, o0, args, errs, shape = flash_case(
+                dev, gen, dtype, B, S, H, Kv, D, 0)
+            bounds, _ = flash_bounds(dtype, B, S, H, Kv, D, 0)
+            kernels = {"flash_attention": lambda: fa.forward_cuda(
+                q, k, v, True, 0),
+                "flash_attention_dq": lambda: fa.dq_cuda(*args),
+                "flash_attention_dkv": lambda: fa.dkv_cuda(*args)}
+            for name, kern in kernels.items():
+                bnd, by = bounds[name]
+                rows.append(dict(name=name, dtype=dt, shape=shape, tp=tp,
+                                 max_abs_err=errs[name],
+                                 ms=time_ms(kern, flush, 20), bound_ms=bnd,
+                                 bound_by=by))
+                print(f"[kernels] tp {tp}: {name} {dt} {shape}: kernel "
+                      f"{rows[-1]['ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
+        for tp, H in TP_WKV_CASES:
+            B, T = TRAIN_BATCH, TRAIN_SEQ
+            args, err, shape = wkv6_case(dev, gen, dtype, B, T, H,
+                                         RWKV_CHUNK)
+            bnd, by = wkv6_bound(dtype, B, T, H, RWKV_CHUNK)
+            rows.append(dict(name="wkv6", dtype=dt, shape=shape, tp=tp,
+                             max_abs_err=err, ms=time_ms(
+                                 lambda: wkv.wkv6_cuda(*args, RWKV_CHUNK),
+                                 flush, 20), bound_ms=bnd, bound_by=by))
+            print(f"[kernels] tp {tp}: wkv6 {dt} {shape}: kernel "
+                  f"{rows[-1]['ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
     return rows
 
 
@@ -974,6 +1063,43 @@ def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
     return res
 
 
+def check_placements(cfg, plan, params):
+    """Every parameter is a ``DTensor`` on the plan's (data, model) mesh,
+    on the model axis with ``param_placements``' placement -> {placement:
+    count}."""
+    want = par.param_placements(cfg, plan, params)
+    dims = plan.mesh.mesh_dim_names
+    counts = {}
+    for name, p in params.named_parameters():
+        check(isinstance(p, DTensor) and p.device_mesh.mesh_dim_names == dims
+              and p.placements[dims.index(plan.tp)] == want[name],
+              f"{name}: {type(p).__name__} "
+              f"{getattr(p, 'placements', None)} on "
+              f"{getattr(getattr(p, 'device_mesh', None), 'mesh_dim_names', None)}"
+              f", want {want[name]} on the model axis of {dims}")
+        key = str(p.placements)
+        counts[key] = counts.get(key, 0) + 1
+    print(f"[strategy] {len(want)} parameters are DTensors on {dims}: "
+          + ", ".join(f"{n} x {k}" for k, n in counts.items()))
+    return counts
+
+
+def local_views_ms(params, reps=20):
+    """Host ms to take every layer's ``to_local`` views once (what a
+    forward adds on the tensor-parallel lowering), with the layers'
+    parameters gathered as in their forward."""
+    for layer in params.layers:
+        layer.unshard()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for layer in params.layers:
+            layers.local_params(layer)
+    took = (time.perf_counter() - t0) / reps * 1e3
+    for layer in params.layers:
+        layer.reshard()
+    return took
+
+
 def strategy_phase(dev, card, expect):
     """qwen3-0.6b at full width and depth under STRATEGY_SPEC through the
     functions the train CLI calls (``resolve`` -> ``to_plan`` ->
@@ -999,11 +1125,28 @@ def strategy_phase(dev, card, expect):
         tc = TrainConfig(steps=TRAIN_STEPS,
                          warmup=max(TRAIN_STEPS // 20, 1), log_every=1,
                          grad_accum=strat.grad_accum, opt=AdamWConfig())
-        res = run_steps(dev, card, cfg, rt, tc, par.apply_plan(
-            tfm.init_params(cfg, seed=SEED, device=dev), plan), expect,
-            "strategy", plan=plan, expect_bf16=expect)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        placed = check_placements(cfg, plan, params)
+        views_ms = local_views_ms(params)
+        layers.reset_collective_counts()
+        res = run_steps(dev, card, cfg, rt, tc, params, expect,
+                        "strategy", plan=plan, expect_bf16=expect)
+        # FSDP2's modules hold reference cycles: collect them, or the
+        # parameters outlive the phase
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not any(layers.COLLECTIVES.values()),
+              f"a model axis of 1 ran tensor-parallel collectives: "
+              f"{layers.COLLECTIVES}")
         res.update(spec=strat.format(), mesh=mesh_shape(plan.mesh),
-                   ranks=dist.get_world_size(), backend=dist.get_backend())
+                   ranks=dist.get_world_size(), backend=dist.get_backend(),
+                   placements=placed, local_views_ms=views_ms)
+        print(f"[strategy] step p50 {res['step_p50_s'] * 1e3:.1f} ms through "
+              f"the tensor-parallel lowering (model axis 1); the layers' "
+              f"to_local views take {views_ms:.2f} ms of host time per "
+              f"forward")
     finally:
         shutdown()
     plain_rt = dataclasses.replace(rt, attn_impl="torch", norm_impl="torch")
@@ -1221,6 +1364,7 @@ def main(argv=None):
         rows += flash_decode_phase(dev, flush, gen)
         rows += flash_phase(dev, flush, gen)
         rows += wkv6_phase(dev, flush, gen)
+        tp_rows = tp_kernels_phase(dev, flush, gen)
     del flush
     print(f"[kernels] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -1281,7 +1425,8 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": rows, "serve": served,
+            {"card": card, "kernels": rows, "kernels_tp": tp_rows,
+             "serve": served,
              "train": trained, "train_strategy": strat,
              "train_rwkv6": rwkv_trained, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))

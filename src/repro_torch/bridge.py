@@ -15,8 +15,9 @@ names (``embed.tok``, ``layers.3.mixer.wq``, ``layers.3.mixer.ln_x.scale``);
 they map onto the same tree, nested at every dot.
 With tied embeddings ``embed.tok`` carries the sum of the gather's and the
 LM head's gradients, in both packages.  Both directions speak numpy, so
-this module needs no JAX.  Towards JAX, a model sharded by FSDP2 (and its
-``DTensor`` gradients and moments) is gathered whole on every rank.
+this module needs no JAX.  Towards JAX, a model sharded by FSDP2 and
+tensor parallelism (and its ``DTensor`` gradients and moments, on the
+(data, model) mesh) is gathered whole on every rank.
 """
 from __future__ import annotations
 

@@ -1,22 +1,39 @@
-"""Parallelization plan of the port: the precision policies and the
-data-parallel half of the JAX package's ``core/parallel.py``.
+"""Parallelization plan of the port: the precision policies, the
+parameter and activation specs and the lowering of the JAX package's
+``core/parallel.py`` onto FSDP2 and tensor parallelism over a
+``DeviceMesh``.
 
 ``PrecisionPolicy``, ``PRECISION_POLICIES`` and ``ParallelPlan`` are
 copies (the plan sits over a ``torch.distributed`` ``DeviceMesh``, and
 carries its ZeRO stage, which FSDP2 needs and the JAX lowering leaves to
-XLA); ``make_runtime`` derives a ``Runtime``'s dtypes from the plan's
-policy as the JAX one does.  ``apply_plan`` takes the place of
-``param_shardings`` and ``place_train_state``: it wraps every layer, then
-the whole model, in FSDP2's ``fully_shard`` over the plan's mesh, so each
-layer's parameters are gathered in its forward and its gradients
-reduce-scattered in its backward.  One mechanism serves every dp mode:
+XLA); so are ``_fit_spec``/``fitted``, ``_mixer_kind``, ``_param_spec``
+and ``activation_specs``, whose specs are tuples of mesh-axis entries in
+place of ``PartitionSpec``s (a parameter's path is its dotted
+``named_parameters`` name).  ``make_runtime`` derives a ``Runtime``'s
+dtypes from the plan's policy as the JAX one does, and gives it the
+model axis: its process group, size and rank, and whether the residual
+stream is sequence-parallel (``activation_specs``' ``act_btd``).
+
+``apply_plan`` takes the place of ``param_shardings`` and
+``place_train_state``, in FSDP2's documented TP composition: every
+parameter first becomes a ``DTensor`` over the model axis with the
+placement ``param_placements`` reads off ``_param_spec`` (``Shard(d)`` or
+``Replicate()``), then every layer, and the whole model, is wrapped in
+``fully_shard`` over the data axes of the same root mesh, so each layer's
+parameters are gathered over the data axes in its forward and its
+gradients reduce-scattered over them in its backward.  The model
+computes on the gathered parameters' local (model-axis) shards, with
+Megatron's collectives between (``models.layers``).  Every plan takes
+this one lowering; on a model axis of size 1 the model runs no
+collective.  The data axes:
 
   * ``fsdp`` shards over the ``data`` axis (ZeRO-3 reshards each layer
     after its forward, ZeRO-2 keeps it gathered until its backward);
   * ``hsdp`` across islands shards over ``data`` and replicates over
     ``pod`` (FSDP2 on a 2-D mesh);
-  * ``ddp`` (ZeRO-0) replicates over the data axes and shards over the
-    size-1 ``model`` axis — every rank holds whole parameters.
+  * ``ddp`` (ZeRO-0) replicates over the data axes and shards over a
+    size-1 ``zero`` axis of a root mesh of its own, (dp, zero, model) —
+    every rank holds whole layers of its model shard.
 
 Gathers run at the parameter dtype (f32), as the JAX package gathers
 (``comm_dtype ''``); the bf16 cast stays where the model casts (the
@@ -24,13 +41,13 @@ embedding, the LM head, each product).  The fp8 policy rounds each
 gathered layer parameter through float8_e4m3fn to bf16 in the layer
 (``Runtime.gather_dtype``), which gives the JAX package's values; its
 wire stays f32.  ``_ovl`` becomes FSDP2's explicit prefetch of layer
-i + 1 while layer i computes.  Tensor parallelism (``_param_spec``,
-``activation_specs``, ``cache_shardings``) comes with its own slice.
+i + 1 while layer i computes.  Serving under TP (``cache_shardings``)
+comes with its own slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -127,54 +144,281 @@ class ParallelPlan:
         return n
 
 
+# ---------------------------------------------------------------------------
+# spec fitting: drop axes that do not divide the dimension
+# ---------------------------------------------------------------------------
+
+def _fit_spec(spec: Tuple, shape, mesh) -> Tuple:
+    shape_of = mesh_shape(mesh)
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        keep = []
+        size = shape[dim]
+        for a in axes:
+            n = shape_of[a]
+            if size % n == 0 and size >= n:
+                keep.append(a)
+                size //= n
+            # else: drop axis (dim not divisible)
+        out.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep else None))
+    return tuple(out)
+
+
+def fitted(plan: ParallelPlan, spec: Tuple, x_or_shape) -> Tuple:
+    """``spec`` padded to the rank of ``x_or_shape`` and fitted to its
+    shape on the plan's mesh (the JAX ``fitted``, as a spec tuple)."""
+    shape = tuple(getattr(x_or_shape, "shape", x_or_shape))
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return _fit_spec(spec, shape, plan.mesh)
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def _mixer_kind(cfg: ModelConfig, path: Tuple[str, ...]) -> str:
+    """Mixer kind ('attn' | 'rwkv6' | 'mamba') of the layer owning a leaf.
+
+    Attention and rwkv time-mix share leaf names (wk/wv/wo/wr), so specs
+    must discriminate on the layer's kind, not the leaf name.  A port
+    leaf's path names its layer (``layers.<i>...``)."""
+    if cfg.mixer == "attn" or cfg.attn_every <= 1:
+        return cfg.mixer
+    if path[0] == "layers":
+        return cfg.layer_kind(int(path[1]))
+    return cfg.mixer
+
+
+def _param_spec(cfg: ModelConfig, plan: ParallelPlan, path: Tuple[str, ...],
+                ndim: int) -> Tuple:
+    """Spec for one parameter leaf, identified by its path (the dotted
+    ``named_parameters`` name, split).  The port's layers are not
+    stacked, so no leaf carries the JAX package's leading stack dim."""
+    f, m = plan.fsdp, plan.tp
+    names = list(path)
+    leaf = names[-1]
+
+    def spec(*entries):
+        return entries + (None,) * (ndim - len(entries))
+
+    in_attention = "mixer" in names
+    vocab_tp = plan.attn == "head_tp"   # context plans keep vocab unsharded
+
+    if leaf == "tok":
+        return spec(m if vocab_tp else None, f)
+    if leaf == "lm_head":
+        return spec(f, m if vocab_tp else None)
+    if leaf in ("scale", "bias") or ndim == 0:
+        return spec()
+    if leaf == "router" or (ndim == 3 and leaf in ("w_up", "w_gate",
+                                                   "w_down")):
+        raise NotImplementedError(
+            f"{'.'.join(path)}: MoE expert stacks come with the MoE and "
+            "expert parallelism slice of the port (ROADMAP Queue 1)")
+    if in_attention:
+        kind = _mixer_kind(cfg, path)
+        if kind == "attn":
+            head_m = m if plan.attn == "head_tp" else None
+            kv_m = m if plan.kv_tp else None
+            if leaf == "wq":
+                return spec(f, head_m)
+            if leaf in ("wk", "wv"):
+                return spec(f, kv_m)
+            if leaf == "wo":
+                return spec(head_m, f)
+            if leaf == "bq":
+                return spec(head_m)
+            if leaf in ("bk", "bv"):
+                return spec(kv_m)
+        elif kind == "rwkv6":
+            if leaf in ("wr", "wk", "wv", "wg"):
+                return spec(f, m)
+            if leaf == "wo":
+                return spec(m, f)
+            if leaf == "u":
+                return spec(m, None)
+            if leaf in ("tm_w1", "td_w1"):
+                return spec(f, None)
+            if leaf == "td_w2":
+                return spec(None, f)
+            if leaf == "tm_w2":
+                return spec(None, None, f)
+            if leaf == "maa_x":
+                return spec()
+            if leaf == "maa_rkvwg":
+                return spec(None, None)
+            if leaf == "w0":
+                return spec()
+        elif kind == "mamba":
+            raise NotImplementedError(
+                f"{'.'.join(path)}: mamba layers come with the other "
+                "mixers' slice of the port (ROADMAP Queue 1)")
+    # dense / rwkv channel-mix FFN (2D)
+    ffn_m = m if plan.attn == "head_tp" else None
+    if leaf in ("w_up", "w_gate"):
+        return spec(f, ffn_m)
+    if leaf == "w_down":
+        return spec(ffn_m, f)
+    if leaf == "wk":            # rwkv channel-mix key (d, dff)
+        return spec(f, ffn_m)
+    if leaf == "wv":            # rwkv channel-mix value (dff, d)
+        return spec(ffn_m, f)
+    if leaf == "wr":
+        return spec(f, None)
+    if leaf in ("maa_k", "maa_r"):
+        return spec()
+    return spec()
+
+
+def param_placements(cfg: ModelConfig, plan: ParallelPlan, params):
+    """{name: placement on the model axis} for every parameter of
+    ``params`` (a module, or (name, tensor) pairs): ``Shard(d)`` where the
+    fitted ``_param_spec`` puts the model axis on dim d, else
+    ``Replicate()``.  The data axes' placements are FSDP2's (dim 0)."""
+    from torch.distributed.tensor import Replicate, Shard
+    named = (params.named_parameters() if hasattr(params, "named_parameters")
+             else params)
+    out = {}
+    for name, p in named:
+        path = tuple(name.split("."))
+        spec = fitted(plan, _param_spec(cfg, plan, path, p.ndim), p.shape)
+        dims = [d for d, e in enumerate(spec)
+                if plan.tp in (e if isinstance(e, tuple) else (e,))]
+        out[name] = Shard(dims[0]) if dims else Replicate()
+    return out
+
+
+def grad_sums_over_model(name: str, placement, seq_parallel: bool) -> bool:
+    """Whether a parameter's gradient on one model-axis rank is a part of
+    its gradient, to be summed over the model group after the backward
+    (Megatron's all-reduce of the sequence-parallel norms' gradients).
+    A sharded leaf's gradient is its shard's, whole.  A replicated leaf
+    inside a mixer or an FFN (qk-norm scales, KV projections that do not
+    shard, rwkv6's mixes, decay, group norm and channel-mix receptance)
+    takes part in each rank's share of heads or hidden units, between the
+    sublayer's entry and its exit collective.  A norm on the residual
+    stream sees each rank's S-shard under sequence parallelism, and the
+    whole sequence (the same on every rank) without it."""
+    if not placement.is_replicate():
+        return False
+    parts = name.split(".")
+    if "mixer" in parts or "ffn" in parts:
+        return True
+    return seq_parallel
+
+
+# ---------------------------------------------------------------------------
+# activation specs
+# ---------------------------------------------------------------------------
+
+def activation_specs(cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Tuple]:
+    """The JAX package's named activation specs, for the names the port's
+    training forward uses."""
+    dp, m = plan.dp, plan.tp
+    cp = plan.attn == "context"
+    decode = plan.shape_mode == "decode"
+    seq = m if (cp and not decode) else None
+    # Megatron-style sequence parallelism for the residual stream: pure
+    # attention architectures keep (B, S, d) activations seq-sharded on the
+    # model axis between layers (all-gather at matmul entry, reduce-scatter
+    # after wo/w_down).  Recurrent mixers (rwkv/mamba/hybrid) scan along the
+    # sequence and keep residuals seq-unsharded.
+    res_seq = m if (not decode and cfg.mixer == "attn"
+                    and plan.seq_parallel_residuals) else seq
+    return {
+        # (B, S, d): sequence sharded for context-parallel plans + SP
+        "act_btd": (dp, res_seq, None),
+        # (B, S, f): FFN hidden — TP for head plans, seq-sharded for CP
+        "act_btf": (dp, seq, None if cp else m),
+        # (B, S, V)
+        "logits": (dp, seq, None if cp else m),
+        # (B, S, H, hd)
+        "heads_q": (dp, seq, None if cp else m, None),
+        "heads_kv": (dp, seq, (m if plan.kv_tp else None) if not cp else None,
+                     None),
+        # rwkv
+        "rwkv_heads": (dp, None, m, None),
+    }
+
+
 def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
                  **overrides):
     """Runtime with this plan's dtypes: ``param_dtype``, ``compute_dtype``
     and ``grad_dtype`` from its precision policy, and the fp8 policy's wire
     dtype when the plan shards parameters (the JAX package turns its
-    per-layer gatherer on under the same condition)."""
+    per-layer gatherer on under the same condition).  Its model axis: the
+    size, and on a ``DeviceMesh`` the process group and this rank's
+    coordinate; the residual stream is sequence-parallel where
+    ``activation_specs`` shards ``act_btd`` along S."""
     from repro_torch.models.layers import Runtime
     pol = plan.policy
     kw = dict(param_dtype=_DTYPES[pol.param_dtype],
               compute_dtype=_DTYPES[pol.compute_dtype],
-              grad_dtype=_DTYPES[pol.grad_dtype])
+              grad_dtype=_DTYPES[pol.grad_dtype],
+              tp_size=plan.tp_size,
+              seq_parallel=activation_specs(cfg, plan)["act_btd"][1]
+              == plan.tp)
     if pol.comm_dtype and plan.fsdp:
         kw["gather_dtype"] = _DTYPES[pol.comm_dtype]
+    if plan.tp_size > 1 and not isinstance(plan.mesh, dict):
+        kw.update(tp_group=plan.mesh.get_group(plan.tp),
+                  tp_rank=plan.mesh.get_local_rank(plan.tp))
     kw.update(overrides)
     return Runtime(**kw)
 
 
-def _fsdp_mesh(plan: ParallelPlan):
-    """The (sub)mesh FSDP2 runs over: 1-D over the shard axes when the
-    plan shards over every data axis; else 2-D (replicate, shard), with
-    the size-1 model axis as the shard dimension of ZeRO-0."""
-    shard = plan.fsdp or (plan.tp,)
-    replicate = tuple(a for a in plan.dp if a not in shard)
-    if len(shard) != 1:
-        raise ValueError(f"FSDP2 shards over one mesh axis; plan shards "
-                         f"over {shard}")
-    if not replicate:
-        return plan.mesh[shard[0]]
-    if len(replicate) == 1:
-        return plan.mesh[replicate + shard]
-    # ZeRO-0 across islands: every data-parallel rank replicates
+def _meshes(plan: ParallelPlan):
+    """(root mesh, the submesh of it FSDP2 runs over).  The root is the
+    plan's mesh when the plan shards over ``data`` (FSDP2 1-D over it, or
+    2-D (replicate ``pod``, shard ``data``)); under ZeRO-0 it is a mesh of
+    its own, (dp, zero, model) with a size-1 ``zero`` axis, and FSDP2
+    replicates over ``dp`` and shards over ``zero``.  Ranks lie in the
+    same order on both (row-major, model innermost)."""
+    if plan.fsdp:
+        replicate = tuple(a for a in plan.dp if a not in plan.fsdp)
+        if len(plan.fsdp) != 1 or len(replicate) > 1:
+            raise ValueError(f"FSDP2 shards over one mesh axis and "
+                             f"replicates over at most one; plan shards "
+                             f"over {plan.fsdp} of {plan.dp}")
+        if not replicate:
+            return plan.mesh, plan.mesh[plan.fsdp[0]]
+        return plan.mesh, plan.mesh[replicate + plan.fsdp]
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(
+    root = init_device_mesh(
         plan.mesh.device_type,
-        (plan.axis_size(replicate), plan.axis_size(shard)),
-        mesh_dim_names=("dp_replicate", shard[0]))
+        (plan.axis_size(plan.dp), 1, plan.tp_size),
+        mesh_dim_names=("dp", "zero", plan.tp))
+    return root, root["dp", "zero"]
 
 
-def apply_plan(params, plan: ParallelPlan):
-    """Shard ``params`` (a ``Params`` module on this rank's device) in
-    place under ``plan`` -> the same module, now an FSDP2 module whose
-    parameters are ``DTensor`` shards.  Every rank must hold the same
-    weights first (a seeded ``init_params``).  The embedding, the LM head
-    and the final norm stay in the root unit: tied embeddings use one
-    table at both ends."""
+def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
+    """Shard ``params`` (a ``Params`` module of ``cfg`` on this rank's
+    device) in place under ``plan`` -> the same module, now an FSDP2
+    module whose parameters are ``DTensor``s on the root mesh: over the
+    model axis with ``param_placements``' placements, over the data axes
+    FSDP2's.  Every rank must hold the same weights first (a seeded
+    ``init_params``): each keeps its model-axis shard of them.  The
+    embedding, the LM head and the final norm stay in the root unit: tied
+    embeddings use one table at both ends."""
+    from torch import nn
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+    from torch.distributed.tensor import DTensor
     pol = plan.policy
-    mesh = _fsdp_mesh(plan)
+    root, dp_mesh = _meshes(plan)
+    tp_mesh = root[plan.tp]
+    n, rank = tp_mesh.size(), tp_mesh.get_local_rank()
+    for name, place in param_placements(cfg, plan, params).items():
+        owner, leaf = name.rsplit(".", 1)
+        sub = params.get_submodule(owner)
+        full = sub[leaf].detach()
+        local = (full.chunk(n, place.dim)[rank].contiguous()
+                 if place.is_shard() else full)
+        sub[leaf] = nn.Parameter(DTensor.from_local(
+            local, tp_mesh, [place], run_check=False))
     # inputs keep their dtype: the model casts where the JAX package casts
     mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.param_dtype],
                               reduce_dtype=_DTYPES[pol.grad_dtype],
@@ -182,13 +426,12 @@ def apply_plan(params, plan: ParallelPlan):
     reshard = bool(plan.fsdp) and plan.zero >= 3
     layers = list(params.layers)
     for layer in layers:
-        fully_shard(layer, mesh=mesh, reshard_after_forward=reshard,
+        fully_shard(layer, mesh=dp_mesh, reshard_after_forward=reshard,
                     mp_policy=mp)
-    fully_shard(params, mesh=mesh, reshard_after_forward=reshard,
+    fully_shard(params, mesh=dp_mesh, reshard_after_forward=reshard,
                 mp_policy=mp)
     if plan.zero_overlap:
         for cur, nxt in zip(layers, layers[1:]):
             cur.set_modules_to_forward_prefetch([nxt])
             nxt.set_modules_to_backward_prefetch([cur])
     return params
-

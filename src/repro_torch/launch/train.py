@@ -9,16 +9,22 @@ CLI's does:
                          cost model (``--objective``, throughput by default)
   --strategy fsdp_bf16   an explicit spec: dp mode ``ddp``/``fsdp``/``hsdp``,
                          ZeRO ``z0``/``z2``/``z3``, ``ovl``, ``ga<k>``,
-                         precision ``f32``/``bf16``/``fp8``; tp, cp, pp or
-                         ep above 1 raise ``StrategyError`` naming the
+                         precision ``f32``/``bf16``/``fp8``, tensor
+                         parallelism ``tp<k>`` (head-TP with Megatron-SP;
+                         ``nosp`` keeps the residual stream whole); cp, pp
+                         or ep above 1 raise ``StrategyError`` naming the
                          slice that brings them
 
 ``--topology host`` (the default) is every rank of this job as one island.
-The strategy runs through FSDP2 over the plan's ``DeviceMesh``: one rank
-on one card (a 1-rank NCCL group), N ranks under ``torchrun
+The strategy runs on the plan's ``DeviceMesh`` (data axes x model axis):
+tensor parallelism over the model axis, FSDP2 over the data axes; one
+rank on one card (a 1-rank NCCL group), N ranks under ``torchrun
 --standalone --nproc_per_node N -m repro_torch.launch.train ...`` (one
-card each, or gloo processes with ``--device cpu``).  Every rank builds
-the same global batch and trains its rows; rank 0 prints.
+card each, or gloo processes with ``--device cpu``; ``--strategy
+fsdp_tp2`` on 2 ranks is one model group of 2).  Every rank builds the
+same global batch and trains the rows of its data-parallel coordinate;
+rank 0 prints, and the ``[strategy]`` line shows the mesh, model axis
+included.
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``: RMSNorm forward/backward and flash-attention
@@ -83,7 +89,7 @@ def main(argv=None):
                          "many ranks)")
     ap.add_argument("--strategy", default="auto",
                     help="'auto' (planner) or a spec string like fsdp / "
-                         "hsdp_z2_ovl / ddp_ga2 / fsdp_bf16")
+                         "hsdp_z2_ovl / ddp_ga2 / fsdp_bf16 / fsdp_tp2")
     ap.add_argument("--objective", default="wps",
                     choices=sorted(strategy_lib.OBJECTIVES))
     ap.add_argument("--seed", type=int, default=0)
@@ -144,7 +150,7 @@ def _train(args, cfg, device):
     tc = TrainConfig(steps=args.steps, warmup=max(args.steps // 20, 1),
                      log_every=args.log_every, grad_accum=grad_accum,
                      opt=AdamWConfig(lr=args.lr))
-    params = par.apply_plan(init_params(cfg, args.seed, device), plan)
+    params = par.apply_plan(init_params(cfg, args.seed, device), plan, cfg)
 
     recorder = tel.NULL
     if main_rank and (args.trace or args.metrics_jsonl):

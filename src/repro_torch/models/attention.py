@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import Runtime, apply_rope, rms_norm_headwise
+from repro_torch.models.layers import (Runtime, apply_rope, rms_norm_headwise,
+                                       tp_enter, tp_exit)
 
 NEG_INF = -1e30
 
@@ -225,17 +226,45 @@ def _paged_attention_block(cfg, q, k, v, cache, paged, rt: Runtime):
 # full attention block (projections + rope + cache plumbing)
 # ---------------------------------------------------------------------------
 
+def _kv_heads_of_rank(cfg, rt: Runtime, h: int):
+    """The KV heads this rank's ``h`` query heads attend with, when the KV
+    projections are replicated over the model axis (``kv_heads`` does not
+    split over it): query head i reads KV head i // G.  The local heads
+    run in groups of g = gcd(h, G) consecutive heads, each within one KV
+    head -> the KV head of each group (local GQA with groups of g)."""
+    G = cfg.n_heads // cfg.kv_heads
+    g = math.gcd(h, G)
+    first = rt.tp_rank * h
+    return [(first + c * g) // G for c in range(h // g)]
+
+
 def _project_qkv(cfg, p, x, rt: Runtime):
+    """Local heads on a model axis: the columns of wq (and of wk/wv when
+    they shard) are this rank's heads."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     dt = x.dtype
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    h, kv = p["wq"].shape[1] // hd, wk.shape[1] // hd
+    if rt.tp_size > 1 and kv == cfg.kv_heads and cfg.kv_heads % rt.tp_size:
+        ids = _kv_heads_of_rank(cfg, rt, h)
+        sel = torch.tensor(ids, device=x.device)
+        kv = len(ids)
+
+        def pick(w):
+            return w.unflatten(-1, (-1, hd)).index_select(-2, sel).flatten(-2)
+
+        wk, wv = pick(wk), pick(wv)
+        if bk is not None:
+            bk, bv = pick(bk), pick(bv)
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = x @ wk.to(dt)
+    v = x @ wv.to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
     q = q.reshape(B, S, h, hd)
     k = k.reshape(B, S, kv, hd)
     v = v.reshape(B, S, kv, hd)
@@ -246,8 +275,10 @@ def _project_qkv(cfg, p, x, rt: Runtime):
 
 
 def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
-                    want_cache: bool = False, paged=None):
-    """Attention sublayer: x (B, S, d) -> (B, S, d).
+                    want_cache: bool = False, paged=None, sp: bool = False):
+    """Attention sublayer: x (B, S, d) -> (B, S, d); on a model axis, x
+    and the result are the residual stream's (its S-shard under sequence
+    parallelism, ``sp``), the heads this rank's, and ``wo`` row-parallel.
 
     Train:         cache None -> causal self-attention over positions
                    0..S-1 (``sdpa_causal``).
@@ -262,6 +293,7 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
             "(ROADMAP Queue 1)")
     if paged is not None and cache is None:
         raise ValueError("paged attention needs the layer's pools (cache)")
+    x = tp_enter(x, rt, sp)
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, rt)
     if rope_ang is not None:
@@ -273,4 +305,4 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
         # context parallelism (the JAX _cp_attend) comes with its slice
         # (ROADMAP Queue 1, "other mixers and inputs")
         out = sdpa_causal(q, k, v, cfg.sliding_window, rt)
-    return out.reshape(B, S, -1) @ p["wo"].to(out.dtype)
+    return tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)

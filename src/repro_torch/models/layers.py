@@ -5,15 +5,27 @@ Functions take parameter dicts (or ``nn.ParameterDict``s) of tensors, in
 the JAX package's layouts: projection weights are (in, out) and applied as
 ``x @ W``.  Initialisers draw from an explicit ``torch.Generator`` on an
 explicit device, with the JAX package's distributions.
+
+Tensor parallelism (a ``Runtime`` whose model axis has ``tp_size`` > 1)
+computes on each rank's local shards of the parameters, between
+Megatron's conjugate collectives over the model group: a sublayer enters
+through :func:`tp_enter` (all-gather along S under sequence parallelism,
+else identity with an all-reduce backward) and leaves through
+:func:`tp_exit` (reduce-scatter along S, else all-reduce).  Each
+collective call adds one to ``COLLECTIVES`` (forward and backward alike),
+as a kernel wrapper counts its launches.  On a model axis of size 1 no
+collective runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kernel_ops
 
@@ -40,6 +52,12 @@ class Runtime:
     of each layer's gathered parameters: every floating leaf is rounded
     through it to ``compute_dtype`` before the layer computes
     (:func:`wire_round`).
+
+    The model axis (``core.parallel.make_runtime``): ``tp_size`` ranks in
+    ``tp_group``, this one at ``tp_rank``; with ``seq_parallel`` the
+    residual stream between sublayers holds this rank's 1/tp of the
+    sequence (Megatron-SP) wherever S splits evenly
+    (:func:`sequence_parallel`).
     """
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -51,6 +69,10 @@ class Runtime:
     attn_kv_chunk: int = 1024           # kv chunk for blocked attention
     attn_min_chunked_len: int = 2048    # below this, plain masked attention
     rwkv_chunk: int = 64                # WKV-6 chunk length
+    tp_size: int = 1                    # ranks on the model axis
+    tp_rank: int = 0                    # this rank's model coordinate
+    tp_group: Any = None                # the model axis' process group
+    seq_parallel: bool = False          # Megatron-SP residual stream
 
 
 class _WireRound(torch.autograd.Function):
@@ -87,6 +109,131 @@ def wire_round_grad(g: torch.Tensor, rt: Runtime) -> torch.Tensor:
     rounded through ``compute_dtype`` and ``gather_dtype`` back to its own
     dtype."""
     return g.to(rt.compute_dtype).to(rt.gather_dtype).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: local shards and Megatron's conjugate collectives
+# ---------------------------------------------------------------------------
+
+COLLECTIVES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
+                               "all_reduce": 0}
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+def local_params(tree) -> Dict[str, Any]:
+    """A (nested) ``ParameterDict`` or dict -> a dict of the same keys
+    holding each parameter's local shard (a differentiable ``to_local``
+    view of a ``DTensor``, else the tensor): the tensors a layer computes
+    from, on a model axis of any size."""
+    return {k: local_params(v) if isinstance(v, (dict, nn.Module))
+            else (v.to_local() if isinstance(v, DTensor) else v)
+            for k, v in tree.items()}
+
+
+def sequence_parallel(rt: "Runtime", S: int) -> bool:
+    """Whether a forward over S positions keeps its residual stream
+    sharded along S over the model axis: under a sequence-parallel plan,
+    where S splits evenly (the JAX package's fitted ``act_btd``)."""
+    return rt.tp_size > 1 and rt.seq_parallel and S % rt.tp_size == 0
+
+
+def all_reduce(x: torch.Tensor, rt: "Runtime", op=dist.ReduceOp.SUM):
+    """Counted in-place all-reduce of ``x`` over the model group."""
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(x, op=op, group=rt.tp_group)
+    return x
+
+
+def _gather_seq(x, rt):
+    """(B, S/tp, ...) shards -> (B, S, ...), rank order along S."""
+    COLLECTIVES["all_gather"] += 1
+    xs = x.movedim(1, 0).contiguous()
+    out = xs.new_empty((xs.shape[0] * rt.tp_size,) + xs.shape[1:])
+    dist.all_gather_into_tensor(out, xs, group=rt.tp_group)
+    return out.movedim(0, 1)
+
+
+def _scatter_seq(x, rt):
+    """(B, S, ...) partial sums -> this rank's (B, S/tp, ...) of their
+    sum over the model group."""
+    COLLECTIVES["reduce_scatter"] += 1
+    xs = x.movedim(1, 0).contiguous()
+    out = xs.new_empty((xs.shape[0] // rt.tp_size,) + xs.shape[1:])
+    dist.reduce_scatter_tensor(out, xs, group=rt.tp_group)
+    return out.movedim(0, 1)
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.rt), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, rt):
+        return all_reduce(x.contiguous(), rt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Megatron-SP's entry: all-gather along S forward, reduce-scatter
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return _gather_seq(x, rt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq(g, ctx.rt), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Megatron-SP's exit: reduce-scatter along S forward, all-gather
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return _scatter_seq(x, rt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.rt), None
+
+
+def tp_enter(x, rt: "Runtime", sp: bool):
+    """A sublayer's input on every model rank: the whole sequence,
+    gathered from the S-shards under sequence parallelism (``sp``)."""
+    if rt.tp_size == 1:
+        return x
+    return _GatherSeq.apply(x, rt) if sp else _Copy.apply(x, rt)
+
+
+def tp_exit(y, rt: "Runtime", sp: bool):
+    """A sublayer's partial outputs summed over the model ranks: this
+    rank's S-shard of the sum under sequence parallelism (``sp``)."""
+    if rt.tp_size == 1:
+        return y
+    return _ScatterSeq.apply(y, rt) if sp else _Reduce.apply(y, rt)
 
 
 def _randn(gen, shape, scale, device):
@@ -168,16 +315,33 @@ def init_embed(cfg, gen, device):
     return p
 
 
-def embed_tokens(p, tokens, rt: Runtime):
-    # gather, then cast: the same values as casting the table first
-    return F.embedding(tokens, p["tok"]).to(rt.compute_dtype)
+def embed_tokens(p, tokens, rt: Runtime, sp: bool = False):
+    """tokens (B, S) -> (B, S, d) in ``compute_dtype``; ``p`` holds local
+    shards.  Vocab-parallel on a model axis: each rank looks up the
+    tokens of its rows of the table (zero elsewhere), and the sum over
+    the ranks is all-reduced, or reduce-scattered to this rank's S-shard
+    under sequence parallelism (``sp``)."""
+    tok = p["tok"]
+    if rt.tp_size == 1:
+        # gather, then cast: the same values as casting the table first
+        return F.embedding(tokens, tok).to(rt.compute_dtype)
+    rows = tok.shape[0]
+    ids = tokens - rt.tp_rank * rows
+    mine = (ids >= 0) & (ids < rows)
+    e = F.embedding(torch.where(mine, ids, 0), tok)
+    e = (e * mine[..., None].to(e.dtype)).to(rt.compute_dtype)
+    return tp_exit(e, rt, sp)
 
 
-def lm_logits(p, h, rt: Runtime):
+def lm_logits(p, h, rt: Runtime, sp: bool = False):
+    """h (B, S, d), or its S-shard under sequence parallelism (``sp``)
+    -> logits (B, S, V / tp): this rank's columns of the vocabulary (the
+    tied table's rows stay sharded)."""
     if "lm_head" in p:
         w = p["lm_head"].to(rt.compute_dtype)
     else:
         w = p["tok"].to(rt.compute_dtype).t()
+    h = tp_enter(h, rt, sp)
     # mixed types promote, as jnp.einsum does (an RWKV-6 stack's residual
     # stream leaves its layers in f32)
     ct = torch.promote_types(h.dtype, w.dtype)
@@ -203,11 +367,15 @@ def init_mlp(cfg, gen, device, d_ff=None):
     return p
 
 
-def apply_mlp(cfg, p, x, rt: Runtime):
+def apply_mlp(cfg, p, x, rt: Runtime, sp: bool = False):
+    """Column-parallel ``w_up``/``w_gate`` and row-parallel ``w_down`` on
+    a model axis: x and the result are the residual stream's (its S-shard
+    under sequence parallelism, ``sp``)."""
     act = _act(cfg.act)
+    x = tp_enter(x, rt, sp)
     up = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
         h = act(x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = act(up)
-    return h @ p["w_down"].to(x.dtype)
+    return tp_exit(h @ p["w_down"].to(x.dtype), rt, sp)

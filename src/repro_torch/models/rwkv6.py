@@ -10,6 +10,16 @@ lora(x))); the WKV recurrence per head of N channels is
 then a headwise group norm, a silu(g) gate and the output projection.
 Channel mix: token shift, relu² key, sigmoid receptance.
 
+On a model axis (tensor parallelism, no sequence parallelism: the JAX
+package keeps recurrent mixers' residual stream whole along S) each rank
+takes its heads: ``wr``/``wk``/``wv``/``wg`` are column-parallel and
+``wo`` row-parallel, the WKV runs on the local heads with their rows of
+``u``, and the replicated decay (``w0`` and the LoRA's output) and group
+norm are sliced to the local channels.  The channel mix's ``wk`` is
+column-parallel, ``wv`` row-parallel and ``wr`` replicated.  Each block
+enters through Megatron's f (all-reduce backward) and leaves through its
+g (all-reduce forward).
+
 WKV routes: with no carried state and ``Runtime.attn_impl == "kernel"``,
 the WKV-6 kernel (``kernels.ops.wkv6``; its plain version on CPU tensors)
 for every T — the JAX gate ``T >= 64`` is a tiling rule of the TPU kernel,
@@ -24,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.wkv6 import wkv6_plain as wkv_chunked
-from repro_torch.models.layers import Runtime
+from repro_torch.models.layers import Runtime, tp_enter, tp_exit
 
 TM_RANK = 32   # low-rank dim of the token-shift ddlerp
 TD_RANK = 64   # low-rank dim of the decay lora
@@ -130,18 +140,23 @@ def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None):
     None) or {'x_prev' (B, d), 'wkv' (B, H, N, N)} for decode/prefill
     carry."""
     B, T, d = x.shape
-    H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    N = cfg.rwkv_head_dim
     last = (state["x_prev"] if state is not None
             else torch.zeros(B, d, dtype=x.dtype, device=x.device))
 
+    x = tp_enter(x, rt, False)
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, last))
     dt = x.dtype
+    # this rank's channels: heads [c0 / N, (c0 + dl) / N) of H
+    dl = p["wr"].shape[1]
+    H, c0 = dl // N, rt.tp_rank * dl
     r = _mm(xr, p["wr"], dt).reshape(B, T, H, N)
     k = _mm(xk, p["wk"], dt).reshape(B, T, H, N)
     v = _mm(xv, p["wv"], dt).reshape(B, T, H, N)
     g = F.silu(_mm(xg, p["wg"], dt))
-    dlora = _mm(torch.tanh(_mm(xw, p["td_w1"], dt)), p["td_w2"], dt)
-    w = torch.exp(-torch.exp(p["w0"].float() + dlora.float())
+    dlora = _mm(torch.tanh(_mm(xw, p["td_w1"], dt)),
+                p["td_w2"][:, c0:c0 + dl], dt)
+    w = torch.exp(-torch.exp(p["w0"][c0:c0 + dl].float() + dlora.float())
                   ).reshape(B, T, H, N)
 
     if T == 1 and state is not None:
@@ -160,8 +175,9 @@ def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None):
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
-    yf = yf.reshape(B, T, d) * p["ln_x"]["scale"] + p["ln_x"]["bias"]
-    out = _mm(yf.to(dt) * g, p["wo"], dt)
+    yf = (yf.reshape(B, T, dl) * p["ln_x"]["scale"][c0:c0 + dl]
+          + p["ln_x"]["bias"][c0:c0 + dl])
+    out = tp_exit(_mm(yf.to(dt) * g, p["wo"], dt), rt, False)
 
     new_state = None
     if state is not None:
@@ -174,6 +190,7 @@ def rwkv_channel_mix(cfg, p, x, rt: Runtime, state=None):
     B, T, d = x.shape
     last = (state["x_prev"] if state is not None
             else torch.zeros(B, d, dtype=x.dtype, device=x.device))
+    x = tp_enter(x, rt, False)
     xx = _shift(x, last) - x
     xk = x + xx * p["maa_k"].to(x.dtype)
     xr = x + xx * p["maa_r"].to(x.dtype)
@@ -182,4 +199,4 @@ def rwkv_channel_mix(cfg, p, x, rt: Runtime, state=None):
     kv = _mm(k, p["wv"], dt)
     r = torch.sigmoid(_mm(xr, p["wr"], dt))
     new_state = {"x_prev": x[:, -1]} if state is not None else None
-    return r * kv, new_state
+    return tp_exit(r * kv, rt, False), new_state

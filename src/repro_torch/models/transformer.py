@@ -17,15 +17,17 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.models.layers import (Runtime, apply_mlp, apply_norm,
-                                       embed_tokens, init_embed, init_mlp,
-                                       init_norm, lm_logits, rope_angles,
-                                       wire_round)
+from repro_torch.models.layers import (Runtime, all_reduce, apply_mlp,
+                                       apply_norm, embed_tokens, init_embed,
+                                       init_mlp, init_norm, lm_logits,
+                                       local_params, rope_angles,
+                                       sequence_parallel, tp_exit, wire_round)
 
 
 # ---------------------------------------------------------------------------
@@ -104,19 +106,23 @@ class Layer(nn.Module):
         return self._modules.items()
 
     def forward(self, cfg: ModelConfig, kind: str, h, rope_ang,
-                rt: Runtime, cache=None, paged=None):
-        lp = self
+                rt: Runtime, cache=None, paged=None, sp: bool = False):
+        """h: the residual stream, (B, S, d), or this rank's S-shard of it
+        under sequence parallelism (``sp``).  The layer computes from its
+        parameters' local shards (``to_local`` views of the ``DTensor``s
+        FSDP2 has gathered)."""
+        lp = local_params(self)
         if rt.gather_dtype is not None:
-            lp = wire_round(self, rt.gather_dtype, rt.compute_dtype)
+            lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
         x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
         if kind == "rwkv6":
             h = h + rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt)[0]
             x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
             return h + rwkv_lib.rwkv_channel_mix(cfg, lp["ffn"], x, rt)[0]
         h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
-                                         cache=cache, paged=paged)
+                                         cache=cache, paged=paged, sp=sp)
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
-        return h + apply_mlp(cfg, lp["ffn"], x, rt)
+        return h + apply_mlp(cfg, lp["ffn"], x, rt, sp)
 
 
 class Params(nn.Module):
@@ -139,7 +145,10 @@ class Params(nn.Module):
         return self.embed["tok"].device
 
     def forward(self, cfg: ModelConfig, batch, rt: Runtime, cache=None):
-        """-> logits (B, S, vocab); see :func:`forward`."""
+        """-> logits (B, S, vocab), on a model axis this rank's columns of
+        the vocabulary; see :func:`forward`.  Under sequence parallelism
+        (:func:`sequence_parallel`) the residual stream holds this rank's
+        S-shard from the embedding to the final norm."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
@@ -148,7 +157,9 @@ class Params(nn.Module):
             positions = batch["pos"] + positions
         positions = positions.expand(B, S)
 
-        h = embed_tokens(self.embed, tokens, rt)
+        sp = sequence_parallel(rt, S)
+        embed = local_params(self.embed)
+        h = embed_tokens(embed, tokens, rt, sp)
         rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
                     if cfg.rope == "rope" else None)
         paged = cache["paged"] if cache is not None else None
@@ -156,9 +167,9 @@ class Params(nn.Module):
                         else [None] * len(self.layers))
         for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
                                             strict=True)):
-            h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged)
-        h = apply_norm(self.final_norm, h, cfg.norm_eps, rt)
-        return lm_logits(self.embed, h, rt)
+            h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged, sp)
+        h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
+        return lm_logits(embed, h, rt, sp)
 
 
 def _init_layer(cfg: ModelConfig, i: int, gen, device):
@@ -214,6 +225,22 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
 # loss
 # ---------------------------------------------------------------------------
 
+def _vocab_parallel_terms(lf, labels, rt: Runtime):
+    """f32 logits (B, S, V / tp) of this rank's vocabulary columns ->
+    (logsumexp, the label's logit), each (B, S) and the same on every
+    model rank.  The max is a shift with no gradient; each sum is
+    all-reduced with an identity backward (Megatron's g, ``tp_exit``), so
+    every rank's logits take their own part of the gradient."""
+    with torch.no_grad():
+        m = all_reduce(lf.amax(-1), rt, dist.ReduceOp.MAX)
+    sumexp = tp_exit(torch.exp(lf - m[..., None]).sum(-1), rt, False)
+    cols = lf.shape[-1]
+    ids = labels.long() - rt.tp_rank * cols
+    mine = (ids >= 0) & (ids < cols)
+    ll = torch.gather(lf, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+    return m + torch.log(sumexp), tp_exit(ll * mine.to(ll.dtype), rt, False)
+
+
 def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
             denom=None):
     """Next-token cross entropy in f32; labels < 0 are masked.
@@ -222,12 +249,20 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
 
     ``nll`` is the masked sum over ``denom``: by default this batch's
     count of unmasked labels (``ntok``); a data-parallel step passes its
-    share of the global count, so that every rank's labels weigh alike."""
+    share of the global count, so that every rank's labels weigh alike.
+    On a model axis the cross entropy is vocab-parallel: every rank holds
+    its columns of the logits, and the max, the sum of exponentials and
+    the label's logit are each reduced over the model group, so the whole
+    (B, S, V) logits are never gathered."""
     logits = forward(cfg, params, batch, rt)
     labels = batch["labels"]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if rt.tp_size > 1:
+        lse, ll = _vocab_parallel_terms(lf, labels, rt)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1,
+                          labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     if denom is None:
         denom = mask.sum().clamp_min(1.0)

@@ -56,21 +56,30 @@ def init_opt_state(params: nn.Module) -> Dict:
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor's elements.  Sharded
     tensors (``DTensor``s) add their local shards' squares, summed over
-    the mesh dimensions they are sharded on and not over replicas (which
-    hold the same values)."""
-    total, groups = None, {}
+    the mesh dimensions they are sharded on and not over those they are
+    replicated on (which hold the same values): tensors are summed in
+    groups of the same sharded dimensions, and each group's sum is reduced
+    over its own.  On a 2-D (data, model) mesh a leaf replicated over the
+    model axis is thus counted once, not once per model rank."""
+    totals, groups = {}, {}
     for x in tensors:
         sq = torch.sum(torch.square(_local(x).float()))
-        total = sq if total is None else total + sq
+        key = ()
         if isinstance(x, DTensor):
-            for dim, place in enumerate(x.placements):
-                if place.is_shard() and x.device_mesh.size(dim) > 1:
-                    group = x.device_mesh.get_group(dim)
-                    groups[id(group)] = group
-    if total is None:
+            # FSDP2 over a sharded model axis places dim 0 as a
+            # _StridedShard, which is no Shard: test for replicas instead
+            key = tuple(dim for dim, place in enumerate(x.placements)
+                        if not place.is_replicate()
+                        and x.device_mesh.size(dim) > 1)
+            groups[key] = [x.device_mesh.get_group(dim) for dim in key]
+        totals[key] = sq if key not in totals else totals[key] + sq
+    if not totals:
         return torch.zeros(())
-    for group in groups.values():
-        dist.all_reduce(total, group=group)
+    total = None
+    for key, sq in totals.items():
+        for group in groups.get(key, ()):
+            dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 

@@ -2,10 +2,12 @@
 
 A copy of the JAX package's ``strategy/descriptor.py``: the same fields,
 spec grammar, checks and cost-model lowering.  Two things differ.
-``Strategy.check`` refuses tensor, context, pipeline and expert degrees
-above 1 (``LATER_DEGREES``: each names the slice of the port that brings
-it), so the planner never picks a strategy the port cannot run; and
-``to_plan`` builds the port's ``ParallelPlan`` over a ``torch.distributed``
+``Strategy.check`` refuses context, pipeline and expert degrees above 1
+(``LATER_DEGREES``: each names the slice of the port that brings it), and
+a tensor-parallel degree that resolves to context attention or whose
+Megatron split of the model does not divide (``_check_tensor``), so the
+planner never picks a strategy the port cannot run; and ``to_plan``
+builds the port's ``ParallelPlan`` over a ``torch.distributed``
 ``DeviceMesh``.  What follows is the JAX package's account of the design.
 
 Historically the repo had two disconnected strategy representations:
@@ -84,7 +86,6 @@ class StrategyError(ValueError):
 
 # degrees the port cannot run yet -> the slice of the port that brings each
 LATER_DEGREES = {
-    "tp": "tensor parallelism via DTensor (_tp/_headtp)",
     "cp": "other mixers and inputs, and context parallelism",
     "pp": "pipeline schedules",
     "ep": "MoE and expert parallelism",
@@ -223,16 +224,17 @@ class Strategy:
 
         Passing ``cfg`` additionally validates the model-dependent pipeline
         constraints (uniform layer stack, layer count divisible by pp);
-        ``to_plan`` always does.  In the port, a tp, cp, pp or ep degree
-        above 1 raises first, naming the slice that brings it.
+        ``to_plan`` always does.  In the port, a cp, pp or ep degree above
+        1 raises first, naming the slice that brings it; so does, given
+        ``cfg``, a tp degree whose attention resolves to context mode.
         """
         for degree, slice_name in LATER_DEGREES.items():
             if getattr(self, degree) > 1:
                 raise StrategyError(
                     f"{degree}={getattr(self, degree)}: the PyTorch port runs "
-                    f"data parallelism only (dp modes, ZeRO stages, ovl, ga, "
-                    f"precision); {degree} > 1 arrives with the "
-                    f"'{slice_name}' slice (ROADMAP Queue 1)")
+                    f"data and tensor parallelism (dp modes, ZeRO stages, "
+                    f"ovl, ga, precision, tp); {degree} > 1 arrives with "
+                    f"the '{slice_name}' slice (ROADMAP Queue 1)")
         n = topology.n_devices
         if self.tp > 1 and self.cp > 1:
             raise StrategyError(
@@ -258,10 +260,33 @@ class Strategy:
             raise StrategyError(
                 f"ep={self.ep} does not divide the island-local data "
                 f"group {self.dp_degree(topology) // pods}")
+        if cfg is not None and self.tp > 1:
+            self._check_tensor(cfg)
         if cfg is not None and self.ep > 1:
             self._check_expert(cfg)
         if cfg is not None and self.pp > 1:
             self._check_pipeline(cfg)
+
+    def _check_tensor(self, cfg: ModelConfig) -> None:
+        """The port's tp constraints: head-TP, with the heads, FFN hidden
+        units and vocabulary split evenly over the model axis (the
+        Megatron pairs of column- and row-parallel products shard
+        together; the KV heads may replicate)."""
+        if self.resolved_attn(cfg) == "context":
+            raise StrategyError(
+                f"tp={self.tp} on {cfg.name} resolves to context attention "
+                f"(n_heads={cfg.n_heads}): the PyTorch port runs head-TP; "
+                f"context parallelism (cp) arrives with the "
+                f"'{LATER_DEGREES['cp']}' slice (ROADMAP Queue 1)")
+        heads = (cfg.rwkv_heads if cfg.mixer == "rwkv6" else cfg.n_heads)
+        dims = {"heads": heads, "d_ff": cfg.dense_d_ff or cfg.d_ff,
+                "vocab_size": cfg.vocab_size}
+        for name, size in dims.items():
+            if size % self.tp:
+                raise StrategyError(
+                    f"tp={self.tp} does not divide {name}={size} of "
+                    f"{cfg.name}: the port's tensor parallelism splits it "
+                    "evenly over the model axis")
 
     def _check_expert(self, cfg: ModelConfig) -> None:
         """Model-dependent ep constraints (expert-stack sharding)."""

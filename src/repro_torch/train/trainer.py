@@ -20,8 +20,10 @@ import torch.distributed as dist
 
 from repro_torch import telemetry as tel
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import parallel as par
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Runtime, wire_round_grad
+from repro_torch.models.layers import (Runtime, all_reduce,
+                                       sequence_parallel, wire_round_grad)
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.strategy.topology import mesh_shape
@@ -37,10 +39,11 @@ class TrainConfig:
 
 
 class _DataParallel:
-    """This rank's part of a data-parallel step under ``plan``: which rows
-    of a microbatch it takes, and the sums over the data-parallel ranks.
-    (The port's plans have no model, pipe or expert axis, so the
-    data-parallel ranks are the whole process group, in mesh order.)"""
+    """This rank's part of a step under ``plan``: which rows of a
+    microbatch it takes (those of its coordinate on the data axes; the
+    ranks of a model group take the same rows), the sums over the
+    data-parallel ranks, and which gradients are summed over the model
+    group (``core.parallel.grad_sums_over_model``)."""
 
     def __init__(self, plan):
         shape = mesh_shape(plan.mesh)
@@ -50,6 +53,9 @@ class _DataParallel:
         for axis in plan.dp:
             self.rank = self.rank * shape[axis] + coord[axis]
             self.size *= shape[axis]
+        self.groups = [plan.mesh.get_group(axis) for axis in plan.dp
+                       if shape[axis] > 1]
+        self.tp = plan.tp
 
     def rows(self, micro, ntok):
         """-> (this rank's rows of ``micro``, the loss's divisor), given
@@ -70,9 +76,27 @@ class _DataParallel:
         return {k: v[r * b:(r + 1) * b] for k, v in micro.items()}, denom / n
 
     def mean(self, values: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of each rank's ``values``."""
-        dist.all_reduce(values)
+        """The mean over the data-parallel ranks of each rank's
+        ``values`` (the ranks of a model group hold the same)."""
+        for group in self.groups:
+            dist.all_reduce(values, group=group)
         return values / self.size
+
+    def sum_over_model(self, named, rt: Runtime, seq_parallel: bool):
+        """Sum over the model group, in place and in one all-reduce, the
+        local gradients of ``named`` ({name: parameter}) that are a part
+        of their whole on each model rank."""
+        if rt.tp_size == 1:
+            return
+        grads = [p.grad.to_local() for n, p in named.items()
+                 if p.grad is not None and par.grad_sums_over_model(
+                     n, p.placements[p.device_mesh.mesh_dim_names.index(
+                         self.tp)], seq_parallel)]
+        if not grads:
+            return
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), rt)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
@@ -87,10 +111,12 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
 
     Under a ``plan`` (``params`` wrapped by ``core.parallel.apply_plan``)
     every rank gets the same global batch; of each microbatch a rank takes
-    its 1/n of the rows (``_DataParallel.rows``), and FSDP2 reduces the
-    gradients after every microbatch's backward.  The metrics are the
-    global ones: loss, nll and aux averaged over the ranks, ntok counted
-    over the global batch, grad_norm over every shard.  With a wire dtype
+    its data-parallel 1/n of the rows (``_DataParallel.rows``), and FSDP2
+    reduces the gradients over the data axes after every microbatch's
+    backward; then the replicated parameters whose gradient is partial on
+    each model rank are summed over the model group.  The metrics are the
+    global ones: loss, nll and aux averaged over the data-parallel ranks,
+    ntok counted over the global batch, grad_norm over every shard.  With a wire dtype
     (``rt.gather_dtype``, the fp8 policy) each microbatch's gradients of
     the layers' parameters are rounded through it once they are reduced
     (``wire_round_grad``), as the JAX package's casts round the summed
@@ -99,7 +125,7 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
     dp = _DataParallel(plan) if plan is not None else None
 
     def train_step(params, opt_state, batch):
-        B = batch["labels"].shape[0]
+        B, S = batch["labels"].shape
         if B % ga:
             raise ValueError(f"batch {B} does not split into "
                              f"grad_accum={tc.grad_accum}")
@@ -120,6 +146,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
                 micro, denom = dp.rows(micro, ntok)
             loss, metrics = tfm.loss_fn(cfg, params, micro, rt, denom)
             loss.backward()
+            if dp is not None:
+                dp.sum_over_model(named, rt, sequence_parallel(rt, S))
             loss, metrics = loss.detach(), {k: v.detach()
                                             for k, v in metrics.items()}
             if ntok is not None:

@@ -581,9 +581,10 @@ def _fsdp_cfg():
 @pytest.mark.cuda
 def test_cuda_fsdp_on_one_rank_matches_the_unsharded_step():
     """``fsdp`` in f32 on a 1-rank NCCL mesh (what a strategy run on one
-    card brings up) gives the unsharded kernel path's loss and gradients
-    within 1e-6 of their scale; the test prints whether they match bit for
-    bit."""
+    card brings up: the tensor-parallel lowering, every parameter a
+    ``DTensor`` on the (data, model) mesh) gives the unsharded kernel
+    path's loss and gradients within 1e-6 of their scale; the test prints
+    whether they match bit for bit."""
     from repro_torch import strategy
     from repro_torch.configs import ShapeConfig
     from repro_torch.core import parallel as par
@@ -613,7 +614,9 @@ def test_cuda_fsdp_on_one_rank_matches_the_unsharded_step():
         shape = ShapeConfig("card", 64, 4, "train")
         plan = strategy.parse("fsdp").to_plan(cfg, strategy.host_topology(),
                                               shape)
-        params = par.apply_plan(tfm.init_params(cfg, 0, dev), plan)
+        params = par.apply_plan(tfm.init_params(cfg, 0, dev), plan, cfg)
+        assert all(isinstance(p, DTensor) and p.device_mesh.mesh_dim_names
+                   == ("data", "model") for p in params.parameters())
         loss1, grads1 = loss_and_grads(params,
                                        par.make_runtime(cfg, plan, shape))
     finally:
@@ -629,9 +632,12 @@ def test_cuda_fsdp_on_one_rank_matches_the_unsharded_step():
 
 
 @pytest.mark.cuda
-def test_cuda_fsdp_two_cards_train_the_losses_of_one():
+@pytest.mark.parametrize("spec", ["fsdp", "fsdp_tp2"])
+def test_cuda_fsdp_two_cards_train_the_losses_of_one(spec):
     """``torchrun --nproc_per_node 2`` over two cards (NCCL) trains the
-    losses of one rank; the plain layers, as the smoke config's head dim
+    losses of one unsharded rank, data-parallel (``fsdp``) or
+    tensor-parallel (``fsdp_tp2``: the heads, FFN and vocabulary split
+    over the two cards); the plain layers, as the smoke config's head dim
     has no compiled kernel."""
     import os
     import subprocess
@@ -644,13 +650,14 @@ def test_cuda_fsdp_two_cards_train_the_losses_of_one():
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     train = ["-m", "repro_torch.launch.train", "--reduced", "--kernels",
-             "torch", "--strategy", "fsdp", "--steps", "2", "--log_every",
-             "1", "--seq_len", "32", "--global_batch", "4"]
-    runs = [subprocess.run([sys.executable, *pre, *train], cwd=root,
-                           env=env, capture_output=True, text=True,
-                           timeout=600)
-            for pre in (["-m", "torch.distributed.run", "--standalone",
-                         "--nproc_per_node", "2"], [])]
+             "torch", "--steps", "2", "--log_every", "1", "--seq_len", "32",
+             "--global_batch", "4"]
+    runs = [subprocess.run([sys.executable, *pre, *train, "--strategy",
+                            strat], cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+            for pre, strat in ((["-m", "torch.distributed.run",
+                                 "--standalone", "--nproc_per_node", "2"],
+                                spec), ([], "fsdp"))]
     losses = []
     for r in runs:
         assert r.returncode == 0, r.stderr[-3000:]

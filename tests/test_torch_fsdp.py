@@ -104,7 +104,7 @@ def _run_case(case, rank):
     shape = ShapeConfig("test", S, B, "train")
     plan = s.to_plan(cfg, topo, shape)
     rt = par.make_runtime(cfg, plan, shape)
-    params = par.apply_plan(params_from_jax(case["tree"]), plan)
+    params = par.apply_plan(params_from_jax(case["tree"]), plan, cfg)
     state = init_opt_state(params)
     step = make_train_step(cfg, rt, TrainConfig(
         steps=STEPS, warmup=1, grad_accum=s.grad_accum,
@@ -234,7 +234,8 @@ def _port_trajectory(case, s, tree, batches):
 
     _, _, arch, over, wd = case
     cfg = dataclasses.replace(reduced(get_config(arch)), **over)
-    rt = Runtime(compute_dtype=torch.bfloat16,
+    rt = Runtime(compute_dtype=torch.float32 if s.precision == "f32"
+                 else torch.bfloat16,
                  gather_dtype=torch.float8_e4m3fn
                  if s.precision == "fp8" and s.zero else None)
     params = params_from_jax(tree)

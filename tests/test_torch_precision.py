@@ -233,7 +233,7 @@ def test_fp8_step_on_a_one_rank_group_matches_jax(tmp_path):
             tc, strategy.host_topology(), shape)
         rt = par.make_runtime(tc, plan, shape)
         assert rt.gather_dtype == torch.float8_e4m3fn
-        params = par.apply_plan(params_from_jax(tree), plan)
+        params = par.apply_plan(params_from_jax(tree), plan, tc)
         state = init_opt_state(params)
         step = make_train_step(tc, rt, TrainConfig(
             steps=2, warmup=1, opt=AdamWConfig(lr=1e-3, weight_decay=0.0)),

@@ -3,10 +3,10 @@
 ``repro_torch.strategy`` and ``repro_torch.core.costmodel`` are copies:
 spec strings parse and format to the same ``Strategy`` fields, the cost
 model prices every strategy with the same floats, and the planner ranks
-the data-parallel strategies in the same order.  The one rule the port
-adds — tp, cp, pp and ep above 1 raise a ``StrategyError`` naming the
-slice that brings them — is held here too, with the train CLI's
-``--strategy`` surface.
+the data- and tensor-parallel strategies in the same order.  The one rule
+the port adds — cp, pp and ep above 1, and a tp that resolves to context
+attention, raise a ``StrategyError`` naming the slice that brings them —
+is held here too, with the train CLI's ``--strategy`` surface.
 """
 import dataclasses
 import os
@@ -101,9 +101,12 @@ def test_cost_model_reports_equal_jax(arch, topo):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_planner_ranks_dp_strategies_as_jax(arch, topo):
     """The port's ranking equals the JAX package's with every strategy of
-    tp, cp, pp or ep above 1 taken out, and holds no such strategy."""
+    cp, pp or ep above 1, or of a tp that resolves to context attention,
+    taken out, and holds no such strategy: the data- and tensor-parallel
+    strategies rank as JAX ranks them."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     mine_t, ref_t = TOPOLOGIES[topo]
+    ranked_tp = False
     for mode, S, B in SHAPES[:2]:
         for kw in ({}, dict(dp_modes=("hsdp", "fsdp", "ddp"),
                             zero_stages=(None, 0, 2, 3),
@@ -112,13 +115,21 @@ def test_planner_ranks_dp_strategies_as_jax(arch, topo):
                                      **kw)
             ref = jstrategy.search(jcfg, ref_t, JShapeConfig("x", S, B, mode),
                                    **kw)
-            ref = [p for p in ref
-                   if p.strategy.model_parallel * p.strategy.ep == 1]
+            ref = [p for p in ref if _tensor_or_data_parallel(
+                p.strategy, jcfg)]
             assert [p.spec for p in ranked] == [p.spec for p in ref]
             assert [p.report.row() for p in ranked] == \
                 [p.report.row() for p in ref]
-            assert all(p.strategy.model_parallel * p.strategy.ep == 1
+            assert all(_tensor_or_data_parallel(p.strategy, cfg)
                        and p.lowers for p in ranked)
+            ranked_tp |= any(p.strategy.tp > 1 for p in ranked)
+    assert ranked_tp == (topo != "host1")
+
+
+def _tensor_or_data_parallel(s, cfg):
+    """No cp, pp or ep above 1, and head-TP attention."""
+    return (s.cp * s.pp * s.ep == 1
+            and s.resolved_attn(cfg) == "head_tp")
 
 
 def test_precision_policies_equal_jax():
@@ -176,13 +187,23 @@ def test_plans_lower_with_the_jax_axis_rules():
 
 
 @pytest.mark.parametrize("spec,degree", [
-    ("hsdp_tp4", "tp"), ("fsdp_cp2", "cp"), ("fsdp_pp2_mb4_1f1b", "pp"),
-    ("fsdp_ep2", "ep"), ("hsdp_tp2_ep4", "tp")])
+    ("hsdp_tp4", None), ("fsdp_cp2", "cp"), ("fsdp_pp2_mb4_1f1b", "pp"),
+    ("fsdp_ep2", "ep"), ("hsdp_tp2_ep4", "ep"), ("fsdp_tp8_ctx", "cp")])
 def test_model_parallel_degrees_name_their_slice(spec, degree):
+    """A degree the port cannot run names its slice (tp resolved to
+    context attention names context parallelism's); head-TP (``degree``
+    None) lowers, on the model axis."""
     cfg = get_config("qwen3-0.6b")
     shape = ShapeConfig("t", 512, 64, "train")
     topo = strategy.host_topology(n_devices=8)
     s = strategy.parse(spec)
+    if degree is None:
+        s.check(topo, cfg)
+        assert s.lowerable(topo, cfg)
+        plan = s.to_plan(cfg, topo, shape, abstract=True)
+        assert plan.mesh == {"data": 2, "model": 4} and plan.attn == "head_tp"
+        assert strategy.resolve(spec, cfg, topo, shape)[0] == s
+        return
     slice_name = strategy.LATER_DEGREES[degree]
     with pytest.raises(strategy.StrategyError, match="PyTorch port") as e:
         s.check(topo, cfg)
@@ -270,8 +291,28 @@ def test_cli_auto_prints_the_planner_choice():
     assert len(_losses(r.stdout)) == 2
 
 
+def test_cli_fsdp_tp2_on_two_gloo_ranks_matches_one_rank():
+    """The tensor-parallel counterpart: ``--strategy fsdp_tp2`` on two
+    gloo ranks (one model group of 2, the heads, FFN hidden units and
+    vocabulary split over it) trains the losses of one unsharded rank."""
+    two = _run(["-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2", *TRAIN, "--strategy", "fsdp_tp2"])
+    assert two.returncode == 0, two.stderr[-3000:]
+    one = _run([*TRAIN, "--strategy", "fsdp"])
+    assert one.returncode == 0, one.stderr[-3000:]
+    assert two.stdout.count("[strategy] fsdp_tp2 on host") == 1
+    assert "{'data': 1, 'model': 2}" in two.stdout
+    got, want = _losses(two.stdout), _losses(one.stdout)
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), (got, want)
+
+
 def test_cli_refuses_tensor_parallelism_by_name():
-    r = _run([*TRAIN, "--strategy", "hsdp_tp4"])
+    """A model-parallel degree the port lacks is refused by name: context
+    parallelism (what tensor parallelism resolves to where the heads do
+    not split)."""
+    r = _run([*TRAIN, "--strategy", "fsdp_cp2"])
     assert r.returncode != 0
     assert "StrategyError" in r.stderr
-    assert strategy.LATER_DEGREES["tp"] in r.stderr
+    assert strategy.LATER_DEGREES["cp"] in r.stderr
