@@ -70,8 +70,33 @@ order; any failure ends the run with a non-zero exit and no result line:
               against the bf16 plain path on one batch (loss within 2e-2,
               every gradient within 0.15 of its scale, their median within
               5e-2), and the bf16 loss within 2e-2 of the f32 plain
-              path's.
-7. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
+              path's.  Then ``fsdp_fp8`` at the same shape on the same mesh:
+              3 AdamW steps (launches as above, on bf16 tensors; step
+              p50 and peak memory printed); from the initial weights,
+              every layer unit's FSDP2 all-gather buffer must be
+              float8_e4m3fn with a quarter of f32's bytes and the root
+              unit's (embedding, final norm) f32, and the loss and
+              gradients must agree with the plain path that rounds the
+              layers' parameters itself (``wire_round``) at the bf16 bars.
+7. pipeline — qwen3-0.6b at full width and depth, f32, in two spawned
+              processes sharing the one card (pipe 2, 14 layers a rank, 7
+              a chunk under ``1f1b_i2``; data and model groups of one rank
+              on NCCL, the pipe group on gloo: activations and cotangents
+              cross through host memory, ``pipe_via_host``), B 8 x S 512,
+              4 microbatches: ``gpipe``, ``1f1b``, ``1f1b_i2`` and ``zb``,
+              2 AdamW steps each from the same seed through the train
+              CLI's functions.  Per rank and schedule: the ops run equal
+              its column of the table; the most microbatch graphs held
+              equal the table's (over the ranks ``inflight_microbatches``);
+              launches per step exact (4 x 14 flash forwards, dq and dk/dv,
+              twice as many RMSNorms and the final norm's 4 on the last
+              stage); the first step's loss within 1e-5 relative and every
+              gradient (from AdamW's first moment) within 1e-4 of its
+              scale of the unpipelined f32 step on the card.  Prints the
+              step time (two processes time-slicing one card, not
+              pipeline speed) and the peak memory per rank.  A rank that
+              fails or outlives 600 s fails the run.
+8. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
               d_model 2048, d_ff 7168, vocab 65536; f32, seed 0, WKV chunk
               32 as the train CLI): 6 AdamW steps (lr 1e-4) of 8 x 512
               tokens, exactly 24 WKV-6 launches per step and none of any
@@ -83,7 +108,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               backward amplifies it in the first layers), then at 2
               layers of full width every gradient within 1e-3.  The
               earlier phases' tensors are freed first.
-8. report   — one JSON line listing every kernel (its f32 case, and a
+9. report   — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches),
               then the device line ``{"ok": true, "device": {...}}`` as
               the last line.
@@ -125,7 +150,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
 from repro_torch.strategy.topology import mesh_shape  # noqa: E402
 from repro_torch.train import TrainConfig, train_loop  # noqa: E402
@@ -199,6 +224,21 @@ BF16_GRAD_MEDIAN = 5e-2
 # the bf16 loss against the f32 plain path's, the JAX package's bar
 # (tests/test_precision.py::test_bf16_train_step_numerics_match_f32)
 BF16_VS_F32_REL = 2e-2
+# then the fp8 policy at the same shape: every layer's FSDP2 all-gather in
+# float8_e4m3fn, its loss and gradients held to the plain path that
+# rounds each layer's parameters itself (``wire_round``) at the bf16 bars
+FP8_SPEC = "fsdp_fp8"
+FP8_STEPS = 3
+# pipeline phase: qwen3-0.6b at full width and depth, f32, in two
+# processes on the one card (pipe 2; data and model groups of one rank on
+# NCCL, the pipe group on gloo through host memory), each schedule from
+# the same seed; the first step's loss within 1e-5 relative and every
+# gradient within 1e-4 of its scale of the unpipelined f32 step on the
+# card (the port's f32 bar)
+PIPE_SCHEDULES = ("gpipe", "1f1b", "1f1b_i2", "zb")
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_STEPS = 2, 4, 2
+PIPE_LOSS_REL, PIPE_GRAD_REL = 1e-5, 1e-4
+PIPE_TIMEOUT_S = 600
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
 # after the flush the device spins this long (~0.5 ms at the H100's ~2 GHz)
 # before the start event, so the host's part of the timed call (a
@@ -1147,6 +1187,7 @@ def strategy_phase(dev, card, expect):
               f"the tensor-parallel lowering (model axis 1); the layers' "
               f"to_local views take {views_ms:.2f} ms of host time per "
               f"forward")
+        res["fp8"] = fp8_run(dev, card, cfg, shape, expect)
     finally:
         shutdown()
     plain_rt = dataclasses.replace(rt, attn_impl="torch", norm_impl="torch")
@@ -1167,6 +1208,301 @@ def strategy_phase(dev, card, expect):
     print(f"[strategy] bf16 kernel-path loss {res['loss_kernel']:.6f} vs f32 "
           f"plain {loss32:.6f}: rel {rel:.3g} (tol {BF16_VS_F32_REL})")
     check(rel <= BF16_VS_F32_REL, f"bf16 loss off the f32 loss by {rel:.3g}")
+    return res
+
+
+def fp8_run(dev, card, cfg, shape, expect):
+    """FP8_SPEC at the strategy phase's shape on its 1-rank NCCL mesh:
+    FP8_STEPS AdamW steps (launches held to ``expect`` per step, all on
+    bf16 tensors); then, from the initial weights and one batch, each
+    layer unit's all-gather buffer must be float8_e4m3fn with a quarter of
+    f32's bytes and the root unit's f32, and the loss and gradients must
+    agree with the plain path that rounds each layer's parameters through
+    float8_e4m3fn itself (``wire_round``, the oracle) within the bf16
+    bars."""
+    topo = strategy.host_topology()
+    strat, _ = strategy.resolve(FP8_SPEC, cfg, topo, shape)
+    plan = strat.to_plan(cfg, topo, shape)
+    rt = par.make_runtime(cfg, plan, shape)
+    check(rt.gather_dtype == torch.float8_e4m3fn and rt.fsdp_wire
+          and rt.compute_dtype == torch.bfloat16,
+          f"{FP8_SPEC}: runtime {rt}")
+    tc = TrainConfig(steps=FP8_STEPS, warmup=max(FP8_STEPS // 20, 1),
+                     log_every=1, opt=AdamWConfig())
+    res = run_steps(dev, card, cfg, rt, tc, par.apply_plan(
+        tfm.init_params(cfg, seed=SEED, device=dev), plan, cfg), expect,
+        "fp8", plan=plan, expect_bf16=expect)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = batch_to_device(next(iter(Batcher(
+        SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+        TRAIN_BATCH))), dev)
+    params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                            plan, cfg)
+    loss_w, grads_w = loss_and_grads(cfg, params, batch, rt)
+    grads_w = {n: g.full_tensor() for n, g in grads_w.items()}
+    wire = [par.all_gather_buffers(layer) for layer in params.layers]
+    root = par.all_gather_buffers(params)
+    f32 = [4 * sum(p.numel() for p in layer.parameters())
+           for layer in params.layers]
+    root_f32 = 4 * sum(p.numel() for n, p in params.named_parameters()
+                       if not n.startswith("layers."))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (got, full) in enumerate(zip(wire, f32)):
+        check(got == {torch.float8_e4m3fn: full // 4},
+              f"layer {i} all-gather buffers {got}, want float8_e4m3fn "
+              f"{full // 4} bytes (f32 {full})")
+    check(root == {torch.float32: root_f32},
+          f"root unit all-gather buffers {root}, want f32 {root_f32}")
+    oracle = Runtime(compute_dtype=torch.bfloat16,
+                     gather_dtype=torch.float8_e4m3fn, attn_impl="torch",
+                     norm_impl="torch")
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    loss_p, grads_p = loss_and_grads(cfg, params, batch, oracle)
+    del params, batch
+    rels = {n: rel_err(grads_w[n], grads_p[n]) for n in grads_p}
+    del grads_w, grads_p
+    torch.cuda.empty_cache()
+    worst = max(rels, key=rels.get)
+    med = statistics.median(rels.values())
+    res.update(spec=strat.format(),
+               wire_bytes_per_layer={str(k): v for k, v in wire[0].items()},
+               f32_bytes_per_layer=f32[0],
+               root_wire={str(k): v for k, v in root.items()},
+               loss_wire=loss_w, loss_oracle=loss_p,
+               grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
+               grad_rel_err_median=med)
+    print(f"[fp8] {len(wire)} layer units gather float8_e4m3fn "
+          f"({sum(sum(w.values()) for w in wire) / 2 ** 20:.1f} MiB a "
+          f"gather of all layers, f32 {sum(f32) / 2 ** 20:.1f} MiB), the "
+          f"root unit f32 ({root_f32 / 2 ** 20:.1f} MiB); kernel path on "
+          f"the fp8 wire vs the plain wire_round path: loss {loss_w:.6f} vs "
+          f"{loss_p:.6f} (|diff| {abs(loss_w - loss_p):.3g}, tol "
+          f"{BF16_LOSS_ATOL}); gradients rel err max {rels[worst]:.3g} "
+          f"({worst}), median {med:.3g} (tol {BF16_GRAD_REL}, median "
+          f"{BF16_GRAD_MEDIAN}); step p50 {res['step_p50_s'] * 1e3:.1f} ms, "
+          f"peak memory {res['peak_mem_gib']:.2f} GiB; on {card}")
+    check(abs(loss_w - loss_p) <= BF16_LOSS_ATOL,
+          f"fp8 loss differs by {abs(loss_w - loss_p):.3g}")
+    check(rels[worst] <= BF16_GRAD_REL,
+          f"fp8 gradient {worst} differs by {rels[worst]:.3g} of its scale")
+    check(med <= BF16_GRAD_MEDIAN,
+          f"fp8 gradient errors' median {med:.3g} over {BF16_GRAD_MEDIAN}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: pipeline schedules, two processes on the one card
+# ---------------------------------------------------------------------------
+
+def _pipe_expect(cfg, rank):
+    """Kernel launches per step on pipe rank ``rank``: each of its
+    PIPE_MICROBATCHES microbatches runs its L / P layers (two RMSNorms and
+    one flash attention each, forward and backward), and the last stage
+    the final norm."""
+    n = PIPE_MICROBATCHES * cfg.n_layers // PIPE_STAGES
+    norms = 2 * n + (PIPE_MICROBATCHES if rank == PIPE_STAGES - 1 else 0)
+    return {"rmsnorm": norms, "rmsnorm_bwd": norms, "flash_decode": 0,
+            "flash_attention": n, "flash_attention_dq": n,
+            "flash_attention_dkv": n, "wkv6": 0}
+
+
+def _pipe_rank(rank, port, out_dir):
+    """One pipe rank of the pipeline phase (a spawned process): the
+    unpipelined f32 step's loss and gradients on the card first, then
+    every schedule of PIPE_SCHEDULES through the train CLI's functions;
+    writes its measurements to ``out_dir/rank<r>.json``."""
+    import datetime
+    from repro_torch.core import pipeline as pipe_lib
+    from repro_torch.train.trainer import make_train_step
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # NCCL for the card's tensors (the data and model groups, one rank
+    # each), gloo for host tensors (the pipe group's point-to-point):
+    # NCCL cannot put two ranks of one card in one communicator
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
+        rank=rank, world_size=PIPE_STAGES,
+        timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S // 2))
+    try:
+        cfg = get_config("qwen3-0.6b")
+        shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+        it = iter(Batcher(SyntheticSource(cfg.vocab_size, seed=SEED),
+                          TRAIN_SEQ, TRAIN_BATCH))
+        host_batches = [next(it) for _ in range(PIPE_STEPS)]
+        first = batch_to_device(host_batches[0], dev)
+        loss_ref, grads_ref = loss_and_grads(
+            cfg, tfm.init_params(cfg, seed=SEED, device=dev), first,
+            Runtime())
+        out = {"rank": rank, "loss_ref": loss_ref, "schedules": {}}
+        for sched in PIPE_SCHEDULES:
+            spec = f"fsdp_pp{PIPE_STAGES}_mb{PIPE_MICROBATCHES}" + (
+                "" if sched == "gpipe" else f"_{sched}")
+            s = strategy.parse(spec)
+            topo = strategy.host_topology()
+            plan = s.to_plan(cfg, topo, shape)
+            rt = par.make_runtime(cfg, plan, shape, pipe_via_host=True)
+            params = par.apply_plan(
+                tfm.init_params(cfg, seed=SEED, device=dev), plan, cfg)
+            step = make_train_step(cfg, rt, TrainConfig(
+                steps=PIPE_STEPS, warmup=1, opt=AdamWConfig()), plan)
+            state = init_opt_state(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            metrics, step_s, runs = [], [], []
+            for b in host_batches:
+                t0 = time.perf_counter()
+                _, state, m = step(params, state, batch_to_device(b, dev))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+                runs.append(step.last_run)
+                if len(metrics) == 1:
+                    # the first step's gradients: AdamW's first moment is
+                    # (1 - b1) x the clipped gradient
+                    clip = min(1.0, 1.0 / max(m["grad_norm"].item(), 1e-9))
+                    grad_rel = {
+                        n: rel_err(state["m"][n].to_local()
+                                   / ((1 - AdamWConfig().b1) * clip),
+                                   grads_ref[n])
+                        for n in state["m"]}
+            counts = ops.launch_counts()
+            out["schedules"][sched] = dict(
+                spec=spec, launches=counts,
+                launches_per_step={k: v / PIPE_STEPS
+                                   for k, v in counts.items()},
+                expect_per_step=_pipe_expect(cfg, rank),
+                ops=[[list(op) for op in r.ops] for r in runs],
+                table_ops=[list(op) for op in pipe_lib.rank_ops(
+                    s.sched, PIPE_STAGES, PIPE_MICROBATCHES, rank)],
+                peak_held=[r.peak_held for r in runs],
+                table_peak_held=pipe_lib.peak_held(
+                    s.sched, PIPE_STAGES, PIPE_MICROBATCHES, rank),
+                inflight_microbatches=pipe_lib.inflight_microbatches(
+                    PIPE_STAGES, PIPE_MICROBATCHES, s.sched),
+                metrics=metrics, step_s=step_s,
+                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                grad_rel_err=grad_rel,
+                layers=sorted({int(n.split(".")[1]) for n, _ in
+                               params.named_parameters()
+                               if n.startswith("layers.")}))
+            del params, state, step, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spans(ids):
+    """[0, 1, 2, 7, 8] -> '0-2,7-8'."""
+    out, start = [], ids[0]
+    for a, b in zip(ids, ids[1:] + [None]):
+        if b != a + 1:
+            out.append(f"{start}-{a}")
+            start = b
+    return ",".join(out)
+
+
+def pipeline_phase(card):
+    """Spawn PIPE_STAGES processes on the one card (``_pipe_rank``), wait
+    for them within PIPE_TIMEOUT_S, and hold what each reports: the ops it
+    ran equal its table column, the most microbatch graphs it held equal
+    the table's (and over the ranks ``inflight_microbatches``), its kernel
+    launches per step exact, the first step's loss and gradients those of
+    the unpipelined f32 step, the loss the same on every rank.  -> the
+    phase's measurements."""
+    import multiprocessing
+    import socket
+    import tempfile
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipe")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_pipe_rank, args=(r, port, out_dir))
+             for r in range(PIPE_STAGES)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PIPE_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * PIPE_STAGES,
+          f"pipeline ranks exited with {codes} (None: still running after "
+          f"{PIPE_TIMEOUT_S} s)")
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(PIPE_STAGES)]
+    launches = {k: 0 for k in ops.launch_counts()}
+    res = {"card": card, "schedules": {}}
+    for sched in PIPE_SCHEDULES:
+        got = [r["schedules"][sched] for r in ranks]
+        peaks = set()
+        for rank, g in enumerate(got):
+            for ran in g["ops"]:
+                check(ran == g["table_ops"],
+                      f"{sched} rank {rank} ran {ran}, its table column is "
+                      f"{g['table_ops']}")
+            for peak in g["peak_held"]:
+                check(peak == g["table_peak_held"],
+                      f"{sched} rank {rank} held {peak} microbatch graphs, "
+                      f"its table {g['table_peak_held']}")
+                peaks.add(peak)
+            check(g["launches_per_step"] == g["expect_per_step"],
+                  f"{sched} rank {rank} launches per step "
+                  f"{g['launches_per_step']} != {g['expect_per_step']}")
+            loss = g["metrics"][0]["loss"]
+            ref = ranks[rank]["loss_ref"]
+            check(abs(loss - ref) <= PIPE_LOSS_REL * abs(ref),
+                  f"{sched} rank {rank}: first loss {loss} vs unpipelined "
+                  f"{ref}")
+            worst = max(g["grad_rel_err"], key=g["grad_rel_err"].get)
+            check(g["grad_rel_err"][worst] <= PIPE_GRAD_REL,
+                  f"{sched} rank {rank}: gradient {worst} differs by "
+                  f"{g['grad_rel_err'][worst]:.3g} of its scale")
+            check(all(np.isfinite(m["loss"]) for m in g["metrics"]),
+                  f"{sched} rank {rank}: losses {g['metrics']}")
+            for k, v in g["launches"].items():
+                launches[k] += v
+        check(got[0]["metrics"] == got[1]["metrics"],
+              f"{sched}: the ranks report different metrics")
+        check(max(peaks) == got[0]["inflight_microbatches"],
+              f"{sched}: most graphs held {max(peaks)} != "
+              f"inflight_microbatches {got[0]['inflight_microbatches']}")
+        worst = max((max(g["grad_rel_err"].values()), rank)
+                    for rank, g in enumerate(got))
+        p50 = [statistics.median(g["step_s"]) for g in got]
+        res["schedules"][sched] = dict(
+            spec=got[0]["spec"], losses=[m["loss"] for m in got[0]["metrics"]],
+            loss_ref=ranks[0]["loss_ref"], grad_rel_err_max=worst[0],
+            step_s=[g["step_s"] for g in got], step_p50_s=p50,
+            peak_mem_gib=[g["peak_mem_gib"] for g in got],
+            peak_held=[g["table_peak_held"] for g in got],
+            launches_per_step=[g["launches_per_step"] for g in got],
+            layers=[g["layers"] for g in got])
+        print(f"[pipeline] {got[0]['spec']}: ranks hold layers "
+              f"{' / '.join(_spans(g['layers']) for g in got)}; ops per "
+              f"rank as the table; "
+              f"graphs held {[g['table_peak_held'] for g in got]} "
+              f"(inflight_microbatches {got[0]['inflight_microbatches']}); "
+              f"first loss {got[0]['metrics'][0]['loss']:.6f} vs unpipelined "
+              f"{ranks[0]['loss_ref']:.6f}, gradients within "
+              f"{worst[0]:.3g} of scale; step p50 "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in p50)} ms per rank "
+              f"(two processes time-slicing one card, not pipeline speed); "
+              f"peak memory "
+              f"{', '.join(f'{g["peak_mem_gib"]:.2f}' for g in got)} GiB "
+              f"per rank; on {card}")
+    res["launches"] = launches
     return res
 
 
@@ -1398,6 +1734,12 @@ def main(argv=None):
           f"{trained['host_span_s']['dispatch'] * 1e3:.1f} ms unsharded f32")
     print(f"[strategy] ok in {time.perf_counter() - t0:.1f}s")
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    piped = pipeline_phase(card)
+    print(f"[pipeline] ok in {time.perf_counter() - t0:.1f}s")
+
     # free the qwen3 phase's tensors before the larger model
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1419,7 +1761,8 @@ def main(argv=None):
     # each kernel's launches on the main paths: the serve phase's run plus
     # each train phase's run, each counted from 0
     launches = {k: served["launches"][k] + trained["launches"][k]
-                + strat["launches"][k] + rwkv_trained["launches"][k]
+                + strat["launches"][k] + strat["fp8"]["launches"][k]
+                + piped["launches"][k] + rwkv_trained["launches"][k]
                 for k in trained["launches"]}
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
@@ -1428,6 +1771,7 @@ def main(argv=None):
             {"card": card, "kernels": rows, "kernels_tp": tp_rows,
              "serve": served,
              "train": trained, "train_strategy": strat,
+             "train_pipeline": piped,
              "train_rwkv6": rwkv_trained, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -17,7 +17,9 @@ With tied embeddings ``embed.tok`` carries the sum of the gather's and the
 LM head's gradients, in both packages.  Both directions speak numpy, so
 this module needs no JAX.  Towards JAX, a model sharded by FSDP2 and
 tensor parallelism (and its ``DTensor`` gradients and moments, on the
-(data, model) mesh) is gathered whole on every rank.
+(data, model) mesh) is gathered whole on every rank; under a pipeline,
+given the pipe group, each rank's stage layers are gathered from the
+others too.
 """
 from __future__ import annotations
 
@@ -93,30 +95,56 @@ def _to_jax_tree(named: Dict[str, np.ndarray], cfg: ModelConfig
             "prefix": [layers[i] for i in prefix], "blocks": blocks}
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A wrapper subclass (``core.parallel.Fp8Wire``, a shard FSDP2
+    gathers in fp8) -> the tensor it wraps; any other tensor as is."""
+    while type(t) is not torch.Tensor and hasattr(t, "__tensor_flatten__"):
+        t = getattr(t, t.__tensor_flatten__()[0][0])
+    return t
+
+
 def _numpy(named) -> Dict[str, np.ndarray]:
     """(name, tensor) pairs -> {name: array}.  A sharded tensor
     (``DTensor``) is gathered whole first: a collective, so every rank of
     its mesh must convert the same tensors in the same order."""
-    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
-            .detach().cpu().numpy() for k, v in named}
+    return {k: _plain((v.full_tensor() if isinstance(v, DTensor) else v)
+                      .detach()).cpu().numpy() for k, v in named}
 
 
-def params_to_jax(params: Params, cfg: ModelConfig) -> Dict[str, Any]:
+def _over_pipe(named: Dict[str, np.ndarray], pipe_group
+                ) -> Dict[str, np.ndarray]:
+    """Each pipe rank's arrays -> all of them (a rank holds its stages'
+    layers and the leaves every rank holds alike); a collective over
+    ``pipe_group``, if one is given."""
+    if pipe_group is None:
+        return named
+    parts = [None] * torch.distributed.get_world_size(pipe_group)
+    torch.distributed.all_gather_object(parts, named, group=pipe_group)
+    out: Dict[str, np.ndarray] = {}
+    for part in parts:
+        out.update(part)
+    return out
+
+
+def params_to_jax(params: Params, cfg: ModelConfig,
+                  pipe_group=None) -> Dict[str, Any]:
     """Port ``Params`` -> the JAX params pytree, leaves as numpy arrays."""
-    return _to_jax_tree(_numpy(params.named_parameters()), cfg)
+    return _to_jax_tree(_over_pipe(_numpy(params.named_parameters()),
+                                   pipe_group), cfg)
 
 
-def grads_to_jax(grads: Dict[str, torch.Tensor], cfg: ModelConfig
-                 ) -> Dict[str, Any]:
+def grads_to_jax(grads: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 pipe_group=None) -> Dict[str, Any]:
     """Name-keyed gradients -> the JAX grads pytree (params-shaped)."""
-    return _to_jax_tree(_numpy(grads.items()), cfg)
+    return _to_jax_tree(_over_pipe(_numpy(grads.items()), pipe_group), cfg)
 
 
-def opt_state_to_jax(state: Dict, cfg: ModelConfig) -> Dict[str, Any]:
+def opt_state_to_jax(state: Dict, cfg: ModelConfig,
+                     pipe_group=None) -> Dict[str, Any]:
     """Port AdamW state {'m', 'v', 'step'} -> the JAX ``init_opt_state``
     tree, leaves as numpy arrays."""
-    return {"m": grads_to_jax(state["m"], cfg),
-            "v": grads_to_jax(state["v"], cfg),
+    return {"m": grads_to_jax(state["m"], cfg, pipe_group),
+            "v": grads_to_jax(state["v"], cfg, pipe_group),
             "step": np.asarray(state["step"], np.int32)}
 
 

@@ -37,12 +37,23 @@ collective.  The data axes:
 
 Gathers run at the parameter dtype (f32), as the JAX package gathers
 (``comm_dtype ''``); the bf16 cast stays where the model casts (the
-embedding, the LM head, each product).  The fp8 policy rounds each
-gathered layer parameter through float8_e4m3fn to bf16 in the layer
-(``Runtime.gather_dtype``), which gives the JAX package's values; its
-wire stays f32.  ``_ovl`` becomes FSDP2's explicit prefetch of layer
-i + 1 while layer i computes.  Serving under TP (``cache_shardings``)
-comes with its own slice.
+embedding, the LM head, each product).  Under a policy with a
+``comm_dtype`` (fp8) on a plan that shards parameters, each layer's
+floating parameters go on FSDP2's all-gather in that dtype: their local
+shards are :class:`Fp8Wire` tensors, whose ``fsdp_pre_all_gather`` casts
+f32 straight to float8_e4m3fn (no scale) and ``fsdp_post_all_gather``
+back to ``compute_dtype``, as ``make_param_gatherer`` quantizes, gathers
+and dequantizes.  The embedding, the LM head and the final norm gather at
+f32 in the root unit, as the JAX gatherer runs only inside the scan over
+the layers.  Gradients reduce-scatter at ``grad_dtype``.  ``_ovl`` becomes
+FSDP2's explicit prefetch of layer i + 1 while layer i computes.  Serving
+under TP (``cache_shardings``) comes with its own slice.
+
+A plan with a ``pipe`` axis (``core.pipeline``) keeps on each pipe rank
+only the layers of its stages; they are lowered as above over the (data,
+model) submesh of its pipe coordinate, and the embedding, final norm and
+LM head stay replicated over the pipe axis.  Its stage layers take no fp8
+wire: the JAX stage body gathers them at f32 (``gather_params=None``).
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.strategy.topology import mesh_shape
@@ -345,37 +357,158 @@ def activation_specs(cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Tuple]:
     }
 
 
+def wires(plan: ParallelPlan) -> bool:
+    """Whether the plan's layer parameters go on the all-gather in its
+    policy's ``comm_dtype``: a comm dtype, parameters sharded, and no
+    pipeline (the JAX package's stage body gathers at f32)."""
+    return bool(plan.policy.comm_dtype and plan.fsdp and not plan.pipe)
+
+
 def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
                  **overrides):
     """Runtime with this plan's dtypes: ``param_dtype``, ``compute_dtype``
     and ``grad_dtype`` from its precision policy, and the fp8 policy's wire
-    dtype when the plan shards parameters (the JAX package turns its
-    per-layer gatherer on under the same condition).  Its model axis: the
-    size, and on a ``DeviceMesh`` the process group and this rank's
-    coordinate; the residual stream is sequence-parallel where
-    ``activation_specs`` shards ``act_btd`` along S."""
+    dtype where :func:`wires` (the JAX package turns its per-layer
+    gatherer on under the same condition; on a ``DeviceMesh`` the wire is
+    FSDP2's all-gather).  Its model axis: the size, and on a
+    ``DeviceMesh`` the process group and this rank's coordinate; the
+    residual stream is sequence-parallel where ``activation_specs`` shards
+    ``act_btd`` along S.  Its pipe axis (training under a ``pipe`` plan):
+    the size, the microbatches and schedule, and on a ``DeviceMesh`` the
+    process group and this rank's coordinate."""
     from repro_torch.models.layers import Runtime
     pol = plan.policy
+    mesh = not isinstance(plan.mesh, dict)
     kw = dict(param_dtype=_DTYPES[pol.param_dtype],
               compute_dtype=_DTYPES[pol.compute_dtype],
               grad_dtype=_DTYPES[pol.grad_dtype],
               tp_size=plan.tp_size,
               seq_parallel=activation_specs(cfg, plan)["act_btd"][1]
               == plan.tp)
-    if pol.comm_dtype and plan.fsdp:
-        kw["gather_dtype"] = _DTYPES[pol.comm_dtype]
-    if plan.tp_size > 1 and not isinstance(plan.mesh, dict):
+    if wires(plan):
+        kw.update(gather_dtype=_DTYPES[pol.comm_dtype], fsdp_wire=mesh)
+    if plan.tp_size > 1 and mesh:
         kw.update(tp_group=plan.mesh.get_group(plan.tp),
                   tp_rank=plan.mesh.get_local_rank(plan.tp))
+    if plan.pipe and shape.mode == "train":
+        kw.update(pipe_size=plan.pipe_size,
+                  pipe_microbatches=plan.microbatches,
+                  pipe_schedule=plan.pipe_sched)
+        if mesh:
+            kw.update(pipe_group=plan.mesh.get_group(plan.pipe),
+                      pipe_rank=plan.mesh.get_local_rank(plan.pipe))
     kw.update(overrides)
     return Runtime(**kw)
 
 
+class Fp8Wire(torch.Tensor):
+    """A layer parameter's local shard whose FSDP2 all-gather moves
+    ``WIRE`` (float8_e4m3fn): FSDP2's all-gather extension, on a wrapper
+    of the f32 shard.  The views, chunks, padding and copies FSDP2 and the
+    optimizer make of a shard keep the wrapper (``_KEEP``); every other op
+    runs on the shard and gives a plain tensor.
+
+    ``fsdp_pre_all_gather`` casts the f32 shard straight to the wire dtype,
+    with no scale, padded to the rows FSDP2 gathers; ``fsdp_post_all_gather``
+    casts the gathered bytes to the dtype FSDP2 asks for (the policy's
+    ``compute_dtype``, the unit's ``MixedPrecisionPolicy.param_dtype``) —
+    the values of ``models.layers.wire_round``.  NCCL gathers the wire
+    dtype itself; gloo has no float8 type, so on a gloo group the same
+    bytes travel as ``uint8`` (one byte an element either way)."""
+
+    WIRE = torch.float8_e4m3fn
+    _KEEP = frozenset((torch.ops.aten.detach.default,
+                       torch.ops.aten.empty_like.default,
+                       torch.ops.aten.new_zeros.default,
+                       torch.ops.aten.slice.Tensor,
+                       torch.ops.aten.copy_.default,
+                       torch.ops.aten.view.default,
+                       torch.ops.aten.as_strided.default,
+                       torch.ops.aten.split.Tensor,
+                       torch.ops.aten.clone.default,
+                       torch.ops.aten._to_copy.default))
+
+    @staticmethod
+    def __new__(cls, tensor: torch.Tensor):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, tensor.size(), strides=tensor.stride(),
+            storage_offset=tensor.storage_offset(), dtype=tensor.dtype,
+            layout=tensor.layout, device=tensor.device,
+            requires_grad=tensor.requires_grad)
+
+    def __init__(self, tensor: torch.Tensor):
+        self._tensor = tensor
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_map_only
+        if func is torch.ops.aten.detach.default:
+            return cls(args[0]._tensor)
+        args, kwargs = tree_map_only(cls, lambda t: t._tensor,
+                                     (args, kwargs or {}))
+        out = func(*args, **kwargs)
+        if func not in cls._KEEP:
+            return out
+        return tree_map_only(torch.Tensor, cls, out)
+
+    def __tensor_flatten__(self):
+        return ["_tensor"], None
+
+    @staticmethod
+    def __tensor_unflatten__(inner, meta, outer_size, outer_stride):
+        return Fp8Wire(inner["_tensor"])
+
+    def fsdp_pre_all_gather(self, mesh, outer_size, outer_stride, module,
+                            mp_policy):
+        x = self._tensor.to(self.WIRE)
+        rows = -(-outer_size[0] // mesh.size())
+        if x.shape[0] != rows:
+            pad = x.new_zeros((rows,) + tuple(x.shape[1:]))
+            pad[:x.shape[0]] = x
+            x = pad
+        if dist.get_backend(mesh.get_group()) == "gloo":
+            x = x.view(torch.uint8)
+        return (x,), None
+
+    def fsdp_post_all_gather(self, outputs, metadata, param_dtype, *,
+                             out=None):
+        gathered = outputs[0].view(self.WIRE)
+        if out is not None:
+            # the re-gather of a resharded unit: its buffer (allocated
+            # again by FSDP2) takes the new values
+            self._unsharded.copy_(gathered)
+            return None
+        self._unsharded = gathered.to(param_dtype)
+        return self._unsharded, (self._unsharded,)
+
+
+def all_gather_buffers(module) -> Dict[torch.dtype, int]:
+    """{dtype: bytes} of the buffers FSDP2's all-gather of ``module``'s own
+    unit fills (its parameters' gathered shards, padding included), after
+    its first gather: what the unit moves on the wire per gather."""
+    state = module._get_fsdp_state()
+    # torch 2.13 keeps a list of parameter groups, 2.11 one group
+    groups = getattr(state, "_fsdp_param_groups", None)
+    if groups is None:
+        groups = [state._fsdp_param_group]
+    out: Dict[torch.dtype, int] = {}
+    for group in groups:
+        for fp in group.fsdp_params:
+            for t in fp.all_gather_outputs:
+                out[t.dtype] = out.get(t.dtype, 0) + t.numel() * \
+                    t.element_size()
+    return out
+
+
 def _meshes(plan: ParallelPlan):
     """(root mesh, the submesh of it FSDP2 runs over).  The root is the
-    plan's mesh when the plan shards over ``data`` (FSDP2 1-D over it, or
-    2-D (replicate ``pod``, shard ``data``)); under ZeRO-0 it is a mesh of
-    its own, (dp, zero, model) with a size-1 ``zero`` axis, and FSDP2
+    plan's mesh (under a pipeline, the submesh of this rank's pipe
+    coordinate: every axis but ``pipe``) when the plan shards over
+    ``data`` (FSDP2 1-D over it, or 2-D (replicate ``pod``, shard
+    ``data``)); under ZeRO-0 it is a mesh of its own, ([pipe,] dp, zero,
+    model) with a size-1 ``zero`` axis, sliced the same way, and FSDP2
     replicates over ``dp`` and shards over ``zero``.  Ranks lie in the
     same order on both (row-major, model innermost)."""
     if plan.fsdp:
@@ -384,14 +517,22 @@ def _meshes(plan: ParallelPlan):
             raise ValueError(f"FSDP2 shards over one mesh axis and "
                              f"replicates over at most one; plan shards "
                              f"over {plan.fsdp} of {plan.dp}")
+        mesh = plan.mesh
+        if plan.pipe:
+            mesh = mesh[tuple(a for a in mesh.mesh_dim_names
+                              if a != plan.pipe)]
         if not replicate:
-            return plan.mesh, plan.mesh[plan.fsdp[0]]
-        return plan.mesh, plan.mesh[replicate + plan.fsdp]
+            return mesh, mesh[plan.fsdp[0]]
+        return mesh, mesh[replicate + plan.fsdp]
     from torch.distributed.device_mesh import init_device_mesh
+    pipe = (plan.pipe_size,) if plan.pipe else ()
     root = init_device_mesh(
         plan.mesh.device_type,
-        (plan.axis_size(plan.dp), 1, plan.tp_size),
-        mesh_dim_names=("dp", "zero", plan.tp))
+        pipe + (plan.axis_size(plan.dp), 1, plan.tp_size),
+        mesh_dim_names=(("pipe",) if plan.pipe else ())
+        + ("dp", "zero", plan.tp))
+    if plan.pipe:
+        root = root["dp", "zero", plan.tp]
     return root, root["dp", "zero"]
 
 
@@ -403,35 +544,54 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
     FSDP2's.  Every rank must hold the same weights first (a seeded
     ``init_params``): each keeps its model-axis shard of them.  The
     embedding, the LM head and the final norm stay in the root unit: tied
-    embeddings use one table at both ends."""
+    embeddings use one table at both ends.  Where :func:`wires`, each
+    layer's floating parameters are :class:`Fp8Wire` shards, gathered into
+    ``compute_dtype``.  Under a ``pipe`` axis a rank keeps only its stages'
+    layers (``core.pipeline.keep_stage_layers``) and shards them over the
+    (data, model) submesh of its pipe coordinate."""
     from torch import nn
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import DTensor
     pol = plan.policy
+    if plan.pipe:
+        from repro_torch.core.pipeline import keep_stage_layers
+        keep_stage_layers(params, cfg, plan)
     root, dp_mesh = _meshes(plan)
     tp_mesh = root[plan.tp]
     n, rank = tp_mesh.size(), tp_mesh.get_local_rank()
+    wire = wires(plan)
     for name, place in param_placements(cfg, plan, params).items():
         owner, leaf = name.rsplit(".", 1)
         sub = params.get_submodule(owner)
         full = sub[leaf].detach()
         local = (full.chunk(n, place.dim)[rank].contiguous()
                  if place.is_shard() else full)
+        if wire and name.startswith("layers.") and local.is_floating_point():
+            local = Fp8Wire(local)
         sub[leaf] = nn.Parameter(DTensor.from_local(
             local, tp_mesh, [place], run_check=False))
     # inputs keep their dtype: the model casts where the JAX package casts
     mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.param_dtype],
                               reduce_dtype=_DTYPES[pol.grad_dtype],
                               cast_forward_inputs=False)
+    # the wired layers gather into compute_dtype; their gradients are cast
+    # to grad_dtype before the reduce-scatter
+    layer_mp = (MixedPrecisionPolicy(param_dtype=_DTYPES[pol.compute_dtype],
+                                     reduce_dtype=_DTYPES[pol.grad_dtype],
+                                     cast_forward_inputs=False)
+                if wire else mp)
     reshard = bool(plan.fsdp) and plan.zero >= 3
-    layers = list(params.layers)
-    for layer in layers:
+    # a pipe rank's layers of other stages are empty placeholders
+    layers = {i: layer for i, layer in enumerate(params.layers)
+              if len(layer._modules)}
+    for layer in layers.values():
         fully_shard(layer, mesh=dp_mesh, reshard_after_forward=reshard,
-                    mp_policy=mp)
+                    mp_policy=layer_mp)
     fully_shard(params, mesh=dp_mesh, reshard_after_forward=reshard,
                 mp_policy=mp)
     if plan.zero_overlap:
-        for cur, nxt in zip(layers, layers[1:]):
-            cur.set_modules_to_forward_prefetch([nxt])
-            nxt.set_modules_to_backward_prefetch([cur])
+        for i, cur in layers.items():
+            if i + 1 in layers:
+                cur.set_modules_to_forward_prefetch([layers[i + 1]])
+                layers[i + 1].set_modules_to_backward_prefetch([cur])
     return params

@@ -11,20 +11,23 @@ CLI's does:
                          ZeRO ``z0``/``z2``/``z3``, ``ovl``, ``ga<k>``,
                          precision ``f32``/``bf16``/``fp8``, tensor
                          parallelism ``tp<k>`` (head-TP with Megatron-SP;
-                         ``nosp`` keeps the residual stream whole); cp, pp
-                         or ep above 1 raise ``StrategyError`` naming the
-                         slice that brings them
+                         ``nosp`` keeps the residual stream whole),
+                         pipeline parallelism ``pp<k>_mb<m>`` with a
+                         schedule ``gpipe``/``1f1b``/``1f1b_i<v>``/``zb``;
+                         cp or ep above 1 raise ``StrategyError`` naming
+                         the slice that brings them
 
 ``--topology host`` (the default) is every rank of this job as one island.
-The strategy runs on the plan's ``DeviceMesh`` (data axes x model axis):
-tensor parallelism over the model axis, FSDP2 over the data axes; one
-rank on one card (a 1-rank NCCL group), N ranks under ``torchrun
---standalone --nproc_per_node N -m repro_torch.launch.train ...`` (one
-card each, or gloo processes with ``--device cpu``; ``--strategy
-fsdp_tp2`` on 2 ranks is one model group of 2).  Every rank builds the
+The strategy runs on the plan's ``DeviceMesh`` ([pipe x] data axes x model
+axis): pipeline stages over the pipe axis, tensor parallelism over the
+model axis, FSDP2 over the data axes; one rank on one card (a 1-rank NCCL
+group), N ranks under ``torchrun --standalone --nproc_per_node N -m
+repro_torch.launch.train ...`` (one card each, or gloo processes with
+``--device cpu``; ``--strategy fsdp_tp2`` on 2 ranks is one model group
+of 2, ``fsdp_pp2_mb4_1f1b`` two pipeline stages).  Every rank builds the
 same global batch and trains the rows of its data-parallel coordinate;
-rank 0 prints, and the ``[strategy]`` line shows the mesh, model axis
-included.
+rank 0 prints, and the ``[strategy]`` line shows the mesh, model and pipe
+axes included.
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``: RMSNorm forward/backward and flash-attention
@@ -89,7 +92,8 @@ def main(argv=None):
                          "many ranks)")
     ap.add_argument("--strategy", default="auto",
                     help="'auto' (planner) or a spec string like fsdp / "
-                         "hsdp_z2_ovl / ddp_ga2 / fsdp_bf16 / fsdp_tp2")
+                         "hsdp_z2_ovl / ddp_ga2 / fsdp_bf16 / fsdp_tp2 / "
+                         "fsdp_pp2_mb4_1f1b")
     ap.add_argument("--objective", default="wps",
                     choices=sorted(strategy_lib.OBJECTIVES))
     ap.add_argument("--seed", type=int, default=0)

@@ -49,15 +49,23 @@ class Runtime:
     every policy), activations and products run in ``compute_dtype``,
     gradients accumulate in ``grad_dtype``.  ``gather_dtype``, when set
     (the fp8 policy on a plan that shards parameters), is the wire dtype
-    of each layer's gathered parameters: every floating leaf is rounded
-    through it to ``compute_dtype`` before the layer computes
-    (:func:`wire_round`).
+    of each layer's gathered parameters: every floating leaf reaches the
+    layer rounded through it to ``compute_dtype``.  With ``fsdp_wire``
+    FSDP2's all-gather does the rounding (``core.parallel.Fp8Wire``);
+    without it (one device, no gather) the layer rounds its leaves itself
+    (:func:`wire_round`).  Either way each gradient of a layer parameter is
+    rounded back through it once it is reduced (:func:`wire_round_grad`).
 
     The model axis (``core.parallel.make_runtime``): ``tp_size`` ranks in
     ``tp_group``, this one at ``tp_rank``; with ``seq_parallel`` the
     residual stream between sublayers holds this rank's 1/tp of the
     sequence (Megatron-SP) wherever S splits evenly
-    (:func:`sequence_parallel`).
+    (:func:`sequence_parallel`).  The pipe axis: ``pipe_size`` stages in
+    ``pipe_group``, this rank at ``pipe_rank``, running
+    ``pipe_microbatches`` microbatches under ``pipe_schedule``
+    (``core.pipeline``); with ``pipe_via_host`` what crosses the pipe
+    group goes through host memory (a gloo pipe group between ranks on
+    cards).
     """
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -73,6 +81,14 @@ class Runtime:
     tp_rank: int = 0                    # this rank's model coordinate
     tp_group: Any = None                # the model axis' process group
     seq_parallel: bool = False          # Megatron-SP residual stream
+    fsdp_wire: bool = False             # gather_dtype is FSDP2's wire
+    pipe_size: int = 1                  # pipeline stages (core.pipeline)
+    pipe_rank: int = 0                  # this rank's pipe coordinate
+    pipe_group: Any = None              # the pipe axis' process group
+    pipe_microbatches: int = 1          # pipeline microbatches
+    pipe_schedule: str = "gpipe"        # 'gpipe' | '1f1b' | '1f1b_i<v>'
+                                        # | 'zb'
+    pipe_via_host: bool = False         # stage p2p through host memory
 
 
 class _WireRound(torch.autograd.Function):

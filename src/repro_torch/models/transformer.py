@@ -14,7 +14,8 @@ the serving path alike.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -112,7 +113,7 @@ class Layer(nn.Module):
         parameters' local shards (``to_local`` views of the ``DTensor``s
         FSDP2 has gathered)."""
         lp = local_params(self)
-        if rt.gather_dtype is not None:
+        if rt.gather_dtype is not None and not rt.fsdp_wire:
             lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
         x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
         if kind == "rwkv6":
@@ -123,6 +124,18 @@ class Layer(nn.Module):
                                          cache=cache, paged=paged, sp=sp)
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
         return h + apply_mlp(cfg, lp["ffn"], x, rt, sp)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One pipeline F op's part of the model (``core.pipeline``): the
+    layers of a chunk; whether its virtual stage is the first (it embeds
+    the tokens) and the last (it computes the final norm, the head and the
+    masked nll sum over ``denom``)."""
+    layers: Tuple[int, ...]
+    first: bool
+    last: bool
+    denom: Optional[torch.Tensor] = None
 
 
 class Params(nn.Module):
@@ -144,11 +157,21 @@ class Params(nn.Module):
     def device(self) -> torch.device:
         return self.embed["tok"].device
 
-    def forward(self, cfg: ModelConfig, batch, rt: Runtime, cache=None):
+    def forward(self, cfg: ModelConfig, batch, rt: Runtime, cache=None,
+                h=None, stage: Optional[Stage] = None):
         """-> logits (B, S, vocab), on a model axis this rank's columns of
         the vocabulary; see :func:`forward`.  Under sequence parallelism
         (:func:`sequence_parallel`) the residual stream holds this rank's
-        S-shard from the embedding to the final norm."""
+        S-shard from the embedding to the final norm.
+
+        With a ``stage`` (a pipeline F op, ``core.pipeline``) it runs only
+        that part: from the tokens (first virtual stage) or the residual
+        stream ``h``, through the stage's layers, to the residual stream,
+        or on the last virtual stage to the masked nll sum over
+        ``stage.denom`` (:func:`masked_nll`).  The whole model module is
+        called for each op, so FSDP2's root hooks fire on every stage."""
+        if stage is not None:
+            return self._stage(cfg, batch, rt, h, stage)
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
@@ -170,6 +193,27 @@ class Params(nn.Module):
             h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged, sp)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         return lm_logits(embed, h, rt, sp)
+
+    def _stage(self, cfg, batch, rt, h, stage: Stage):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        sp = sequence_parallel(rt, S)
+        embed = local_params(self.embed)
+        if stage.first:
+            h = embed_tokens(embed, tokens, rt, sp)
+        rope_ang = None
+        if cfg.rope == "rope":
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device)[None].expand(B, S)
+            rope_ang = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+        for i in stage.layers:
+            h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt, None,
+                               None, sp)
+        if not stage.last:
+            return h
+        h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
+        return masked_nll(lm_logits(embed, h, rt, sp), batch["labels"], rt,
+                          stage.denom)[0]
 
 
 def _init_layer(cfg: ModelConfig, i: int, gen, device):
@@ -217,7 +261,7 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
         raise NotImplementedError(
             f"{cfg.name}: only attention-only stacks serve from a paged "
             "cache; recurrent state comes with the static-engine slice of "
-            "the port (ROADMAP Queue 1 item 3)")
+            "the port")
     return params(cfg, batch, rt, cache)
 
 
@@ -254,8 +298,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     its columns of the logits, and the max, the sum of exponentials and
     the label's logit are each reduced over the model group, so the whole
     (B, S, V) logits are never gathered."""
-    logits = forward(cfg, params, batch, rt)
-    labels = batch["labels"]
+    nll, ntok = masked_nll(forward(cfg, params, batch, rt), batch["labels"],
+                           rt, denom)
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    return nll + aux, {"nll": nll, "aux": aux, "ntok": ntok}
+
+
+def masked_nll(logits, labels, rt: Runtime, denom=None):
+    """-> (the masked sum of the next-token nll over ``denom``, by default
+    the count of unmasked labels; that count), in f32 (vocab-parallel on a
+    model axis, see :func:`loss_fn`)."""
     lf = logits.float()
     if rt.tp_size > 1:
         lse, ll = _vocab_parallel_terms(lf, labels, rt)
@@ -266,6 +318,4 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     mask = (labels >= 0).float()
     if denom is None:
         denom = mask.sum().clamp_min(1.0)
-    nll = ((lse - ll) * mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
-    return nll + aux, {"nll": nll, "aux": aux, "ntok": mask.sum()}
+    return ((lse - ll) * mask).sum() / denom, mask.sum()

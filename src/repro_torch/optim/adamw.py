@@ -54,7 +54,12 @@ def init_opt_state(params: nn.Module) -> Dict:
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor's elements.  Sharded
+    """sqrt of :func:`_square_sum`."""
+    return torch.sqrt(_square_sum(tensors))
+
+
+def _square_sum(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """The sum of squares over every tensor's elements.  Sharded
     tensors (``DTensor``s) add their local shards' squares, summed over
     the mesh dimensions they are sharded on and not over those they are
     replicated on (which hold the same values): tensors are summed in
@@ -80,7 +85,7 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
         for group in groups.get(key, ()):
             dist.all_reduce(sq, group=group)
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
 
 
 # leaves that take no weight decay: norms, biases and 1-d mixer params
@@ -95,14 +100,24 @@ def _decay_mask(name: str) -> bool:
 
 def adamw_update(cfg: AdamWConfig, params: nn.Module,
                  grads: Dict[str, torch.Tensor], state: Dict,
-                 lr_scale: float = 1.0):
+                 lr_scale: float = 1.0, pipe_rt=None):
     """One step, in place -> (params, state, {'grad_norm', 'lr'}).
 
     grad_norm is a 0-d tensor on the device (reading it waits for the
     device); the bias corrections and lr are host floats computed in f32,
-    as the JAX version computes them."""
+    as the JAX version computes them.  On a pipe rank (``pipe_rt``, the
+    step's ``Runtime``) ``params`` holds its stages' layers and the
+    leaves every pipe rank holds alike: the layers' squares are summed
+    over the pipe group, the others counted once."""
     named = dict(params.named_parameters())
-    gnorm = global_norm(grads[n] for n in named)
+    if pipe_rt is None:
+        gnorm = global_norm(grads[n] for n in named)
+    else:
+        from repro_torch.core.pipeline import pipe_all_reduce
+        layers = _square_sum(grads[n] for n in named
+                             if n.startswith("layers."))
+        gnorm = torch.sqrt(pipe_all_reduce(layers, pipe_rt) + _square_sum(
+            grads[n] for n in named if not n.startswith("layers.")))
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0)
     step = state["step"] + 1

@@ -335,8 +335,8 @@ class ServeEngine:
         if not self.paged_ok:
             raise NotImplementedError(
                 f"{self.cfg.name} cannot use the paged cache; the static "
-                "dense-cache engine comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 3, the static-engine slice)")
+                "dense-cache engine comes with the static-engine slice "
+                "of the port")
         prompts_np = np.asarray(prompts, np.int32)
         B, S0 = prompts_np.shape
         if S0 + n_new > self.max_len:

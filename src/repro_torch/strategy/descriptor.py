@@ -2,7 +2,7 @@
 
 A copy of the JAX package's ``strategy/descriptor.py``: the same fields,
 spec grammar, checks and cost-model lowering.  Two things differ.
-``Strategy.check`` refuses context, pipeline and expert degrees above 1
+``Strategy.check`` refuses context and expert degrees above 1
 (``LATER_DEGREES``: each names the slice of the port that brings it), and
 a tensor-parallel degree that resolves to context attention or whose
 Megatron split of the model does not divide (``_check_tensor``), so the
@@ -32,8 +32,9 @@ Semantics of the degrees (mirrors DESIGN.md §4 / core/parallel.py):
             attention).  tp and cp share the single model axis, so at most
             one may exceed 1.
   * ``pp``  shards the layer stack over a 'pipe' mesh axis (contiguous
-            stages) and lowers through a differentiable pipeline schedule
-            in ``core/pipeline.py`` (shard_map + ppermute).  Requires a
+            stages) and lowers through a pipeline schedule in
+            ``core/pipeline.py`` (in the port: the schedule's tick table
+            over torch.distributed point-to-point).  Requires a
             uniform layer stack (no prefix / period-1 ``layer_plan``), a
             layer count divisible by pp, and ``mb >= pp`` microbatches
             (under-specified mb is a StrategyError, not a silent clamp).
@@ -87,7 +88,6 @@ class StrategyError(ValueError):
 # degrees the port cannot run yet -> the slice of the port that brings each
 LATER_DEGREES = {
     "cp": "other mixers and inputs, and context parallelism",
-    "pp": "pipeline schedules",
     "ep": "MoE and expert parallelism",
 }
 
@@ -224,17 +224,18 @@ class Strategy:
 
         Passing ``cfg`` additionally validates the model-dependent pipeline
         constraints (uniform layer stack, layer count divisible by pp);
-        ``to_plan`` always does.  In the port, a cp, pp or ep degree above
-        1 raises first, naming the slice that brings it; so does, given
+        ``to_plan`` always does.  In the port, a cp or ep degree above 1
+        raises first, naming the slice that brings it; so does, given
         ``cfg``, a tp degree whose attention resolves to context mode.
         """
         for degree, slice_name in LATER_DEGREES.items():
             if getattr(self, degree) > 1:
                 raise StrategyError(
                     f"{degree}={getattr(self, degree)}: the PyTorch port runs "
-                    f"data and tensor parallelism (dp modes, ZeRO stages, "
-                    f"ovl, ga, precision, tp); {degree} > 1 arrives with "
-                    f"the '{slice_name}' slice (ROADMAP Queue 1)")
+                    f"data, tensor and pipeline parallelism (dp modes, ZeRO "
+                    f"stages, ovl, ga, precision, tp, pp); {degree} > 1 "
+                    f"arrives with the '{slice_name}' slice (ROADMAP "
+                    f"Queue 1)")
         n = topology.n_devices
         if self.tp > 1 and self.cp > 1:
             raise StrategyError(

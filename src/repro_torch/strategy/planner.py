@@ -1,10 +1,11 @@
 """Cost-model-driven strategy planner.
 
 A copy of the JAX package's ``strategy/planner.py``; only the imports
-differ.  The port's ``Strategy.check`` refuses cp, pp and ep > 1 until
+differ.  The port's ``Strategy.check`` refuses cp and ep > 1 until
 their slices land, and tp > 1 where it resolves to context attention, so
-``search`` never returns such a strategy; head-TP strategies lower, and
-the planner ranks them with the data-parallel ones, as the JAX one does.
+``search`` never returns such a strategy; head-TP and pipeline strategies
+lower, and the planner ranks them with the data-parallel ones, as the JAX
+one does.
 
 ``search(cfg, topology, shape)`` sweeps the executable-strategy space
 (dp_mode x tp x cp x pp x ep x pipeline schedule x ZeRO stage), prices

@@ -121,7 +121,8 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
     enough for group-size analysis without any process group.  Otherwise
     the mesh spans the default process group (its world size must equal
     ``topology.n_devices``) on ``device_type``: by default the type the
-    process group's backend serves (``cuda`` for NCCL, else ``cpu``).
+    process group's backend serves (``cuda`` where it has NCCL, else
+    ``cpu``).
     """
     n = topology.n_devices
     if n % (model * pods * pipe * expert):
@@ -143,7 +144,8 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
             f"(have {world_size() if dist.is_initialized() else 'none'}); "
             "start one with repro_torch.launch.mesh.init_distributed")
     if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        # NCCL alone, or NCCL for card tensors beside gloo for host ones
+        device_type = "cuda" if "nccl" in dist.get_backend() else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -21,6 +21,7 @@ import torch.distributed as dist
 from repro_torch import telemetry as tel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
+from repro_torch.core import pipeline as pipe_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (Runtime, all_reduce,
                                        sequence_parallel, wire_round_grad)
@@ -120,15 +121,33 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
     (``rt.gather_dtype``, the fp8 policy) each microbatch's gradients of
     the layers' parameters are rounded through it once they are reduced
     (``wire_round_grad``), as the JAX package's casts round the summed
-    cotangent."""
+    cotangent.
+
+    Under a plan with a ``pipe`` axis (``rt.pipe_size`` > 1) each
+    grad-accumulation microbatch splits again into ``rt.pipe_microbatches``
+    pipeline microbatches, of which a rank takes its data-parallel rows,
+    and this pipe rank runs its row of the schedule's table over them
+    (``core.pipeline.run_schedule``): each last-stage microbatch adds its
+    masked nll sum over the grad-accumulation microbatch's global count of
+    labels.  After the step the gradients of the leaves every pipe rank
+    holds (embedding, final norm, LM head) are summed over the pipe group,
+    which keeps their replicas and moments equal; the loss is summed over
+    it too (only the last stage's is not 0), so every pipe rank reports
+    it, and the gradient norm adds the layers' squares over it.  The last
+    step's ``ScheduleRun`` is ``train_step.last_run``."""
     ga = max(tc.grad_accum, 1)
     dp = _DataParallel(plan) if plan is not None else None
+    pipelined = rt.pipe_size > 1
 
     def train_step(params, opt_state, batch):
         B, S = batch["labels"].shape
         if B % ga:
             raise ValueError(f"batch {B} does not split into "
                              f"grad_accum={tc.grad_accum}")
+        if pipelined and (B // ga) % rt.pipe_microbatches:
+            raise ValueError(
+                f"batch {B} / grad_accum {tc.grad_accum} does not split "
+                f"into {rt.pipe_microbatches} pipeline microbatches")
         named = dict(params.named_parameters())
         # the layers' parameters, which a wire dtype rounds
         wired = ({f"layers.{n}" for n, _ in params.layers.named_parameters()}
@@ -141,11 +160,14 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
         for i in range(ga):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             denom, ntok = None, None
-            if dp is not None:
-                ntok = (micro["labels"] >= 0).sum().float()
-                micro, denom = dp.rows(micro, ntok)
-            loss, metrics = tfm.loss_fn(cfg, params, micro, rt, denom)
-            loss.backward()
+            if pipelined:
+                loss, metrics = _pipelined(params, micro, dp)
+            else:
+                if dp is not None:
+                    ntok = (micro["labels"] >= 0).sum().float()
+                    micro, denom = dp.rows(micro, ntok)
+                loss, metrics = tfm.loss_fn(cfg, params, micro, rt, denom)
+                loss.backward()
             if dp is not None:
                 dp.sum_over_model(named, rt, sequence_parallel(rt, S))
             loss, metrics = loss.detach(), {k: v.detach()
@@ -169,19 +191,55 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
         if ga > 1:
             for g in grads.values():
                 g.div_(ga)
+        if pipelined:
+            _sum_replicated_over_pipe(grads)
         lr_scale = linear_warmup_cosine(opt_state["step"], tc.warmup,
                                         tc.steps)
         params, opt_state, opt_metrics = adamw_update(
-            tc.opt, params, grads, opt_state, lr_scale)
+            tc.opt, params, grads, opt_state, lr_scale,
+            pipe_rt=rt if pipelined else None)
         out = {"loss": loss_sum / ga,
                **{k: v if k == "ntok" else v / ga for k, v in msum.items()},
                **opt_metrics}
+        keys = ("loss", "nll", "aux")
+        if pipelined:
+            sums = pipe_lib.pipe_all_reduce(
+                torch.stack([out[k] for k in keys]), rt)
+            out.update(zip(keys, sums.unbind()))
         if dp is not None:
-            keys = ("loss", "nll", "aux")
             means = dp.mean(torch.stack([out[k] for k in keys]))
             out.update(zip(keys, means.unbind()))
         return params, opt_state, out
 
+    def _pipelined(params, micro, dp):
+        """One grad-accumulation microbatch through the pipeline ->
+        (this rank's loss share, {'nll', 'aux', 'ntok'})."""
+        ntok = (micro["labels"] >= 0).sum().float()
+        n = micro["labels"].shape[0] // rt.pipe_microbatches
+        micros, denom = [], ntok.clamp_min(1.0)
+        for j in range(rt.pipe_microbatches):
+            pm = {k: v[j * n:(j + 1) * n] for k, v in micro.items()}
+            if dp is not None:
+                pm, denom = dp.rows(pm, ntok)
+            micros.append(pm)
+        run = pipe_lib.run_schedule(cfg, params, micros, rt, denom)
+        train_step.last_run = run
+        aux = torch.zeros_like(run.nll)
+        return run.nll + aux, {"nll": run.nll, "aux": aux, "ntok": ntok}
+
+    def _sum_replicated_over_pipe(grads):
+        """Sum over the pipe group, in one all-reduce, the local
+        gradients of the leaves every pipe rank holds: each rank's is its
+        stages' part (the lookup at the first, the head and final norm
+        at the last, 0 elsewhere)."""
+        mine = [g.to_local() for n, g in grads.items()
+                if not n.startswith("layers.")]
+        flat = pipe_lib.pipe_all_reduce(
+            torch.cat([g.reshape(-1) for g in mine]), rt)
+        for g, part in zip(mine, flat.split([g.numel() for g in mine])):
+            g.copy_(part.view_as(g))
+
+    train_step.last_run = None
     return train_step
 
 

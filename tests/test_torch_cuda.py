@@ -632,13 +632,14 @@ def test_cuda_fsdp_on_one_rank_matches_the_unsharded_step():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spec", ["fsdp", "fsdp_tp2"])
+@pytest.mark.parametrize("spec", ["fsdp", "fsdp_tp2", "fsdp_pp2_mb4_1f1b"])
 def test_cuda_fsdp_two_cards_train_the_losses_of_one(spec):
     """``torchrun --nproc_per_node 2`` over two cards (NCCL) trains the
-    losses of one unsharded rank, data-parallel (``fsdp``) or
+    losses of one unsharded rank, data-parallel (``fsdp``),
     tensor-parallel (``fsdp_tp2``: the heads, FFN and vocabulary split
-    over the two cards); the plain layers, as the smoke config's head dim
-    has no compiled kernel."""
+    over the two cards) or pipelined (``fsdp_pp2_mb4_1f1b``: one stage a
+    card, activations and cotangents over NCCL point-to-point); the plain
+    layers, as the smoke config's head dim has no compiled kernel."""
     import os
     import subprocess
     import sys

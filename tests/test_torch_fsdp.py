@@ -123,7 +123,9 @@ def _run_case(case, rank):
     dist.all_gather_object(shares, local)
     out = dict(metrics=metrics, params=params_to_jax(params, cfg),
                m=opt_state_to_jax(state, cfg)["m"], local=shares,
-               fsdp_ranks=plan.axis_size(plan.fsdp))
+               fsdp_ranks=plan.axis_size(plan.fsdp),
+               gathered=[par.all_gather_buffers(m) for m in
+                         (*params.layers, params)])
     return out if rank == 0 else None
 
 
@@ -344,6 +346,31 @@ def test_sharded_steps_match_the_jax_trajectory(worlds, n):
             _compare(got, port_ref, LOW_BARS[precision, "port"],
                      (n, case[0], "port"))
         assert np.isfinite(got["metrics"][-1]["loss"])
+
+
+def _wire_bytes(gathered, spec):
+    """The layers' and the root unit's all-gather buffers ({dtype:
+    bytes} each) of one run, checked for their dtypes: under fp8 each
+    layer's in one byte an element (float8_e4m3fn on NCCL; gloo, which has
+    no float8 type, carries the same bytes as uint8), else f32; the root
+    unit's in f32 -> (bytes per layer, root bytes)."""
+    *per_layer, root = gathered
+    wire = {torch.float8_e4m3fn, torch.uint8} if "fp8" in spec \
+        else {torch.float32}
+    for g in per_layer:
+        assert len(g) == 1 and set(g) <= wire, (spec, g)
+    assert set(root) == {torch.float32}, (spec, root)
+    return [sum(g.values()) for g in per_layer], sum(root.values())
+
+
+def test_fp8_wire_gathers_a_quarter_of_the_f32_bytes(worlds):
+    """Under ``fsdp_fp8`` each layer's FSDP2 all-gather moves one byte an
+    element, a quarter of what ``fsdp`` moves for the same layer in f32;
+    the root unit (embedding, final norm) gathers f32 under both."""
+    by_spec = {c[0]: got for c, got, _ in worlds[2]}
+    f32, root32 = _wire_bytes(by_spec["fsdp"]["gathered"], "fsdp")
+    fp8, root8 = _wire_bytes(by_spec["fsdp_fp8"]["gathered"], "fsdp_fp8")
+    assert [4 * b for b in fp8] == f32 and root8 == root32
 
 
 def test_overlap_prefetch_changes_no_bit(worlds):

@@ -3,10 +3,10 @@
 ``repro_torch.strategy`` and ``repro_torch.core.costmodel`` are copies:
 spec strings parse and format to the same ``Strategy`` fields, the cost
 model prices every strategy with the same floats, and the planner ranks
-the data- and tensor-parallel strategies in the same order.  The one rule
-the port adds — cp, pp and ep above 1, and a tp that resolves to context
-attention, raise a ``StrategyError`` naming the slice that brings them —
-is held here too, with the train CLI's ``--strategy`` surface.
+the data-, tensor- and pipeline-parallel strategies in the same order.
+The one rule the port adds — cp and ep above 1, and a tp that resolves to
+context attention, raise a ``StrategyError`` naming the slice that brings
+them — is held here too, with the train CLI's ``--strategy`` surface.
 """
 import dataclasses
 import os
@@ -101,12 +101,12 @@ def test_cost_model_reports_equal_jax(arch, topo):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_planner_ranks_dp_strategies_as_jax(arch, topo):
     """The port's ranking equals the JAX package's with every strategy of
-    cp, pp or ep above 1, or of a tp that resolves to context attention,
-    taken out, and holds no such strategy: the data- and tensor-parallel
-    strategies rank as JAX ranks them."""
+    cp or ep above 1, or of a tp that resolves to context attention,
+    taken out, and holds no such strategy: the data-, tensor- and
+    pipeline-parallel strategies rank as JAX ranks them."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     mine_t, ref_t = TOPOLOGIES[topo]
-    ranked_tp = False
+    ranked_tp = ranked_pp = False
     for mode, S, B in SHAPES[:2]:
         for kw in ({}, dict(dp_modes=("hsdp", "fsdp", "ddp"),
                             zero_stages=(None, 0, 2, 3),
@@ -115,21 +115,20 @@ def test_planner_ranks_dp_strategies_as_jax(arch, topo):
                                      **kw)
             ref = jstrategy.search(jcfg, ref_t, JShapeConfig("x", S, B, mode),
                                    **kw)
-            ref = [p for p in ref if _tensor_or_data_parallel(
-                p.strategy, jcfg)]
+            ref = [p for p in ref if _lowers_in_the_port(p.strategy, jcfg)]
             assert [p.spec for p in ranked] == [p.spec for p in ref]
             assert [p.report.row() for p in ranked] == \
                 [p.report.row() for p in ref]
-            assert all(_tensor_or_data_parallel(p.strategy, cfg)
+            assert all(_lowers_in_the_port(p.strategy, cfg)
                        and p.lowers for p in ranked)
             ranked_tp |= any(p.strategy.tp > 1 for p in ranked)
-    assert ranked_tp == (topo != "host1")
+            ranked_pp |= any(p.strategy.pp > 1 for p in ranked)
+    assert ranked_tp == ranked_pp == (topo != "host1")
 
 
-def _tensor_or_data_parallel(s, cfg):
-    """No cp, pp or ep above 1, and head-TP attention."""
-    return (s.cp * s.pp * s.ep == 1
-            and s.resolved_attn(cfg) == "head_tp")
+def _lowers_in_the_port(s, cfg):
+    """No cp or ep above 1, and head-TP attention."""
+    return s.cp * s.ep == 1 and s.resolved_attn(cfg) == "head_tp"
 
 
 def test_precision_policies_equal_jax():
@@ -186,13 +185,18 @@ def test_plans_lower_with_the_jax_axis_rules():
         assert plan.axis_size(plan.dp) == 8
 
 
+# the meshes the strategies the port runs lower to, on 8 devices
+LOWERED_MESHES = {"hsdp_tp4": {"data": 2, "model": 4},
+                  "fsdp_pp2_mb4_1f1b": {"pipe": 2, "data": 4, "model": 1}}
+
+
 @pytest.mark.parametrize("spec,degree", [
-    ("hsdp_tp4", None), ("fsdp_cp2", "cp"), ("fsdp_pp2_mb4_1f1b", "pp"),
+    ("hsdp_tp4", None), ("fsdp_cp2", "cp"), ("fsdp_pp2_mb4_1f1b", None),
     ("fsdp_ep2", "ep"), ("hsdp_tp2_ep4", "ep"), ("fsdp_tp8_ctx", "cp")])
 def test_model_parallel_degrees_name_their_slice(spec, degree):
     """A degree the port cannot run names its slice (tp resolved to
-    context attention names context parallelism's); head-TP (``degree``
-    None) lowers, on the model axis."""
+    context attention names context parallelism's); head-TP and pipeline
+    stages (``degree`` None) lower, on the model and pipe axes."""
     cfg = get_config("qwen3-0.6b")
     shape = ShapeConfig("t", 512, 64, "train")
     topo = strategy.host_topology(n_devices=8)
@@ -201,7 +205,7 @@ def test_model_parallel_degrees_name_their_slice(spec, degree):
         s.check(topo, cfg)
         assert s.lowerable(topo, cfg)
         plan = s.to_plan(cfg, topo, shape, abstract=True)
-        assert plan.mesh == {"data": 2, "model": 4} and plan.attn == "head_tp"
+        assert plan.mesh == LOWERED_MESHES[spec] and plan.attn == "head_tp"
         assert strategy.resolve(spec, cfg, topo, shape)[0] == s
         return
     slice_name = strategy.LATER_DEGREES[degree]

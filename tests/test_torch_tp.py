@@ -25,7 +25,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, S, _batches,
                              _compare, _errors, _jax_trajectory, _jax_tree,
-                             _join, _port_trajectory, _stop)
+                             _join, _port_trajectory, _stop, _wire_bytes)
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2), 0.0)   # kv_tp at tp 2, not at 4
 RWKV = ("rwkv6-1.6b", {}, 0.1)
@@ -33,11 +33,12 @@ LLAMA = ("llama2-1b", {}, 0.1)
 # (spec, arch, config overrides, weight decay)
 WORLDS = {
     2: [("fsdp_tp2", *QWEN), ("fsdp_tp2_nosp", *QWEN),
-        ("fsdp_tp2_bf16", *QWEN), ("fsdp_tp2", *RWKV), ("fsdp_tp2", *LLAMA)],
+        ("fsdp_tp2_bf16", *QWEN), ("fsdp_tp2_fp8", *QWEN),
+        ("fsdp_tp2", *RWKV), ("fsdp_tp2", *LLAMA)],
     # data 2 x model 2; model 4 with the 2 KV heads replicated (one query
     # head a rank); ZeRO-0 on its size-1 shard axis; two microbatches
     4: [("fsdp_tp2", *QWEN), ("fsdp_tp4", *QWEN), ("ddp_tp2", *QWEN),
-        ("fsdp_tp2_ga2", *QWEN)],
+        ("fsdp_tp2_ga2", *QWEN), ("fsdp_tp2_fp8", *QWEN)],
 }
 # the collectives of one attention layer, forward and backward (counted
 # per call by models.layers.COLLECTIVES): Megatron-SP enters each sublayer
@@ -146,7 +147,9 @@ def _run_case(case, rank):
     out = dict(metrics=metrics, params=params_to_jax(params, cfg),
                m=opt_state_to_jax(state, cfg)["m"], local=shares,
                dp_shards=plan.axis_size(plan.fsdp), tp=plan.tp_size,
-               seq_parallel=rt.seq_parallel)
+               seq_parallel=rt.seq_parallel,
+               gathered=[par.all_gather_buffers(m) for m in
+                         (*params.layers, params)])
     if spec in LAYER_COLLECTIVES and arch == QWEN[0]:
         out["layer_collectives"] = _layer_collectives(cfg, params, rt)
     return out if rank == 0 else None
@@ -286,6 +289,18 @@ def test_tensor_parallel_plans_shard_the_model_axis(worlds):
     assert not got["fsdp_tp2_nosp", QWEN[0]]["seq_parallel"]
     assert not got["fsdp_tp2", RWKV[0]]["seq_parallel"]
     assert got["fsdp_tp2", LLAMA[0]]["seq_parallel"]
+
+
+@pytest.mark.parametrize("n", sorted(WORLDS))
+def test_fp8_wire_gathers_a_quarter_of_the_f32_bytes(worlds, n):
+    """On the (data, model) mesh each layer's FSDP2 all-gather of its
+    model shard moves one byte an element under ``fsdp_tp2_fp8``, a
+    quarter of ``fsdp_tp2``'s f32 bytes; the root unit gathers f32."""
+    by_spec = {c[0]: got for c, got, _ in worlds[n] if c[1] == QWEN[0]}
+    f32, root32 = _wire_bytes(by_spec["fsdp_tp2"]["gathered"], "fsdp_tp2")
+    fp8, root8 = _wire_bytes(by_spec["fsdp_tp2_fp8"]["gathered"],
+                             "fsdp_tp2_fp8")
+    assert [4 * b for b in fp8] == f32 and root8 == root32
 
 
 @pytest.mark.parametrize("spec", sorted(LAYER_COLLECTIVES))
