@@ -78,6 +78,22 @@ order; any failure ends the run with a non-zero exit and no result line:
               unit's (embedding, final norm) f32, and the loss and
               gradients must agree with the plain path that rounds the
               layers' parameters itself (``wire_round``) at the bf16 bars.
+              The ``fsdp_bf16`` run feeds a drift monitor built as
+              ``launch.train --drift_report`` builds it (cell D1: the
+              cost model's decomposition for the plan, ``H100`` profile,
+              host topology of 1): prints the predicted terms, every
+              logging window's measured terms and ratios, the mean ratio
+              per term and ``train/mfu``; fails without a window, with a
+              ``step`` ratio not finite and positive, or with
+              ``train/mfu`` outside (0, 1].  No target ratio is checked.
+   dryrun   — cell D2: the port's dry run (``launch.dryrun.lower_fresh``,
+              a fresh process on a fake process group of one rank, fake
+              tensors on the card, the kernel path) of the strategy
+              phase's plan at its shape; its tracked peak must lie within
+              10 % of the strategy phase's ``max_memory_allocated``.
+              Then ``qwen3-0.6b x train_4k`` on the pod topology (256 fake
+              ranks) must trace and record a census and the resilience
+              block.
 7. pipeline — qwen3-0.6b at full width and depth, f32, in two spawned
               processes sharing the one card (pipe 2, 14 layers a rank, 7
               a chunk under ``1f1b_i2``; data and model groups of one rank
@@ -94,8 +110,15 @@ order; any failure ends the run with a non-zero exit and no result line:
               gradient (from AdamW's first moment) within 1e-4 of its
               scale of the unpipelined f32 step on the card.  Prints the
               step time (two processes time-slicing one card, not
-              pipeline speed) and the peak memory per rank.  A rank that
-              fails or outlives 600 s fails the run.
+              pipeline speed) and the peak memory per rank.  Then each
+              rank runs the bubble probe (``perf.pipeline_probe``: the
+              schedule at M 4 and 8 microbatches of 2 x 128 tokens on a
+              4-layer reduced qwen3, plain layers): its record is
+              printed, ``bubble_predicted`` must be the schedule's
+              formula and the record must carry ``virtual_stages`` and
+              ``fit_unreliable``; the measured bubble is not checked (two
+              processes time-slice the card).  A rank that fails or
+              outlives 600 s fails the run.
 8. rwkv6    — the same for rwkv6-1.6b at full width and depth (24 layers,
               d_model 2048, d_ff 7168, vocab 65536; f32, seed 0, WKV chunk
               32 as the train CLI): 6 AdamW steps (lr 1e-4) of 8 x 512
@@ -145,7 +168,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
+from repro_torch.launch.train import drift_monitor  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -229,6 +254,10 @@ BF16_VS_F32_REL = 2e-2
 # rounds each layer's parameters itself (``wire_round``) at the bf16 bars
 FP8_SPEC = "fsdp_fp8"
 FP8_STEPS = 3
+# cell D2: the dry run's tracked peak of the strategy phase's plan against
+# the phase's measured max_memory_allocated, fixed before the first run
+DRYRUN_MEM_REL = 0.10
+DRYRUN_OUT = "results/dryrun_torch"   # the pod dry run's record
 # pipeline phase: qwen3-0.6b at full width and depth, f32, in two
 # processes on the one card (pipe 2; data and model groups of one rank on
 # NCCL, the pipe group on gloo through host memory), each schedule from
@@ -1040,24 +1069,26 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
 
 
 def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
-              expect_bf16=None):
+              expect_bf16=None, rec=None, drift=None):
     """Train ``params`` for ``tc.steps`` steps through ``train_loop`` (under
-    ``plan`` when given) on seeded synthetic batches; launch counts zeroed
-    just before and read just after, held to ``expect`` per step (and the
-    bf16 launches to ``expect_bf16``); losses finite and falling.  -> the
-    run's measurements; frees the run's tensors."""
+    ``plan`` when given, recording to ``rec`` and feeding ``drift`` when
+    given) on seeded synthetic batches; launch counts zeroed just before
+    and read just after, held to ``expect`` per step (and the bf16
+    launches to ``expect_bf16``); losses finite and falling.  -> the run's
+    measurements; frees the run's tensors."""
     steps = tc.steps
     n_params = sum(p.numel() for p in params.parameters())
     batches = Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
                       TRAIN_BATCH)
-    rec = tel.Recorder()
+    rec = rec or tel.Recorder()
     spans = rec.add_sink(_Events())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
-                                            telemetry=rec, plan=plan)
+                                            telemetry=rec, plan=plan,
+                                            drift=drift)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1087,7 +1118,8 @@ def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
                step_s=steps_s, step_p50_s=p50, host_span_s=host,
                tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, wall_s=wall,
-               peak_mem_gib=peak / 2 ** 30, launches=counts,
+               peak_mem_gib=peak / 2 ** 30, peak_mem_bytes=peak,
+               launches=counts,
                launches_bf16=bf16, compute_dtype=str(rt.compute_dtype))
     print(f"[{tag}] {cfg.name} ({n_params / 1e9:.3f} B parameters) "
           f"{str(rt.compute_dtype).split('.')[-1]} compute, "
@@ -1153,7 +1185,7 @@ def strategy_phase(dev, card, expect):
     init_distributed(dev)
     try:
         topo = strategy.host_topology()
-        strat, _ = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
+        strat, planned = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
         plan = strat.to_plan(cfg, topo, shape)
         rt = par.make_runtime(cfg, plan, shape)
         check(rt.compute_dtype == torch.bfloat16
@@ -1170,8 +1202,12 @@ def strategy_phase(dev, card, expect):
         placed = check_placements(cfg, plan, params)
         views_ms = local_views_ms(params)
         layers.reset_collective_counts()
+        rec = tel.Recorder()
+        drift = drift_monitor(cfg, strat, planned, topo, shape, rec)
         res = run_steps(dev, card, cfg, rt, tc, params, expect,
-                        "strategy", plan=plan, expect_bf16=expect)
+                        "strategy", plan=plan, expect_bf16=expect, rec=rec,
+                        drift=drift)
+        res["drift"] = drift_report(drift, rec, card)
         # FSDP2's modules hold reference cycles: collect them, or the
         # parameters outlive the phase
         del params
@@ -1209,6 +1245,90 @@ def strategy_phase(dev, card, expect):
           f"plain {loss32:.6f}: rel {rel:.3g} (tol {BF16_VS_F32_REL})")
     check(rel <= BF16_VS_F32_REL, f"bf16 loss off the f32 loss by {rel:.3g}")
     return res
+
+
+def drift_report(drift, rec, card):
+    """Cell D1: the cost model's predicted step decomposition for the
+    strategy phase's plan against each logging window's measured one
+    (``train_loop``'s drift windows, as ``launch.train --drift_report``
+    records them) and the ``train/mfu`` gauge.  A measurement: it holds no
+    target ratio, only that there are windows, that the ``step`` ratio is
+    finite and positive and that ``train/mfu`` lies in (0, 1]."""
+    doc = drift.report()
+    mean = doc["mean_predicted_over_measured"]
+    check(doc["n_windows"] >= 1, "the drift monitor saw no window")
+    check(np.isfinite(mean.get("step", float("nan")))
+          and mean["step"] > 0,
+          f"predicted/measured step ratio {mean.get('step')}")
+    meta = doc["meta"]
+    mfu = [meta["model_flops_per_step"] / w["measured"]["step"]
+           / meta["cluster_peak_flops"] for w in doc["windows"]]
+    gauge = rec.metrics.snapshot()["train/mfu"]["value"]
+    check(0 < gauge <= 1 and abs(gauge - mfu[-1]) <= 1e-9 * mfu[-1],
+          f"train/mfu {gauge} (windows {mfu})")
+    steady = [w["predicted_over_measured"]["step"]
+              for w in doc["windows"][1:]]
+    print(f"[drift] predicted ({meta['spec']} on {meta['topology']}, "
+          f"{meta['hardware']} profile): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                      for k, v in doc["predicted"].items()))
+    for w in doc["windows"]:
+        print(f"[drift] window {w['window']}: measured "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                          for k, v in w["measured"].items())
+              + "; predicted/measured "
+              + ", ".join(f"{k} {v:.4g}" if v is not None else f"{k} null"
+                          for k, v in w["predicted_over_measured"].items()))
+    print(f"[drift] mean predicted/measured over {doc['n_windows']} windows: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in mean.items())
+          + (f" (step, windows after the first: "
+             f"{statistics.mean(steady):.4g})" if steady else "")
+          + f"; train/mfu {gauge:.4g} (windows "
+          + ", ".join(f"{m:.4g}" for m in mfu) + f"); on {card}")
+    return dict(report=doc, mfu=mfu, mfu_gauge=gauge,
+                step_ratio_after_first=statistics.mean(steady)
+                if steady else None)
+
+
+def dryrun_phase(card, measured_peak):
+    """Cell D2: the port's dry run of the strategy phase's plan at its
+    shape (``fsdp_bf16``, B TRAIN_BATCH x S TRAIN_SEQ, the host topology
+    as one fake rank, the kernel path) -> its tracked peak against the
+    strategy phase's ``torch.cuda.max_memory_allocated``, within
+    DRYRUN_MEM_REL; then ``qwen3-0.6b x train_4k`` on the pod topology
+    (256 fake ranks), which must trace."""
+    cfg = get_config("qwen3-0.6b")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    topo = strategy.host_topology(n_devices=1)
+    strat, _ = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
+    rec = dryrun.lower_fresh(cfg, shape, strat, topo)
+    mem = rec["memory"]
+    tracked = mem["peak_bytes_per_device"]
+    rel = abs(tracked - measured_peak) / measured_peak
+    print(f"[dryrun] {strat.format()} B{TRAIN_BATCH} x S{TRAIN_SEQ} on one "
+          f"fake rank (kernel path, traced in {rec['trace_s']} s): tracked "
+          f"peak {tracked / 2**30:.3f} GiB ("
+          + ", ".join(f"{k[:-6]} {v / 2**30:.3f}" for k, v in mem.items()
+                      if k != "peak_bytes_per_device")
+          + f" GiB) vs the strategy phase's max_memory_allocated "
+          f"{measured_peak / 2**30:.3f} GiB: rel {rel:.3g} (tol "
+          f"{DRYRUN_MEM_REL}); collectives {rec['collectives']}; on {card}")
+    check(rel <= DRYRUN_MEM_REL,
+          f"dry-run peak {tracked} B vs measured {measured_peak} B")
+    t0 = time.perf_counter()
+    pod = dryrun.run_one("qwen3-0.6b", "train_4k", False, DRYRUN_OUT)
+    check(pod["status"] == "ok" and pod["n_devices"] == 256
+          and pod["collectives"] and "resilience" in pod,
+          f"pod dry run: {pod.get('status')} {pod.get('error')}")
+    print(f"[dryrun] qwen3-0.6b x train_4k on pod ({pod['strategy']}, "
+          f"{pod['n_devices']} fake ranks) in "
+          f"{time.perf_counter() - t0:.1f} s: peak/dev "
+          f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB, "
+          f"collective bytes {pod['collective_bytes_total']:.4g}")
+    return dict(d2=dict(memory=mem, measured_peak_bytes=measured_peak,
+                        rel=rel, trace_s=rec["trace_s"],
+                        collectives=rec["collectives"]),
+                pod=pod)
 
 
 def fp8_run(dev, card, cfg, shape, expect):
@@ -1315,7 +1435,9 @@ def _pipe_rank(rank, port, out_dir):
     every schedule of PIPE_SCHEDULES through the train CLI's functions;
     writes its measurements to ``out_dir/rank<r>.json``."""
     import datetime
+    from repro_torch.configs import reduced
     from repro_torch.core import pipeline as pipe_lib
+    from repro_torch.perf.pipeline_probe import measure_bubble, probe_layers
     from repro_torch.train.trainer import make_train_step
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1392,6 +1514,13 @@ def _pipe_rank(rank, port, out_dir):
             del params, state, step, runs
             gc.collect()
             torch.cuda.empty_cache()
+            # the bubble probe (after the counted steps): the port's
+            # pipelined step at M and 2M microbatches of a reduced config
+            out["schedules"][sched]["probe"] = measure_bubble(
+                reduced(cfg, n_layers=probe_layers(PIPE_STAGES, s.sched)),
+                s, topo, dev, pipe_via_host=True)
+            gc.collect()
+            torch.cuda.empty_cache()
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -1418,6 +1547,7 @@ def pipeline_phase(card):
     import multiprocessing
     import socket
     import tempfile
+    from repro_torch.core import pipeline as pipe_lib
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -1478,6 +1608,16 @@ def pipeline_phase(card):
         check(max(peaks) == got[0]["inflight_microbatches"],
               f"{sched}: most graphs held {max(peaks)} != "
               f"inflight_microbatches {got[0]['inflight_microbatches']}")
+        probes = [g["probe"] for g in got]
+        v = probes[0]["virtual_stages"]
+        P, M = PIPE_STAGES, PIPE_MICROBATCHES
+        formula = (2 * (P - 1) / (3 * M + 2 * P - 2) if sched == "zb"
+                   else (P - 1) / (v * M + P - 1))
+        for rank, pr in enumerate(probes):
+            check(abs(pr["bubble_predicted"] - formula) <= 1e-12
+                  and "fit_unreliable" in pr
+                  and pr["virtual_stages"] == pipe_lib.virtual_stages(sched),
+                  f"{sched} rank {rank}: probe record {pr}")
         worst = max((max(g["grad_rel_err"].values()), rank)
                     for rank, g in enumerate(got))
         p50 = [statistics.median(g["step_s"]) for g in got]
@@ -1488,7 +1628,7 @@ def pipeline_phase(card):
             peak_mem_gib=[g["peak_mem_gib"] for g in got],
             peak_held=[g["table_peak_held"] for g in got],
             launches_per_step=[g["launches_per_step"] for g in got],
-            layers=[g["layers"] for g in got])
+            layers=[g["layers"] for g in got], probe=probes)
         print(f"[pipeline] {got[0]['spec']}: ranks hold layers "
               f"{' / '.join(_spans(g['layers']) for g in got)}; ops per "
               f"rank as the table; "
@@ -1502,6 +1642,15 @@ def pipeline_phase(card):
               f"peak memory "
               f"{', '.join(f'{g["peak_mem_gib"]:.2f}' for g in got)} GiB "
               f"per rank; on {card}")
+        print(f"[pipeline] {sched} bubble probe ({probes[0]['probe_cfg']}, "
+              f"{probes[0]['pp']} stages, M {probes[0]['microbatches']}, "
+              f"v {v}): predicted {probes[0]['bubble_predicted']:.4f}; "
+              "per rank measured "
+              + ", ".join(f"{pr['bubble_measured']:.4f} (t(M) "
+                          f"{pr['t_step_s'] * 1e3:.1f} ms, t(2M) "
+                          f"{pr['t_step_2m_s'] * 1e3:.1f} ms, fit_unreliable "
+                          f"{pr['fit_unreliable']})" for pr in probes)
+              + " — two processes time-slice one card: not a bubble")
     res["launches"] = launches
     return res
 
@@ -1737,6 +1886,12 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dry = dryrun_phase(card, strat["peak_mem_bytes"])
+    print(f"[dryrun] ok in {time.perf_counter() - t0:.1f}s")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     piped = pipeline_phase(card)
     print(f"[pipeline] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -1770,7 +1925,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "kernels_tp": tp_rows,
              "serve": served,
-             "train": trained, "train_strategy": strat,
+             "train": trained, "train_strategy": strat, "dryrun": dry,
              "train_pipeline": piped,
              "train_rwkv6": rwkv_trained, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))

@@ -42,14 +42,17 @@ What the port does differently from the reference, and why:
     FSDP2's post-backward hooks whole) and W records its tick and adds
     nothing new.  A true dgrad/wgrad split is new work.
 
-``measure_bubble_fraction`` and the pipeline probe come with the dry-run
-slice (ROADMAP Queue 1).
+:func:`measure_bubble_fraction` times any pipelined step at M and 2M
+microbatches and fits the bubble from the two times;
+``perf.pipeline_probe`` feeds it :func:`run_schedule` on a live pipe
+group.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -710,3 +713,77 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
                            f"with {len(held)} graphs and {len(inbox)} "
                            "messages left")
     return ScheduleRun(ops, peak, nll)
+
+
+# ---------------------------------------------------------------------------
+# the measured bubble (copied from the JAX package's measure_bubble_fraction)
+# ---------------------------------------------------------------------------
+
+def _wait(out) -> None:
+    """Wait for the device work behind ``out`` (the counterpart of
+    ``jax.block_until_ready``): a sync of each card a tensor of it lies
+    on; host tensors are ready when returned."""
+    from torch.utils._pytree import tree_flatten
+    for dev in {t.device for t in tree_flatten(out)[0]
+                if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+def measure_bubble_fraction(step_for_m: Callable[[int], Callable[[], object]],
+                            n_stages: int, microbatches: int,
+                            m2: Optional[int] = None,
+                            n_iter: int = 3, sched: str = "gpipe") -> dict:
+    """Empirically estimate the pipeline bubble from wall time.
+
+    ``step_for_m(M)`` returns a zero-arg callable running the pipelined
+    step with M microbatches at *fixed microbatch size* (total batch grows
+    with M), so t(M) = t_tick * (M + P - 1) + overhead is linear in M.  A
+    two-point fit recovers t_tick, and
+
+        bubble_measured = (P - 1) * t_tick / t(M)
+
+    which equals (P-1)/(M+P-1) up to the constant overhead term — the
+    executable counterpart of :func:`bubble_fraction` / the cost model's
+    per-schedule bubble charge.
+
+    Schedule generalization: d(total ticks)/dM is v for interleaved
+    (t(M) = t_tick*(vM + P - 1)) and 3 for zb (t(M) = t_tick*(3M+2P-2)),
+    so the fitted slope is divided by that coefficient before applying
+    the schedule's drain numerator ((P-1), or 2(P-1) for zb).  The record
+    carries ``virtual_stages`` so downstream artifacts can validate the
+    interleaved probe against (P-1)/(vM+P-1).
+
+    On a noisy host the two-point fit can come out non-increasing
+    (t(2M) <= t(M)); that is *not* a zero bubble, it is a failed fit —
+    the record flags it as ``fit_unreliable`` instead of trusting a
+    fabricated 0.0.  A callable whose outputs lie on a card is timed to
+    the end of its device work.
+    """
+    m1 = microbatches
+    m2 = m2 or 2 * m1
+
+    def timed(fn):
+        _wait(fn())                            # build / warm up
+        best = float("inf")
+        for _ in range(n_iter):
+            t0 = time.perf_counter()
+            _wait(fn())
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t1 = timed(step_for_m(m1))
+    t2 = timed(step_for_m(m2))
+    unreliable = t2 <= t1 or t1 <= 0
+    family, v = parse_schedule(sched)
+    ticks_per_m = 3 if family == "zb" else v
+    drain = 2 * (n_stages - 1) if family == "zb" else n_stages - 1
+    t_tick = max((t2 - t1) / (m2 - m1), 0.0) / ticks_per_m
+    measured = drain * t_tick / t1 if t1 > 0 else 0.0
+    return {
+        "pp": n_stages, "microbatches": m1, "sched": sched,
+        "virtual_stages": v,
+        "t_step_s": t1, "t_step_2m_s": t2, "t_tick_s": t_tick,
+        "bubble_predicted": bubble_fraction(n_stages, m1, sched),
+        "bubble_measured": measured,
+        "fit_unreliable": bool(unreliable),
+    }

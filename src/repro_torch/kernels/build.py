@@ -52,6 +52,17 @@ def count_launch(launches: Dict[str, int], name: str,
         BF16_LAUNCHES[name] = BF16_LAUNCHES.get(name, 0) + 1
 
 
+def is_fake(t) -> bool:
+    """True for a ``FakeTensor`` (the dry run traces a step under
+    ``FakeTensorMode``): a kernel wrapper then takes its shape-only branch,
+    which allocates the kernel's outputs and temporaries as its launch
+    does, launches nothing and counts nothing.  A real tensor never takes
+    it: on a card it launches the kernel or raises, on the CPU it takes
+    the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def on_cpu(t) -> bool:
     """True for a CPU tensor (it takes a kernel's plain version), False for
     a CUDA tensor (it takes the kernel); any other device raises."""

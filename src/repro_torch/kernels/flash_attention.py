@@ -282,6 +282,33 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     return dk, dv
 
 
+def _fake_head_dim(q, what):
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {q.shape[-1]} has no kernel "
+                         f"(compiled for {HEAD_DIMS})")
+
+
+def forward_fake(q, k, v, causal=True, window=0):
+    """The forward's shape-only branch on fake tensors
+    (``build.is_fake``): o and lse, empty, as the launch allocates them."""
+    _fake_head_dim(q, "flash-attention forward")
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), torch.empty((B, H, S), dtype=torch.float32,
+                                            device=q.device)
+
+
+def dq_fake(q, k, v, do, lse, delta, causal=True, window=0):
+    """The dq kernel's shape-only branch on fake tensors."""
+    _fake_head_dim(q, "flash-attention dq")
+    return torch.empty_like(q)
+
+
+def dkv_fake(q, k, v, do, lse, delta, causal=True, window=0):
+    """The dk/dv kernel's shape-only branch on fake tensors."""
+    _fake_head_dim(q, "flash-attention dk/dv")
+    return torch.empty_like(k), torch.empty_like(v)
+
+
 def attention_delta(o, do):
     """delta = rowsum(do · o) in f32 -> (B, H, S): the rowwise term of the
     softmax backward (plain PyTorch, as the JAX package leaves it to XLA)."""
@@ -296,7 +323,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        fwd = forward_plain if build.on_cpu(q) else forward_cuda
+        fwd = (forward_fake if build.is_fake(q) else
+               forward_plain if build.on_cpu(q) else forward_cuda)
         o, lse = fwd(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
@@ -307,9 +335,12 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = attention_delta(o, do)
-        cpu = build.on_cpu(q)
-        dq = (dq_plain if cpu else dq_cuda)(q, k, v, do, lse, delta,
-                                            ctx.causal, ctx.window)
-        dk, dv = (dkv_plain if cpu else dkv_cuda)(q, k, v, do, lse, delta,
-                                                  ctx.causal, ctx.window)
+        if build.is_fake(q):
+            dq_fn, dkv_fn = dq_fake, dkv_fake
+        elif build.on_cpu(q):
+            dq_fn, dkv_fn = dq_plain, dkv_plain
+        else:
+            dq_fn, dkv_fn = dq_cuda, dkv_cuda
+        dq = dq_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window)
         return dq, dk, dv, None, None

@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the kernel's plain PyTorch version (that is how
 the tests run here).  A tensor on a CUDA device launches the kernel, or the
-launch raises: there is no fallback from the card to the plain version.
+launch raises: there is no fallback from the card to the plain version.  A
+fake tensor (the dry run's ``FakeTensorMode``) takes each kernel's
+shape-only branch: its outputs, allocated as the launch allocates them,
+and no launch (``build.is_fake``).
 Model code reaches these through ``Runtime.norm_impl == "kernel"`` /
 ``Runtime.attn_impl == "kernel"``.  ``rmsnorm`` and ``attention`` are
 differentiable on both devices: their backward is a kernel too.  ``wkv6``
@@ -20,6 +23,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import wkv6 as _wkv
+from repro_torch.kernels.build import is_fake as _is_fake
 from repro_torch.kernels.build import on_cpu as _on_cpu
 
 _COUNTERS = (_rms.LAUNCHES, _fd.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
@@ -46,6 +50,8 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):
     """Flash-decode over a paged KV cache.  q (B, 1, H, D); pools
     (P, bs, Kv, D); tbl (B, max_blocks) int32; ctx (B,) int32 valid
     positions per request -> (B, 1, H, D) in q's type."""
+    if _is_fake(q):
+        return torch.empty_like(q)
     decode = _fd.decode_plain if _on_cpu(q) else _fd.decode_cuda
     return decode(q, k_pool, v_pool, tbl, ctx, n_splits)
 

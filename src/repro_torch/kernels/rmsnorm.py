@@ -143,6 +143,29 @@ def rmsnorm_bwd_cuda(x2, scale, rstd, g2):
     return dx, dscale
 
 
+def rmsnorm_fake(x2, scale, eps):
+    """The forward's shape-only branch on fake tensors: the launch's
+    outputs, empty (``build.is_fake``)."""
+    return (torch.empty_like(x2),
+            torch.empty((x2.shape[0],), dtype=torch.float32,
+                        device=x2.device))
+
+
+def rmsnorm_bwd_fake(x2, scale, rstd, g2):
+    """The backward's shape-only branch on fake tensors: dx, the 16-row
+    partials the launch allocates, and dscale, empty."""
+    n, d = x2.shape
+    if d > BWD_MAX_D:
+        raise ValueError(f"rmsnorm backward holds a row in the registers of "
+                         f"at most 16 warps: d {d} > BWD_MAX_D {BWD_MAX_D}")
+    dx = torch.empty_like(x2)
+    partial = torch.empty((-(-n // BWD_ROWS), d), dtype=torch.float32,
+                          device=x2.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x2.device)
+    del partial                   # held until the launch returns, as there
+    return dx, dscale
+
+
 class RMSNormFn(torch.autograd.Function):
     """y, rstd = RMSNormFn.apply(x, scale, eps); x (..., d), scale (d,).
 
@@ -152,7 +175,8 @@ class RMSNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        fwd = rmsnorm_plain if build.on_cpu(x) else rmsnorm_cuda
+        fwd = (rmsnorm_fake if build.is_fake(x) else
+               rmsnorm_plain if build.on_cpu(x) else rmsnorm_cuda)
         y, rstd = fwd(x2, scale, eps)
         ctx.save_for_backward(x2, scale, rstd)
         ctx.mark_non_differentiable(rstd)
@@ -162,6 +186,7 @@ class RMSNormFn(torch.autograd.Function):
     def backward(ctx, gy, _grstd):
         x2, scale, rstd = ctx.saved_tensors
         g2 = gy.reshape(x2.shape).to(x2.dtype).contiguous()
-        bwd = rmsnorm_bwd_plain if build.on_cpu(x2) else rmsnorm_bwd_cuda
+        bwd = (rmsnorm_bwd_fake if build.is_fake(x2) else
+               rmsnorm_bwd_plain if build.on_cpu(x2) else rmsnorm_bwd_cuda)
         dx, dscale = bwd(x2, scale, rstd, g2)
         return dx.reshape(gy.shape), dscale.to(scale.dtype), None

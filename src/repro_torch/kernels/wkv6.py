@@ -149,16 +149,36 @@ def wkv6_cuda(r, k, v, w, u, chunk=64):
     return y, state
 
 
+def wkv6_fake(r, k, v, w, u, chunk=64):
+    """The kernel's shape-only branch on fake tensors (``build.is_fake``):
+    y and the final state, empty, as the launch allocates them, beside
+    the f32 copies of w and u it reads."""
+    B, T, H, N = r.shape
+    if N not in HEAD_DIMS or chunk not in CHUNKS:
+        raise ValueError(f"wkv6 kernel: head dim {N}, chunk {chunk} has no "
+                         f"kernel (compiled for {HEAD_DIMS}, {CHUNKS})")
+    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
+    w32 = w.to(torch.float32).contiguous()
+    u32 = u.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    del w32, u32                  # held until the launch returns, as there
+    return y, state
+
+
 class WKV6Fn(torch.autograd.Function):
     """y, state = WKV6Fn.apply(r, k, v, w, u, chunk), from a zero state.
 
-    The kernel on a CUDA tensor, :func:`wkv6_plain` on a CPU one.  The
+    The kernel on a CUDA tensor, :func:`wkv6_plain` on a CPU one,
+    :func:`wkv6_fake` on a fake one.  The
     backward re-runs :func:`wkv6_plain` on the saved inputs under autograd
     (the JAX ``_wkv6_bwd_rule``); either cotangent may be None."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, chunk):
-        if build.on_cpu(r):
+        if build.is_fake(r):
+            y, state = wkv6_fake(r, k, v, w, u, chunk)
+        elif build.on_cpu(r):
             y, state = wkv6_plain(r, k, v, w, u, None, chunk)
         else:
             y, state = wkv6_cuda(r, k, v, w, u, chunk)

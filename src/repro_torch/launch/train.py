@@ -41,6 +41,12 @@ is the seeded synthetic corpus or a flat uint16 token file.  Prints a loss
 line per logging step, then ``done: loss a -> b``.  Checkpoints come with
 a later slice (ROADMAP Queue 1).
 
+``--drift_report PATH`` writes the cost model's predicted step-time
+decomposition for the resolved strategy beside each logging window's
+measured one (``telemetry.DriftMonitor``: ``step``, ``dispatch``,
+``wait``, ``data`` seconds per step) and sets the ``train/mfu`` gauge;
+under torchrun rank 0 writes it.
+
 ``--profile DIR`` trains ``PROFILE_STEPS`` more steps (warm) under
 ``torch.profiler``, each ending in a device sync, writes the op table
 ``DIR/ops.txt`` and prints one JSON line (rank 0): wall and device-busy
@@ -108,6 +114,9 @@ def main(argv=None):
                          "spans here")
     ap.add_argument("--metrics_jsonl", default="",
                     help="stream every telemetry event as JSONL here")
+    ap.add_argument("--drift_report", default="",
+                    help="write per-window predicted-vs-measured step-time "
+                         "drift (cost model vs telemetry spans) here")
     ap.add_argument("--profile", default="",
                     help="train a few more steps under torch.profiler and "
                          "write ops.txt into this directory")
@@ -157,13 +166,16 @@ def _train(args, cfg, device):
     params = par.apply_plan(init_params(cfg, args.seed, device), plan, cfg)
 
     recorder = tel.NULL
-    if main_rank and (args.trace or args.metrics_jsonl):
+    if main_rank and (args.trace or args.metrics_jsonl or args.drift_report):
         recorder = tel.Recorder()
         if args.metrics_jsonl:
             recorder.add_sink(tel.JsonlSink(args.metrics_jsonl))
         if args.trace:
             recorder.add_sink(tel.ChromeTraceSink(
                 args.trace, process_name=f"train {cfg.name}"))
+    drift = None
+    if main_rank and args.drift_report:
+        drift = drift_monitor(cfg, strat, planned, topo, shape, recorder)
     where = card_description(device) if device.type == "cuda" else "cpu"
     if main_rank:
         print(f"arch={cfg.name} seq_len={args.seq_len} "
@@ -171,10 +183,17 @@ def _train(args, cfg, device):
               f"kernels={args.kernels} ranks={dist.get_world_size()} "
               f"device={device} ({where})")
     params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
-                                            telemetry=recorder, plan=plan)
+                                            telemetry=recorder, plan=plan,
+                                            drift=drift)
     recorder.close()
     if main_rank and args.trace:
         print(f"[telemetry] trace written to {args.trace}")
+    if drift is not None:
+        drift.write(args.drift_report)
+        mean = drift.summary()["mean_predicted_over_measured"]
+        terms = ", ".join(f"{t}={r:.3g}" for t, r in mean.items())
+        print(f"[telemetry] drift report -> {args.drift_report}"
+              + (f" (predicted/measured: {terms})" if terms else ""))
     losses = [h["loss"] for h in history]
     if main_rank:
         print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -183,6 +202,27 @@ def _train(args, cfg, device):
         profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
                       plan, main_rank)
     return history
+
+
+def drift_monitor(cfg, strat, planned, topo, shape,
+                  recorder=tel.NULL) -> tel.DriftMonitor:
+    """The drift monitor of ``--drift_report``: the predicted side is the
+    cost model's decomposition of the resolved strategy (the planner's
+    report, or ``strategy.evaluate``); ``meta`` carries the model flops a
+    step and the cluster's peak, inverted from the report's MFU, so the
+    trainer can gauge the measured ``train/mfu``."""
+    report = planned.report if planned is not None else \
+        strategy_lib.evaluate(cfg, strat, topo, shape)
+    hw = topo.hw
+    return tel.DriftMonitor(
+        report.decomposition(), telemetry=recorder,
+        meta={"spec": strat.format(), "topology": topo.name,
+              "hardware": topo.hardware, "arch": cfg.name,
+              "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+              "model_flops_per_step":
+                  report.mfu * report.t_step * topo.n_devices
+                  * hw.flops_bf16,
+              "cluster_peak_flops": topo.n_devices * hw.flops_bf16})
 
 
 def profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,

@@ -1,10 +1,11 @@
 """Telemetry for the port: spans and metrics fanning out to sinks.
 
 A copy of the parts of the JAX package's ``repro.telemetry`` that the
-serving engine and its CLI use — one flat event schema, counters, gauges,
-histograms with exact nearest-rank p50/p99, the JSONL and Chrome-trace
-sinks behind ``--metrics_jsonl`` / ``--trace``, the :class:`Recorder` and
-the no-op ``NULL`` recorder.  Spans enter
+serving engine, the trainer and their CLIs use — one flat event schema,
+counters, gauges, histograms with exact nearest-rank p50/p99, the JSONL
+and Chrome-trace sinks behind ``--metrics_jsonl`` / ``--trace``, the
+:class:`Recorder`, the no-op ``NULL`` recorder and the predicted-vs-
+measured :class:`DriftMonitor` behind the train CLI's ``--drift_report``.  Spans enter
 ``torch.profiler.record_function`` so host spans line up with the device
 kernels in a ``torch.profiler`` trace; ``device_time_in_spans`` reads a
 profile that way.
@@ -394,6 +395,95 @@ class _NullRecorder(Recorder):
 
 
 NULL = _NullRecorder()
+
+
+# ---------------------------------------------------------------------------
+# predicted-vs-measured drift (copied from repro/telemetry/drift.py)
+# ---------------------------------------------------------------------------
+
+# below this many seconds a measured term is noise, not signal
+_MIN_MEASURED_S = 1e-9
+
+
+class DriftMonitor:
+    """Compares one predicted decomposition against measured windows.
+
+    Given the cost model's per-term step-time decomposition for the
+    resolved strategy (``StepReport.decomposition()``: seconds per step for
+    ``step``/``compute``/``collective``/``bubble``/...), the monitor takes
+    a measured decomposition each logging window, computes per-term
+    ``predicted_over_measured`` ratios on the intersecting terms, emits them
+    as ``drift/predicted_over_measured/<term>`` gauges and keeps the
+    windows for :meth:`write`.  A ratio of 1.0 means the model nailed the
+    term; > 1 it over-predicts, < 1 it under-predicts.  Terms whose
+    measured value is ~0 get a ``null`` ratio rather than a fabricated
+    number.
+    """
+
+    def __init__(self, predicted: Dict[str, float],
+                 telemetry: Recorder = NULL,
+                 meta: Optional[Dict] = None):
+        self.predicted = {k: float(v) for k, v in predicted.items()}
+        self.telemetry = telemetry
+        self.meta = dict(meta or {})
+        self.windows: List[Dict] = []
+
+    def observe(self, measured: Dict[str, float],
+                n_steps: int = 1) -> Dict:
+        """Record one window of measured per-step times (seconds).
+
+        ``measured`` maps term name -> mean seconds per step over the
+        window.  Returns the window record, including the per-term
+        ratio dict (``None`` where a term can't be compared).
+        """
+        measured = {k: float(v) for k, v in measured.items()}
+        ratios: Dict[str, Optional[float]] = {}
+        for term in sorted(set(self.predicted) & set(measured)):
+            m = measured[term]
+            if m <= _MIN_MEASURED_S:
+                ratios[term] = None
+                continue
+            r = self.predicted[term] / m
+            ratios[term] = r
+            self.telemetry.gauge(
+                f"drift/predicted_over_measured/{term}", r)
+        window = {
+            "window": len(self.windows),
+            "n_steps": int(n_steps),
+            "predicted": self.predicted,
+            "measured": measured,
+            "predicted_over_measured": ratios,
+        }
+        self.windows.append(window)
+        return window
+
+    def summary(self) -> Dict:
+        """Mean ratio per term across all recorded windows."""
+        per_term: Dict[str, List[float]] = {}
+        for w in self.windows:
+            for term, r in w["predicted_over_measured"].items():
+                if r is not None:
+                    per_term.setdefault(term, []).append(r)
+        return {
+            "meta": self.meta,
+            "n_windows": len(self.windows),
+            "predicted": self.predicted,
+            "mean_predicted_over_measured": {
+                t: sum(rs) / len(rs) for t, rs in sorted(per_term.items())
+            },
+        }
+
+    def report(self) -> Dict:
+        return {**self.summary(), "windows": self.windows}
+
+    def write(self, path: str) -> Dict:
+        """Write the full report JSON."""
+        doc = self.report()
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+        return doc
 
 
 # ---------------------------------------------------------------------------

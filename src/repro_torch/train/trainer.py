@@ -6,14 +6,13 @@ port of the JAX package's ``train/trainer.py``.
 metrics); it updates the parameters and moments in place.  Metrics stay
 0-d tensors on the device: reading one waits for the device, so
 ``train_loop`` reads them only on logging steps.  Checkpoints, resume and
-fault injection come with the checkpointing slice; MFU and drift with the
-dry-run slice (ROADMAP Queue 1).
+fault injection come with the checkpointing slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -257,7 +256,8 @@ def batch_to_device(batch, device: torch.device):
 
 def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
                params, opt_state=None,
-               telemetry: tel.Recorder = tel.NULL, plan=None):
+               telemetry: tel.Recorder = tel.NULL, plan=None,
+               drift: Optional[tel.DriftMonitor] = None):
     """Train ``params`` (on their device) for ``tc.steps`` steps on the
     numpy batches of ``batches``; -> (params, opt_state, history).
 
@@ -267,8 +267,15 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
     for the device only on logging steps (every ``log_every`` and the
     first), where it prints a loss line, appends the metrics to
     ``history`` and sets the ``train/wps`` and ``train/steps_per_s``
-    gauges over the window since the last log.  Under a ``plan`` every
-    rank trains (see :func:`make_train_step`) and rank 0 prints.
+    gauges over the window since the last log.  ``drift`` (a
+    :class:`~repro_torch.telemetry.DriftMonitor` built from the resolved
+    strategy's ``StepReport.decomposition()``) gets one measured window
+    per logging window: the mean seconds per step of the window
+    (``step``, ending in the device sync of the log) and of its
+    ``dispatch``, ``wait`` and ``data`` spans; where its ``meta`` carries
+    ``model_flops_per_step`` and ``cluster_peak_flops`` the ``train/mfu``
+    gauge is set too, as in the JAX package.  Under a ``plan`` every rank
+    trains (see :func:`make_train_step`) and rank 0 prints.
     """
     device = params.device
     opt_state = opt_state if opt_state is not None else init_opt_state(params)
@@ -280,20 +287,27 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
     history = []
     t0 = win_t0 = time.time()
     win_start = 0
+    win_dispatch = win_data = win_wait = 0.0
     for step in range(tc.steps):
         with telemetry.span("train/step", step_num=step):
+            t1 = time.time()
             with telemetry.span("train/dispatch"):
                 params, opt_state, metrics = step_fn(params, opt_state, batch)
+            t2 = time.time()
+            win_dispatch += t2 - t1
             if step + 1 < tc.steps:
                 with telemetry.span("train/data"):
                     batch = batch_to_device(next(it), device)
+            win_data += time.time() - t2
             if (step + 1) % tc.log_every and step:
                 continue
+            t4 = time.time()
             with telemetry.span("train/wait"):
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 m = {k: float(v) for k, v in metrics.items()}
             now = time.time()
+            win_wait += now - t4
             m["steps_per_s"] = (step + 1) / (now - t0)
             history.append({"step": step + 1, **m})
             if prints:
@@ -304,5 +318,17 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
             if n_win > 0 and dt_win > 0:
                 telemetry.gauge("train/wps", tokens_per_step * n_win / dt_win)
                 telemetry.gauge("train/steps_per_s", n_win / dt_win)
+                if drift is not None:
+                    fl = drift.meta.get("model_flops_per_step")
+                    peak = drift.meta.get("cluster_peak_flops")
+                    if fl and peak:
+                        telemetry.gauge("train/mfu",
+                                        fl / (dt_win / n_win) / peak)
+                    drift.observe({"step": dt_win / n_win,
+                                   "dispatch": win_dispatch / n_win,
+                                   "wait": win_wait / n_win,
+                                   "data": win_data / n_win},
+                                  n_steps=n_win)
             win_t0, win_start = now, step + 1
+            win_dispatch = win_data = win_wait = 0.0
     return params, opt_state, history

@@ -58,6 +58,13 @@ CASES = [(n, i) for n, cases in WORLDS.items() for i in range(len(cases))]
 GRAD_REL = {"f32": 1e-4, "bf16": 0.15}
 SPAWN_TIMEOUT = 300
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+# every spawned process (the ranks of a world, and the process that
+# computes the port's single-device references) runs torch on one thread
+WORLD_THREADS = 1
+# the 2-process world runs this case once more after its cases: the port's
+# pipelined step must give the same bits again (a rank carrying state
+# from case to case, or a message matched to the wrong receive, would not)
+REPEAT = 0
 
 
 def _precision(spec):
@@ -216,7 +223,7 @@ def _run_case(case, rank):
 
 
 def _world(rank, n, payload, out):
-    torch.set_num_threads(1)
+    torch.set_num_threads(WORLD_THREADS)
     dist.init_process_group("gloo", init_method=f"file://{out}.store",
                             rank=rank, world_size=n, timeout=GROUP_TIMEOUT)
     try:
@@ -258,15 +265,38 @@ def _reference_spec(spec):
     return s
 
 
-def _references(case, n):
-    """(JAX trajectory, the port's single-device trajectory, the port's
-    single-device probe step)."""
-    spec, arch, over, wd = case
+def _jax_reference(item):
+    """JAX's single-device trajectory of a payload item (test process)."""
+    spec, arch, over, wd = item["case"]
+    return _jax_trajectory((spec, None, arch, over, wd),
+                           _reference_spec(spec), tree=item["tree"],
+                           batches=item["batches"])
+
+
+def _port_reference(item):
+    """(the port's single-device trajectory, its probe step) of a payload
+    item, from the same numpy weights and batches as the world's."""
+    spec, arch, over, wd = item["case"]
     s = _reference_spec(spec)
-    fcase = (spec, None, arch, over, wd)     # test_torch_fsdp's case form
-    inp = _inputs(case, n)
-    return (_jax_trajectory(fcase, s, **inp), _port_trajectory(fcase, s, **inp),
-            _port_probe(case, s, inp))
+    inp = dict(tree=item["tree"], batches=item["batches"])
+    return (_port_trajectory((spec, None, arch, over, wd), s, **inp),
+            _port_probe(item["case"], s, inp))
+
+
+def _port_references(_index, payload, out):
+    """Spawned: the port's single-device references of every payload item,
+    at the worlds' thread count.  They are the bar the pipelined ranks are
+    held to at the f32 bars, and Adam turns a rounding change of them into
+    lr-sized steps (a near-zero gradient's sign), so they are computed
+    where nothing else sets their rounding: not in the test process,
+    whose thread pool and history (the JAX oracle, other test files) it
+    does not control."""
+    torch.set_num_threads(WORLD_THREADS)
+    with open(payload, "rb") as f:
+        items = pickle.load(f)
+    refs = [_port_reference(item) for item in items]
+    with open(out, "wb") as f:
+        pickle.dump(refs, f)
 
 
 def _port_probe(case, s, inp):
@@ -307,34 +337,101 @@ def _jax_rows(spec):
             for r in range(s.pp)]
 
 
+def _start_port_references(d):
+    return mp.start_processes(
+        _port_references, args=(str(d / "payload.pkl"),
+                                 str(d / "port_refs.pkl")),
+        nprocs=1, join=False, start_method="spawn")
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """{n: [(case, every rank's result, references)]}.  Every world is
-    spawned at once, each running all its cases, while this process
-    computes the references."""
-    started, refs = {}, {}
+    """{n: [(case, every rank's result, references)], 'repeat': the
+    2-process world's results of case REPEAT, run first and last,
+    'payload': its payload file}.  Every world is spawned at once, each
+    running all its cases, beside a process per world computing the
+    port's single-device references from the same payload, while this
+    process computes JAX's."""
+    started, refs, out = {}, {}, {}
     try:
         for n, cases in WORLDS.items():
             d = tmp_path_factory.mktemp(f"ppworld{n}")
             payload = [dict(case=c, **_inputs(c, n)) for c in cases]
             with open(d / "payload.pkl", "wb") as f:
                 pickle.dump(payload, f)
-            started[n] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
-        for n, cases in WORLDS.items():
-            refs[n] = [_references(c, n) for c in cases]
-        out = {}
+            runs = payload + ([payload[REPEAT]] if n == 2 else [])
+            with open(d / "runs.pkl", "wb") as f:
+                pickle.dump(runs, f)
+            started[n] = (d, mp.start_processes(
+                _world, args=(n, str(d / "runs.pkl"), str(d / "out.pkl")),
+                nprocs=n, join=False, start_method="spawn"),
+                _start_port_references(d))
+            refs[n] = [_jax_reference(item) for item in payload]
         deadline = time.time() + SPAWN_TIMEOUT
-        for n, (path, ctx) in started.items():
+        for n, (d, ctx, port_ctx) in started.items():
             _join(n, ctx, deadline)
-            with open(path, "rb") as f:
+            _join(n, port_ctx, deadline)
+            with open(d / "out.pkl", "rb") as f:
                 got = pickle.load(f)
-            out[n] = list(zip(WORLDS[n], got, refs[n], strict=True))
+            with open(d / "port_refs.pkl", "rb") as f:
+                ports = pickle.load(f)
+            if n == 2:
+                out["repeat"] = (got[REPEAT], got.pop())
+                out["payload"] = d / "payload.pkl"
+            out[n] = list(zip(WORLDS[n], got, [
+                (j, port, probe) for j, (port, probe) in zip(
+                    refs[n], ports, strict=True)], strict=True))
         return out
     finally:
-        for _, ctx in started.values():
+        for _, ctx, port_ctx in started.values():
             _stop(ctx)
+            _stop(port_ctx)
+
+
+def test_a_case_run_twice_in_a_world_gives_the_same_bits(worlds):
+    """Case REPEAT of the 2-process world, run first and again after the
+    world's other cases: every rank's metrics, parameters, first moments,
+    ops and held graphs are the same bits both times."""
+    first, again = worlds["repeat"]
+    for a, b in zip(first, again, strict=True):
+        assert a["metrics"] == b["metrics"] and a["probe"] == b["probe"]
+        assert a["runs"] == b["runs"]
+        for key in ("params", "m", "probe_m"):
+            for (path, x), (_, y) in zip(_leaves(a[key]), _leaves(b[key]),
+                                         strict=True):
+                assert np.array_equal(x, y), (key, path)
+
+
+def test_port_references_do_not_depend_on_the_test_process(worlds,
+                                                          tmp_path):
+    """The port's single-device references are the same bits when they
+    are computed again in a fresh process while this one runs torch at
+    another thread count: whatever this process's state, the bar the
+    pipelined ranks are held to stays put."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        with open(worlds["payload"], "rb") as f:
+            items = pickle.load(f)
+        with open(tmp_path / "payload.pkl", "wb") as f:
+            pickle.dump(items[REPEAT:REPEAT + 1], f)
+        ctx = _start_port_references(tmp_path)
+        try:
+            _join(1, ctx, time.time() + SPAWN_TIMEOUT)
+        finally:
+            _stop(ctx)
+    finally:
+        torch.set_num_threads(n)
+    with open(tmp_path / "port_refs.pkl", "rb") as f:
+        (port, probe), = pickle.load(f)
+    _, want_port, want_probe = worlds[2][REPEAT][2]
+    assert port["metrics"] == want_port["metrics"]
+    assert probe["metrics"] == want_probe["metrics"]
+    for got, want in ((port, want_port), (probe, want_probe)):
+        for key in set(got) - {"metrics"}:
+            for (path, x), (_, y) in zip(_leaves(got[key]),
+                                         _leaves(want[key]), strict=True):
+                assert np.array_equal(x, y), (key, path)
 
 
 def _ids(case):

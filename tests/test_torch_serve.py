@@ -282,7 +282,9 @@ def test_port_imports_no_jax():
             "repro_torch.data, repro_torch.strategy, "
             "repro_torch.core.parallel, repro_torch.core.costmodel, "
             "repro_torch.core.pipeline, "
-            "repro_torch.perf.flops, repro_torch.launch.mesh, chip_smoke\n"
+            "repro_torch.perf.flops, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.perf.pipeline_probe, "
+            "repro_torch.perf.comms, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
