@@ -131,10 +131,47 @@ order; any failure ends the run with a non-zero exit and no result line:
               backward amplifies it in the first layers), then at 2
               layers of full width every gradient within 1e-3.  The
               earlier phases' tensors are freed first.
-9. report   — one JSON line listing every kernel (its f32 case, and a
-              ``bf16`` entry with the strategy phase's bf16 launches),
-              then the device line ``{"ok": true, "device": {...}}`` as
-              the last line.
+9. SS1      — qwen3-0.6b at full width and depth, f32, served statically
+              (``ServeEngine.generate_static``: dense KV caches) on the
+              kernels: B 8, prompts of 128 tokens, 64 greedy new tokens.
+              Prints the prefill (synchronized), ms per decode step, tok/s
+              and peak memory; launches of one run exact: 57 RMSNorms per
+              forward, 28 flash forwards (the prefill), nothing else.
+              Teacher-forced logits kernel vs plain within LOGIT_ATOL,
+              greedy agreement at least MIN_AGREEMENT; the paged engine's
+              tokens on the same prompts agree with the static ones at
+              MIN_AGREEMENT (on the card the two decode attentions sum in
+              other orders; the CPU tests hold them bit for bit).
+10. SS3     — SS1 through the serve CLI's ``make_engine`` on a 1-rank NCCL
+              group: ``--strategy auto`` (the planner's decode plan, its
+              tokens equal to the unsharded engine at the plan's dtypes)
+              and ``--strategy fsdp`` (f32: tokens equal to SS1's), each
+              with SS1's launches; under ``fsdp`` the peak of one decode
+              step is measured for D3.
+11. D3      — the dry run (``launch.dryrun.lower_fresh``, fake tensors on
+              the card) of SS3's ``fsdp`` decode step: its tracked peak
+              within D3_MEM_REL of the measured one; then ``qwen3-0.6b x
+              decode_32k`` on the pod topology (256 fake ranks) must trace
+              with its caches.
+12. SS4     — 4 layers of qwen3-0.6b at full width under ``fsdp_tp2`` in
+              two spawned processes sharing the card, every collective on
+              gloo (NCCL cannot hold two ranks of one card): the
+              sequence-sharded cache, the log-sum-exp merge across ranks
+              and the k/v gathers; each rank's greedy tokens equal a
+              one-process static run's, its logits within SS4_LOGIT_REL
+              of their scale.  Correctness only.
+13. SS2     — rwkv6-1.6b at full width and depth, f32, served statically
+              (B 4, prompts of 64, 32 greedy tokens; no kernel launches:
+              the prefill from the cache's state runs the chunked form,
+              decode ``wkv_step``), its decode logits held against the
+              teacher-forced training forward on the kernel path (24
+              WKV-6 launches) within max(SS2_LOGIT_ATOL, FLOOR_FACTOR x
+              the plain forward's own move under a 1e-7 relative
+              perturbation of its WKV outputs).
+14. report  — one JSON line listing every kernel (its f32 case, and a
+              ``bf16`` entry with the strategy phase's bf16 launches; the
+              launches count every main-path run above), then the device
+              line ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -1301,7 +1338,7 @@ def dryrun_phase(card, measured_peak):
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     topo = strategy.host_topology(n_devices=1)
     strat, _ = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
-    rec = dryrun.lower_fresh(cfg, shape, strat, topo)
+    rec = dryrun.lower_fresh(cfg, shape, strat, topo, device="cuda")
     mem = rec["memory"]
     tracked = mem["peak_bytes_per_device"]
     rel = abs(tracked - measured_peak) / measured_peak
@@ -1316,7 +1353,8 @@ def dryrun_phase(card, measured_peak):
     check(rel <= DRYRUN_MEM_REL,
           f"dry-run peak {tracked} B vs measured {measured_peak} B")
     t0 = time.perf_counter()
-    pod = dryrun.run_one("qwen3-0.6b", "train_4k", False, DRYRUN_OUT)
+    pod = dryrun.run_one("qwen3-0.6b", "train_4k", False, DRYRUN_OUT,
+                         device="cuda")
     check(pod["status"] == "ok" and pod["n_devices"] == 256
           and pod["collectives"] and "resilience" in pod,
           f"pod dry run: {pod.get('status')} {pod.get('error')}")
@@ -1754,6 +1792,483 @@ def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0,
 
 
 # ---------------------------------------------------------------------------
+# phases 9-13: static serving from dense caches (SS1-SS4) and D3
+# ---------------------------------------------------------------------------
+
+SS_BATCH, SS_PROMPT, SS_NEW = 8, 128, 64       # SS1, SS3 (SS4: SS4_NEW)
+SS2_BATCH, SS2_PROMPT, SS2_NEW = 4, 64, 32
+SS_RWKV_CHUNK = 16                  # the serve CLIs' WKV chunk
+# static decode vs the teacher-forced training forward (kernel path) of
+# rwkv6-1.6b at full depth: on the CPU the two differ by 2.0e-5 at 4
+# layers of full width and 2.5e-5 at 24 layers of width 256, whence 1e-3
+# (10x the larger, extrapolated to 24 layers of full width).  On the card
+# the forward at full depth is as sensitive as its backward (the rwkv6
+# train phase): the plain forward against itself with its WKV outputs
+# perturbed by a relative WKV_NOISE_REL moves the logits by 1.17e-3, more
+# than 1e-3.  So the bar is 1e-3 or FLOOR_FACTOR x that floor, measured in
+# the same run, whichever is larger (the rwkv6 train phase's rule for its
+# gradients)
+SS2_LOGIT_ATOL = 1e-3
+SS4_LAYERS, SS4_SPEC, SS4_NEW = 4, "fsdp_tp2", 32
+SS4_LOGIT_REL = 1e-4                 # of the logits' scale
+SS4_TIMEOUT_S = 600
+D3_MEM_REL = 0.10
+
+
+def _static_prompts(vocab, B, S):
+    return np.random.default_rng(SEED).integers(
+        0, vocab, (B, S)).astype(np.int32)
+
+
+def _static_expect(cfg, n_new, kinds=("rmsnorm", "flash_attention")):
+    """Launches of one ``generate_static`` (1 prefill + n_new - 1 decode
+    steps) of an attention stack on the kernel path: 2L + 1 RMSNorms per
+    forward, L flash forwards in the prefill, nothing else."""
+    out = {k: 0 for k in ops.launch_counts()}
+    if "rmsnorm" in kinds:
+        out["rmsnorm"] = (2 * cfg.n_layers + 1) * n_new
+    if "flash_attention" in kinds:
+        out["flash_attention"] = cfg.n_layers
+    return out
+
+
+def static_logits(cfg, params, rt, prompts, tokens, dev):
+    """Teacher forcing through the static path: a prefill of ``prompts``
+    (B, S) into fresh dense caches, then a decode step for each of
+    ``tokens`` (B, n) but the last -> (B, n, V) f32 logits, the n next-
+    token distributions."""
+    n = tokens.shape[1]
+    with torch.no_grad():
+        lg, cache = tfm.prefill(cfg, params, {"tokens": torch.as_tensor(
+            prompts, device=dev)}, rt, prompts.shape[1] + n)
+        out = [lg[:, -1].float()]
+        toks = torch.as_tensor(tokens, device=dev)
+        for t in range(n - 1):
+            lg, cache = tfm.decode_step(cfg, params, cache,
+                                        toks[:, t:t + 1],
+                                        prompts.shape[1] + t, rt)
+            out.append(lg[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def _timed_static(eng, prompts, n_new, dev):
+    """(prefill ms, synchronized; ms per decode step over n_new - 1 greedy
+    steps, synchronized once) of ``eng``'s static path."""
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = eng._prefill(eng.params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del lg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_new - 1):
+            lg, cache = eng._step(eng.params, cache, tok,
+                                  prompts.shape[1] + t)
+            tok = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (n_new - 1)
+    return prefill_ms, step_ms
+
+
+def _counted_static(eng, prompts, n_new, expect, tag):
+    """One counted ``generate_static``: counters zeroed just before, read
+    just after; -> (tokens, wall s, counts)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate_static(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[{tag}] launches {counts}, expected {expect}")
+    check(counts == expect, f"{tag}: launch counts {counts} != {expect}")
+    return out, wall, counts
+
+
+def static_phase(dev, card):
+    """SS1: qwen3-0.6b at full width and depth, f32, ``generate_static``
+    of a closed batch on the kernel path: timings, exact launches,
+    teacher-forced logits kernel vs plain, and the paged engine's tokens
+    on the same prompts."""
+    cfg = get_config("qwen3-0.6b")
+    prompts = _static_prompts(cfg.vocab_size, SS_BATCH, SS_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    eng = ServeEngine(cfg, params, Runtime(), max_len=SS_PROMPT + SS_NEW,
+                      device=dev)
+    # first-call costs (cuBLAS picks per shape): the timed shapes, once
+    eng.generate_static(prompts, 2)
+    prefill_ms, step_ms = _timed_static(eng, prompts, SS_NEW, dev)
+    out, wall, counts = _counted_static(eng, prompts, SS_NEW,
+                                        _static_expect(cfg, SS_NEW), "SS1")
+    gens = out[:, SS_PROMPT:]
+    check(gens.shape == (SS_BATCH, SS_NEW)
+          and bool(((gens >= 0) & (gens < cfg.vocab_size)).all()),
+          f"SS1 tokens {gens.shape} out of range")
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    tok_s = SS_BATCH * SS_NEW / wall
+    print(f"[SS1] {cfg.name} B{SS_BATCH} prompt {SS_PROMPT} +{SS_NEW} "
+          f"greedy (f32, kernel path, static): prefill {prefill_ms:.2f} ms, "
+          f"{step_ms:.3f} ms a decode step, {tok_s:.1f} tok/s over "
+          f"{wall:.3f} s, peak {peak:.3f} GiB; on {card}")
+    plain = Runtime(attn_impl="torch", norm_impl="torch")
+    lk = static_logits(cfg, params, Runtime(), prompts, gens, dev)
+    lp = static_logits(cfg, params, plain, prompts, gens, dev)
+    worst = (lk - lp).abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    served = (lk.argmax(-1).cpu().numpy() == gens).mean()
+    del lk, lp
+    paged = ServeEngine(cfg, params, Runtime(), max_len=SS_PROMPT + SS_NEW,
+                        n_slots=SS_BATCH, device=dev).generate(
+                            prompts, SS_NEW)[:, SS_PROMPT:]
+    paged_agree = float((paged == gens).mean())
+    print(f"[SS1] teacher forcing: max |logits kernel - plain| {worst:.3g} "
+          f"(tol {LOGIT_ATOL}), greedy agreement {agree:.4f}, kernel path/"
+          f"served {served:.4f}; paged engine's tokens agree with the "
+          f"static ones at {paged_agree:.4f} (bar {MIN_AGREEMENT})")
+    check(worst <= LOGIT_ATOL, f"SS1 logits differ by {worst:.3g}")
+    check(min(agree, served, paged_agree) >= MIN_AGREEMENT,
+          f"SS1 agreement {agree:.4f} / {served:.4f} / {paged_agree:.4f}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, batch=SS_BATCH, prompt=SS_PROMPT, new=SS_NEW,
+                prefill_ms=prefill_ms, decode_step_ms=step_ms, tok_s=tok_s,
+                wall_s=wall, peak_mem_gib=peak, launches=counts,
+                logits_max_abs_err=worst, greedy_agreement=agree,
+                paged_agreement=paged_agree, tokens=gens.tolist())
+
+
+def static_plan_phase(dev, card, ss1_tokens):
+    """SS3: SS1's serving through the serve CLI's ``make_engine`` on a
+    1-rank NCCL group: ``--strategy auto`` (the planner's decode plan;
+    its tokens equal the unsharded engine's at the plan's dtypes) and
+    ``--strategy fsdp`` (f32: its tokens equal SS1's).  Under ``fsdp``
+    the peak of one decode step is measured for D3."""
+    from repro_torch.launch.serve import make_engine
+    cfg = get_config("qwen3-0.6b")
+    prompts = _static_prompts(cfg.vocab_size, SS_BATCH, SS_PROMPT)
+    ss1 = np.asarray(ss1_tokens, np.int32)
+    res = {"card": card}
+    launches = {k: 0 for k in ops.launch_counts()}
+    init_distributed(dev)
+    try:
+        for spec in ("auto", "fsdp"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            eng, plan = make_engine(cfg, dev, strategy=spec,
+                                    batch=SS_BATCH,
+                                    max_len=SS_PROMPT + SS_NEW,
+                                    seed=SEED, verbose=True)
+            eng.generate_static(prompts, 2)
+            prefill_ms, step_ms = _timed_static(eng, prompts, SS_NEW, dev)
+            out, wall, counts = _counted_static(
+                eng, prompts, SS_NEW, _static_expect(cfg, SS_NEW),
+                f"SS3 {spec}")
+            launches = {k: launches[k] + counts[k] for k in launches}
+            gens = out[:, SS_PROMPT:]
+            r = dict(plan=str(plan.precision), mesh=mesh_shape(plan.mesh),
+                     compute_dtype=str(eng.rt.compute_dtype),
+                     prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                     tok_s=SS_BATCH * SS_NEW / wall,
+                     agreement_with_ss1=float((gens == ss1).mean()))
+            if spec == "auto":
+                ref = ServeEngine(cfg, tfm.init_params(cfg, SEED, dev),
+                                  Runtime(compute_dtype=eng.rt.compute_dtype,
+                                          rwkv_chunk=16),
+                                  max_len=SS_PROMPT + SS_NEW, device=dev)
+                same = np.array_equal(
+                    ref.generate_static(prompts, SS_NEW)[:, SS_PROMPT:],
+                    gens)
+                del ref
+                check(same, "SS3 auto: tokens differ from the unsharded "
+                            "engine at the plan's dtypes")
+            else:
+                check(np.array_equal(gens, ss1),
+                      "SS3 fsdp: tokens differ from SS1's")
+                r["decode_step_peak_bytes"] = _decode_step_peak(
+                    eng, prompts, dev, base)
+            print(f"[SS3] --strategy {spec}: {plan.precision} on mesh "
+                  f"{mesh_shape(plan.mesh)}, prefill {prefill_ms:.2f} ms, "
+                  f"{step_ms:.3f} ms a decode step, {r['tok_s']:.1f} tok/s; "
+                  f"tokens agree with SS1's at {r['agreement_with_ss1']:.4f}"
+                  f"; on {card}")
+            res[spec] = r
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    res["launches"] = launches
+    return res
+
+
+def _decode_step_peak(eng, prompts, dev, base):
+    """Bytes allocated at the peak of one decode step of ``eng`` after a
+    prefill (its logits freed), above ``base``."""
+    with torch.no_grad():
+        lg, cache = eng._prefill(eng.params, {"tokens": torch.as_tensor(
+            prompts, device=dev)})
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del lg
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng._step(eng.params, cache, tok, torch.tensor(
+            SS_PROMPT, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del cache, tok
+    return peak
+
+
+def static_dryrun_phase(card, measured_peak):
+    """D3: the dry run of SS3's ``fsdp`` decode step (one fake rank, fake
+    tensors on the card, the kernel path) against its measured peak, then
+    ``qwen3-0.6b x decode_32k`` on the pod topology (256 fake ranks)."""
+    cfg = get_config("qwen3-0.6b")
+    shape = ShapeConfig("chip_smoke", SS_PROMPT + SS_NEW, SS_BATCH, "decode")
+    rec = dryrun.lower_fresh(cfg, shape, strategy.parse("fsdp"),
+                             strategy.host_topology(n_devices=1),
+                             device="cuda")
+    mem = rec["memory"]
+    tracked = mem["peak_bytes_per_device"]
+    rel = abs(tracked - measured_peak) / measured_peak
+    print(f"[D3] fsdp decode step B{SS_BATCH} x {SS_PROMPT + SS_NEW} slots "
+          f"on one fake rank (traced in {rec['trace_s']} s): tracked peak "
+          f"{tracked / 2**30:.4f} GiB ("
+          + ", ".join(f"{k[:-6]} {v / 2**30:.4f}" for k, v in mem.items()
+                      if k != "peak_bytes_per_device")
+          + f" GiB; cache {rec['cache_bytes_per_device']} B) vs the step's "
+          f"measured {measured_peak / 2**30:.4f} GiB: rel {rel:.3g} (tol "
+          f"{D3_MEM_REL}); on {card}")
+    check(rel <= D3_MEM_REL,
+          f"D3 dry-run peak {tracked} B vs measured {measured_peak} B")
+    t0 = time.perf_counter()
+    pod = dryrun.run_one("qwen3-0.6b", "decode_32k", False, DRYRUN_OUT,
+                         device="cuda")
+    check(pod["status"] == "ok" and pod["n_devices"] == 256
+          and pod.get("cache_bytes_per_device"),
+          f"pod decode dry run: {pod.get('status')} {pod.get('error')}")
+    print(f"[D3] qwen3-0.6b x decode_32k on pod ({pod['strategy']}, cache "
+          f"axes {pod['plan']['decode_cache_axes']}) in "
+          f"{time.perf_counter() - t0:.1f} s: peak/dev "
+          f"{pod['memory']['peak_bytes_per_device'] / 2**30:.4f} GiB, cache "
+          f"{pod['cache_bytes_per_device'] / 2**30:.4f} GiB, collective bytes "
+          f"{pod['collective_bytes_total']:.4g}")
+    return dict(d3=dict(memory=mem, measured_peak_bytes=measured_peak,
+                        rel=rel, trace_s=rec["trace_s"],
+                        cache_bytes_per_device=rec["cache_bytes_per_device"],
+                        collectives=rec["collectives"]), pod=pod)
+
+
+def _ss4_rank(rank, port, out_dir, device_type="cuda"):
+    """One rank of SS4 (a spawned process on the card, gloo for every
+    collective: NCCL cannot put two ranks of one card in a
+    communicator): SS1's prompts through ``generate_static`` under
+    SS4_SPEC at SS4_LAYERS layers, then teacher-forced logits along the
+    one-process run's tokens, gathered whole, against its logits."""
+    import datetime
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=SS4_TIMEOUT_S // 2))
+    try:
+        ref = np.load(Path(out_dir, "ref.npz"))
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=SS4_LAYERS)
+        prompts = _static_prompts(cfg.vocab_size, SS_BATCH, SS_PROMPT)
+        max_len = SS_PROMPT + SS4_NEW
+        shape = ShapeConfig("chip_smoke", max_len, SS_BATCH, "decode")
+        plan = strategy.parse(SS4_SPEC).to_plan(
+            cfg, strategy.host_topology(), shape, device_type=dev.type)
+        rt = par.make_runtime(cfg, plan, shape)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        eng = ServeEngine(cfg, params, rt, max_len=max_len, plan=plan,
+                          device=dev)
+        eng.generate_static(prompts, 2)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = eng.generate_static(prompts, SS4_NEW)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        tokens = ref["tokens"]
+        worst, scale = 0.0, float(np.abs(ref["logits"]).max())
+        with torch.no_grad():
+            lg, cache = eng._prefill(params, {"tokens": torch.as_tensor(
+                prompts, device=dev)})
+            k = cache["layers"][0]["kv"]["k"]
+            for t in range(SS4_NEW):
+                whole = eng._whole_logits(lg[:, -1]).cpu().numpy()
+                worst = max(worst, float(np.abs(whole - ref["logits"][:, t])
+                                         .max()))
+                if t + 1 < SS4_NEW:
+                    lg, cache = eng._step(params, cache, torch.as_tensor(
+                        tokens[:, t:t + 1], device=dev), SS_PROMPT + t)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+            tokens=out[:, SS_PROMPT:].tolist(), launches=counts,
+            logits_max_abs_err=worst, logits_scale=scale,
+            k_local_shape=list(k.shape), cache_shard=rt.cache_shard,
+            tp_size=rt.tp_size)))
+    finally:
+        dist.destroy_process_group()
+
+
+def static_tp_phase(dev, card):
+    """SS4: SS4_LAYERS layers of qwen3-0.6b at full width under SS4_SPEC in
+    two processes sharing the card over gloo: the sequence-sharded cache,
+    the cross-rank merge and the k/v gathers on the card; tokens equal a
+    one-process static run of the same model, logits within SS4_LOGIT_REL
+    of its scale.  No time is meaningful (two processes time-slice one
+    card)."""
+    import multiprocessing
+    import socket
+    import tempfile
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=SS4_LAYERS)
+    prompts = _static_prompts(cfg.vocab_size, SS_BATCH, SS_PROMPT)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    eng = ServeEngine(cfg, params, Runtime(), max_len=SS_PROMPT + SS4_NEW,
+                      device=dev)
+    gens = eng.generate_static(prompts, SS4_NEW)[:, SS_PROMPT:]
+    logits = static_logits(cfg, params, Runtime(), prompts, gens, dev)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ss4")
+    np.savez(Path(out_dir, "ref.npz"), tokens=gens,
+             logits=logits.cpu().numpy())
+    del eng, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ss4_rank, args=(r, port, out_dir, dev.type))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.time() + SS4_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"SS4 ranks exited with {codes} (None: still "
+                           f"running after {SS4_TIMEOUT_S} s)")
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(2)]
+    expect = _static_expect(cfg, SS4_NEW)
+    launches = {k: 0 for k in ops.launch_counts()}
+    for r, got in enumerate(ranks):
+        check(got["launches"] == expect,
+              f"SS4 rank {r} launches {got['launches']} != {expect}")
+        check(np.array_equal(np.asarray(got["tokens"]), gens),
+              f"SS4 rank {r}: tokens differ from the one-process run")
+        rel = got["logits_max_abs_err"] / got["logits_scale"]
+        check(rel <= SS4_LOGIT_REL, f"SS4 rank {r}: logits differ by "
+                                    f"{rel:.3g} of their scale")
+        check(got["k_local_shape"][1] == (SS_PROMPT + SS4_NEW) // 2
+              and got["tp_size"] == 2,
+              f"SS4 rank {r}: cache shard {got['k_local_shape']}")
+        launches = {k: launches[k] + got["launches"][k] for k in launches}
+    print(f"[SS4] {SS4_SPEC} at {SS4_LAYERS} layers in 2 processes (gloo) "
+          f"in {time.perf_counter() - t0:.1f} s: tokens equal one "
+          f"process's; logits max |diff| "
+          + " / ".join(f"{g['logits_max_abs_err']:.3g}" for g in ranks)
+          + f" of scale {ranks[0]['logits_scale']:.3g}; KV slots per rank "
+          f"{ranks[0]['k_local_shape'][1]} of {SS_PROMPT + SS4_NEW} (shards "
+          f"{[g['cache_shard'] for g in ranks]}); on {card}")
+    return dict(card=card, ranks=ranks, launches=launches)
+
+
+def static_rwkv_phase(dev, card):
+    """SS2: rwkv6-1.6b at full width and depth, f32, served statically (a
+    prefill from a zero state through the chunked form, then ``wkv_step``
+    per token: no kernel launches), its decode logits against the
+    teacher-forced training forward on the kernel path (24 WKV-6
+    launches)."""
+    cfg = get_config("rwkv6-1.6b")
+    prompts = _static_prompts(cfg.vocab_size, SS2_BATCH, SS2_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    rt = Runtime(rwkv_chunk=SS_RWKV_CHUNK)
+    eng = ServeEngine(cfg, params, rt, max_len=SS2_PROMPT + SS2_NEW,
+                      device=dev)
+    eng.generate_static(prompts, 2)
+    prefill_ms, step_ms = _timed_static(eng, prompts, SS2_NEW, dev)
+    out, wall, counts = _counted_static(
+        eng, prompts, SS2_NEW, _static_expect(cfg, SS2_NEW, ()), "SS2")
+    gens = out[:, SS2_PROMPT:]
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    steps = static_logits(cfg, params, rt, prompts, gens, dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        tf = tfm.forward(cfg, params, {"tokens": torch.as_tensor(
+            out[:, :-1], device=dev)}, rt)[:, SS2_PROMPT - 1:].float()
+    tf_counts = ops.launch_counts()
+    check(tf_counts["wkv6"] == cfg.n_layers,
+          f"SS2 teacher-forced forward: {tf_counts}")
+    worst = (steps - tf).abs().max().item()
+    agree = (steps.argmax(-1) == tf.argmax(-1)).float().mean().item()
+    # what rounding alone moves: the plain forward against itself with its
+    # WKV outputs perturbed by a relative WKV_NOISE_REL (reported, not held)
+    plain = Runtime(attn_impl="torch", norm_impl="torch",
+                    rwkv_chunk=SS_RWKV_CHUNK)
+    toks = torch.as_tensor(out[:, :-1], device=dev)
+    with torch.no_grad():
+        tfp = tfm.forward(cfg, params, {"tokens": toks}, plain)[
+            :, SS2_PROMPT - 1:].float()
+        with wkv_output_noise(WKV_NOISE_REL, dev):
+            tfn = tfm.forward(cfg, params, {"tokens": toks}, plain)[
+                :, SS2_PROMPT - 1:].float()
+    floor = (tfp - tfn).abs().max().item()
+    kernel_plain = (tf - tfp).abs().max().item()
+    scale = tf.abs().max().item()
+    del tfp, tfn
+    print(f"[SS2] {cfg.name} B{SS2_BATCH} prompt {SS2_PROMPT} +{SS2_NEW} "
+          f"greedy (f32, static): prefill {prefill_ms:.2f} ms, {step_ms:.3f} "
+          f"ms a decode step, {SS2_BATCH * SS2_NEW / wall:.1f} tok/s, peak "
+          f"{peak:.3f} GiB; static decode vs the teacher-forced forward "
+          f"({tf_counts['wkv6']} WKV-6 launches): max |logits diff| "
+          f"{worst:.3g} (bar max({SS2_LOGIT_ATOL}, {FLOOR_FACTOR} x the "
+          f"floor below); logits' scale {scale:.3g}), "
+          f"greedy agreement {agree:.4f}; teacher-forced kernel vs plain "
+          f"{kernel_plain:.3g}; plain vs itself with its WKV outputs "
+          f"perturbed by a relative {WKV_NOISE_REL:g}: {floor:.3g}; on "
+          f"{card}")
+    bar = max(SS2_LOGIT_ATOL, FLOOR_FACTOR * floor)
+    check(worst <= bar, f"SS2 logits differ by {worst:.3g} (bar {bar:.3g})")
+    check(agree >= MIN_AGREEMENT, f"SS2 agreement {agree:.4f}")
+    del eng, params, steps, tf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, batch=SS2_BATCH, prompt=SS2_PROMPT, new=SS2_NEW,
+                prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                tok_s=SS2_BATCH * SS2_NEW / wall, peak_mem_gib=peak,
+                launches=counts, teacher_forced_launches=tf_counts,
+                logits_max_abs_err=worst, greedy_agreement=agree,
+                logits_scale=scale, kernel_vs_plain=kernel_plain,
+                wkv_noise_floor=floor)
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1913,11 +2428,33 @@ def main(argv=None):
         RWKV_CHECK_BATCH, "rwkv6")
     print(f"[rwkv6] ok in {time.perf_counter() - t0:.1f}s")
 
+    # static serving from dense caches, after the training phases' cells
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ss1 = static_phase(dev, card)
+    print(f"[SS1] ok in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ss3 = static_plan_phase(dev, card, ss1["tokens"])
+    print(f"[SS3] ok in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    d3 = static_dryrun_phase(card, ss3["fsdp"]["decode_step_peak_bytes"])
+    print(f"[D3] ok in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ss4 = static_tp_phase(dev, card)
+    print(f"[SS4] ok in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ss2 = static_rwkv_phase(dev, card)
+    print(f"[SS2] ok in {time.perf_counter() - t0:.1f}s")
+
     # each kernel's launches on the main paths: the serve phase's run plus
-    # each train phase's run, each counted from 0
+    # each train phase's run and each static serving run, each counted
+    # from 0
     launches = {k: served["launches"][k] + trained["launches"][k]
                 + strat["launches"][k] + strat["fp8"]["launches"][k]
                 + piped["launches"][k] + rwkv_trained["launches"][k]
+                + ss1["launches"][k] + ss3["launches"][k]
+                + ss4["launches"][k] + ss2["launches"][k]
                 for k in trained["launches"]}
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
@@ -1927,7 +2464,9 @@ def main(argv=None):
              "serve": served,
              "train": trained, "train_strategy": strat, "dryrun": dry,
              "train_pipeline": piped,
-             "train_rwkv6": rwkv_trained, "build_s": took,
+             "train_rwkv6": rwkv_trained, "static_ss1": ss1,
+             "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
+             "dryrun_d3": d3, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

@@ -1,5 +1,6 @@
-"""Parameters, gradients and optimizer state between the JAX package's
-pytrees and the port's ``Params`` / name-keyed dicts.
+"""Parameters, gradients, optimizer state and dense decode caches between
+the JAX package's pytrees and the port's ``Params`` / name-keyed dicts /
+per-layer cache lists.
 
 The JAX tree (``repro.models.transformer.init_params``) holds ``embed``,
 ``final_norm``, ``prefix`` (a list of per-layer dicts) and ``blocks`` (a
@@ -156,3 +157,35 @@ def opt_state_from_jax(tree: Dict[str, Any], device="cpu") -> Dict:
                 for n, p in params_from_jax(t, device).named_parameters()}
     return {"m": moments(tree["m"]), "v": moments(tree["v"]),
             "step": int(np.asarray(tree["step"]))}
+
+
+def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX dense decode cache (``transformer.init_cache``'s tree after a
+    prefill: ``prefix`` per-layer dicts and ``blocks`` stacked on a leading
+    layer dim, leaves as numpy arrays) -> the port's ``{'layers': [...]}``
+    (an attention layer's {'kv': {'k', 'v', 'kpos', 'idx'}}, an RWKV-6
+    layer's {'att': {'x_prev', 'wkv'}, 'ffn': {'x_prev'}})."""
+    prefix, blocks = tree["prefix"], tree["blocks"]
+    period = len(blocks)
+    n_blocks = np.shape(_first_leaf(blocks[0]))[0] if period else 0
+    layers = [_tensors(lc, device=device) for lc in prefix]
+    for b in range(n_blocks):
+        for pos in range(period):
+            layers.append(_tensors(blocks[pos], b, device))
+    return {"layers": layers}
+
+
+def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's whole (unsharded) dense cache -> the JAX tree, leaves as
+    numpy arrays, the scanned layers stacked as ``layer_plan`` stacks
+    them."""
+    def arrays(d):
+        return {k: arrays(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy() for k, v in d.items()}
+
+    layers = [arrays(lc) for lc in cache["layers"]]
+    prefix, start, period, n_blocks = layer_plan(cfg)
+    return {"prefix": [layers[i] for i in prefix],
+            "blocks": [_stack([layers[start + b * period + pos]
+                               for b in range(n_blocks)])
+                       for pos in range(period if n_blocks else 0)]}

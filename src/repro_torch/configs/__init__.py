@@ -2,10 +2,10 @@
 
 The port runs dense attention-only stacks with RoPE, RMSNorm and a SwiGLU
 MLP (``qwen3-0.6b`` and the Llama-2 family) and the uniform RWKV-6 stack
-of ``rwkv6-1.6b`` (training; its recurrent serving comes with the static
-engine).  The JAX package's other architectures need layers the port does
-not have yet; ``get_config`` names the ROADMAP item that brings each of
-them.
+of ``rwkv6-1.6b`` (trained, and served from its recurrent state by the
+static engine).  The JAX package's other architectures need layers the
+port does not have yet; ``get_config`` names the ROADMAP item that brings
+each of them.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
@@ -30,6 +30,16 @@ LATER = {
 }
 
 
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic sequence mixing (the JAX package's
+    ``configs.supports_shape``)."""
+    if shape.name != "long_500k":
+        return True
+    if cfg.mixer in ("rwkv6", "mamba"):   # ssm / hybrid: O(1)-state decode
+        return True
+    return cfg.sliding_window > 0          # SWA dense: window-bounded cache
+
+
 def get_config(name: str) -> ModelConfig:
     if name in REGISTRY:
         return REGISTRY[name]
@@ -43,5 +53,5 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ModelConfig", "MoEConfig", "MambaConfig", "ShapeConfig", "SHAPES",
-    "reduced", "REGISTRY", "LATER", "get_config",
+    "reduced", "REGISTRY", "LATER", "get_config", "supports_shape",
 ]

@@ -46,8 +46,17 @@ back to ``compute_dtype``, as ``make_param_gatherer`` quantizes, gathers
 and dequantizes.  The embedding, the LM head and the final norm gather at
 f32 in the root unit, as the JAX gatherer runs only inside the scan over
 the layers.  Gradients reduce-scatter at ``grad_dtype``.  ``_ovl`` becomes
-FSDP2's explicit prefetch of layer i + 1 while layer i computes.  Serving
-under TP (``cache_shardings``) comes with its own slice.
+FSDP2's explicit prefetch of layer i + 1 while layer i computes.
+
+Serving under a plan keeps the dense caches where ``cache_shardings``
+places them (the JAX package's layout): the KV cache (B, Sc, Kv, D) is
+sharded along Sc over ``decode_cache_axes`` (the model axis, or data x
+model when the batch is smaller than the data axis, its rows then
+replicated), the WKV state by heads over the model axis, ``x_prev`` by
+rows over the data axes, ``kpos`` and ``idx`` replicated.  A rank serves
+the rows ``serve_rows`` gives it; ``make_runtime`` gives a serving shape's
+runtime this rank's shard of the KV slots and the groups over which a
+decode step merges its attention (``models.attention``).
 
 A plan with a ``pipe`` axis (``core.pipeline``) keeps on each pipe rank
 only the layers of its stages; they are lowered as above over the (data,
@@ -329,8 +338,9 @@ def grad_sums_over_model(name: str, placement, seq_parallel: bool) -> bool:
 
 def activation_specs(cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Tuple]:
     """The JAX package's named activation specs, for the names the port's
-    training forward uses."""
+    forward and its dense caches use."""
     dp, m = plan.dp, plan.tp
+    cache_seq = plan.decode_cache_axes
     cp = plan.attn == "context"
     decode = plan.shape_mode == "decode"
     seq = m if (cp and not decode) else None
@@ -352,9 +362,115 @@ def activation_specs(cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Tuple]:
         "heads_q": (dp, seq, None if cp else m, None),
         "heads_kv": (dp, seq, (m if plan.kv_tp else None) if not cp else None,
                      None),
+        # decode KV cache (B, Sc, Kv, hd): sequence-sharded flash-decode
+        "kv_cache": (dp if not decode or len(cache_seq) == 1 else None,
+                     cache_seq if decode else None, None, None),
         # rwkv
         "rwkv_heads": (dp, None, m, None),
+        "rwkv_state": (dp, m, None, None),
     }
+
+
+# ---------------------------------------------------------------------------
+# dense serving caches
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def cache_specs(cfg: ModelConfig, plan: ParallelPlan, cache):
+    """The fitted spec of every leaf of a dense cache (``transformer.
+    init_cache``'s per-layer tree, or any tree of the same keys whose
+    leaves have a ``shape``), by leaf name as the JAX package's
+    ``cache_shardings`` reads it: k/v ``kv_cache``, wkv ``rwkv_state``,
+    x_prev rows over the data axes, kpos and idx replicated."""
+    specs = activation_specs(cfg, plan)
+
+    def one(name, leaf):
+        nd = len(leaf.shape)
+        if name in ("k", "v"):
+            spec = specs["kv_cache"]
+        elif name == "wkv":
+            spec = specs["rwkv_state"] if nd == 4 else (plan.dp, plan.tp)
+        elif name == "x_prev":
+            spec = (plan.dp, None)
+        else:                       # kpos, idx
+            spec = ()
+        return fitted(plan, spec, leaf.shape)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return one(name, tree)
+
+    return walk(cache)
+
+
+def spec_placements(plan: ParallelPlan, spec: Tuple) -> list:
+    """A fitted spec -> one DTensor placement per mesh dim: ``Shard(d)``
+    where the spec puts that axis on dim d (axes sharing a dim nest in
+    mesh order, as a JAX tuple entry does), else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in mesh_shape(plan.mesh):
+        dims = [d for d, e in enumerate(spec) if axis in _axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def cache_shardings(cfg: ModelConfig, plan: ParallelPlan, cache):
+    """Placements (one per mesh dim, :func:`spec_placements`) for every
+    leaf of a dense cache, from :func:`cache_specs`."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return spec_placements(plan, tree)
+
+    return walk(cache_specs(cfg, plan, cache))
+
+
+def local_shape(plan: ParallelPlan, shape, placements) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` placed by
+    ``placements`` (fitted: every sharded dim divides)."""
+    out = list(shape)
+    for place, n in zip(placements, mesh_shape(plan.mesh).values()):
+        if place.is_shard():
+            out[place.dim] //= n
+    return tuple(out)
+
+
+def _shard_index(plan: ParallelPlan, axes: Tuple[str, ...]) -> int:
+    """This rank's index among the shards of a dim split over ``axes``,
+    row-major in mesh order."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh_shape(plan.mesh)[a] + plan.mesh.get_local_rank(a)
+    return idx
+
+
+def row_axes(plan: ParallelPlan, batch: int) -> Tuple[str, ...]:
+    """The data axes that split ``batch`` served rows: those that divide
+    it (the cache's rows, ``kv_cache`` and ``x_prev``); none where a
+    decode plan spreads the cache over data x model (rows replicated)."""
+    if len(plan.decode_cache_axes) > 1 and plan.shape_mode == "decode":
+        return ()
+    return _axes(fitted(plan, (plan.dp,), (batch,))[0])
+
+
+def serve_rows(plan: ParallelPlan, batch: int) -> Tuple[int, int]:
+    """[lo, hi) of the ``batch`` rows this rank serves
+    (:func:`row_axes`)."""
+    axes = row_axes(plan, batch)
+    n = plan.axis_size(axes)
+    i = _shard_index(plan, axes)
+    return i * batch // n, (i + 1) * batch // n
 
 
 def wires(plan: ParallelPlan) -> bool:
@@ -373,9 +489,12 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     FSDP2's all-gather).  Its model axis: the size, and on a
     ``DeviceMesh`` the process group and this rank's coordinate; the
     residual stream is sequence-parallel where ``activation_specs`` shards
-    ``act_btd`` along S.  Its pipe axis (training under a ``pipe`` plan):
-    the size, the microbatches and schedule, and on a ``DeviceMesh`` the
-    process group and this rank's coordinate."""
+    ``act_btd`` along S.  Its pipe axis: the size, the microbatches and
+    schedule, and on a ``DeviceMesh`` the process group and this rank's
+    coordinate (a serving plan runs its stages in order,
+    ``transformer.Params._through_pipe``).  A serving shape's runtime
+    also gets its shard of the KV cache's slots (``cache_shard``,
+    ``cache_groups``)."""
     from repro_torch.models.layers import Runtime
     pol = plan.policy
     mesh = not isinstance(plan.mesh, dict)
@@ -390,15 +509,32 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     if plan.tp_size > 1 and mesh:
         kw.update(tp_group=plan.mesh.get_group(plan.tp),
                   tp_rank=plan.mesh.get_local_rank(plan.tp))
-    if plan.pipe and shape.mode == "train":
+    if plan.pipe:
         kw.update(pipe_size=plan.pipe_size,
                   pipe_microbatches=plan.microbatches,
                   pipe_schedule=plan.pipe_sched)
         if mesh:
             kw.update(pipe_group=plan.mesh.get_group(plan.pipe),
                       pipe_rank=plan.mesh.get_local_rank(plan.pipe))
+    if shape.mode != "train" and mesh:
+        kw.update(_cache_coords(cfg, plan, shape))
     kw.update(overrides)
     return Runtime(**kw)
+
+
+def _cache_coords(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig):
+    """A serving runtime's shard of the KV slots: the index of this rank
+    among the shards of the cache's Sc (``global_batch`` rows of
+    ``seq_len`` positions, fitted as ``cache_specs`` fits them) and the
+    groups of the axes that split it."""
+    from repro_torch.models.attention import cache_slots
+    kv = (shape.global_batch, cache_slots(cfg, shape.seq_len), cfg.kv_heads,
+          cfg.head_dim_)
+    axes = tuple(a for a in _axes(fitted(
+        plan, activation_specs(cfg, plan)["kv_cache"], kv)[1])
+        if mesh_shape(plan.mesh)[a] > 1)
+    return dict(cache_shard=_shard_index(plan, axes),
+                cache_groups=tuple(plan.mesh.get_group(a) for a in axes))
 
 
 class Fp8Wire(torch.Tensor):

@@ -1,7 +1,7 @@
-"""Multi-pod dry run of the port: trace one training step of every
-(architecture x input shape) on the production meshes without hardware,
-and record its memory, collective, FLOP and resilience terms — the port of
-the JAX package's ``launch/dryrun.py``.
+"""Multi-pod dry run of the port: trace one step of every (architecture x
+input shape) on the production meshes without hardware — a train step, a
+prefill or a decode step — and record its memory, collective, FLOP and
+resilience terms: the port of the JAX package's ``launch/dryrun.py``.
 
 JAX lowers and compiles each point on 512 fake XLA devices.  Here the
 devices are the ranks of a *fake process group*
@@ -11,12 +11,20 @@ collective returns at once.  Parameters, moments and the batch are fake
 tensors (``FakeTensorMode``: shapes, dtypes and devices, no memory).  The
 plan goes through the path ``launch.train`` takes — ``to_plan`` ->
 ``apply_plan`` (FSDP2 and the tensor-parallel ``DTensor``s) — and one
-train step runs on it (forward, backward, AdamW, with the strategy's
-``ga<k>``) under :class:`~repro_torch.perf.memory.MemoryTracker` and
-:class:`~repro_torch.perf.comms.CollectiveCensus`.  The fake tensors lie
-on the card where the host has one (the FSDP2 mesh is then a CUDA mesh),
-else on the CPU: a CPU-only PyTorch cannot fake CUDA through FSDP2, and
-the bytes are the same.
+step runs on it under :class:`~repro_torch.perf.memory.MemoryTracker` and
+:class:`~repro_torch.perf.comms.CollectiveCensus`: for a train shape a
+train step (forward, backward, AdamW, with the strategy's ``ga<k>``); for
+a prefill shape ``serve.engine.make_prefill`` on the global prompts (this
+rank's rows into fresh caches placed by ``core.parallel.cache_shardings``);
+for a decode shape ``make_serve_step`` on this rank's tokens against
+caches of ``seq_len`` positions placed the same way, as the JAX dry run
+lowers them.  The serving points' memory gains a ``cache`` category, and
+the record the cache's exact bytes per device (``cache_bytes_per_device``).
+The fake tensors lie on ``--device`` (``cuda`` by default, which needs a
+card: the FSDP2 mesh is then a CUDA mesh; ``--device cpu`` on a host
+without one, where a CPU-only PyTorch cannot fake CUDA through FSDP2 and
+the bytes are the same).  Without a card and without ``--device cpu`` the
+dry run exits with an error: nothing falls back to the host.
 
 The step takes the kernel path (``--kernels cuda``, the default): on fake
 tensors each kernel wrapper takes its shape-only branch, which allocates
@@ -37,15 +45,17 @@ the peak bytes per device, split into parameters, gradients, optimizer
 state, activations and temporaries (``perf.memory``); ``trace_s`` stands
 where JAX has ``lower_s``.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
-``generated_code_bytes`` and ``compile_s``.  Prefill and decode shapes
-need the static engine's caches and the archs of
-``repro_torch.configs.LATER`` their own slices: those points are recorded
-as ``status: "skipped"`` with the slice that lifts them.
+``generated_code_bytes`` and ``compile_s``.  The archs of
+``repro_torch.configs.LATER`` need their own slices, and ``long_500k``
+needs a sub-quadratic mixer (``configs.supports_shape``, the JAX
+package's reason): those points are recorded as ``status: "skipped"``
+with the reason.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
   python -m repro_torch.launch.dryrun --arch all --shape all --both_meshes
   python -m repro_torch.launch.dryrun ... --out results/dryrun_torch
+  python -m repro_torch.launch.dryrun ... --device cpu    # no card
   torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.dryrun \\
       --arch qwen3-0.6b --shape train_4k --topology host --reduced \\
       --strategy fsdp_pp2_mb4 --measure_bubble --device cpu
@@ -66,22 +76,26 @@ import torch.distributed as dist
 
 from repro_torch import strategy as strategy_lib
 from repro_torch import telemetry as tel
-from repro_torch.configs import LATER, SHAPES, get_config, reduced
+from repro_torch.configs import (LATER, REGISTRY, SHAPES, get_config,
+                                 reduced, supports_shape)
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core import parallel as par
 from repro_torch.core import pipeline as pipe_lib
+from repro_torch.device import resolve_device
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models import init_params
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import init_opt_state
 from repro_torch.perf import flops as flops_lib
 from repro_torch.perf.comms import CollectiveCensus, total_bytes
 from repro_torch.perf.memory import MemoryTracker
+from repro_torch.serve.engine import make_prefill, make_serve_step
 from repro_torch.strategy.topology import mesh_shape
 from repro_torch.train.trainer import TrainConfig, make_train_step
 
 IMPLS = {"cuda": "kernel", "torch": "torch"}
-STATIC_ENGINE = "the static-engine slice"
+SUBQUADRATIC = "requires sub-quadratic attention (the JAX package's reason)"
 # the JAX sweep's archs (its ASSIGNED set): the two the port trains and
 # those of LATER
 ARCHS = sorted(["qwen3-0.6b", "rwkv6-1.6b", *LATER])
@@ -123,20 +137,15 @@ def _topology(name: str, multi_pod: bool):
 
 
 def skip_reason(arch: str, shape: ShapeConfig) -> Optional[str]:
-    """Why the port cannot trace this point yet, naming the slice that
-    lifts it; None when it can."""
+    """Why this point is not traced: an arch the port has not ported yet
+    (naming the slice that brings it), or a shape the arch does not
+    support (``long_500k`` for full attention); None when it is."""
     if arch in LATER:
         return (f"arch {arch} arrives with the '{LATER[arch]}' slice of "
                 "the PyTorch port")
-    if shape.mode != "train":
-        return (f"{shape.mode} shapes need the static engine's caches: "
-                f"{STATIC_ENGINE}")
+    if arch in REGISTRY and not supports_shape(REGISTRY[arch], shape):
+        return SUBQUADRATIC
     return None
-
-
-def dry_device() -> torch.device:
-    """Where the fake tensors lie: the card where the host has one."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 @contextlib.contextmanager
@@ -167,52 +176,111 @@ def traced_ranks(strat, topo) -> Dict[str, int]:
 
 def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
               kernels: str = "cuda", grad_accum: int = 1, rank: int = 0,
-              rt_overrides=None) -> Dict:
-    """Trace one train step of ``strat`` on ``topo`` as global rank
-    ``rank`` of a fake process group -> {'plan', 'memory', 'collectives',
-    'trace_s'}.  ``grad_accum`` > 1 overrides the spec's ``ga<k>``."""
+              rt_overrides=None, device="cuda") -> Dict:
+    """Trace one step of ``strat`` on ``topo`` for ``shape`` as global rank
+    ``rank`` of a fake process group, the fake tensors on ``device`` ->
+    {'plan', 'memory', 'collectives', 'trace_s'}, and for a serving shape
+    'cache_bytes_per_device'.  ``grad_accum`` > 1 overrides the spec's
+    ``ga<k>``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    device = dry_device()
+    device = resolve_device(device)
     impl = IMPLS[kernels]
+    extra = {}
     with fake_group(topo.n_devices, rank):
-        plan = strat.to_plan(cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape, device_type=device.type)
         rt = par.make_runtime(
             cfg, plan, shape, attn_impl=impl, norm_impl=impl,
             attn_min_chunked_len=max(2048, shape.seq_len + 1)
             if shape.seq_len <= 2048 else 2048, **(rt_overrides or {}))
-        ga = grad_accum if grad_accum > 1 else strat.grad_accum
         fake = FakeTensorMode(allow_non_fake_inputs=True)
         with fake:
             params = init_params(cfg, 0, device)
         # the meshes' own index arithmetic runs on real tensors
         params = par.apply_plan(params, plan, cfg)
+        mem, census = MemoryTracker(), CollectiveCensus()
         with fake:
-            opt_state = init_opt_state(params)
-            batch = {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                     for k, s in specs_lib.train_batch_specs(
-                         cfg, shape).items()}
-            step = make_train_step(cfg, rt, TrainConfig(
-                steps=max(ga, 2), warmup=1, grad_accum=ga), plan)
-            mem, census = MemoryTracker(), CollectiveCensus()
             mem.register([p.to_local() for p in params.parameters()],
                          "parameters")
-            mem.register([t.to_local() for k in ("m", "v")
-                          for t in opt_state[k].values()], "optimizer")
-            mem.register(batch.values(), "activations")
-            t0 = time.time()
-            with census, mem:
-                step(params, opt_state, batch)
-            took = time.time() - t0
+            if shape.mode == "train":
+                took = _train_step(cfg, shape, strat, rt, plan, params,
+                                   grad_accum, device, mem, census)
+            else:
+                with torch.no_grad():
+                    took, cache = _serve_step(cfg, shape, rt, plan, params,
+                                              device, mem, census)
+                leaves = _leaves(cache)
+                mem.relabel(leaves, "cache")
+                extra["cache_bytes_per_device"] = sum(
+                    t.numel() * t.element_size() for t in leaves)
+                del cache, leaves
         plan_rec = {"attn": plan.attn, "kv_tp": plan.kv_tp,
                     "dp": list(plan.dp), "fsdp": list(plan.fsdp),
                     "expert": plan.expert, "mesh": mesh_shape(plan.mesh),
                     "decode_cache_axes": list(plan.decode_cache_axes)}
-        del params, opt_state, batch, step
+        del params
     return {"plan": plan_rec, "trace_s": round(took, 1),
             "memory": {"peak_bytes_per_device": mem.peak,
                        **{f"{k}_bytes": v for k, v in
                           mem.breakdown().items()}},
-            "collectives": census.stats}
+            "collectives": census.stats, **extra}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _train_step(cfg, shape, strat, rt, plan, params, grad_accum, device,
+                mem, census) -> float:
+    """One train step (AdamW, the spec's ``ga<k>`` unless ``grad_accum``)
+    under the tracker and the census -> its trace seconds."""
+    ga = grad_accum if grad_accum > 1 else strat.grad_accum
+    opt_state = init_opt_state(params)
+    batch = {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+             for k, s in specs_lib.train_batch_specs(cfg, shape).items()}
+    step = make_train_step(cfg, rt, TrainConfig(
+        steps=max(ga, 2), warmup=1, grad_accum=ga), plan)
+    mem.register([t.to_local() for k in ("m", "v")
+                  for t in opt_state[k].values()], "optimizer")
+    mem.register(batch.values(), "activations")
+    t0 = time.time()
+    with census, mem:
+        step(params, opt_state, batch)
+    return time.time() - t0
+
+
+def _serve_step(cfg, shape, rt, plan, params, device, mem, census):
+    """A prefill of the global prompts (``make_prefill``: this rank's rows
+    into fresh caches) or a decode step of this rank's rows
+    (``make_serve_step``) against caches of ``seq_len`` positions, both
+    placed by ``cache_shardings`` -> (trace seconds, the caches)."""
+    if shape.mode == "prefill":
+        batch = {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                 for k, s in specs_lib.prefill_batch_specs(
+                     cfg, shape).items()}
+        mem.register(batch.values(), "activations")
+        fn = make_prefill(cfg, rt, shape.seq_len, plan)
+        t0 = time.time()
+        with census, mem:
+            _, cache = fn(params, batch)
+        return time.time() - t0, cache
+    cache = tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                           rt.compute_dtype, device, plan, params)
+    mem.register(_leaves(cache), "cache")
+    tok, pos = specs_lib.decode_token_specs(cfg, shape)
+    lo, hi = par.serve_rows(plan, tok.shape[0])
+    tokens = torch.zeros((hi - lo,) + tok.shape[1:], dtype=tok.dtype,
+                         device=device)
+    pos = torch.zeros(pos.shape, dtype=pos.dtype, device=device)
+    mem.register([tokens, pos], "activations")
+    step = make_serve_step(cfg, rt)
+    t0 = time.time()
+    with census, mem:
+        _, cache = step(params, cache, tokens, pos)
+    return time.time() - t0, cache
 
 
 def lower_fresh(*args, **kwargs) -> Dict:
@@ -287,7 +355,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             strategy: str = "", topology: str = "",
             use_reduced: bool = False, measure_bubble: bool = False,
             kernels: str = "cuda", rt_overrides=None,
-            telemetry=None) -> Dict:
+            telemetry=None, device: str = "cuda") -> Dict:
+    """Trace one point (each traced rank in a fresh process, the fake
+    tensors on ``device``), write its record under ``out_dir`` and return
+    it."""
     telemetry = telemetry if telemetry is not None else tel.NULL
     mesh_name, label = run_label(arch, shape_name, multi_pod, strategy, tag,
                                  topology)
@@ -311,7 +382,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             with telemetry.span("dryrun/trace", label=label, rank=rank):
                 traced[name] = lower_fresh(cfg, shape, strat, topo,
                                            kernels, grad_accum, rank,
-                                           rt_overrides)
+                                           rt_overrides, device)
         first = next(iter(traced.values()))
         peaks = {n: t["memory"]["peak_bytes_per_device"]
                  for n, t in traced.items()}
@@ -336,6 +407,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "params_active": cfg.active_param_count(),
             "resilience": resilience(cfg, strat, topo),
         }
+        if "cache_bytes_per_device" in traced[worst]:
+            rec["cache_bytes_per_device"] = \
+                traced[worst]["cache_bytes_per_device"]
         if strat.pp > 1:
             rec["memory_by_stage"] = {n: t["memory"]
                                       for n, t in traced.items()}
@@ -344,7 +418,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             rec["pipeline"] = pipeline_block(strat)
             if measure_bubble and topology == "host" \
                     and "WORLD_SIZE" in os.environ:
-                rec["pipeline"].update(_probe(arch, strat, topo))
+                rec["pipeline"].update(_probe(arch, strat, topo, device))
         print(f"[dryrun] {label}: OK  trace {rec['trace_s']:.0f}s  "
               f"flops {rec['flops_compiled_analytic']:.3e}  "
               f"coll {rec['collective_bytes_total']:.3e}B  peak/dev "
@@ -358,14 +432,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     return rec
 
 
-def _probe(arch: str, strat, topo) -> Dict:
+def _probe(arch: str, strat, topo, device: str) -> Dict:
     """The bubble probe on the live group of this torchrun job (a rank per
-    device of ``topo``), at the JAX dry run's reduced layer count."""
+    device of ``topo``, on ``device``), at the JAX dry run's reduced layer
+    count."""
     from repro_torch.launch.mesh import init_distributed, local_rank, shutdown
     from repro_torch.perf.pipeline_probe import measure_bubble, probe_layers
-    device = dry_device()
-    if device.type == "cuda":
-        device = torch.device("cuda", local_rank())
+    device = resolve_device(device, local_rank())
     init_distributed(device)
     try:
         probe_cfg = reduced(get_config(arch),
@@ -421,7 +494,11 @@ def main(argv=None):
     ap.add_argument("--trace", default="",
                     help="write per-point trace spans as a "
                          "Chrome-trace/Perfetto JSON here")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the fake tensors (and the bubble probe) "
+                         "lie; cuda needs a card")
     args = ap.parse_args(argv)
+    resolve_device(args.device)          # no card: fail here, not later
     rt_overrides = {}
     if args.rwkv_chunk:
         rt_overrides["rwkv_chunk"] = args.rwkv_chunk
@@ -456,7 +533,7 @@ def main(argv=None):
                               args.grad_accum, args.strategy, args.topology,
                               args.reduced, args.measure_bubble,
                               args.kernels, rt_overrides,
-                              telemetry=recorder)
+                              telemetry=recorder, device=args.device)
                 n_fail += rec["status"] == "error"
     recorder.close()
     if args.trace:

@@ -1,6 +1,21 @@
-"""Serving CLI of the port: batched generation through the paged engine.
+"""Serving CLI of the port: batched generation through the paged engine or
+the static dense-cache engine.
 
 ``python -m repro_torch.launch.serve --arch qwen3-0.6b --n_new 32``
+
+``--strategy`` routes through the strategy API, as the JAX CLI's does:
+'' (the default) serves on one device; 'auto' asks the planner for the
+decode shape (``ShapeConfig("serve", prompt_len + n_new, batch,
+"decode")``); anything else is a spec such as ``tp2`` or ``fsdp_tp2``.
+Under a strategy the process group comes up (``launch.mesh``: one rank
+alone, or every rank of ``torchrun --standalone --nproc_per_node N -m
+repro_torch.launch.serve ...``, gloo with ``--device cpu``), the plan's
+parameters are placed by ``core.parallel.apply_plan`` and the engine
+serves statically from caches placed by ``cache_shardings``; rank 0
+prints.  ``--engine auto`` pages where it can (one device, an
+attention-only stack), ``static`` forces the dense-cache loop, and
+``paged`` refuses a plan or a recurrent stack (``rwkv6-1.6b`` serves
+statically).
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``) or the plain PyTorch layers
@@ -12,8 +27,8 @@ path uses each kernel's plain version.  Without a card and without
 ``torch.profiler``, writes the op table ``DIR/ops.txt`` (by device time
 and by host time), and prints one JSON line: wall time per decode step,
 the device's busy share inside decode segments, and the kernels that fill
-it.  Profiling slows the host several-fold, so the busy share it prints
-is a lower bound; time the run without it.
+it (paged engine).  Profiling slows the host several-fold, so the busy
+share it prints is a lower bound; time the run without it.
 """
 from __future__ import annotations
 
@@ -24,12 +39,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import strategy as strategy_lib
 from repro_torch import telemetry as tel
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ShapeConfig, get_config, reduced
+from repro_torch.core import parallel as par
 from repro_torch.device import card_description, resolve_device
+from repro_torch.launch.mesh import init_distributed, local_rank, shutdown
 from repro_torch.models import Runtime, init_params
 from repro_torch.serve import ServeEngine
+from repro_torch.strategy.topology import mesh_shape
 
 IMPLS = {"cuda": "kernel", "torch": "torch"}
 
@@ -73,6 +93,17 @@ def main(argv=None):
                     help="cuda: RMSNorm and paged decode attention on the "
                          "hand-written kernels; torch: plain PyTorch layers")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--strategy", default="",
+                    help="'' = single-device; 'auto' = planner (decode "
+                         "shape); else a spec string like tp2 / fsdp_tp2")
+    ap.add_argument("--topology", default="host",
+                    help="host | pod | multipod[<k>] (a pod mesh needs as "
+                         "many ranks)")
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "paged", "static"],
+                    help="auto pages where it can (one device, an "
+                         "attention-only stack); static forces the "
+                         "dense-cache loop")
     ap.add_argument("--n_slots", type=int, default=8,
                     help="in-flight batch bound of the paged engine")
     ap.add_argument("--trace", default="",
@@ -85,58 +116,108 @@ def main(argv=None):
                          "write ops.txt into this directory")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, local_rank() if args.strategy
+                            else None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    max_len = args.prompt_len + args.n_new
-    impl = IMPLS[args.kernels]
-    rt = Runtime(attn_impl=impl, norm_impl=impl)
-    params = init_params(cfg, args.seed, device)
+    if not args.strategy:
+        return _serve(args, cfg, device)
+    init_distributed(device)
+    try:
+        return _serve(args, cfg, device)
+    finally:
+        shutdown()
 
+
+def make_engine(cfg, device, *, strategy: str = "", topology: str = "host",
+                batch: int = 4, max_len: int = 64, kernels: str = "cuda",
+                seed: int = 0, n_slots: int = 8, telemetry=tel.NULL,
+                verbose: bool = False):
+    """The engine the CLI serves with -> (engine, plan or None).  With a
+    ``strategy`` ('auto': the planner for the decode shape (``batch``
+    rows of ``max_len`` positions); else a spec) on this process group's
+    ranks: ``resolve`` -> ``to_plan`` -> ``make_runtime`` -> ``apply_plan``
+    on weights from ``seed``; without one, the weights on ``device``."""
+    impl = IMPLS[kernels]
+    plan = None
+    if strategy:
+        topo = strategy_lib.get_topology(topology)
+        shape = ShapeConfig("serve", max_len, batch, "decode")
+        strat, _ = strategy_lib.resolve(strategy, cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape)
+        if verbose:
+            print(f"[strategy] {strat.format()} on {topo.name} (mesh "
+                  f"{mesh_shape(plan.mesh)}, attn={plan.attn}, cache axes "
+                  f"{plan.decode_cache_axes})")
+        # dtypes from the strategy's precision policy; WKV-6 chunk 16, as
+        # the JAX serve CLI sets it
+        rt = par.make_runtime(cfg, plan, shape, attn_impl=impl,
+                              norm_impl=impl, rwkv_chunk=16)
+        params = par.apply_plan(init_params(cfg, seed, device), plan, cfg)
+    else:
+        rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=16)
+        params = init_params(cfg, seed, device)
+    return ServeEngine(cfg, params, rt, max_len=max_len, plan=plan,
+                       seed=seed, n_slots=n_slots, telemetry=telemetry,
+                       device=device), plan
+
+
+def _serve(args, cfg, device):
+    max_len = args.prompt_len + args.n_new
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     recorder = tel.Recorder()
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and main_rank:
         recorder.add_sink(tel.JsonlSink(args.metrics_jsonl))
-    if args.trace:
+    if args.trace and main_rank:
         recorder.add_sink(tel.ChromeTraceSink(
             args.trace, process_name=f"serve {cfg.name}"))
-    engine = ServeEngine(cfg, params, rt, max_len=max_len, seed=args.seed,
-                         n_slots=args.n_slots, telemetry=recorder,
-                         device=device)
+    engine, plan = make_engine(
+        cfg, device, strategy=args.strategy, topology=args.topology,
+        batch=args.batch, max_len=max_len, kernels=args.kernels,
+        seed=args.seed, n_slots=args.n_slots, telemetry=recorder,
+        verbose=main_rank)
+    if args.engine == "paged" and not engine.paged_ok:
+        raise SystemExit("--engine paged needs a single-device plan and an "
+                         "attention-only stack")
+    use_paged = engine.paged_ok and args.engine != "static"
+    generate = engine.generate if use_paged else engine.generate_static
 
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
-    # warm-up: one short request runs the prefill-chunk (1, C) and decode
-    # (n_slots, 1) shapes once, so the timed run excludes kernel builds and
-    # first-use library loads (both shapes are fixed whatever the traffic)
-    engine.generate(prompts[:1, :min(args.prompt_len, engine.prefill_chunk)],
-                    1 + min(args.n_new, 1))
+    # warm-up: one short request runs the prefill and decode shapes once,
+    # so the timed run excludes kernel builds and first-use library loads
+    generate(prompts[:1, :min(args.prompt_len, engine.prefill_chunk)],
+             1 + min(args.n_new, 1))
     recorder.metrics = tel.MetricsRegistry()   # report the timed run only
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.n_new, temperature=args.temperature,
-                          seed=args.seed)
+    out = generate(prompts, args.n_new, temperature=args.temperature,
+                   seed=args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     where = card_description(device) if device.type == "cuda" else "cpu"
-    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"new={args.n_new} kernels={args.kernels} device={device}")
-    print(f"generated {args.batch * args.n_new} tokens in {dt:.2f}s "
-          f"({args.batch * args.n_new / dt:.1f} tok/s on {where})")
-    print("first sequence tail:", out[0, -min(16, args.n_new):].tolist())
-    snap = recorder.metrics.snapshot()
-    for name, label in (("serve/ttft_s", "ttft"),
-                        ("serve/token_latency_s", "token latency")):
-        h = snap.get(name)
-        if h and h.get("count"):
-            print(f"[telemetry] {label} p50 {h['p50'] * 1e3:.2f}ms "
-                  f"p99 {h['p99'] * 1e3:.2f}ms over {h['count']}")
+    if main_rank:
+        print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+              f"new={args.n_new} kernels={args.kernels} "
+              f"engine={'paged' if use_paged else 'static'} device={device}"
+              + (f" ranks={dist.get_world_size()}" if plan else ""))
+        print(f"generated {args.batch * args.n_new} tokens in {dt:.2f}s "
+              f"({args.batch * args.n_new / dt:.1f} tok/s on {where})")
+        print("first sequence tail:", out[0, -min(16, args.n_new):].tolist())
+        snap = recorder.metrics.snapshot()
+        for name, label in (("serve/ttft_s", "ttft"),
+                            ("serve/token_latency_s", "token latency")):
+            h = snap.get(name)
+            if h and h.get("count"):
+                print(f"[telemetry] {label} p50 {h['p50'] * 1e3:.2f}ms "
+                      f"p99 {h['p99'] * 1e3:.2f}ms over {h['count']}")
     recorder.close()
-    if args.trace:
+    if args.trace and main_rank:
         print(f"[telemetry] trace written to {args.trace}")
     if out.shape != (args.batch, args.prompt_len + args.n_new):
         raise RuntimeError(f"unexpected output shape {out.shape}")
-    if args.profile:
+    if args.profile and use_paged:
         profile_run(engine, prompts, args, device)
 
 

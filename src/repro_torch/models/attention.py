@@ -1,12 +1,24 @@
-"""Attention: GQA with RoPE, qk-norm and qkv-bias, over a paged KV cache or
-over the whole sequence with no cache — the paged and cache-less branches
-of the JAX package's ``models/attention.py``.
+"""Attention: GQA with RoPE, qk-norm and qkv-bias, over a dense or a paged
+KV cache or over the whole sequence with no cache — the port of the JAX
+package's ``models/attention.py``.
 
 All functions are batch-first: q (B, Sq, H, D), k/v (B, Skv, Kv, D).  Pools
 are (P + 1, bs, Kv, D): block P is a *sink* that no table entry points to.
 Writes that the JAX package drops (``mode="drop"``: unallocated blocks,
 positions past the table, the 1 << 30 position of an inactive decode slot)
 land there instead, which keeps them on the device with no mask-and-sync.
+
+A dense cache (static serving) holds one slot per position, (B, Sc, Kv,
+D) with the position in each slot (``kpos``, -1 for an empty one) and the
+next position (``idx``, a 0-d tensor on the device: the slot a decode step
+writes is found there, with no host sync).  A sliding-window model keeps a
+ring of ``min(seq_len, window)`` slots, position p at slot p % Sc.  Under
+a plan the cache is sharded along Sc (``core.parallel.cache_shardings``):
+each rank holds every KV head of its own slots, a decode step writes the
+new token on the rank that owns its slot, and each rank's partial softmax
+over its slots is merged over the cache axes by log-sum-exp, as
+flash-decode merges its splits.  The dense decode attention is plain
+PyTorch, as the JAX package's is (``sdpa_decode``).
 
 Without a cache (training), ``sdpa_causal`` runs the flash-attention
 kernels for ``Runtime.attn_impl == "kernel"`` (any S; a head dim they are
@@ -23,8 +35,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import (Runtime, apply_rope, rms_norm_headwise,
-                                       tp_enter, tp_exit)
+from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
+                                       apply_rope, gather_heads,
+                                       rms_norm_headwise, tp_enter, tp_exit)
 
 NEG_INF = -1e30
 
@@ -144,6 +157,140 @@ def sdpa_causal(q, k, v, window=0, rt: Runtime = None):
 
 
 # ---------------------------------------------------------------------------
+# dense KV cache path (static serving: one slot per position)
+# ---------------------------------------------------------------------------
+
+def cache_slots(cfg, seq_len: int) -> int:
+    """Slots of a dense cache for ``seq_len`` positions: a sliding-window
+    model keeps a ring of ``min(seq_len, window)``."""
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+        else seq_len
+
+
+def kv_cache_leaves(cfg, batch, seq_len, dtype):
+    """A dense cache's leaves, unallocated: {'k', 'v' (batch, Sc, Kv, D),
+    'kpos' (Sc,) int32, 'idx' 0-d int32}."""
+    size = cache_slots(cfg, seq_len)
+    kv = CacheLeaf((batch, size, cfg.kv_heads, cfg.head_dim_), dtype)
+    return {"k": kv, "v": kv, "kpos": CacheLeaf((size,), torch.int32),
+            "idx": CacheLeaf((), torch.int32)}
+
+
+def make_kv_cache(cfg, batch, seq_len, dtype, device):
+    """Empty cache: :func:`kv_cache_leaves` as zeros, ``kpos`` all -1
+    (every slot empty)."""
+    cache = {k: torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+             for k, leaf in kv_cache_leaves(cfg, batch, seq_len,
+                                            dtype).items()}
+    cache["kpos"].fill_(-1)
+    return cache
+
+
+def prefill_kv_cache(cache, k, v, shard: int = 0):
+    """Write a whole prefix k/v (B, S, Kv, D) into a fresh cache, in place.
+
+    Slot j takes position j; when the prompt is at least as long as the
+    ring (S >= Sc) the cache keeps the last Sc positions, position p at
+    slot p % Sc (the JAX package rolls them into that layout).  A cache
+    sharded along its slots holds slots [shard n, (shard + 1) n) of Sc
+    (``kpos``' length), n its own ``k``'s; ``kpos`` and ``idx`` stay
+    whole.  Every index is known on the host: no sync."""
+    S = k.shape[1]
+    Sc, n = cache["kpos"].shape[0], cache["k"].shape[1]
+    lo, dev = shard * n, k.device
+    slots = torch.arange(Sc, dtype=torch.int32, device=dev)
+    if S >= Sc:
+        kpos = S - Sc + torch.remainder(slots - (S - Sc), Sc)
+        src = kpos[lo:lo + n].long()
+        cache["k"].copy_(k.index_select(1, src))
+        cache["v"].copy_(v.index_select(1, src))
+    else:
+        kpos = torch.where(slots < S, slots, -1)
+        m = max(0, min(S, lo + n) - lo)
+        cache["k"][:, :m] = k[:, lo:lo + m]
+        cache["v"][:, :m] = v[:, lo:lo + m]
+    cache["kpos"].copy_(kpos)
+    cache["idx"].fill_(S)
+    return cache
+
+
+def _decode_write(cache, k, v, shard: int):
+    """Write one token's k/v (B, 1, Kv, D) at slot ``idx % Sc``, in place.
+    Of a sharded cache only the rank owning the slot writes it: every
+    rank rewrites a slot of its own, with the new values where it owns the
+    token's slot and its old ones elsewhere (no host sync)."""
+    idx = cache["idx"]
+    Sc, n = cache["kpos"].shape[0], cache["k"].shape[1]
+    slot = (idx % Sc).view(1)
+    cache["kpos"].index_copy_(0, slot.long(), idx.view(1))
+    kc, vc = cache["k"], cache["v"]
+    k, v = k.to(kc.dtype), v.to(vc.dtype)
+    if n == Sc:
+        kc.index_copy_(1, slot.long(), k)
+        vc.index_copy_(1, slot.long(), v)
+        return
+    local = slot - shard * n
+    owned = ((local >= 0) & (local < n)).view(1, 1, 1, 1)
+    at = local.clamp(0, n - 1).long()
+    kc.index_copy_(1, at, torch.where(owned, k, kc.index_select(1, at)))
+    vc.index_copy_(1, at, torch.where(owned, v, vc.index_select(1, at)))
+
+
+def _visible(k_pos, cur_pos, window):
+    valid = (k_pos >= 0) & (k_pos <= cur_pos)
+    if window:
+        valid &= k_pos > (cur_pos - window)
+    return valid
+
+
+def sdpa_decode(q, k_cache, v_cache, k_pos, cur_pos, window=0):
+    """One-token decode: q (B, 1, H, D) against cache (B, Sc, Kv, D).
+
+    k_pos: (Sc,) absolute position held in each cache slot (-1 = empty);
+    cur_pos: the query token's position (a 0-d tensor).  Scores and
+    softmax are f32; the weights are cast to v's type before the PV
+    product."""
+    scale = q.shape[-1] ** -0.5
+    B, Sq, H, D = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    s = torch.where(_visible(k_pos, cur_pos, window), s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache)
+    return out.reshape(B, Sq, H, D)
+
+
+def sdpa_decode_sharded(q, k_cache, v_cache, k_pos, cur_pos, window,
+                        rt: Runtime):
+    """:func:`sdpa_decode` over a cache sharded along its slots: each head's
+    partial (max, sum, weighted V) over this rank's slots, merged across
+    ``rt.cache_groups`` by log-sum-exp (the flash-decode combine, over the
+    mesh).  A rank whose slots are all empty contributes nothing."""
+    scale = q.shape[-1] ** -0.5
+    B, Sq, H, D = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    valid = _visible(k_pos, cur_pos, window)
+    m = torch.where(valid, s, NEG_INF).amax(-1)                # (B,Kv,G,1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype),
+                       v_cache).float()
+    mg = m.clone()
+    for group in rt.cache_groups:
+        all_reduce(mg, rt, torch.distributed.ReduceOp.MAX, group)
+    a = torch.exp(m - mg)
+    parts = torch.cat([(p.sum(-1) * a)[..., None], acc * a[..., None]], -1)
+    for group in rt.cache_groups:
+        all_reduce(parts, rt, group=group)
+    out = (parts[..., 1:] / parts[..., :1]).to(v_cache.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+# ---------------------------------------------------------------------------
 # paged KV cache path (serving: shared block pools + per-request tables)
 # ---------------------------------------------------------------------------
 
@@ -238,16 +385,19 @@ def _kv_heads_of_rank(cfg, rt: Runtime, h: int):
     return [(first + c * g) // G for c in range(h // g)]
 
 
-def _project_qkv(cfg, p, x, rt: Runtime):
+def _project_qkv(cfg, p, x, rt: Runtime, all_kv: bool = False):
     """Local heads on a model axis: the columns of wq (and of wk/wv when
-    they shard) are this rank's heads."""
+    they shard) are this rank's heads.  Where the KV projections are
+    replicated over the model axis, k/v hold the KV heads this rank's
+    query heads read, or with ``all_kv`` (a dense cache holds every KV
+    head) all of them."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     dt = x.dtype
     wk, wv = p["wk"], p["wv"]
     bk, bv = p.get("bk"), p.get("bv")
     h, kv = p["wq"].shape[1] // hd, wk.shape[1] // hd
-    if rt.tp_size > 1 and kv == cfg.kv_heads and cfg.kv_heads % rt.tp_size:
+    if _kv_replicated(cfg, rt, kv) and not all_kv:
         ids = _kv_heads_of_rank(cfg, rt, h)
         sel = torch.tensor(ids, device=x.device)
         kv = len(ids)
@@ -274,6 +424,58 @@ def _project_qkv(cfg, p, x, rt: Runtime):
     return q, k, v
 
 
+def _kv_replicated(cfg, rt: Runtime, kv: int) -> bool:
+    """Whether this rank holds every KV projection on a model axis whose
+    size does not divide the KV heads."""
+    return rt.tp_size > 1 and kv == cfg.kv_heads and \
+        cfg.kv_heads % rt.tp_size != 0
+
+
+def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
+    """Prefill (S > 1) into, or decode one token (S == 1) from, a dense
+    cache on this rank's heads.  The cache holds every KV head: on a model
+    axis the new k/v are gathered over it where they are head-sharded.
+    Prefill attends causally over the prompt (``sdpa_causal``: the
+    flash-attention kernel on the kernel path).  Decode attends with every
+    query head (gathered over the model axis) over this rank's slots,
+    merged over the cache axes where the slots are sharded, and keeps its
+    own heads for the row-parallel ``wo``."""
+    S = x.shape[1]
+    h = p["wq"].shape[1] // cfg.head_dim_
+    q, k, v = _project_qkv(cfg, p, x, rt, all_kv=True)
+    if rope_ang is not None:
+        q = apply_rope(q, rope_ang)
+        k = apply_rope(k, rope_ang)
+    replicated = _kv_replicated(cfg, rt, k.shape[2])
+    k_all, v_all = k, v
+    if rt.tp_size > 1 and not replicated:
+        k_all, v_all = gather_heads(k, rt), gather_heads(v, rt)
+    if S > 1:
+        if replicated:
+            sel = torch.tensor(_kv_heads_of_rank(cfg, rt, h),
+                               device=x.device)
+            k, v = k.index_select(2, sel), v.index_select(2, sel)
+        out = sdpa_causal(q, k, v, cfg.sliding_window, rt)
+        prefill_kv_cache(cache, k_all, v_all, rt.cache_shard)
+        return out
+    idx = cache["idx"]
+    _decode_write(cache, k_all, v_all, rt.cache_shard)
+    q_all = gather_heads(q, rt) if rt.tp_size > 1 else q
+    n, Sc = cache["k"].shape[1], cache["kpos"].shape[0]
+    if n == Sc:
+        out = sdpa_decode(q_all, cache["k"], cache["v"], cache["kpos"], idx,
+                          cfg.sliding_window)
+    else:
+        lo = rt.cache_shard * n
+        out = sdpa_decode_sharded(q_all, cache["k"], cache["v"],
+                                  cache["kpos"][lo:lo + n], idx,
+                                  cfg.sliding_window, rt)
+    cache["idx"].add_(1)
+    if rt.tp_size > 1:
+        out = out[:, :, rt.tp_rank * h:(rt.tp_rank + 1) * h]
+    return out
+
+
 def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
                     want_cache: bool = False, paged=None, sp: bool = False):
     """Attention sublayer: x (B, S, d) -> (B, S, d); on a model axis, x
@@ -281,20 +483,22 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
     parallelism, ``sp``), the heads this rank's, and ``wo`` row-parallel.
 
     Train:         cache None -> causal self-attention over positions
-                   0..S-1 (``sdpa_causal``).
+                   0..S-1 (``sdpa_causal``); with ``want_cache`` ->
+                   (out, a fresh dense cache holding the k/v).
+    Dense serving: cache {'k','v','kpos','idx'} (updated in place) —
+                   prefill (S > 1) into it, or decode (S == 1) at slot
+                   idx % Sc.
     Paged serving: cache {'k_pool','v_pool'} + paged {'tbl','ctx'} —
                    chunked prefill (S > 1) and decode (S == 1) both append
                    at the request's ctx and attend over its block chain.
     """
-    if want_cache or (cache is not None and paged is None):
-        raise NotImplementedError(
-            "the port has no dense KV cache yet: prefill into and decode "
-            "from a static cache come with the static-engine slice "
-            "(ROADMAP Queue 1)")
     if paged is not None and cache is None:
         raise ValueError("paged attention needs the layer's pools (cache)")
     x = tp_enter(x, rt, sp)
     B, S, _ = x.shape
+    if cache is not None and paged is None:
+        out = _dense_cache_block(cfg, p, x, rope_ang, rt, cache)
+        return tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)
     q, k, v = _project_qkv(cfg, p, x, rt)
     if rope_ang is not None:
         q = apply_rope(q, rope_ang)
@@ -305,4 +509,12 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
         # context parallelism (the JAX _cp_attend) comes with its slice
         # (ROADMAP Queue 1, "other mixers and inputs")
         out = sdpa_causal(q, k, v, cfg.sliding_window, rt)
-    return tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)
+    out = tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)
+    if want_cache:
+        if rt.tp_size > 1:
+            raise NotImplementedError(
+                "want_cache builds a single-device cache; a sharded one "
+                "comes from transformer.init_cache under the plan")
+        new = make_kv_cache(cfg, B, S, k.dtype, k.device)
+        return out, prefill_kv_cache(new, k, v)
+    return out

@@ -19,7 +19,7 @@ collective runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,7 +65,10 @@ class Runtime:
     ``pipe_microbatches`` microbatches under ``pipe_schedule``
     (``core.pipeline``); with ``pipe_via_host`` what crosses the pipe
     group goes through host memory (a gloo pipe group between ranks on
-    cards).
+    cards).  A serving plan that shards the dense KV cache along its slots
+    gives this rank's shard index (``cache_shard``, row-major over the
+    cache axes) and the process groups of those axes (``cache_groups``),
+    over which a decode step merges its attention.
     """
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -89,6 +92,14 @@ class Runtime:
     pipe_schedule: str = "gpipe"        # 'gpipe' | '1f1b' | '1f1b_i<v>'
                                         # | 'zb'
     pipe_via_host: bool = False         # stage p2p through host memory
+    cache_shard: int = 0                # this rank's shard of the KV slots
+    cache_groups: Tuple[Any, ...] = ()  # groups of the axes sharding them
+
+
+class CacheLeaf(NamedTuple):
+    """A dense serving cache leaf's shape and type, unallocated."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 class _WireRound(torch.autograd.Function):
@@ -157,11 +168,23 @@ def sequence_parallel(rt: "Runtime", S: int) -> bool:
     return rt.tp_size > 1 and rt.seq_parallel and S % rt.tp_size == 0
 
 
-def all_reduce(x: torch.Tensor, rt: "Runtime", op=dist.ReduceOp.SUM):
-    """Counted in-place all-reduce of ``x`` over the model group."""
+def all_reduce(x: torch.Tensor, rt: "Runtime", op=dist.ReduceOp.SUM,
+               group=None):
+    """Counted in-place all-reduce of ``x`` over the model group (or
+    ``group``)."""
     COLLECTIVES["all_reduce"] += 1
-    dist.all_reduce(x, op=op, group=rt.tp_group)
+    dist.all_reduce(x, op=op, group=rt.tp_group if group is None else group)
     return x
+
+
+def gather_heads(x, rt: "Runtime"):
+    """(B, S, h, D) of this rank's heads -> (B, S, h * tp, D) of every
+    model rank's, in rank order (rank r holds heads [r h, (r + 1) h))."""
+    COLLECTIVES["all_gather"] += 1
+    xs = x.movedim(2, 0).contiguous()
+    out = xs.new_empty((xs.shape[0] * rt.tp_size,) + xs.shape[1:])
+    dist.all_gather_into_tensor(out, xs, group=rt.tp_group)
+    return out.movedim(0, 2)
 
 
 def _gather_seq(x, rt):

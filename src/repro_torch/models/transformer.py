@@ -1,5 +1,7 @@
-"""Decoder-only model, cache-less (training) or over a paged KV cache
-(serving): the dense attention-only and the RWKV-6 parts of the JAX
+"""Decoder-only model, cache-less (training), over dense caches (static
+serving: a KV cache per attention layer, the recurrent state per RWKV-6
+layer) or over a paged KV cache (continuous batching of attention-only
+stacks): the dense attention-only and the RWKV-6 parts of the JAX
 package's ``models/transformer.py``.
 
 A model is a stack of layers; each layer = (norm -> mixer -> residual,
@@ -10,7 +12,9 @@ layer; a Python loop calls them in turn, in place of the JAX package's
 ``lax.scan`` over stacked blocks (``layer_plan`` is kept: the bridge uses
 it to map the JAX stack onto layers).  Every layer and the whole model
 are called as modules, so FSDP2's hooks on them fire on the training and
-the serving path alike.
+the serving path alike.  Caches are per-layer lists (``{'layers':
+[...]}``), updated in place by the forward; ``bridge.cache_from_jax`` and
+``cache_to_jax`` convert the JAX package's stacked caches.
 """
 from __future__ import annotations
 
@@ -24,10 +28,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.models.layers import (Runtime, all_reduce, apply_mlp,
-                                       apply_norm, embed_tokens, init_embed,
-                                       init_mlp, init_norm, lm_logits,
-                                       local_params, rope_angles,
+from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
+                                       apply_mlp, apply_norm, embed_tokens,
+                                       init_embed, init_mlp, init_norm,
+                                       lm_logits, local_params, rope_angles,
                                        sequence_parallel, tp_exit, wire_round)
 
 
@@ -111,15 +115,28 @@ class Layer(nn.Module):
         """h: the residual stream, (B, S, d), or this rank's S-shard of it
         under sequence parallelism (``sp``).  The layer computes from its
         parameters' local shards (``to_local`` views of the ``DTensor``s
-        FSDP2 has gathered)."""
+        FSDP2 has gathered).  ``cache``: the layer's paged pools (with
+        ``paged``) or its dense cache ({'kv'}, or an RWKV-6 layer's
+        {'att', 'ffn'} state), updated in place."""
         lp = local_params(self)
         if rt.gather_dtype is not None and not rt.fsdp_wire:
             lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
         x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
         if kind == "rwkv6":
-            h = h + rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt)[0]
+            att = None if cache is None else cache["att"]
+            mix, new_att = rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt,
+                                                  state=att)
+            h = h + mix
             x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
-            return h + rwkv_lib.rwkv_channel_mix(cfg, lp["ffn"], x, rt)[0]
+            ffn, new_ffn = rwkv_lib.rwkv_channel_mix(
+                cfg, lp["ffn"], x, rt,
+                state=None if cache is None else cache["ffn"])
+            if cache is not None:
+                _carry(cache["att"], new_att)
+                _carry(cache["ffn"], new_ffn)
+            return h + ffn
+        if cache is not None and paged is None:
+            cache = cache["kv"]
         h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
                                          cache=cache, paged=paged, sp=sp)
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
@@ -177,7 +194,7 @@ class Params(nn.Module):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None]
         if cache is not None:
-            positions = batch["pos"] + positions
+            positions = batch.get("pos", 0) + positions
         positions = positions.expand(B, S)
 
         sp = sequence_parallel(rt, S)
@@ -185,14 +202,50 @@ class Params(nn.Module):
         h = embed_tokens(embed, tokens, rt, sp)
         rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
                     if cfg.rope == "rope" else None)
-        paged = cache["paged"] if cache is not None else None
+        paged = cache.get("paged") if cache is not None else None
         layer_caches = (cache["layers"] if cache is not None
                         else [None] * len(self.layers))
-        for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
-                                            strict=True)):
-            h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged, sp)
+        if rt.pipe_size > 1 and cache is not None:
+            h = self._through_pipe(cfg, h, rope_ang, rt, layer_caches)
+        else:
+            for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
+                                                strict=True)):
+                h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged,
+                          sp)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         return lm_logits(embed, h, rt, sp)
+
+    def _through_pipe(self, cfg, h, rope_ang, rt, layer_caches):
+        """The layers in order across the pipe ranks, as the JAX package
+        runs a serving plan's pipe-sharded stack (a plain scan, with no
+        schedule): each rank runs its stages' chunks of layers, the
+        residual stream goes to the rank of the next chunk, and from the
+        last one to every pipe rank (each computes the head)."""
+        from repro_torch.core.pipeline import (_Transport, boundary_dtype,
+                                               virtual_stages)
+        P = rt.pipe_size
+        n = cfg.n_layers // (P * virtual_stages(rt.pipe_schedule))
+        chunks = [range(c * n, (c + 1) * n) for c in range(cfg.n_layers // n)]
+        link = _Transport(rt, h.device)
+        shape, dt = tuple(h.shape[:-1]) + (cfg.d_model,), boundary_dtype(
+            cfg, rt)
+        for c, ids in enumerate(chunks):
+            if c % P != rt.pipe_rank:
+                continue
+            if c and (c - 1) % P != rt.pipe_rank:
+                h, = link.exchange([], [(shape, dt, -1)])
+            for i in ids:
+                h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt,
+                                   layer_caches[i], None, False)
+            if c + 1 < len(chunks) and (c + 1) % P != rt.pipe_rank:
+                link.exchange([(h.to(dt), 1)], [])
+        last = (len(chunks) - 1) % P
+        if rt.pipe_rank != last:
+            h = torch.empty(shape, dtype=dt, device=h.device)
+        buf = h.to(dt).cpu() if rt.pipe_via_host else h.to(dt).contiguous()
+        dist.broadcast(buf, dist.get_global_rank(rt.pipe_group, last),
+                       group=rt.pipe_group)
+        return buf.to(h.device)
 
     def _stage(self, cfg, batch, rt, h, stage: Stage):
         tokens = batch["tokens"]
@@ -251,18 +304,129 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     Without a cache (training): batch {'tokens' (B, S)} at positions
     0..S-1, every layer mixes causally over the sequence.
 
-    With a paged cache (serving): batch also holds pos, the absolute
-    position of the first token: (1, 1) for a prefill chunk, (B, 1) for a
-    decode step (broadcast over S).  cache: {'layers': [{'k_pool',
-    'v_pool'}] per layer, updated in place, 'paged': {'tbl' (B,
-    max_blocks) int32, 'ctx' (B,) int32}}.
+    With a dense cache (static serving, :func:`init_cache`): batch may
+    hold pos, the absolute position of the first token (a scalar: 0 for a
+    prefill, the decode step's position); the caches are updated in place.
+
+    With a paged cache (continuous batching): batch also holds pos, (1, 1)
+    for a prefill chunk, (B, 1) for a decode step (broadcast over S).
+    cache: {'layers': [{'k_pool', 'v_pool'}] per layer, updated in place,
+    'paged': {'tbl' (B, max_blocks) int32, 'ctx' (B,) int32}}.
     """
-    if cache is not None and not _all_attention(cfg):
+    if cache is not None and "paged" in cache and not _all_attention(cfg):
         raise NotImplementedError(
             f"{cfg.name}: only attention-only stacks serve from a paged "
-            "cache; recurrent state comes with the static-engine slice of "
-            "the port")
+            "cache; a recurrent stack serves from dense caches "
+            "(ServeEngine.generate_static)")
     return params(cfg, batch, rt, cache)
+
+
+# ---------------------------------------------------------------------------
+# dense caches (static serving)
+# ---------------------------------------------------------------------------
+
+def _carry(state: Dict[str, Any], new: Dict[str, Any]) -> None:
+    """Take a recurrent layer's new state into its cache: in place where
+    the buffer has the new value's shape and type, else by replacing it
+    (``x_prev`` follows the residual stream, which an RWKV-6 layer
+    promotes to f32)."""
+    for k, v in new.items():
+        old = state[k]
+        if old.shape == v.shape and old.dtype == v.dtype:
+            old.copy_(v)
+        else:
+            state[k] = v
+
+
+def _layer_cache_shapes(cfg: ModelConfig, i: int, batch: int, max_len: int,
+                        dtype):
+    kind = cfg.layer_kind(i)
+    d = cfg.d_model
+    if kind == "attn":
+        return {"kv": attn_lib.kv_cache_leaves(cfg, batch, max_len, dtype)}
+    if kind == "rwkv6":
+        H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+        return {"att": {"x_prev": CacheLeaf((batch, d), dtype),
+                        "wkv": CacheLeaf((batch, H, N, N), torch.float32)},
+                "ffn": {"x_prev": CacheLeaf((batch, d), dtype)}}
+    raise NotImplementedError(
+        f"{cfg.name}: {kind} layers serve with the 'other mixers and "
+        "inputs' slice of the port (ROADMAP Queue 1)")
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype):
+    """Every leaf of the dense caches (:func:`init_cache`) as a
+    :class:`CacheLeaf`, whole: what ``core.parallel.cache_shardings``
+    places."""
+    return {"layers": [_layer_cache_shapes(cfg, i, batch, max_len, dtype)
+                       for i in range(cfg.n_layers)]}
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device="cuda", plan=None, params=None):
+    """Empty dense caches for ``batch`` rows of up to ``max_len``
+    positions: {'layers': [one per layer]}, an attention layer's {'kv':
+    {'k', 'v' (B, Sc, Kv, D), 'kpos' (Sc,) all -1, 'idx' 0-d}} (a
+    sliding-window model's Sc is its ring, ``attention.cache_slots``), an
+    RWKV-6 layer's {'att': {'x_prev' (B, d), 'wkv' (B, H, N, N) f32},
+    'ffn': {'x_prev'}}.  Under a ``plan`` each leaf is this rank's shard
+    of it (``core.parallel.cache_shardings``); a pipe rank holds the
+    caches of the layers ``params`` keeps (an empty dict for the
+    others)."""
+    shapes = cache_shapes(cfg, batch, max_len, dtype)
+    if plan is not None:
+        from repro_torch.core import parallel as par
+        places = par.cache_shardings(cfg, plan, shapes)
+        out = _tree_map(lambda leaf, place: torch.zeros(
+            par.local_shape(plan, leaf.shape, place), dtype=leaf.dtype,
+            device=device), shapes, places)
+    else:
+        out = _tree_map(lambda leaf: torch.zeros(
+            leaf.shape, dtype=leaf.dtype, device=device), shapes)
+    for lc in out["layers"]:
+        if "kv" in lc:
+            lc["kv"]["kpos"].fill_(-1)           # every slot empty
+    if params is not None:
+        out["layers"] = [lc if len(layer._modules) else {}
+                         for lc, layer in zip(out["layers"], params.layers)]
+    return out
+
+
+def prefill(cfg: ModelConfig, params: Params, batch, rt: Runtime,
+            max_len: int, plan=None):
+    """Run the prompts through the model, building dense caches for
+    ``max_len`` positions -> (logits, cache).  Under a ``plan`` the batch
+    holds every row and this rank runs its rows (``core.parallel.
+    serve_rows``): the logits are theirs (this rank's vocabulary columns
+    on a model axis) and the cache its shards."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    if plan is not None:
+        from repro_torch.core import parallel as par
+        lo, hi = par.serve_rows(plan, B)
+        batch = {**batch, "tokens": tokens[lo:hi]}
+    cache = init_cache(cfg, B, max_len, rt.compute_dtype, tokens.device,
+                       plan, params)
+    return forward(cfg, params, batch, rt, cache), cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache, tokens, pos,
+                rt: Runtime):
+    """tokens (B, 1) (this rank's rows under a plan); pos: the scalar
+    absolute position. -> (logits (B, 1, vocab), cache), the cache
+    updated in place."""
+    return forward(cfg, params, {"tokens": tokens, "pos": pos}, rt,
+                   cache), cache
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ The peak is split by what the live storages were:
     starts — what forward passes keep for their backward, the batch, and
     the layers FSDP2 gathers for a forward;
   * ``temporaries``: everything else — what a backward pass frees again
-    (cotangents, layers re-gathered for it) and what the optimizer makes.
+    (cotangents, layers re-gathered for it) and what the optimizer makes;
+  * ``cache``: a serving step's dense caches, registered before it (a
+    decode step's) or relabelled after it (those a prefill makes).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from torch.utils._pytree import tree_flatten
 
 GRANULARITY = 512      # bytes: the CUDA caching allocator's rounding
 CATEGORIES = ("parameters", "gradients", "optimizer", "activations",
-              "temporaries")
+              "temporaries", "cache")
 
 
 def _in_backward() -> bool:
@@ -109,6 +111,17 @@ class MemoryTracker(TorchDispatchMode):
             raise ValueError(f"category {category!r} not in {CATEGORIES}")
         for t in tensors:
             self._track(t, category)
+
+    def relabel(self, tensors: Iterable[torch.Tensor],
+                category: str) -> None:
+        """Count the live storages of ``tensors`` (made during the step) as
+        ``category`` from their start."""
+        if category not in CATEGORIES:
+            raise ValueError(f"category {category!r} not in {CATEGORIES}")
+        for t in tensors:
+            life = self._open.get(t.untyped_storage()._cdata)
+            if life is not None:
+                life.origin = category
 
     # -- the mode ------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

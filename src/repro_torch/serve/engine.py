@@ -1,10 +1,20 @@
-"""Serving engine: paged KV cache and continuous batching on the port's
-kernels — the paged path of the JAX package's ``serve/engine.py``.
+"""Serving engine on the port's kernels — the JAX package's
+``serve/engine.py``, with two execution paths:
 
-Requests enter through ``submit`` and are drained by ``run_until_drained``.
-Prefill is *chunked* (one chunk per prefilling request per tick) into the
-shared per-layer block pools via per-request block tables
-(``serve/paged_cache.py``).  Decode runs as a *segment* of
+  * **paged / continuous** (single-device attention stacks): requests
+    enter through ``submit`` and are drained by ``run_until_drained``;
+  * **static batch** (``generate_static``): the whole batch prefilled
+    together into dense caches, then one forward per token; for sharded
+    plans and recurrent (RWKV-6) stacks, which keep dense caches, and the
+    numerical baseline the paged path's greedy tokens must equal.
+
+``generate`` routes through the request queue where the paged path applies
+and through ``generate_static`` otherwise.
+
+Paged path: requests enter through ``submit`` and are drained by
+``run_until_drained``.  Prefill is *chunked* (one chunk per prefilling
+request per tick) into the shared per-layer block pools via per-request
+block tables (``serve/paged_cache.py``).  Decode runs as a *segment* of
 ``steps_per_tick`` steps whose token selection (greedy, or sampled where
 temperature > 0) stays on the device: the host queues the whole segment
 and waits once, when it reads the segment's tokens.  The
@@ -21,9 +31,17 @@ explicit ``seed=`` argument when given, else derived from
 ``ServeEngine.seed`` and a per-call counter.  The JAX package keys the same
 draw with ``fold_in(fold_in(key, s), p)``, whose bits torch cannot
 reproduce: the two packages agree on greedy decoding, not on samples.
+``generate_static`` samples by the same contract (stream = row index).
 
-The static dense-cache engine (``generate_static``) comes with a later
-slice; ``generate`` raises for stacks that cannot page.
+Static path: the chosen tokens stay on the device from step to step; the
+host reads them once, at the end.  Under a ``plan`` (``core.parallel``)
+every rank runs ``generate_static`` on the same prompts: it serves its
+rows (``serve_rows``) from its shards of the caches, gathers the logits'
+vocabulary columns over the model axis to choose each token, and the rows
+over the data axes at the end.
+
+``make_serve_step`` and ``make_prefill`` are the functions the dry run
+traces for the decode and prefill shapes.
 """
 from __future__ import annotations
 
@@ -33,9 +51,11 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import telemetry as tel
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import parallel as par
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Runtime
@@ -45,6 +65,24 @@ from repro_torch.serve.scheduler import Scheduler
 # position of slots that must not write this step: the block lookup lands
 # past every table and the write goes to the pools' sink block
 _INACTIVE_POS = 1 << 30
+
+
+def make_serve_step(cfg: ModelConfig, rt: Runtime):
+    """(params, cache, tokens, pos) -> (logits, cache): one new token per
+    row against its dense caches (``transformer.decode_step``)."""
+    def serve_step(params, cache, tokens, pos):
+        return tfm.decode_step(cfg, params, cache, tokens, pos, rt)
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, rt: Runtime, max_len: int, plan=None):
+    """(params, batch) -> (logits, cache): the prompts through the model
+    into fresh dense caches for ``max_len`` positions
+    (``transformer.prefill``; under ``plan``, this rank's rows and
+    shards)."""
+    def prefill_fn(params, batch):
+        return tfm.prefill(cfg, params, batch, rt, max_len, plan)
+    return prefill_fn
 
 
 def token_seed(base_seed: int, stream: int, pos: int) -> int:
@@ -70,13 +108,16 @@ class ServeEngine:
     cache granularity; ``n_blocks=0`` sizes the pool so every slot can
     hold ``max_len`` context.  ``prefill_chunk`` / ``steps_per_tick`` set
     the tick shape (one prefill chunk per prefilling request and one
-    decode segment per tick).  ``stats`` counts forward calls and decode
-    steps, so a caller can hold kernel launch counts against them.
+    decode segment per tick).  ``plan``: a ``core.parallel.ParallelPlan``
+    the params were placed by (``apply_plan``); it serves statically.
+    ``stats`` counts forward calls and decode steps, so a caller can hold
+    kernel launch counts against them.
     """
     cfg: ModelConfig
     params: Any
     rt: Runtime
     max_len: int
+    plan: Any = None
     seed: int = 0
     n_slots: int = 8
     block_size: int = 16
@@ -98,8 +139,11 @@ class ServeEngine:
         self._calls = 0
         self.stats = {"forward_calls": 0, "decode_steps": 0}
         cfg = self.cfg
-        self.paged_ok = cfg.input_mode == "tokens" and all(
-            cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        self.paged_ok = (
+            self.plan is None and cfg.input_mode == "tokens" and
+            all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)))
+        self._prefill = make_prefill(cfg, self.rt, self.max_len, self.plan)
+        self._step = make_serve_step(cfg, self.rt)
         self._pools = None
         if self.paged_ok:
             self._max_blocks = BlockAllocator(1, self.block_size).blocks_for(
@@ -331,19 +375,98 @@ class ServeEngine:
     def generate(self, prompts, n_new: int, temperature: float = 0.0,
                  seed: Optional[int] = None) -> np.ndarray:
         """prompts: (B, S0) int -> (B, S0 + n_new) int32 numpy, through the
-        request queue (one request per row, stream = row index)."""
-        if not self.paged_ok:
-            raise NotImplementedError(
-                f"{self.cfg.name} cannot use the paged cache; the static "
-                "dense-cache engine comes with the static-engine slice "
-                "of the port")
+        request queue (one request per row, stream = row index) where the
+        paged path applies, else through :meth:`generate_static`."""
         prompts_np = np.asarray(prompts, np.int32)
         B, S0 = prompts_np.shape
         if S0 + n_new > self.max_len:
             raise ValueError(f"prompt({S0}) + n_new({n_new}) exceeds "
                              f"max_len({self.max_len})")
+        if not self.paged_ok:
+            return self.generate_static(prompts_np, n_new, temperature, seed)
         rids = [self.submit(prompts_np[i], n_new, temperature, stream=i)
                 for i in range(B)]
         done = self.run_until_drained(seed=seed)
         new = np.stack([done[r] for r in rids]).reshape(B, n_new)
         return np.concatenate([prompts_np, new], axis=1)
+
+    @torch.no_grad()
+    def generate_static(self, prompts, n_new: int, temperature: float = 0.0,
+                        seed: Optional[int] = None) -> np.ndarray:
+        """prompts: (B, S0) int -> (B, S0 + n_new) int32 numpy: the whole
+        batch prefilled together into dense caches, then one forward per
+        new token but the last.  The token at absolute position p of row b
+        is greedy, or sampled as the paged path samples it (stream b).
+        Under a plan every rank calls it with the same prompts and gets
+        every row back."""
+        prompts_np = np.asarray(prompts, np.int32)
+        B, S0 = prompts_np.shape
+        if S0 + n_new > self.max_len:
+            raise ValueError(f"prompt({S0}) + n_new({n_new}) exceeds "
+                             f"max_len({self.max_len})")
+        base_seed = self._base_seed(seed)
+        lo, hi = (0, B) if self.plan is None else \
+            par.serve_rows(self.plan, B)
+        dev = self.device
+        out = torch.zeros((hi - lo, n_new), dtype=torch.int32, device=dev)
+        with self.telemetry.span("serve/static_prefill", rows=B, n=S0):
+            logits, cache = self._prefill(
+                self.params, {"tokens": torch.as_tensor(prompts_np,
+                                                        device=dev)})
+            self.stats["forward_calls"] += 1
+            tok = self._choose(logits[:, -1], temperature, base_seed, lo,
+                               S0)
+        pos = torch.tensor(S0, dtype=torch.int32, device=dev)
+        with self.telemetry.span("serve/static_decode", steps=n_new - 1):
+            for t in range(n_new):
+                out[:, t] = tok
+                if t + 1 == n_new:
+                    break
+                logits, cache = self._step(self.params, cache, tok[:, None],
+                                           pos)
+                pos += 1
+                tok = self._choose(logits[:, 0], temperature, base_seed, lo,
+                                   S0 + t + 1)
+            self.stats["forward_calls"] += n_new - 1
+            self.stats["decode_steps"] += n_new - 1
+        if self.plan is not None:
+            out = self._gather_rows(out, B)
+        return np.concatenate([prompts_np, out.cpu().numpy()], axis=1)
+
+    def _whole_logits(self, lg):
+        """(B, V / tp) logits of this rank's vocabulary columns -> (B, V)
+        f32, gathered over the model axis."""
+        lg = lg.float()
+        if self.rt.tp_size == 1:
+            return lg
+        parts = lg.new_empty((self.rt.tp_size * lg.shape[0], lg.shape[1]))
+        dist.all_gather_into_tensor(parts, lg.contiguous(),
+                                    group=self.rt.tp_group)
+        return parts.view(self.rt.tp_size, *lg.shape).permute(1, 0, 2) \
+            .reshape(lg.shape[0], -1)
+
+    def _choose(self, lg, temperature, base_seed, row0, pos):
+        """(B, V / tp) logits of the rows from ``row0`` -> their tokens at
+        absolute position ``pos``, int32 on the device (the vocabulary
+        gathered over the model axis first)."""
+        lg = self._whole_logits(lg)
+        if temperature <= 0:
+            return torch.argmax(lg, dim=-1).to(torch.int32)
+        return torch.stack([
+            sample_token(lg[b], temperature,
+                         token_seed(base_seed, row0 + b, pos))
+            for b in range(lg.shape[0])]).to(torch.int32)
+
+    def _gather_rows(self, out, B):
+        """Every rank's rows (B / n, n_new) -> all B rows, gathered over the
+        data axes that split them, innermost first (row order is the
+        row-major order of those axes)."""
+        for axis in reversed(par.row_axes(self.plan, B)):
+            group = self.plan.mesh.get_group(axis)
+            if dist.get_world_size(group) == 1:
+                continue
+            whole = out.new_empty((out.shape[0] * dist.get_world_size(group),)
+                                  + tuple(out.shape[1:]))
+            dist.all_gather_into_tensor(whole, out.contiguous(), group=group)
+            out = whole
+        return out

@@ -376,11 +376,14 @@ class Strategy:
     # ---- lowering: SPMD ----------------------------------------------------
 
     def to_plan(self, cfg: ModelConfig, topology: Topology, shape: ShapeConfig,
-                abstract: bool = False) -> par.ParallelPlan:
+                abstract: bool = False,
+                device_type: Optional[str] = None) -> par.ParallelPlan:
         """Lower to an executable ``ParallelPlan`` on this topology's mesh.
 
         ``abstract=True`` builds the ``{axis: size}`` mapping instead of a
-        ``DeviceMesh`` (group-size analysis without a process group).
+        ``DeviceMesh`` (group-size analysis without a process group);
+        ``device_type`` names the mesh's device type where the process
+        group's backend does not (``build_mesh``).
         """
         self.check(topology, cfg)
         if self.pp > 1 and shape.mode == "train":
@@ -417,7 +420,8 @@ class Strategy:
                 f"{self.model_axis}")
         pods = self.n_pods(topology)
         mesh = build_mesh(topology, model=self.model_axis, pods=pods,
-                          pipe=self.pp, expert=self.ep, abstract=abstract)
+                          pipe=self.pp, expert=self.ep, abstract=abstract,
+                          device_type=device_type)
         attn = self.resolved_attn(cfg)
         has_pod = pods > 1
         has_ep = self.ep > 1

@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
@@ -123,8 +122,8 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
     the mesh spans the default process group (its world size must equal
     ``topology.n_devices``) on ``device_type``: by default the type the
     process group's backend serves (``cuda`` where it has NCCL, else
-    ``cpu``; the dry run's fake group, ``cuda`` where the host has a
-    card).
+    ``cpu``); the dry run's fake group serves no device of its own, so its
+    caller names one.
     """
     n = topology.n_devices
     if n % (model * pods * pipe * expert):
@@ -146,11 +145,12 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
             f"(have {world_size() if dist.is_initialized() else 'none'}); "
             "start one with repro_torch.launch.mesh.init_distributed")
     if device_type is None:
-        # NCCL alone, or NCCL for card tensors beside gloo for host ones;
-        # the dry run's fake group stands for cards where the host has one
+        # NCCL alone, or NCCL for card tensors beside gloo for host ones
         backend = dist.get_backend()
-        device_type = "cuda" if "nccl" in backend or (
-            backend == "fake" and torch.cuda.is_available()) else "cpu"
+        if backend == "fake":
+            raise ValueError("a mesh over a fake process group needs its "
+                             "device_type (the dry run's --device)")
+        device_type = "cuda" if "nccl" in backend else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -267,8 +267,8 @@ def test_probe_on_a_gloo_world_of_two(spec, tmp_path):
               "--nproc_per_node", "2", "-m", "repro_torch.launch.dryrun",
               "--arch", "qwen3-0.6b", "--shape", "train_4k",
               "--topology", "host", "--reduced", "--kernels", "torch",
-              "--strategy", spec, "--measure_bubble", "--out",
-              str(tmp_path)], timeout=600)
+              "--strategy", spec, "--measure_bubble", "--device", "cpu",
+              "--out", str(tmp_path)], timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     rec = json.loads(next(tmp_path.glob("*.json")).read_text())
     got = rec["pipeline"]

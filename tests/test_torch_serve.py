@@ -284,7 +284,12 @@ def test_port_imports_no_jax():
             "repro_torch.core.pipeline, "
             "repro_torch.perf.flops, repro_torch.launch.mesh, "
             "repro_torch.launch.dryrun, repro_torch.perf.pipeline_probe, "
-            "repro_torch.perf.comms, chip_smoke\n"
+            "repro_torch.perf.comms, repro_torch.perf.memory, "
+            "repro_torch.launch.specs, repro_torch.models.attention, "
+            "repro_torch.models.transformer, repro_torch.models.layers, "
+            "repro_torch.bridge, repro_torch.configs, "
+            "repro_torch.strategy.topology, "
+            "repro_torch.strategy.descriptor, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -1,0 +1,641 @@
+"""The port's static serving slice against the JAX package, on the CPU:
+dense KV caches and the RWKV-6 recurrent cache (``prefill`` and
+``decode_step``), the cache bridge, the static engine
+(``generate_static``), cache placement under a plan (``cache_shardings``)
+and sharded static serving on gloo worlds of 2 and 4 processes, and the
+serve CLI's ``--strategy``/``--engine``.
+
+Weights come from the JAX initialiser through ``repro_torch.bridge``;
+prompts and tokens from numpy with a fixed seed.  JAX's Pallas path runs
+its kernels in interpret mode; the port's kernel path runs each kernel's
+plain version on these CPU tensors.  Logits are held to 1e-4 (the paged
+tests' bar: f32 sums in another order over 2 layers), greedy tokens
+exactly.  The JAX package's own sharded-decode test
+(``tests/test_spmd.py::test_sharded_decode_equivalence``) is red on this
+jax, so the sharded port answers to JAX's single-device ``prefill`` and
+``decode_step``.  Spawned workers import only torch and the port; JAX runs
+in the test process.
+"""
+import dataclasses
+import os
+import pickle
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+ROOT = Path(__file__).resolve().parents[1]
+LOGIT_ATOL = 1e-4
+S0, N_NEW = 11, 9       # prompt length, new tokens: 20 slots split 4 ways
+QWEN = ("qwen3-0.6b", dict(n_kv_heads=2))
+QWEN_KV1 = ("qwen3-0.6b", dict(n_kv_heads=1))     # kv_tp false at tp 2
+QWEN_SWA = ("qwen3-0.6b", dict(n_kv_heads=2, sliding_window=8))
+LLAMA = ("llama2-1b", {})
+RWKV = ("rwkv6-1.6b", {})
+SINGLE = {"qwen3-gqa": QWEN, "llama2-1b": LLAMA, "rwkv6": RWKV,
+          "qwen3-swa-ring": QWEN_SWA}
+# (spec, arch, config overrides, global batch) per world size
+WORLDS = {
+    2: [("fsdp_tp2", *QWEN, 2), ("fsdp_tp2", *QWEN_KV1, 2),
+        ("fsdp", *QWEN, 2),
+        # batch 1 < data 2: rows replicated, the cache over data x model
+        ("fsdp", *QWEN, 1),
+        ("fsdp_tp2", *RWKV, 2), ("fsdp_pp2_mb2", *QWEN, 2)],
+    # data 2 x model 2: rows split over data, slots over model; then
+    # batch 1, the slots over all four ranks
+    4: [("fsdp_tp2", *QWEN, 4), ("fsdp_tp2", *QWEN, 1)],
+}
+SPAWN_TIMEOUT = 300
+
+
+def _cfgs(arch, over):
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import reduced as jax_reduced
+    from repro_torch.configs import get_config, reduced
+    return (dataclasses.replace(jax_reduced(jax_get_config(arch)), **over),
+            dataclasses.replace(reduced(get_config(arch)), **over))
+
+
+def _jax_tree(jc, seed=1):
+    import jax
+
+    from repro.models import transformer as jtfm
+    return jax.tree.map(np.asarray, jtfm.init_params(
+        jc, jax.random.PRNGKey(seed)))
+
+
+def _rts(impl):
+    from repro.models.layers import Runtime as JRuntime
+    from repro_torch.models.layers import Runtime
+    if impl == "kernel":
+        return (JRuntime(attn_impl="pallas", norm_impl="pallas",
+                         rwkv_chunk=16), Runtime(rwkv_chunk=16))
+    return (JRuntime(rwkv_chunk=16),
+            Runtime(attn_impl="torch", norm_impl="torch", rwkv_chunk=16))
+
+
+def _prompts(vocab, B, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, vocab, (B, S0)).astype(np.int32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode_step against JAX, one device
+# ---------------------------------------------------------------------------
+
+def _jax_run(jc, tree, jrt, prompts, steps):
+    """JAX ``prefill`` then ``decode_step`` along ``steps`` (B, n) tokens
+    -> ([prefill logits, each step's logits], final cache)."""
+    import jax.numpy as jnp
+
+    from repro.models import transformer as jtfm
+    lg, cache = jtfm.prefill(jc, tree, {"tokens": jnp.asarray(prompts)}, jrt,
+                             S0 + N_NEW)
+    out = [np.asarray(lg)]
+    for t in range(steps.shape[1]):
+        lg, cache = jtfm.decode_step(jc, tree, cache,
+                                     jnp.asarray(steps[:, t:t + 1]),
+                                     jnp.asarray(S0 + t, jnp.int32), jrt)
+        out.append(np.asarray(lg))
+    return out, cache
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+@pytest.mark.parametrize("case", sorted(SINGLE))
+def test_prefill_and_decode_match_jax(case, impl):
+    """Logits of a prefill of 11 tokens and 9 decode steps within 1e-4 of
+    JAX's; the caches after them equal JAX's (the SWA case's ring of 8
+    slots wraps in the prefill and again while decoding), through
+    ``cache_to_jax``."""
+    import jax
+
+    from repro_torch.bridge import cache_to_jax, params_from_jax
+    from repro_torch.models import transformer as tfm
+    jc, tc = _cfgs(*SINGLE[case])
+    tree = _jax_tree(jc)
+    params = params_from_jax(tree)
+    jrt, trt = _rts(impl)
+    prompts = _prompts(jc.vocab_size, 2)
+    steps = np.random.default_rng(1).integers(
+        0, jc.vocab_size, (2, N_NEW)).astype(np.int32)
+    want, jcache = _jax_run(jc, tree, jrt, prompts, steps)
+    with torch.no_grad():
+        lg, cache = tfm.prefill(tc, params, {"tokens": torch.tensor(prompts)},
+                                trt, S0 + N_NEW)
+        got = [lg.numpy()]
+        for t in range(N_NEW):
+            lg, cache = tfm.decode_step(tc, params, cache,
+                                        torch.tensor(steps[:, t:t + 1]),
+                                        S0 + t, trt)
+            got.append(lg.numpy())
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape
+        assert np.max(np.abs(a - b)) < LOGIT_ATOL
+    back = cache_to_jax(cache, tc)
+    assert jax.tree.structure(back) == jax.tree.structure(jcache)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jcache)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype.kind == "i":
+            np.testing.assert_array_equal(a, b)      # kpos and idx
+        else:
+            assert np.max(np.abs(a - b)) < LOGIT_ATOL
+    if case == "qwen3-swa-ring":
+        kpos = back["blocks"][0]["kv"]["kpos"][0]
+        assert sorted(kpos) == list(range(S0 + N_NEW - 8, S0 + N_NEW))
+        assert all(p % 8 == i for i, p in enumerate(kpos))
+
+
+def test_recurrent_state_carries_through_a_chunked_prefill():
+    """RWKV-6: a second prompt chunk of 9 tokens onto the state a prefill
+    left (the plain chunked form from a carried state, the WKV-6 kernel's
+    route being for a zero state only) and a decode step after it, from
+    a JAX cache brought over by ``cache_from_jax``; both packages' logits
+    and states agree, and the bridge round-trips exactly."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as jtfm
+    from repro_torch.bridge import cache_from_jax, cache_to_jax, \
+        params_from_jax
+    from repro_torch.models import transformer as tfm
+    jc, tc = _cfgs(*RWKV)
+    tree = _jax_tree(jc)
+    params = params_from_jax(tree)
+    jrt, trt = _rts("kernel")
+    prompts = _prompts(jc.vocab_size, 2)
+    _, jcache = jtfm.prefill(jc, tree, {"tokens": jnp.asarray(prompts)}, jrt,
+                             64)
+    jcache = jax.tree.map(np.asarray, jcache)
+    cache = cache_from_jax(jcache)
+    again = cache_to_jax(cache, tc)
+    for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(jcache)):
+        np.testing.assert_array_equal(a, b)
+    chunk = np.random.default_rng(2).integers(
+        0, jc.vocab_size, (2, 9)).astype(np.int32)
+    jl, jcache, _ = jtfm.forward(jc, tree, {"tokens": jnp.asarray(chunk),
+                                            "pos": jnp.asarray(S0)}, jrt,
+                                 cache=jcache)
+    with torch.no_grad():
+        tl = tfm.forward(tc, params, {"tokens": torch.tensor(chunk),
+                                      "pos": S0}, trt, cache)
+        assert np.max(np.abs(tl.numpy() - np.asarray(jl))) < LOGIT_ATOL
+        nxt = chunk[:, -1:]
+        jl, jcache = jtfm.decode_step(jc, tree, jcache, jnp.asarray(nxt),
+                                      jnp.asarray(S0 + 9, jnp.int32), jrt)
+        tl, cache = tfm.decode_step(tc, params, cache, torch.tensor(nxt),
+                                    S0 + 9, trt)
+    assert np.max(np.abs(tl.numpy() - np.asarray(jl))) < LOGIT_ATOL
+    wkv = cache_to_jax(cache, tc)["blocks"][0]["att"]["wkv"]
+    want = np.asarray(jcache["blocks"][0]["att"]["wkv"])
+    assert np.max(np.abs(wkv - want)) < LOGIT_ATOL * max(1.0, np.abs(
+        want).max())
+
+
+def test_want_cache_builds_the_prefill_cache():
+    """``attention_block(want_cache=True)`` on a cache-less forward returns
+    the output and a fresh cache equal to a prefill into a preallocated
+    one."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import Runtime, rope_angles
+    cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b")),
+                              n_kv_heads=2)
+    gen = torch.Generator().manual_seed(0)
+    p = attn.init_attention(cfg, gen, "cpu")
+    x = torch.randn(2, 5, cfg.d_model, generator=gen)
+    ang = rope_angles(torch.arange(5)[None].expand(2, 5), cfg.head_dim_,
+                      cfg.rope_theta)
+    rt = Runtime(attn_impl="torch", norm_impl="torch")
+    out, cache = attn.attention_block(cfg, p, x, ang, rt, want_cache=True)
+    pre = attn.make_kv_cache(cfg, 2, 5, torch.float32, "cpu")
+    out2 = attn.attention_block(cfg, p, x, ang, rt, cache=pre)
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+    for k in cache:
+        assert torch.equal(cache[k], pre[k]), k
+    assert int(cache["idx"]) == 5 and cache["kpos"].tolist() == list(range(5))
+
+
+# ---------------------------------------------------------------------------
+# the static engine
+# ---------------------------------------------------------------------------
+
+ENGINE_KW = dict(max_len=32, n_slots=4, block_size=8, prefill_chunk=8,
+                 steps_per_tick=3)
+
+
+@pytest.mark.parametrize("case", ["qwen3-gqa", "llama2-1b", "rwkv6"])
+def test_generate_static_matches_jax_and_the_paged_engine(case):
+    """Greedy ``generate_static`` tokens equal the JAX engine's
+    ``generate_static``; for an attention stack they equal the port's
+    paged engine bit for bit (``tests/test_serving.py::
+    test_paged_greedy_bitmatches_dense``), and ``generate`` pages; a
+    recurrent stack's ``generate`` serves statically."""
+    import jax.numpy as jnp
+
+    from repro.serve import ServeEngine as JServeEngine
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.serve import ServeEngine
+    jc, tc = _cfgs(*SINGLE[case])
+    tree = _jax_tree(jc)
+    jrt, trt = _rts("kernel")
+    jeng = JServeEngine(jc, tree, jrt, **ENGINE_KW)
+    eng = ServeEngine(tc, params_from_jax(tree), trt, device="cpu",
+                      **ENGINE_KW)
+    prompts = _prompts(jc.vocab_size, 3)
+    got = eng.generate_static(prompts, N_NEW)
+    np.testing.assert_array_equal(got, np.asarray(jeng.generate_static(
+        jnp.asarray(prompts), N_NEW)))
+    assert eng.stats == {"forward_calls": N_NEW, "decode_steps": N_NEW - 1}
+    assert eng.paged_ok == (case != "rwkv6")
+    np.testing.assert_array_equal(eng.generate(prompts, N_NEW), got)
+    if eng.paged_ok:
+        assert eng.stats["forward_calls"] > N_NEW    # the queue ran
+
+
+def test_static_sampling_is_reproducible_and_fresh():
+    """A fixed seed reproduces the sampled tokens; successive calls
+    without one draw fresh ones; a row's tokens follow the paged path's
+    contract (stream = row, absolute position), so the paged engine
+    samples the same tokens from the same logits."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.serve import ServeEngine
+    jc, tc = _cfgs(*QWEN)
+    eng = ServeEngine(tc, params_from_jax(_jax_tree(jc)), _rts("torch")[1],
+                      device="cpu", **ENGINE_KW)
+    prompts = _prompts(jc.vocab_size, 3)
+    a = eng.generate_static(prompts, N_NEW, temperature=0.9, seed=5)
+    np.testing.assert_array_equal(
+        a, eng.generate_static(prompts, N_NEW, temperature=0.9, seed=5))
+    b = eng.generate_static(prompts, N_NEW, temperature=0.9)
+    c = eng.generate_static(prompts, N_NEW, temperature=0.9)
+    assert not np.array_equal(b, c)
+    assert not np.array_equal(a, eng.generate_static(prompts, N_NEW))
+    np.testing.assert_array_equal(
+        a, eng.generate(prompts, N_NEW, temperature=0.9, seed=5))
+
+
+def test_paged_forward_keeps_refusing_a_recurrent_stack():
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+    jc, tc = _cfgs(*RWKV)
+    params = params_from_jax(_jax_tree(jc))
+    with pytest.raises(NotImplementedError, match="dense caches"):
+        tfm.forward(tc, params, {"tokens": torch.zeros(1, 4,
+                                                       dtype=torch.int32),
+                                 "pos": torch.zeros(1, 1, dtype=torch.int32)},
+                    _rts("torch")[1], cache={"layers": [], "paged": {}})
+    eng = ServeEngine(tc, params, _rts("torch")[1], device="cpu",
+                      **ENGINE_KW)
+    with pytest.raises(RuntimeError, match="paged cache path"):
+        eng.submit(np.arange(4), 2)
+
+
+# ---------------------------------------------------------------------------
+# cache placement against the JAX package's cache_shardings
+# ---------------------------------------------------------------------------
+
+# (spec, mode, global batch, seq_len) on 8 devices
+PLACEMENTS = [("fsdp_tp2", "decode", 8, 4096), ("fsdp_tp4", "decode", 2, 4096),
+              ("fsdp", "prefill", 8, 1024), ("ddp_tp2", "decode", 1, 8192)]
+
+
+@pytest.mark.parametrize("spec,mode,B,S", PLACEMENTS)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b",
+                                  "qwen3-0.6b-swa"])
+def test_cache_shardings_match_jax(arch, spec, mode, B, S):
+    """Every leaf of the full-size dense cache: the port's fitted spec is
+    the JAX ``cache_shardings`` spec (JAX's stacked layer dim dropped),
+    and its shard shape the JAX sharding's ``shard_shape``, on abstract
+    meshes of 8 devices (qwen3 with a window of 2048 keeps a ring of
+    slots)."""
+    import jax
+    from jax.sharding import AbstractMesh
+
+    from repro.configs import get_config as jax_get_config
+    from repro.core import parallel as jpar
+    from repro.models import transformer as jtfm
+    from repro.models.layers import Runtime as JRuntime
+    from repro_torch import strategy
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import parallel as par
+    from repro_torch.models import transformer as tfm
+    name, _, swa = arch.partition("-swa")
+    over = dict(sliding_window=2048) if arch.endswith("-swa") else {}
+    jcfg = dataclasses.replace(jax_get_config(name), **over)
+    cfg = dataclasses.replace(get_config(name), **over)
+    if name == "rwkv6-1.6b" and "tp4" in spec:
+        spec = spec.replace("tp4", "tp2")
+    shape = ShapeConfig("x", S, B, mode)
+    plan = strategy.parse(spec).to_plan(
+        cfg, strategy.host_topology(n_devices=8), shape, abstract=True)
+    sizes = dict(plan.mesh)
+    jplan = jpar.ParallelPlan(
+        mesh=AbstractMesh(tuple(sizes.values()), tuple(sizes)), dp=plan.dp,
+        fsdp=plan.fsdp, tp=plan.tp, attn=plan.attn, kv_tp=plan.kv_tp,
+        shape_mode=plan.shape_mode,
+        decode_cache_axes=plan.decode_cache_axes,
+        seq_parallel_residuals=plan.seq_parallel_residuals)
+    jshapes = jax.eval_shape(lambda: jtfm.init_cache(
+        jcfg, B, S, np.float32, JRuntime()))
+    jleaves = jax.tree_util.tree_flatten_with_path(jshapes)[0]
+    jshard = jax.tree.leaves(jpar.cache_shardings(jcfg, jplan, jshapes))
+    cache = tfm.cache_shapes(cfg, B, S, torch.float32)
+    specs = par.cache_specs(cfg, plan, cache)
+    places = par.cache_shardings(cfg, plan, cache)
+    _, start, period, _ = jtfm.layer_plan(jcfg)
+    assert len(jleaves) == len(jshard) > 0
+    for (path, leaf), sh in zip(jleaves, jshard):
+        names = [getattr(p, "key", getattr(p, "idx", None)) for p in path]
+        stacked = names[0] == "blocks"
+        layer = start + names[1] if stacked else names[1]
+        node, spec_node, place = cache["layers"][layer], \
+            specs["layers"][layer], places["layers"][layer]
+        for k in names[2:]:
+            node, spec_node, place = node[k], spec_node[k], place[k]
+        jspec = tuple(_norm(e) for e in tuple(sh.spec) + (None,) * (
+            leaf.ndim - len(sh.spec)))[int(stacked):]
+        assert tuple(_norm(e) for e in spec_node) == jspec, (names, spec)
+        jlocal = sh.shard_shape(leaf.shape)[int(stacked):]
+        assert par.local_shape(plan, node.shape, place) == jlocal, names
+
+
+def _norm(e):
+    if isinstance(e, tuple):
+        e = tuple(a for a in e if a)
+        return None if not e else (e[0] if len(e) == 1 else e)
+    return e
+
+
+# ---------------------------------------------------------------------------
+# sharded static serving on gloo worlds (spawned once per module)
+# ---------------------------------------------------------------------------
+
+def _whole(lg, plan, rt, B):
+    """This rank's logits (rows, ..., V / tp) -> every row and column."""
+    from repro_torch.core import parallel as par
+    if rt.tp_size > 1:
+        parts = lg.new_empty((rt.tp_size * lg.shape[0],) + lg.shape[1:])
+        dist.all_gather_into_tensor(parts, lg.contiguous(),
+                                    group=rt.tp_group)
+        lg = torch.cat(parts.chunk(rt.tp_size), dim=-1)
+    for axis in reversed(par.row_axes(plan, B)):
+        group = plan.mesh.get_group(axis)
+        n = dist.get_world_size(group)
+        if n > 1:
+            parts = lg.new_empty((n * lg.shape[0],) + lg.shape[1:])
+            dist.all_gather_into_tensor(parts, lg.contiguous(), group=group)
+            lg = parts
+    return lg
+
+
+def _param_groups(module):
+    """FSDP2's parameter groups of a unit (torch 2.13 keeps a list, 2.11
+    one group)."""
+    state = module._get_fsdp_state()
+    groups = getattr(state, "_fsdp_param_groups", None)
+    return groups if groups is not None else [state._fsdp_param_group]
+
+
+def _serve_case(case):
+    from repro_torch import strategy
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.core import parallel as par
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+    spec, arch, over, B = case["case"]
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    max_len = S0 + N_NEW
+    shape = ShapeConfig("serve", max_len, B, "decode")
+    plan = strategy.parse(spec).to_plan(cfg, strategy.host_topology(),
+                                        shape)
+    rt = par.make_runtime(cfg, plan, shape, attn_impl="torch",
+                          norm_impl="torch", rwkv_chunk=16)
+    params = par.apply_plan(params_from_jax(case["tree"]), plan, cfg)
+    eng = ServeEngine(cfg, params, rt, max_len=max_len, plan=plan,
+                      device="cpu")
+    prompts = case["prompts"]
+    tokens = eng.generate_static(prompts, N_NEW)
+    lo, hi = par.serve_rows(plan, B)
+    with torch.no_grad():
+        lg, cache = tfm.prefill(cfg, params, {"tokens": torch.tensor(
+            prompts)}, rt, max_len, plan)
+        logits = [_whole(lg, plan, rt, B)]
+        for t in range(N_NEW - 1):
+            step = torch.tensor(tokens[lo:hi, S0 + t:S0 + t + 1])
+            lg, cache = tfm.decode_step(cfg, params, cache, step, S0 + t, rt)
+            logits.append(_whole(lg[:, 0], plan, rt, B))
+    shapes = tfm.cache_shapes(cfg, B, max_len, torch.float32)
+    want = par.cache_shardings(cfg, plan, shapes)
+    layers = [(i, lc) for i, lc in enumerate(cache["layers"]) if lc]
+    i, lc = layers[0]
+    held = {k: tuple(v.shape) for part in lc.values()
+            for k, v in part.items()}
+    placed = {k: par.local_shape(plan, v.shape, want["layers"][i][p][k])
+              for p, part in shapes["layers"][i].items()
+              for k, v in part.items()}
+    groups = [g for layer in params.layers if layer._modules
+              for g in _param_groups(layer)]
+    return dict(tokens=tokens, logits=[x.numpy() for x in logits],
+                resharded=all(g.is_sharded for g in groups),
+                held=held, placed=placed, rows=(lo, hi),
+                layers=[i for i, _ in layers], cache_shard=rt.cache_shard,
+                cache_axes=plan.decode_cache_axes, kv_tp=plan.kv_tp)
+
+
+def _world(rank, n, payload, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out}.store",
+                            rank=rank, world_size=n)
+    try:
+        with open(payload, "rb") as f:
+            cases = pickle.load(f)
+        results = [_serve_case(c) for c in cases]
+        every = [None] * n
+        dist.all_gather_object(every, results)
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump([[r[i] for r in every]
+                             for i in range(len(cases))], f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _reference(case):
+    """JAX single-device greedy tokens of the case's prompts, and the
+    logits of its prefill and decode steps along them."""
+    import jax.numpy as jnp
+
+    from repro.serve import ServeEngine as JServeEngine
+    spec, arch, over, B = case
+    jc, _ = _cfgs(arch, over)
+    tree = _jax_tree(jc, seed=7)
+    prompts = _prompts(jc.vocab_size, B, seed=B)
+    jrt = _rts("torch")[0]
+    toks = np.asarray(JServeEngine(jc, tree, jrt, max_len=S0 + N_NEW)
+                      .generate_static(jnp.asarray(prompts), N_NEW))
+    logits, _ = _jax_run(jc, tree, jrt, prompts, toks[:, S0:-1])
+    return tree, prompts, toks, [logits[0]] + [x[:, 0] for x in logits[1:]]
+
+
+def _join(n, ctx, deadline):
+    while not ctx.join(timeout=1):
+        if time.time() > deadline:
+            raise TimeoutError(f"world of {n} ranks still running after "
+                               f"{SPAWN_TIMEOUT} s")
+
+
+def _stop(ctx):
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """{n: [(case, [each rank's result], JAX reference)]}; each world is
+    spawned once and runs all its cases."""
+    refs = {n: [_reference(c) for c in cases] for n, cases in WORLDS.items()}
+    started = {}
+    try:
+        for n, cases in WORLDS.items():
+            d = tmp_path_factory.mktemp(f"serveworld{n}")
+            payload = [dict(case=c, tree=r[0], prompts=r[1])
+                       for c, r in zip(cases, refs[n])]
+            with open(d / "payload.pkl", "wb") as f:
+                pickle.dump(payload, f)
+            started[n] = (d / "out.pkl", mp.start_processes(
+                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
+                nprocs=n, join=False, start_method="spawn"))
+        out = {}
+        deadline = time.time() + SPAWN_TIMEOUT
+        for n, (path, ctx) in started.items():
+            _join(n, ctx, deadline)
+            with open(path, "rb") as f:
+                got = pickle.load(f)
+            out[n] = list(zip(WORLDS[n], got, refs[n], strict=True))
+        return out
+    finally:
+        for _, ctx in started.values():
+            _stop(ctx)
+
+
+CASES = [(n, i) for n, cases in WORLDS.items() for i in range(len(cases))]
+
+
+def _ids(c):
+    n, i = c
+    spec, arch, over, B = WORLDS[n][i]
+    kv = f"-kv{over['n_kv_heads']}" if "n_kv_heads" in over else ""
+    return f"{n}-{spec}-{arch}{kv}-B{B}"
+
+
+@pytest.mark.parametrize("world_case", CASES, ids=_ids)
+def test_sharded_static_serving_matches_jax(worlds, world_case):
+    """Every rank's greedy tokens equal JAX single-device ``generate_static``
+    exactly, and the prefill's and each decode step's logits (every row
+    and column gathered) are within 1e-4 of JAX's."""
+    n, i = world_case
+    _, got, (_, _, toks, logits) = worlds[n][i]
+    for r, res in enumerate(got):
+        np.testing.assert_array_equal(res["tokens"], toks, err_msg=f"rank {r}")
+        for t, (a, b) in enumerate(zip(res["logits"], logits, strict=True)):
+            assert a.shape == b.shape, (r, t)
+            assert np.max(np.abs(a - b)) < LOGIT_ATOL, (r, t)
+
+
+@pytest.mark.parametrize("world_case", CASES, ids=_ids)
+def test_each_rank_holds_its_cache_shard(worlds, world_case):
+    """A rank's caches have the shapes ``cache_shardings`` places: the KV
+    slots split over ``decode_cache_axes`` (sequence-sharded: each rank a
+    different shard), rows over data where the batch divides it, the WKV
+    state by heads; a pipe rank holds only its stage's layers; and its
+    layers' parameters are sharded again once the serving is done."""
+    n, i = world_case
+    spec, arch, over, B = WORLDS[n][i]
+    _, got, _ = worlds[n][i]
+    for res in got:
+        assert res["held"] == res["placed"]
+        # ZeRO-3 under no_grad: every layer resharded after its forward,
+        # none left gathered across decode steps
+        assert res["resharded"]
+    first = got[0]
+    if "pp2" in spec:
+        assert sorted(r["layers"] for r in got) == [[0], [1]]
+        return
+    if "k" in first["held"]:
+        Sc = S0 + N_NEW
+        shards = {r["cache_shard"] for r in got}
+        split = Sc // first["held"]["k"][1]
+        assert len(shards) == split
+        assert split == (n if first["cache_axes"] != ("model",)
+                         else (2 if "tp2" in spec else 1))
+        assert first["held"]["kpos"] == (Sc,)
+        assert first["held"]["k"][2] == over.get("n_kv_heads", 4)
+    else:
+        assert first["held"]["wkv"][1] == 4 // 2
+
+
+# ---------------------------------------------------------------------------
+# the serve CLI
+# ---------------------------------------------------------------------------
+
+def _run(args, nproc=0):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    pre = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc)] if nproc else [sys.executable])
+    return subprocess.run([*pre, "-m", "repro_torch.launch.serve",
+                           "--device", "cpu", "--reduced", "--n_new", "5",
+                           "--kernels", "torch", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def _tail(out):
+    return re.search(r"first sequence tail: (\[.*\])", out).group(1)
+
+
+@pytest.fixture(scope="module")
+def single_run():
+    r = _run(["--engine", "static"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "engine=static" in r.stdout
+    return _tail(r.stdout)
+
+
+@pytest.mark.parametrize("nproc,strategy", [(0, "auto"), (0, "fsdp"),
+                                            (2, "fsdp_tp2"), (2, "fsdp")])
+def test_cli_serves_under_a_strategy(single_run, nproc, strategy):
+    """``--strategy`` on one rank and on 2 gloo ranks serves statically
+    and rank 0 prints; an f32 plan prints the single-device static run's
+    tokens ('auto' picks ``fsdp_bf16`` here, whose tokens may differ)."""
+    r = _run(["--strategy", strategy, "--engine", "static"], nproc)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("[strategy]") == 1
+    assert "engine=static" in r.stdout
+    if strategy == "auto":
+        assert "[strategy] fsdp_bf16" in r.stdout
+    else:
+        assert _tail(r.stdout) == single_run
+
+
+def test_cli_paged_engine_refuses_a_plan():
+    r = _run(["--strategy", "fsdp", "--engine", "paged"])
+    assert r.returncode != 0
+    assert "--engine paged needs a single-device plan" in r.stderr
