@@ -86,6 +86,24 @@ order; any failure ends the run with a non-zero exit and no result line:
               per term and ``train/mfu``; fails without a window, with a
               ``step`` ratio not finite and positive, or with
               ``train/mfu`` outside (0, 1].  No target ratio is checked.
+   CK1      — checkpointing and resilience: qwen3-0.6b at full width and
+              depth, f32, under ``fsdp`` on the 1-rank NCCL mesh (every
+              parameter and moment a ``DTensor``), B 8 x S 512.  Run A: 4
+              uninterrupted steps; run A': the same again (a control for
+              nondeterminism); run B: ``supervise_training`` with async
+              saves every 2 steps (keep 1) and a crash injected at step 3:
+              it saves step 2, crashes, restores step 2 and runs steps 2-3
+              again (5 steps run, their launches exact).  B's parameters and
+              moments, gathered through the bridge, must equal A's bit for
+              bit (or lie no further from A than A' does); the event log
+              one recovered failure (step_failed 3, restore_step 2).  Then a
+              sync ``save_checkpoint`` of B's state, ``validate_checkpoint``
+              clean, a CRC-verified restore into fresh parameters equal bit
+              for bit, and an async save: bytes on disk, the seconds of
+              each, and the cost model's ``checkpoint_write_time`` for the
+              plan beside them.  Needs 16 GB free in the temporary
+              directory (a 7.15 GB checkpoint, two while keep 1 commits),
+              which it removes.
    dryrun   — cell D2: the port's dry run (``launch.dryrun.lower_fresh``,
               a fresh process on a fake process group of one rank, fake
               tensors on the card, the kernel path) of the strategy
@@ -180,9 +198,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,9 +215,12 @@ from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import bridge  # noqa: E402
+from repro_torch import checkpointing as ckpt_lib  # noqa: E402
 from repro_torch import strategy  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import parallel as par  # noqa: E402
 from repro_torch.data import Batcher, SyntheticSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
@@ -213,10 +237,13 @@ from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.resilience import (FaultPlan, SupervisorConfig,  # noqa: E402
+                                    supervise_training)
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
 from repro_torch.strategy.topology import mesh_shape  # noqa: E402
 from repro_torch.train import TrainConfig, train_loop  # noqa: E402
-from repro_torch.train.trainer import batch_to_device  # noqa: E402
+from repro_torch.train.trainer import (batch_to_device,  # noqa: E402
+                                      prng_key_data)
 
 # published H100 SXM peaks (dense): device memory, f32 outside the tensor
 # cores, bf16 tensor cores
@@ -293,6 +320,11 @@ FP8_SPEC = "fsdp_fp8"
 FP8_STEPS = 3
 # cell D2: the dry run's tracked peak of the strategy phase's plan against
 # the phase's measured max_memory_allocated, fixed before the first run
+CK_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh
+CK_STEPS, CK_EVERY, CK_CRASH = 4, 2, 3
+CK_RUNS_B = 5                       # steps 0-2, crash at 3, steps 2-3 again
+CK_MIN_FREE = 16e9                  # two 7.15 GB checkpoints while keep 1
+#                                     commits the next
 DRYRUN_MEM_REL = 0.10
 DRYRUN_OUT = "results/dryrun_torch"   # the pod dry run's record
 # pipeline phase: qwen3-0.6b at full width and depth, f32, in two
@@ -1281,6 +1313,230 @@ def strategy_phase(dev, card, expect):
     print(f"[strategy] bf16 kernel-path loss {res['loss_kernel']:.6f} vs f32 "
           f"plain {loss32:.6f}: rel {rel:.3g} (tol {BF16_VS_F32_REL})")
     check(rel <= BF16_VS_F32_REL, f"bf16 loss off the f32 loss by {rel:.3g}")
+    return res
+
+
+def _tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k],
+                                                              path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _tree_leaves(v, path + (i,))]
+    return [("/".join(map(str, path)), np.asarray(tree))]
+
+
+def tree_distance(a, b):
+    """-> (max |a - b| over every leaf, leaves that differ, leaves); the
+    two trees must have the same keys, shapes and dtypes."""
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    check([k for k, _ in la] == [k for k, _ in lb], "state trees differ in "
+          "their leaves")
+    worst, differ = 0.0, []
+    for (k, x), (_, y) in zip(la, lb):
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{k}: {x.dtype}{x.shape} vs {y.dtype}{y.shape}")
+        if not np.array_equal(x, y):
+            differ.append(k)
+            worst = max(worst, float(np.max(np.abs(
+                x.astype(np.float64) - y.astype(np.float64)))))
+    return worst, differ, len(la)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def ck1_phase(dev, card, expect):
+    """Cell CK1: qwen3-0.6b at full width and depth, f32, under ``fsdp`` on
+    the 1-rank NCCL mesh (every parameter and moment a ``DTensor``).  Run
+    A trains CK_STEPS steps uninterrupted, run A' again as a control for
+    nondeterminism, run B under ``supervise_training`` saves every
+    CK_EVERY steps asynchronously (keep 1), crashes at the top of step
+    CK_CRASH and resumes from step 2.  B's state must equal A's bit for
+    bit (or lie no further from A than A' does), the event log must show
+    one recovered failure, and each run's launches must be exact.  Then a
+    sync save of B's state, its validation and a CRC-verified restore into
+    fresh parameters (bit-equal), and an async save; their seconds are
+    printed beside the cost model's ``checkpoint_write_time``.  The
+    checkpoints go to a temporary directory, removed at the end."""
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"[CK1] {free / 1e9:.1f} GB free under {tmp}")
+    check(free >= CK_MIN_FREE,
+          f"CK1 needs {CK_MIN_FREE / 1e9:.0f} GB free under {tmp}, has "
+          f"{free / 1e9:.1f} GB: {(CK_MIN_FREE - free) / 1e9:.1f} GB short")
+    root = Path(tempfile.mkdtemp(prefix="ck1-"))
+    cfg = get_config("qwen3-0.6b")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tc = TrainConfig(steps=CK_STEPS, warmup=max(CK_STEPS // 20, 1),
+                     log_every=1, opt=AdamWConfig())
+    res = dict(spec=CK_SPEC, steps=CK_STEPS, ckpt_every=CK_EVERY,
+               crash_at=CK_CRASH, card=card)
+
+    def batches():
+        return Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+                       TRAIN_BATCH)
+
+    def counted(tag, n_steps, run):
+        ops.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: v * n_steps for k, v in expect.items()}
+        print(f"[CK1] {tag}: launches {counts}, expected {want}")
+        check(counts == want, f"CK1 {tag} launches {counts} != {want}")
+        return out, counts
+
+    def release():
+        # FSDP2's modules hold reference cycles: collect them, or the
+        # parameters outlive their run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        strat = strategy.parse(CK_SPEC)
+        plan = strat.to_plan(cfg, topo, shape)
+        rt = par.make_runtime(cfg, plan, shape)
+        check(rt.param_dtype == rt.compute_dtype == torch.float32,
+              f"CK1 runtime dtypes {rt}")
+
+        def uninterrupted():
+            params = par.apply_plan(tfm.init_params(cfg, seed=SEED,
+                                                    device=dev), plan, cfg)
+            params, opt, hist = train_loop(cfg, rt, tc, batches(), params,
+                                           plan=plan)
+            torch.cuda.synchronize()
+            tree = bridge.train_state_to_tree(params, opt, cfg)
+            del params, opt
+            release()
+            return tree, [h["loss"] for h in hist]
+
+        (a, losses), counts_a = counted("A", CK_STEPS, uninterrupted)
+        (a2, _), counts_a2 = counted("A'", CK_STEPS, uninterrupted)
+        d_ctl, differ_ctl, n_leaves = tree_distance(a2, a)
+        del a2
+        print(f"[CK1] A' vs A: max |d| {d_ctl:.3g}, {len(differ_ctl)} of "
+              f"{n_leaves} leaves differ"
+              + (f" (first: {differ_ctl[:4]})" if differ_ctl else ""))
+
+        rec = tel.Recorder()
+        spans = rec.add_sink(_Events())
+        log = root / "events.json"
+        tc_b = dataclasses.replace(tc, ckpt_every=CK_EVERY,
+                                   ckpt_dir=str(root / "B"), ckpt_async=True,
+                                   ckpt_keep=1)
+
+        def supervised():
+            t0 = time.perf_counter()
+            params, opt, hist, sup = supervise_training(
+                cfg, strat, topo, shape, tc_b, batches, seed=SEED,
+                device=dev, fault_plan=FaultPlan.crashes_at(CK_CRASH),
+                sup_cfg=SupervisorConfig(backoff_base_s=0.0,
+                                         event_log_path=str(log)),
+                telemetry=rec)
+            torch.cuda.synchronize()
+            return params, opt, hist, time.perf_counter() - t0
+
+        (p_b, o_b, hist_b, wall_b), counts_b = counted("B", CK_RUNS_B,
+                                                       supervised)
+        b = bridge.train_state_to_tree(p_b, o_b, cfg)
+        d_b, differ_b, _ = tree_distance(b, a)
+        print(f"[CK1] B vs A: max |d| {d_b:.3g}, {len(differ_b)} of "
+              f"{n_leaves} leaves differ; bit for bit: {not differ_b}")
+        check(d_b <= d_ctl and (differ_ctl or not differ_b),
+              f"CK1: the resumed run B is {d_b:.3g} from A ({differ_b[:4]}),"
+              f" further than the control A' ({d_ctl:.3g})")
+        del a
+        events = json.loads(log.read_text())
+        fails = [e for e in events["events"] if e["kind"] == "failure"]
+        check(events["n_failures"] == 1 and len(fails) == 1
+              and fails[0]["step_failed"] == CK_CRASH
+              and fails[0]["restore_step"] == CK_EVERY,
+              f"CK1 event log: {events}")
+        check(ckpt_lib.list_steps(tc_b.ckpt_dir) == [CK_STEPS],
+              f"CK1 keep 1: {ckpt_lib.list_steps(tc_b.ckpt_dir)}")
+        stalls = [e["dur"] for e in spans.events
+                  if e["name"] == "train/ckpt"]
+        shutil.rmtree(root / "B")
+
+        # a sync save of B's state, validated, restored into fresh params
+        meta = {"step": CK_STEPS, "batches_consumed": CK_STEPS,
+                "prng": prng_key_data(SEED)}
+        t0 = time.perf_counter()
+        tree = bridge.train_state_to_tree(p_b, o_b, cfg)
+        gather_s = time.perf_counter() - t0
+        del p_b, o_b
+        release()
+        t0 = time.perf_counter()
+        ckpt_lib.save_checkpoint(str(root / "S"), CK_STEPS, tree, meta)
+        save_s = time.perf_counter() - t0
+        n_bytes = _dir_bytes(root / "S")
+        t0 = time.perf_counter()
+        problems = ckpt_lib.validate_checkpoint(str(root / "S"), CK_STEPS)
+        validate_s = time.perf_counter() - t0
+        check(problems == [], f"CK1 validation: {problems}")
+        fresh = par.apply_plan(tfm.init_params(cfg, seed=SEED + 1,
+                                               device=dev), plan, cfg)
+        fresh_opt = init_opt_state(fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = ckpt_lib.latest_valid_step(str(root / "S"), verify=True)
+        loaded = ckpt_lib.restore_checkpoint(
+            str(root / "S"), step, bridge.train_state_target(fresh, cfg))
+        bridge.load_train_state(loaded, fresh, fresh_opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del loaded
+        d_r, differ_r, _ = tree_distance(
+            bridge.train_state_to_tree(fresh, fresh_opt, cfg), b)
+        check(not differ_r, f"CK1 restore differs in {differ_r[:4]} by "
+              f"{d_r:.3g}")
+        del fresh, fresh_opt
+        release()
+        shutil.rmtree(root / "S")
+
+        # an async save of the same state: the stall and the background
+        # write
+        ck = ckpt_lib.AsyncCheckpointer(str(root / "A"))
+        stall_s = ck.save(CK_STEPS, tree, meta)
+        ck.close()
+        write_s = ck.stats[0]["write_s"]
+        del tree, b
+        t_pred = cm.checkpoint_write_time(cfg, topo.hw,
+                                          strat.to_cost_strategy(cfg, topo))
+        pred_bytes = cm.checkpoint_bytes(cfg, "f32")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutdown()
+    res.update(
+        losses=losses, control_max_abs=d_ctl,
+        control_leaves_differ=differ_ctl, b_max_abs=d_b,
+        b_leaves_differ=differ_b, bit_for_bit=not differ_b,
+        leaves=n_leaves, event_log=events, wall_b_s=wall_b,
+        loop_ckpt_stall_s=stalls, bytes_on_disk=n_bytes,
+        predicted_bytes=pred_bytes, gather_s=gather_s, sync_save_s=save_s,
+        validate_s=validate_s, restore_s=restore_s, async_stall_s=stall_s,
+        async_write_s=write_s, t_ckpt_predicted_s=t_pred,
+        predicted_over_sync_save=t_pred / save_s,
+        predicted_over_async_write=t_pred / write_s,
+        launches={k: counts_a[k] + counts_a2[k] + counts_b[k]
+                  for k in counts_a},
+        launches_b=counts_b)
+    print(f"[CK1] {n_bytes / 1e9:.3f} GB on disk (cost model "
+          f"{pred_bytes / 1e9:.3f} GB); gather {gather_s:.2f} s, sync save "
+          f"{save_s:.2f} s, validate {validate_s:.2f} s, CRC-verified "
+          f"restore {restore_s:.2f} s; async save stall {stall_s:.2f} s, "
+          f"background write {write_s:.2f} s; in-loop train/ckpt spans "
+          + ", ".join(f"{t:.2f}" for t in stalls) + " s; run B "
+          f"{wall_b:.1f} s; on {card}")
+    print(f"[CK1] cost model t_ckpt {t_pred:.2f} s ({topo.hw.ckpt_bw / 1e9:.0f}"
+          f" GB/s per writer, {cm.distinct_writers(strat.to_cost_strategy(cfg, topo))}"
+          f" writer): predicted/measured {t_pred / save_s:.3g} (sync save), "
+          f"{t_pred / write_s:.3g} (async write)")
     return res
 
 
@@ -2401,6 +2657,16 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    ck1 = ck1_phase(
+        dev, card, {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
+                    "flash_decode": 0, "flash_attention": L,
+                    "flash_attention_dq": L, "flash_attention_dkv": L,
+                    "wkv6": 0})
+    print(f"[CK1] ok in {time.perf_counter() - t0:.1f}s")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     dry = dryrun_phase(card, strat["peak_mem_bytes"])
     print(f"[dryrun] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -2452,6 +2718,7 @@ def main(argv=None):
     # from 0
     launches = {k: served["launches"][k] + trained["launches"][k]
                 + strat["launches"][k] + strat["fp8"]["launches"][k]
+                + ck1["launches"][k]
                 + piped["launches"][k] + rwkv_trained["launches"][k]
                 + ss1["launches"][k] + ss3["launches"][k]
                 + ss4["launches"][k] + ss2["launches"][k]
@@ -2463,6 +2730,7 @@ def main(argv=None):
             {"card": card, "kernels": rows, "kernels_tp": tp_rows,
              "serve": served,
              "train": trained, "train_strategy": strat, "dryrun": dry,
+             "checkpoint_ck1": ck1,
              "train_pipeline": piped,
              "train_rwkv6": rwkv_trained, "static_ss1": ss1,
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,

@@ -38,8 +38,20 @@ backward replays the plain chunked form) or the plain PyTorch layers
 kernel path uses each kernel's plain version.  Without a card and without
 ``--device cpu`` it raises.  Weights are random, from ``--seed``; the data
 is the seeded synthetic corpus or a flat uint16 token file.  Prints a loss
-line per logging step, then ``done: loss a -> b``.  Checkpoints come with
-a later slice (ROADMAP Queue 1).
+line per logging step, then ``done: loss a -> b``.
+
+Checkpoints and resilience, as the JAX CLI's: ``--ckpt_every N`` saves the
+training state every N steps to ``--ckpt_dir`` (default
+``results/ckpt/<arch>``) in the JAX package's layout (rank 0 writes;
+``--async_ckpt`` writes in a background thread, ``--ckpt_keep K`` keeps
+the newest K), ``--resume`` restores the newest CRC-valid one,
+``--fault_plan`` injects faults (``crash@<step>[,..]`` or a ``FaultPlan``
+JSON file) and ``--max_restarts N`` (> 0) supervises the run
+(``resilience.supervise_training``: restore and retry up to N times, a
+crash that loses devices re-plans onto the survivors), printing
+``[supervisor] recovered from N failure(s)`` and writing
+``--event_log``.  Under torchrun every rank runs the same plan and
+supervisor.
 
 ``--drift_report PATH`` writes the cost model's predicted step-time
 decomposition for the resolved strategy beside each logging window's
@@ -72,6 +84,8 @@ from repro_torch.device import card_description, resolve_device
 from repro_torch.launch.mesh import init_distributed, local_rank, shutdown
 from repro_torch.models import init_params
 from repro_torch.optim import AdamWConfig
+from repro_torch.resilience import (SupervisorConfig, load_fault_plan,
+                                    supervise_training)
 from repro_torch.strategy.topology import mesh_shape
 from repro_torch.train import TrainConfig, train_loop
 
@@ -92,6 +106,8 @@ def main(argv=None):
                     help="0 -> take it from the strategy spec (ga<k>)")
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' or a path to a flat uint16 token file")
+    ap.add_argument("--ckpt_dir", default="")
+    ap.add_argument("--ckpt_every", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=10)
     ap.add_argument("--topology", default="host",
                     help="host | pod | multipod[<k>] (pod meshes need as "
@@ -109,6 +125,21 @@ def main(argv=None):
                          "flash attention forward and backward; the WKV-6 "
                          "forward of RWKV-6 stacks); torch: plain PyTorch "
                          "layers")
+    # resilience: supervised restarts, fault injection, async checkpointing
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid checkpoint in ckpt_dir")
+    ap.add_argument("--async_ckpt", action="store_true",
+                    help="snapshot on-thread, write checkpoints in background")
+    ap.add_argument("--ckpt_keep", type=int, default=0,
+                    help="gc all but the newest N checkpoints (0 = keep all)")
+    ap.add_argument("--max_restarts", type=int, default=0,
+                    help="supervise the run: restart up to N times on "
+                         "failure, restoring from the latest valid ckpt")
+    ap.add_argument("--fault_plan", default="",
+                    help="inject faults: 'crash@<step>[,..]' or a FaultPlan "
+                         "JSON path")
+    ap.add_argument("--event_log", default="",
+                    help="write the supervisor's structured event log here")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace/Perfetto JSON of the run's "
                          "spans here")
@@ -152,18 +183,27 @@ def _train(args, cfg, device):
     impl = IMPLS[args.kernels]
     # dtypes from the strategy's precision policy; WKV-6 chunk 32, as the
     # JAX train CLI sets it
-    rt = par.make_runtime(cfg, plan, shape, attn_impl=impl, norm_impl=impl,
-                          rwkv_chunk=32,
-                          attn_min_chunked_len=max(2048, args.seq_len + 1)
-                          if args.seq_len <= 2048 else 2048)
-    src = (SyntheticSource(cfg.vocab_size, seed=args.seed)
-           if args.data == "synthetic" else BinTokenSource(args.data))
-    batches = Batcher(src, args.seq_len, args.global_batch)
+    rt_overrides = dict(attn_impl=impl, norm_impl=impl, rwkv_chunk=32,
+                        attn_min_chunked_len=max(2048, args.seq_len + 1)
+                        if args.seq_len <= 2048 else 2048)
+    rt = par.make_runtime(cfg, plan, shape, **rt_overrides)
+
+    def make_batches():
+        # fresh per attempt: sources are stateful; a resumed attempt
+        # replays the stream and skips to the restored position
+        src = (SyntheticSource(cfg.vocab_size, seed=args.seed)
+               if args.data == "synthetic" else BinTokenSource(args.data))
+        return Batcher(src, args.seq_len, args.global_batch)
+
     grad_accum = args.grad_accum or strat.grad_accum
     tc = TrainConfig(steps=args.steps, warmup=max(args.steps // 20, 1),
-                     log_every=args.log_every, grad_accum=grad_accum,
-                     opt=AdamWConfig(lr=args.lr))
-    params = par.apply_plan(init_params(cfg, args.seed, device), plan, cfg)
+                     log_every=args.log_every, ckpt_every=args.ckpt_every,
+                     ckpt_dir=args.ckpt_dir or os.path.join("results", "ckpt",
+                                                            cfg.name),
+                     grad_accum=grad_accum, opt=AdamWConfig(lr=args.lr),
+                     ckpt_async=args.async_ckpt, ckpt_keep=args.ckpt_keep,
+                     resume=args.resume)
+    fault_plan = load_fault_plan(args.fault_plan) if args.fault_plan else None
 
     recorder = tel.NULL
     if main_rank and (args.trace or args.metrics_jsonl or args.drift_report):
@@ -182,10 +222,28 @@ def _train(args, cfg, device):
               f"global_batch={args.global_batch} grad_accum={grad_accum} "
               f"kernels={args.kernels} ranks={dist.get_world_size()} "
               f"device={device} ({where})")
-    params, opt_state, history = train_loop(cfg, rt, tc, batches, params,
-                                            telemetry=recorder, plan=plan,
-                                            drift=drift)
+    if args.max_restarts > 0:
+        params, opt_state, history, sup = supervise_training(
+            cfg, strat, topo, shape, tc, make_batches,
+            rt_overrides=rt_overrides, seed=args.seed, device=device,
+            fault_plan=fault_plan,
+            sup_cfg=SupervisorConfig(max_restarts=args.max_restarts,
+                                     event_log_path=args.event_log),
+            telemetry=recorder, drift=drift)
+        n_failures = sum(e["kind"] == "failure" for e in sup.events)
+        if main_rank and n_failures:
+            print(f"[supervisor] recovered from {n_failures} failure(s)"
+                  + (f"; event log: {args.event_log}" if args.event_log
+                     else ""))
+    else:
+        params = par.apply_plan(init_params(cfg, args.seed, device), plan,
+                                cfg)
+        params, opt_state, history = train_loop(
+            cfg, rt, tc, make_batches(), params, telemetry=recorder,
+            plan=plan, drift=drift, fault_plan=fault_plan, seed=args.seed)
     recorder.close()
+    if params is None:        # outside the mesh of a degraded re-plan
+        return history
     if main_rank and args.trace:
         print(f"[telemetry] trace written to {args.trace}")
     if drift is not None:
@@ -199,8 +257,8 @@ def _train(args, cfg, device):
         print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
               f"over {args.steps} steps")
     if args.profile:
-        profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
-                      plan, main_rank)
+        profile_steps(cfg, rt, tc, make_batches(), params, opt_state, args,
+                      device, plan, main_rank)
     return history
 
 
@@ -231,7 +289,8 @@ def profile_steps(cfg, rt, tc, batches, params, opt_state, args, device,
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    ptc = dataclasses.replace(tc, steps=PROFILE_STEPS, log_every=1)
+    ptc = dataclasses.replace(tc, steps=PROFILE_STEPS, log_every=1,
+                              ckpt_every=0, resume=False)
     with profile(activities=acts) as prof:
         train_loop(cfg, rt, ptc, batches, params, opt_state,
                    telemetry=tel.Recorder(), plan=plan)

@@ -2,9 +2,10 @@
 
 A copy of the JAX package's ``strategy/topology.py`` but for two
 functions: ``host_topology`` counts the ranks of the process group, and
-``build_mesh`` returns a ``torch.distributed`` ``DeviceMesh`` (or, with
-``abstract=True``, the ordered ``{axis: size}`` mapping that the
-group-size analysis needs, with no process group at all).
+``build_mesh`` returns a ``torch.distributed`` ``DeviceMesh`` over the
+first ``n_devices`` ranks (or, with ``abstract=True``, the ordered
+``{axis: size}`` mapping that the group-size analysis needs, with no
+process group at all).
 
 The paper's core argument is that the right parallelization strategy is a
 function of the *cluster*, not just the model: island size (NVLink node /
@@ -25,8 +26,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core import costmodel as cm
 
@@ -119,11 +121,14 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
     ep-group ranks are as mesh-adjacent as the model axis allows.
     ``abstract=True`` returns the ordered ``{axis: size}`` mapping —
     enough for group-size analysis without any process group.  Otherwise
-    the mesh spans the default process group (its world size must equal
-    ``topology.n_devices``) on ``device_type``: by default the type the
-    process group's backend serves (``cuda`` where it has NCCL, else
-    ``cpu``); the dry run's fake group serves no device of its own, so its
-    caller names one.
+    the mesh spans the first ``topology.n_devices`` ranks of the default
+    process group (all of them, or fewer after a re-plan onto the devices
+    that survive a failure, as ``jax.make_mesh`` takes the first n
+    devices: every rank must call this, since the mesh's process groups
+    are made collectively, and a rank outside the mesh has no coordinate
+    on it) on ``device_type``: by default the type the process group's
+    backend serves (``cuda`` where it has NCCL, else ``cpu``); the dry
+    run's fake group serves no device of its own, so its caller names one.
     """
     n = topology.n_devices
     if n % (model * pods * pipe * expert):
@@ -139,11 +144,12 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
     axes = tuple(axes[i] for i in keep)
     if abstract:
         return dict(zip(axes, shape))
-    if not dist.is_initialized() or dist.get_world_size() != n:
+    if not dist.is_initialized() or dist.get_world_size() < n:
         raise ValueError(
             f"a mesh over {n} devices needs a process group of {n} ranks "
-            f"(have {world_size() if dist.is_initialized() else 'none'}); "
-            "start one with repro_torch.launch.mesh.init_distributed")
+            f"or more (have "
+            f"{world_size() if dist.is_initialized() else 'none'}); start "
+            "one with repro_torch.launch.mesh.init_distributed")
     if device_type is None:
         # NCCL alone, or NCCL for card tensors beside gloo for host ones
         backend = dist.get_backend()
@@ -151,6 +157,9 @@ def build_mesh(topology: Topology, model: int = 1, pods: int = 1,
             raise ValueError("a mesh over a fake process group needs its "
                              "device_type (the dry run's --device)")
         device_type = "cuda" if "nccl" in backend else "cpu"
+    if n < dist.get_world_size():
+        return DeviceMesh(device_type, torch.arange(n).view(shape),
+                          mesh_dim_names=axes)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -5,7 +5,8 @@ serving engine, the trainer and their CLIs use — one flat event schema,
 counters, gauges, histograms with exact nearest-rank p50/p99, the JSONL
 and Chrome-trace sinks behind ``--metrics_jsonl`` / ``--trace``, the
 :class:`Recorder`, the no-op ``NULL`` recorder and the predicted-vs-
-measured :class:`DriftMonitor` behind the train CLI's ``--drift_report``.  Spans enter
+measured :class:`DriftMonitor` behind the train CLI's ``--drift_report``
+and ``summarize_events`` behind its ``--event_log``.  Spans enter
 ``torch.profiler.record_function`` so host spans line up with the device
 kernels in a ``torch.profiler`` trace; ``device_time_in_spans`` reads a
 profile that way.
@@ -20,7 +21,8 @@ import numbers
 import os
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -67,6 +69,21 @@ def make_event(kind: str, name: str, ts: float, **fields: Any) -> Dict:
     if errs:
         raise ValueError(f"invalid telemetry event {ev!r}: {errs}")
     return ev
+
+
+def summarize_events(events: Iterable[Dict]) -> Dict:
+    """Aggregate a supervisor-style event list into the summary document
+    the ``--event_log`` flag writes (the resilience tests read these exact
+    keys)."""
+    events = list(events)
+    failures = [e for e in events if e.get("kind") == "failure"]
+    return {
+        "n_failures": len(failures),
+        "total_lost_steps": sum(e.get("lost_steps") or 0 for e in failures),
+        "total_recovery_s": sum(e.get("recovery_wall_s") or 0.0
+                                for e in failures),
+        "events": events,
+    }
 
 
 # ---------------------------------------------------------------------------

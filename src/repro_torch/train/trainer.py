@@ -5,18 +5,22 @@ port of the JAX package's ``train/trainer.py``.
 ``make_train_step`` maps (params, opt_state, batch) -> (params, opt_state,
 metrics); it updates the parameters and moments in place.  Metrics stay
 0-d tensors on the device: reading one waits for the device, so
-``train_loop`` reads them only on logging steps.  Checkpoints, resume and
-fault injection come with the checkpointing slice (ROADMAP Queue 1).
+``train_loop`` reads them only on logging steps.  ``train_loop`` also
+checkpoints (sync or async, in the JAX package's layout), resumes from the
+newest CRC-valid checkpoint, and takes a ``resilience.FaultPlan``'s
+injected crashes, stragglers and checkpoint-I/O errors.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import bridge
+from repro_torch import checkpointing as ckpt_lib
 from repro_torch import telemetry as tel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
@@ -34,8 +38,15 @@ class TrainConfig:
     steps: int = 100
     warmup: int = 10
     log_every: int = 10
+    ckpt_every: int = 0
+    ckpt_dir: str = ""
     grad_accum: int = 1
     opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    # resilience: async checkpointing + kill/resume (resilience subsystem)
+    ckpt_async: bool = False        # snapshot on-thread, write in background
+    ckpt_max_in_flight: int = 2     # bounded queued background writes
+    ckpt_keep: int = 0              # gc all but the newest N (0 = keep all)
+    resume: bool = False            # restore latest *valid* ckpt_dir state
 
 
 class _DataParallel:
@@ -254,20 +265,86 @@ def batch_to_device(batch, device: torch.device):
     return out
 
 
+def prng_key_data(seed: int) -> list:
+    """The key data of the JAX package's ``jax.random.PRNGKey(seed)``
+    (threefry: the seed's high and low 32 bits), which a checkpoint's
+    ``meta["prng"]`` holds so that a JAX run resumes from it."""
+    return [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF]
+
+
+def _from_first_rank(compute: Callable[[], Any], plan=None) -> Any:
+    """``compute()`` on the rank at the origin of ``plan``'s mesh (global
+    rank 0; the only one when there is no mesh), its value broadcast to
+    every rank of the mesh along each mesh dimension in turn, so ranks
+    outside a smaller mesh take no part.  What rank 0 decides about the
+    shared checkpoint directory, every rank then acts on."""
+    mesh = None if plan is None or not dist.is_initialized() else plan.mesh
+    first = mesh is None or not any(mesh.get_coordinate())
+    box = [compute() if first else None]
+    for d in range(mesh.ndim if mesh is not None else 0):
+        if mesh.size(d) > 1:
+            group = mesh.get_group(d)
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def _agree_on_error(err: Optional[BaseException], plan) -> None:
+    """Raise on every rank of the mesh what failed on the writer (rank 0):
+    its own exception there (any: a full disk's ``OSError`` too), a
+    ``CheckpointIOError`` (retried) or ``CheckpointError`` of the same
+    message elsewhere.  A writer's failure raised on it alone would leave
+    the other ranks in the next collective."""
+    status = _from_first_rank(
+        lambda: None if err is None else
+        (isinstance(err, ckpt_lib.CheckpointIOError),
+         str(err) if isinstance(err, ckpt_lib.CheckpointError)
+         else f"rank 0's checkpoint write failed: {err!r}"), plan)
+    if err is not None:
+        raise err
+    if status is not None:
+        io, msg = status
+        raise (ckpt_lib.CheckpointIOError if io
+               else ckpt_lib.CheckpointError)(msg)
+
+
+def _restore(tc: TrainConfig, cfg, params, opt_state, plan, pipe_group,
+             prints: bool) -> Dict:
+    """Resume support: load the newest checkpoint in ``tc.ckpt_dir`` that
+    passes CRC validation (chosen on rank 0) into ``params`` and
+    ``opt_state`` in place -> its meta ({} when there is none)."""
+    step = _from_first_rank(
+        lambda: ckpt_lib.latest_valid_step(tc.ckpt_dir, verify=True), plan)
+    if step is None:
+        return {}
+    tree = ckpt_lib.restore_checkpoint(
+        tc.ckpt_dir, step, bridge.train_state_target(params, cfg, pipe_group))
+    bridge.load_train_state(tree, params, opt_state)
+    meta = ckpt_lib.load_meta(tc.ckpt_dir, step)
+    if prints:
+        print(f"[resume] restored step {meta.get('step', step)} from "
+              f"{tc.ckpt_dir}", flush=True)
+    return meta
+
+
 def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
                params, opt_state=None,
                telemetry: tel.Recorder = tel.NULL, plan=None,
-               drift: Optional[tel.DriftMonitor] = None):
+               drift: Optional[tel.DriftMonitor] = None,
+               hooks: Optional[Callable] = None, fault_plan=None,
+               seed: int = 0):
     """Train ``params`` (on their device) for ``tc.steps`` steps on the
     numpy batches of ``batches``; -> (params, opt_state, history).
 
     Each step is a ``train/step`` span with ``train/dispatch`` (the step's
     host work, which enqueues the device's), ``train/data`` (the next
-    batch) and, on logging steps, ``train/wait`` children.  The host waits
-    for the device only on logging steps (every ``log_every`` and the
-    first), where it prints a loss line, appends the metrics to
-    ``history`` and sets the ``train/wps`` and ``train/steps_per_s``
-    gauges over the window since the last log.  ``drift`` (a
+    batch), ``train/ckpt`` on checkpointing steps and, on logging steps,
+    ``train/wait`` children.  The host waits for the device only on
+    logging steps (every ``log_every`` and the first), where it prints a
+    loss line, appends the metrics to ``history``, calls ``hooks(step,
+    params, metrics)`` and sets the ``train/wps``, ``train/steps_per_s``
+    and ``train/goodput_frac`` (1 - checkpoint time / window time) gauges
+    over the window since the last log.  ``drift`` (a
     :class:`~repro_torch.telemetry.DriftMonitor` built from the resolved
     strategy's ``StepReport.decomposition()``) gets one measured window
     per logging window: the mean seconds per step of the window
@@ -276,59 +353,167 @@ def train_loop(cfg: ModelConfig, rt: Runtime, tc: TrainConfig, batches,
     ``model_flops_per_step`` and ``cluster_peak_flops`` the ``train/mfu``
     gauge is set too, as in the JAX package.  Under a ``plan`` every rank
     trains (see :func:`make_train_step`) and rank 0 prints.
+
+    Every ``tc.ckpt_every`` steps the state is saved to ``tc.ckpt_dir``
+    (``bridge.train_state_to_tree``, gathered on every rank; rank 0
+    writes, through an ``AsyncCheckpointer`` under ``tc.ckpt_async``,
+    keeping the newest ``tc.ckpt_keep``), with one retry on a transient
+    ``CheckpointIOError``; the meta holds the step, the batches consumed
+    and the key data of ``PRNGKey(seed)`` (``seed``: the one the
+    parameters were built from).  ``tc.resume`` first loads the newest
+    CRC-valid checkpoint into ``params`` and ``opt_state`` in place and
+    replays the data stream from its position, so a killed and resumed
+    run is bit-identical to an uninterrupted one.  ``fault_plan``
+    (:class:`repro_torch.resilience.FaultPlan`) injects crashes (raised as
+    ``SimulatedFailure`` before the scheduled step runs), straggler sleeps
+    (scaled by the measured step time: only a plan with stragglers syncs
+    the device every step) and transient checkpoint-I/O errors.
     """
     device = params.device
     opt_state = opt_state if opt_state is not None else init_opt_state(params)
     step_fn = make_train_step(cfg, rt, tc, plan)
     prints = not dist.is_initialized() or dist.get_rank() == 0
-    it = iter(batches)
+    pipe_group = rt.pipe_group if rt.pipe_size > 1 else None
+    start_step = 0
+    if tc.resume and tc.ckpt_dir:
+        meta = _restore(tc, cfg, params, opt_state, plan, pipe_group, prints)
+        start_step = int(meta.get("step", 0))
+    checkpointer = None
+    if tc.ckpt_every and tc.ckpt_async and prints:
+        checkpointer = ckpt_lib.AsyncCheckpointer(
+            tc.ckpt_dir, max_in_flight=tc.ckpt_max_in_flight,
+            keep=tc.ckpt_keep)
+
+    def save(step):
+        meta = {"step": step, "batches_consumed": step,
+                "prng": prng_key_data(seed)}
+        # one retry: the injected checkpoint-I/O faults are transient
+        for attempt in range(2):
+            try:
+                if fault_plan is not None:
+                    fault_plan.ckpt_io_check(step)
+                tree = bridge.train_state_to_tree(params, opt_state, cfg,
+                                                  pipe_group)
+                err = None
+                if prints:
+                    try:
+                        if checkpointer is not None:
+                            checkpointer.save(step, tree, meta=meta)
+                        else:
+                            ckpt_lib.save_checkpoint(tc.ckpt_dir, step, tree,
+                                                     meta=meta)
+                            if tc.ckpt_keep:
+                                ckpt_lib.gc_checkpoints(tc.ckpt_dir,
+                                                        keep=tc.ckpt_keep)
+                    except Exception as e:  # noqa: BLE001 - agreed below
+                        err = e
+                del tree
+                _agree_on_error(err, plan)
+                return
+            except ckpt_lib.CheckpointIOError as e:
+                if attempt:
+                    raise
+                if prints:
+                    print(f"[ckpt] transient I/O error at step {step}, "
+                          f"retrying: {e}", flush=True)
+
+    # data-pipeline position: a resumed run must see exactly the batches
+    # an uninterrupted run would have seen from this step
+    if start_step and hasattr(batches, "at"):
+        it = iter(batches.at(start_step))
+    else:
+        it = iter(batches)
+        for _ in range(start_step):
+            next(it)
     batch = batch_to_device(next(it), device)
     tokens_per_step = batch["labels"].numel()
+    # straggler injection scales a measured step time, so only a plan
+    # that schedules stragglers justifies a device sync every step
+    sync_every_step = fault_plan is not None and any(
+        e.kind == "straggler" for e in fault_plan.events)
     history = []
     t0 = win_t0 = time.time()
-    win_start = 0
-    win_dispatch = win_data = win_wait = 0.0
-    for step in range(tc.steps):
-        with telemetry.span("train/step", step_num=step):
-            t1 = time.time()
-            with telemetry.span("train/dispatch"):
-                params, opt_state, metrics = step_fn(params, opt_state, batch)
-            t2 = time.time()
-            win_dispatch += t2 - t1
-            if step + 1 < tc.steps:
-                with telemetry.span("train/data"):
-                    batch = batch_to_device(next(it), device)
-            win_data += time.time() - t2
-            if (step + 1) % tc.log_every and step:
-                continue
-            t4 = time.time()
-            with telemetry.span("train/wait"):
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                m = {k: float(v) for k, v in metrics.items()}
-            now = time.time()
-            win_wait += now - t4
-            m["steps_per_s"] = (step + 1) / (now - t0)
-            history.append({"step": step + 1, **m})
-            if prints:
-                print(f"step {step + 1:5d}  loss {m['loss']:.4f}"
-                      f"  gnorm {m['grad_norm']:.3f}"
-                      f"  {m['steps_per_s']:.2f} it/s", flush=True)
-            n_win, dt_win = step + 1 - win_start, now - win_t0
-            if n_win > 0 and dt_win > 0:
-                telemetry.gauge("train/wps", tokens_per_step * n_win / dt_win)
-                telemetry.gauge("train/steps_per_s", n_win / dt_win)
-                if drift is not None:
-                    fl = drift.meta.get("model_flops_per_step")
-                    peak = drift.meta.get("cluster_peak_flops")
-                    if fl and peak:
-                        telemetry.gauge("train/mfu",
-                                        fl / (dt_win / n_win) / peak)
-                    drift.observe({"step": dt_win / n_win,
-                                   "dispatch": win_dispatch / n_win,
-                                   "wait": win_wait / n_win,
-                                   "data": win_data / n_win},
-                                  n_steps=n_win)
-            win_t0, win_start = now, step + 1
-            win_dispatch = win_data = win_wait = 0.0
+    t_step_ema = 0.0
+    win_start = start_step
+    win_dispatch = win_data = win_wait = win_ckpt = 0.0
+    try:
+        for step in range(start_step, tc.steps):
+            with telemetry.span("train/step", step_num=step):
+                if fault_plan is not None:
+                    fault_plan.check_crash(step)
+                    mult = fault_plan.delay_multiplier(step)
+                    if mult > 1.0 and t_step_ema > 0.0:
+                        time.sleep((mult - 1.0) * t_step_ema)
+                t1 = time.time()
+                with telemetry.span("train/dispatch"):
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         batch)
+                t2 = time.time()
+                win_dispatch += t2 - t1
+                if step + 1 < tc.steps:
+                    with telemetry.span("train/data"):
+                        batch = batch_to_device(next(it), device)
+                win_data += time.time() - t2
+                if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
+                    t3 = time.time()
+                    with telemetry.span("train/ckpt", step=step + 1):
+                        save(step + 1)
+                    win_ckpt += time.time() - t3
+                log_now = (step + 1) % tc.log_every == 0 or \
+                    step == start_step
+                if not (log_now or sync_every_step):
+                    continue
+                t4 = time.time()
+                with telemetry.span("train/wait"):
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    m = ({k: float(v) for k, v in metrics.items()}
+                         if log_now else None)
+                now = time.time()
+                win_wait += now - t4
+                t_step_ema = now - t1 if t_step_ema == 0.0 else \
+                    0.7 * t_step_ema + 0.3 * (now - t1)
+                if not log_now:
+                    continue
+                m["steps_per_s"] = (step + 1 - start_step) / (now - t0)
+                history.append({"step": step + 1, **m})
+                if prints:
+                    print(f"step {step + 1:5d}  loss {m['loss']:.4f}"
+                          f"  gnorm {m['grad_norm']:.3f}"
+                          f"  {m['steps_per_s']:.2f} it/s", flush=True)
+                n_win, dt_win = step + 1 - win_start, now - win_t0
+                if n_win > 0 and dt_win > 0:
+                    telemetry.gauge("train/wps",
+                                    tokens_per_step * n_win / dt_win)
+                    telemetry.gauge("train/steps_per_s", n_win / dt_win)
+                    telemetry.gauge("train/goodput_frac",
+                                    max(0.0, 1.0 - win_ckpt / dt_win))
+                    if drift is not None:
+                        fl = drift.meta.get("model_flops_per_step")
+                        peak = drift.meta.get("cluster_peak_flops")
+                        if fl and peak:
+                            telemetry.gauge("train/mfu",
+                                            fl / (dt_win / n_win) / peak)
+                        drift.observe({"step": dt_win / n_win,
+                                       "dispatch": win_dispatch / n_win,
+                                       "wait": win_wait / n_win,
+                                       "data": win_data / n_win},
+                                      n_steps=n_win)
+                win_t0, win_start = now, step + 1
+                win_dispatch = win_data = win_wait = win_ckpt = 0.0
+                if hooks:
+                    hooks(step + 1, params, m)
+        if tc.ckpt_every and tc.ckpt_async:
+            # every queued write committed, and agreed on, before return
+            err = None
+            try:
+                if checkpointer is not None:
+                    checkpointer.close()
+            except Exception as e:  # noqa: BLE001 - agreed below
+                err = e
+            checkpointer = None
+            _agree_on_error(err, plan)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
     return params, opt_state, history

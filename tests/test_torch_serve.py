@@ -289,7 +289,9 @@ def test_port_imports_no_jax():
             "repro_torch.models.transformer, repro_torch.models.layers, "
             "repro_torch.bridge, repro_torch.configs, "
             "repro_torch.strategy.topology, "
-            "repro_torch.strategy.descriptor, chip_smoke\n"
+            "repro_torch.strategy.descriptor, repro_torch.checkpointing, "
+            "repro_torch.resilience, repro_torch.resilience.supervisor, "
+            "chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
