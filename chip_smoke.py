@@ -27,10 +27,14 @@ order; any failure ends the run with a non-zero exit and no result line:
               launches' device times.  Flash-decode (one launch: the
               splits merged inside a thread-block cluster) is held against
               the plain splits and combine at splits 1, 2, 4 and 12, and
-              at B 8, ctx 4096, with its device time.  At
+              at B 8, ctx 4096, with its device time; then at
+              granite-20b's heads (H 48 over Kv 1: three head tiles of
+              16) and qwen2-1.5b's (H 12 over Kv 2), at both contexts.  At
               the training shape it also times ``attention_delta``, prints
               dq + dk/dv + delta against SDPA's backward, and names the
-              kernels SDPA's backward ran.  Then the flash forward, dq,
+              kernels SDPA's backward ran; the same at h2o-danube-1.8b's
+              training shape (B 8, S 512, H 32, Kv 8, head dim 80), with
+              and without a window of 128.  Then the flash forward, dq,
               dk/dv and WKV-6 at the per-rank shapes of tensor
               parallelism (qwen3's H 8/4/2/1 with Kv 4/2/1/1 at tp
               2/4/8/16, rwkv6's H 16/8/4 at tp 2/4/8; B 8, S 512), in f32
@@ -186,7 +190,34 @@ order; any failure ends the run with a non-zero exit and no result line:
               WKV-6 launches) within max(SS2_LOGIT_ATOL, FLOOR_FACTOR x
               the plain forward's own move under a 1e-7 relative
               perturbation of its WKV outputs).
-14. report  — one JSON line listing every kernel (its f32 case, and a
+14. Q2      — qwen2-1.5b at full width and depth (28 layers, 12 heads
+              over Kv 2, qkv bias), f32: the serve phase's 12 requests
+              through the paged engine (flash-decode at G 6, launches
+              exact, teacher forcing kernel vs plain); B 8 prompts of 128
+              + 32 greedy tokens through ``generate_static`` (launches
+              exact, teacher-forced logits kernel vs plain) and the paged
+              engine, whose tokens must equal the static ones, every
+              one; 4 AdamW steps of 8 x 512 (lr warmed up over
+              the 4 to 5e-5: DENSE_LR), launches exact, losses finite and
+              falling, then kernel vs plain gradients at 2 x 512.
+15. H1      — h2o-danube-1.8b at full width and depth (24 layers, head dim
+              80, window 4096), f32: Q2's training on the head-dim-80
+              flash kernels; then one request of 4,200 tokens (past the
+              window) + 32 greedy tokens through the static engine (a ring
+              of 4,096 slots, the prefill on the windowed flash forward)
+              and the paged engine (the window mask on the plain path, as
+              the reference gates flash-decode), held as in Q2.
+16. G1, D4  — granite-20b at full width (d 6144, 48 heads over Kv 1, d_ff
+              24576, layernorm, GELU, sinusoidal positions) cut to 4
+              layers (52 hold 81 GB of f32 weights), f32: Q2's serving
+              (flash-decode at G 48); 6 AdamW steps under ``fsdp`` on the
+              1-rank NCCL mesh (lr warmed up to 1e-5: G1_LR), launches
+              exact, losses finite and falling; kernel vs plain gradients
+              at 2 x 512; the dry run of that plan
+              against its ``max_memory_allocated`` within 10 %; then cell
+              D4, ``granite-20b x train_4k`` at full depth on the pod
+              topology (256 fake ranks), which must trace.
+17. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -232,6 +263,7 @@ from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
 from repro_torch.launch.train import drift_monitor  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -486,11 +518,11 @@ def rmsnorm_phase(dev, flush, gen):
 
 
 def decode_case(dev, dtype, gen, B=8, nb=20, ctx=(320, 1, 17, 100, 255, 64,
-                                                   200, 33)):
-    """H 16, Kv 8, D 128, bs 16: by default the serving shape, ragged ctx
-    up to 320 (a full table of 20 blocks); permuted pool blocks, -1 table
-    tails."""
-    H, Kv, D, bs = 16, 8, 128, 16
+                                                   200, 33), H=16, Kv=8):
+    """D 128, bs 16: by default qwen3's serving shape (H 16, Kv 8), ragged
+    ctx up to 320 (a full table of 20 blocks); permuted pool blocks, -1
+    table tails."""
+    D, bs = 128, 16
     P = B * nb + 5
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dtype)
     k_pool = torch.randn(P, bs, Kv, D, generator=gen, device=dev).to(dtype)
@@ -503,20 +535,29 @@ def decode_case(dev, dtype, gen, B=8, nb=20, ctx=(320, 1, 17, 100, 255, 64,
     return q, k_pool, v_pool, tbl, ctx
 
 
-# (splits, long context, decode_case arguments): the serving shape (its
-# splits 4 row is reported), then B 8 at ctx 4096 (256 blocks, 268 MB of
-# f32 K/V); at splits 12 each CTA of a cluster of 4 takes 3 splits
-DECODE_CASES = [((1, 2, 4, 12), False, {}),
-                ((4, 12), True, dict(B=8, nb=256, ctx=(4096,) * 8))]
+# (model, splits, long context, decode_case arguments): qwen3's serving
+# shape (its splits 4 row is reported), then B 8 at ctx 4096 (256 blocks,
+# 268 MB of f32 K/V); at splits 12 each CTA of a cluster of 4 takes 3
+# splits.  Then granite-20b's heads (H 48 over Kv 1: three head tiles of
+# 16, each its own cluster) and qwen2-1.5b's (H 12 over Kv 2, G 6), at the
+# same batch and contexts
+LONG = dict(B=8, nb=256, ctx=(4096,) * 8)
+GRANITE_HEADS, QWEN2_HEADS = dict(H=48, Kv=1), dict(H=12, Kv=2)
+DECODE_CASES = [("qwen3", (1, 2, 4, 12), False, {}),
+                ("qwen3", (4, 12), True, LONG),
+                ("granite", (4, 12), False, GRANITE_HEADS),
+                ("granite", (4,), True, dict(LONG, **GRANITE_HEADS)),
+                ("qwen2", (4,), False, QWEN2_HEADS),
+                ("qwen2", (4,), True, dict(LONG, **QWEN2_HEADS))]
 
 
 def flash_decode_phase(dev, flush, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for splits_list, long_ctx, kw in DECODE_CASES:
+        for model, splits_list, long_ctx, kw in DECODE_CASES:
             case = decode_case(dev, dtype, gen, **kw)
-            rows += decode_rows(dev, flush, dtype, case, splits_list,
-                                long_ctx)
+            rows += [dict(r, case=model) for r in decode_rows(
+                dev, flush, dtype, case, splits_list, long_ctx)]
             del case
     return rows
 
@@ -571,7 +612,8 @@ def decode_rows(dev, flush, dtype, case, splits_list, long_ctx):
                              flush, 5 if long_ctx else 50),
             library_ms=sdpa_ms, bound_ms=bnd, bound_by=by)
         rows.append(row)
-        print(f"[kernels] flash_decode {dt} {ctx_s} splits={n_splits}: "
+        print(f"[kernels] flash_decode {dt} H{H} Kv{Kv} {ctx_s} "
+              f"splits={n_splits}: "
               f"err {err:.3g} kernel {row['ms']:.4f} ms (device "
               f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
               f"SDPA {sdpa_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
@@ -656,10 +698,16 @@ def visible_pairs(S, window):
     return int(n.sum())
 
 
-# B, S, H, Kv, D, window: the training shape (timed), then ragged S, a
-# sliding window and MQA (checked, not timed)
-FLASH_CASES = [(8, 512, 16, 8, 128, 0), (2, 300, 16, 8, 128, 0),
-               (2, 300, 16, 8, 128, 128), (2, 512, 16, 1, 128, 0)]
+# B, S, H, Kv, D, window, timed: qwen3's training shape (timed; the
+# reported row), then ragged S, a sliding window and MQA (checked, not
+# timed); then h2o-danube-1.8b's training shape at head dim 80 (timed),
+# with a window that bites at that length (timed), and ragged S
+FLASH_CASES = [(8, 512, 16, 8, 128, 0, True), (2, 300, 16, 8, 128, 0, False),
+               (2, 300, 16, 8, 128, 128, False),
+               (2, 512, 16, 1, 128, 0, False),
+               (8, 512, 32, 8, 80, 0, True), (8, 512, 32, 8, 80, 128, True),
+               (2, 300, 32, 8, 80, 0, False)]
+FLASH_REPORTED = "B8 S512 H16 Kv8 D128 causal window0"
 
 
 def flash_case(dev, gen, dtype, B, S, H, Kv, D, window):
@@ -744,24 +792,31 @@ def flash_phase(dev, flush, gen):
     timed beside its plain version, its bound and SDPA."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for ci, (B, S, H, Kv, D, window) in enumerate(FLASH_CASES):
+        for B, S, H, Kv, D, window, timed in FLASH_CASES:
             q, k, v, do, o0, args, errs, shape = flash_case(
                 dev, gen, dtype, B, S, H, Kv, D, window)
             dt = str(dtype).split(".")[-1]
-            base = dict(dtype=dt, shape=shape, timed=ci == 0)
-            if ci:
+            base = dict(dtype=dt, shape=shape, timed=timed)
+            if not timed:
                 rows += [dict(base, name=n, max_abs_err=e)
                          for n, e in errs.items()]
                 continue
             bounds, notes = flash_bounds(dtype, B, S, H, Kv, D, window)
             qs, ks, vs, dos = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))
+            # SDPA takes the causal window as a boolean mask
+            mask = None if not window else (
+                lambda i: (i[None] <= i[:, None])
+                & (i[None] > i[:, None] - window))(
+                    torch.arange(S, device=dev))
+            sdpa_kw = (dict(is_causal=True) if mask is None
+                       else dict(attn_mask=mask))
             lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True), flush, 20)
+                qs, ks, vs, enable_gqa=True, **sdpa_kw), flush, 20)
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
                 out = F.scaled_dot_product_attention(
-                    *leaves, is_causal=True, enable_gqa=True)
+                    *leaves, enable_gqa=True, **sdpa_kw)
                 sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
                     out, leaves, dos, retain_graph=True)
                 lib_bwd = time_ms(sdpa_bwd, flush, 20)
@@ -1022,8 +1077,25 @@ def teacher_forced(cfg, params, prompts, gens, dev, chunk, block_size):
     return worst, agree / total, served / total
 
 
-def serve_phase(dev):
-    cfg = get_config("qwen3-0.6b")
+def serve_expect(cfg, forward_calls, decode_steps):
+    """Launches of a paged run on the kernel path: 2L + 1 RMSNorms per
+    forward (none for a layernorm stack), L flash-decodes per decode step
+    (none with a sliding window: the plain path, as the reference's
+    gate)."""
+    out = {k: 0 for k in ops.launch_counts()}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = (2 * cfg.n_layers + 1) * forward_calls
+    if not cfg.sliding_window:
+        out["flash_decode"] = cfg.n_layers * decode_steps
+    return out
+
+
+def serve_phase(dev, cfg=None, tag="serve", params=None):
+    """``cfg`` (qwen3-0.6b by default) serves 12 requests over 8 slots
+    through the paged engine on the kernels, launches exact; then teacher
+    forcing, kernel vs plain.  ``params``, when given, are freed by the
+    caller."""
+    cfg = cfg or get_config("qwen3-0.6b")
     n_req, n_slots, n_new, chunk, bs = 12, 8, 48, 32, 16
     rng = np.random.default_rng(SEED)
     lens = rng.integers(17, 201, n_req)
@@ -1031,9 +1103,10 @@ def serve_phase(dev):
     prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
                for L in lens]
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    if params is None:
+        params = tfm.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, f32 weights from seed "
           f"{SEED} in {time.perf_counter() - t0:.1f}s")
     kw = dict(max_len=int(lens.max()) + n_new, n_slots=n_slots,
@@ -1055,11 +1128,8 @@ def serve_phase(dev):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     fwd, steps = eng.stats["forward_calls"], eng.stats["decode_steps"]
-    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * fwd, "rmsnorm_bwd": 0,
-              "flash_decode": cfg.n_layers * steps,
-              "flash_attention": 0, "flash_attention_dq": 0,
-              "flash_attention_dkv": 0, "wkv6": 0}
-    print(f"[serve] {fwd} forward calls ({steps} decode steps); launches "
+    expect = serve_expect(cfg, fwd, steps)
+    print(f"[{tag}] {fwd} forward calls ({steps} decode steps); launches "
           f"{counts}, expected {expect}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
     check(fwd > 0 and steps > 0, f"{fwd} forward calls, {steps} decode steps")
@@ -1077,7 +1147,7 @@ def serve_phase(dev):
                token_p50_ms=tok["p50"] * 1e3, token_p99_ms=tok["p99"] * 1e3,
                forward_calls=fwd, decode_steps=steps, launches=counts,
                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    print(f"[serve] {n_req * n_new} tokens in {wall:.3f}s = "
+    print(f"[{tag}] {n_req * n_new} tokens in {wall:.3f}s = "
           f"{res['tok_s']:.1f} tok/s; TTFT p50 {res['ttft_p50_ms']:.2f} ms "
           f"p99 {res['ttft_p99_ms']:.2f} ms; per-token p50 "
           f"{res['token_p50_ms']:.3f} ms p99 {res['token_p99_ms']:.3f} ms")
@@ -1086,7 +1156,7 @@ def serve_phase(dev):
     with torch.no_grad():
         worst, agree, served = teacher_forced(cfg, params, prompts, gens, dev,
                                               chunk, bs)
-    print(f"[serve] teacher forcing ({time.perf_counter() - t0:.1f}s): max "
+    print(f"[{tag}] teacher forcing ({time.perf_counter() - t0:.1f}s): max "
           f"|logits kernel - plain| {worst:.3g} (tol {LOGIT_ATOL}); greedy "
           f"agreement kernel/plain {agree:.4f}, kernel path/served "
           f"{served:.4f}")
@@ -1969,6 +2039,18 @@ def wkv_output_noise(rel, dev):
         rwkv_lib.wkv_chunked = plain
 
 
+def grad_rel_err(name, grads, ref):
+    """The error of gradient ``name`` relative to its scale in ``ref``; but
+    a key bias's (``...mixer.bk``) gradient is zero but for rounding
+    (adding bk adds q·bk to every score of a query, which its softmax
+    ignores), so it is measured against the scale of the query bias's
+    gradient beside it."""
+    if not name.endswith(".mixer.bk"):
+        return rel_err(grads[name], ref[name])
+    scale = ref[name[:-2] + "bq"].abs().max().clamp_min(1e-30)
+    return ((grads[name] - ref[name]).abs().max() / scale).item()
+
+
 def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0,
                loss_atol=TRAIN_LOSS_ATOL, grad_rel=TRAIN_GRAD_REL,
                median_rel=None):
@@ -1989,7 +2071,7 @@ def grad_check(dev, cfg, rt, plain_rt, check_batch, tag, floor=0.0,
         check_batch))), dev)
     loss_k, grads_k = loss_and_grads(cfg, params, batch, rt)
     loss_p, grads_p = loss_and_grads(cfg, params, batch, plain_rt)
-    rels = {name: rel_err(grads_k[name], grads_p[name]) for name in grads_k}
+    rels = {name: grad_rel_err(name, grads_k, grads_p) for name in grads_k}
     del grads_k
     res = dict(layers=cfg.n_layers, check_batch=check_batch,
                loss_kernel=loss_k, loss_plain=loss_p)
@@ -2079,9 +2161,10 @@ def _static_prompts(vocab, B, S):
 def _static_expect(cfg, n_new, kinds=("rmsnorm", "flash_attention")):
     """Launches of one ``generate_static`` (1 prefill + n_new - 1 decode
     steps) of an attention stack on the kernel path: 2L + 1 RMSNorms per
-    forward, L flash forwards in the prefill, nothing else."""
+    forward (none for a layernorm stack), L flash forwards in the
+    prefill, nothing else."""
     out = {k: 0 for k in ops.launch_counts()}
-    if "rmsnorm" in kinds:
+    if "rmsnorm" in kinds and cfg.norm == "rmsnorm":
         out["rmsnorm"] = (2 * cfg.n_layers + 1) * n_new
     if "flash_attention" in kinds:
         out["flash_attention"] = cfg.n_layers
@@ -2526,6 +2609,252 @@ def static_rwkv_phase(dev, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the dense extensions (Q2, H1, G1) and the granite dry runs
+# ---------------------------------------------------------------------------
+
+DENSE_STEPS = 4                     # AdamW steps of each dense training run
+# peak lr of those runs, reached by a linear warmup over all of them.
+# After one warmup step Adam's first update (every weight moved by about
+# the lr) sent these wide models from random weights up the loss on an
+# H100: h2o-danube-1.8b at 3e-4 10.80 -> 14.71 -> 12.86 -> 14.41 (gradient
+# norm 140 at step 2), granite-20b's 4 layers at 1e-4 11.34 -> 22.71 ->
+# 13.77 -> 12.22 (gradient norm 134)
+DENSE_LR = 5e-5
+DENSE_CHECK_BATCH = 2               # kernel vs plain gradients, 2 x 512
+DENSE_PROMPT, DENSE_NEW = 128, 32   # static vs paged tokens, B SS_BATCH
+H1_PROMPT, H1_NEW = 4200, 32        # past h2o-danube-1.8b's window of 4096
+H1_CHUNK = 512                      # the paged engine's prefill chunk there
+G1_LAYERS = 4                       # granite-20b: 52 layers hold 81 GB f32
+G1_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh
+# granite-20b climbs the loss even at DENSE_LR's ramp (11.34 -> 15.37 ->
+# 11.51 -> 11.45, gradient norm 138 at step 2), on the kernel and the
+# plain path alike (the same losses to 4 decimals on an H100): the model's
+# own response to Adam's first updates.  At 1e-5 over 6 steps it falls
+# (11.34 -> 10.23, one climb at step 3).
+G1_LR, G1_STEPS = 1e-5, 6
+G1_MEM_REL = 0.10
+
+
+def train_expect(cfg):
+    """Launches of one f32 train step on the kernel path: 2L + 1 RMSNorm
+    forwards and backwards (none for a layernorm stack), L each of the
+    flash forward, dq and dk/dv."""
+    out = {k: 0 for k in ops.launch_counts()}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = out["rmsnorm_bwd"] = 2 * cfg.n_layers + 1
+    for k in ("flash_attention", "flash_attention_dq", "flash_attention_dkv"):
+        out[k] = cfg.n_layers
+    return out
+
+
+def add_launches(*runs):
+    """The sum of several runs' launch counts, kernel by kernel."""
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def static_vs_paged(dev, card, cfg, params, prompts, n_new, tag,
+                    paged_kw=None):
+    """One ``generate_static`` of ``prompts`` on the kernel path (launches
+    exact), its teacher-forced logits kernel vs plain (LOGIT_ATOL,
+    MIN_AGREEMENT), and the paged engine's tokens on the same prompts,
+    which must equal the static ones, every one."""
+    B, S = prompts.shape
+    eng = ServeEngine(cfg, params, Runtime(), max_len=S + n_new, device=dev)
+    out, wall, counts = _counted_static(eng, prompts, n_new,
+                                        _static_expect(cfg, n_new), tag)
+    gens = out[:, S:]
+    check(bool(((gens >= 0) & (gens < cfg.vocab_size)).all()),
+          f"{tag} static tokens out of range")
+    plain = Runtime(attn_impl="torch", norm_impl="torch")
+    lk = static_logits(cfg, params, Runtime(), prompts, gens, dev)
+    lp = static_logits(cfg, params, plain, prompts, gens, dev)
+    worst = (lk - lp).abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    del lk, lp
+    paged_eng = ServeEngine(cfg, params, Runtime(), max_len=S + n_new,
+                            n_slots=B, device=dev, **(paged_kw or {}))
+    ops.reset_launch_counts()
+    paged = paged_eng.generate(prompts, n_new)[:, S:]
+    torch.cuda.synchronize()
+    paged_counts = ops.launch_counts()
+    want = serve_expect(cfg, paged_eng.stats["forward_calls"],
+                        paged_eng.stats["decode_steps"])
+    check(paged_counts == want,
+          f"{tag} paged launches {paged_counts} != {want}")
+    same = float((paged == gens).mean())
+    print(f"[{tag}] static B{B} prompt {S} +{n_new} greedy in {wall:.3f} s "
+          f"(f32, kernel path): teacher forcing max |logits kernel - plain| "
+          f"{worst:.3g} (tol {LOGIT_ATOL}), greedy agreement {agree:.4f}; "
+          f"the paged engine's tokens equal the static ones at {same:.4f} "
+          f"(bar 1.0); "
+          f"paged launches {paged_counts}; on {card}")
+    check(worst <= LOGIT_ATOL, f"{tag} static logits differ by {worst:.3g}")
+    check(agree >= MIN_AGREEMENT, f"{tag} greedy agreement {agree:.4f}")
+    check(same == 1.0, f"{tag} paged tokens differ from the static ones: "
+          f"{same:.4f} equal")
+    del eng, paged_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=B, prompt=S, new=n_new, wall_s=wall,
+                launches=add_launches(counts, paged_counts),
+                logits_max_abs_err=worst, greedy_agreement=agree,
+                paged_equal=same, tokens=gens.tolist(),
+                paged_tokens=paged.tolist())
+
+
+def dense_serve(dev, card, cfg, tag):
+    """Paged serving (:func:`serve_phase`), then static vs paged
+    (:func:`static_vs_paged`) of ``cfg`` at full width, f32, one set of
+    weights."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    res = serve_phase(dev, cfg, tag, params)
+    prompts = _static_prompts(cfg.vocab_size, SS_BATCH, DENSE_PROMPT)
+    res["static"] = static_vs_paged(dev, card, cfg, params, prompts,
+                                    DENSE_NEW, tag)
+    res["launches"] = add_launches(res["launches"],
+                                   res["static"]["launches"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dense_train(dev, card, cfg, tag):
+    """DENSE_STEPS AdamW steps of ``cfg`` at full width, f32, B TRAIN_BATCH
+    x S TRAIN_SEQ through ``train_loop`` on the kernels (launches exact,
+    losses finite and falling), then kernel vs plain gradients at
+    DENSE_CHECK_BATCH x TRAIN_SEQ."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tc = TrainConfig(steps=DENSE_STEPS, warmup=DENSE_STEPS, log_every=1,
+                     opt=AdamWConfig(lr=DENSE_LR))
+    res = run_steps(dev, card, cfg, Runtime(), tc,
+                    tfm.init_params(cfg, seed=SEED, device=dev),
+                    train_expect(cfg), tag)
+    res.update(grad_check(dev, cfg, Runtime(), Runtime(
+        attn_impl="torch", norm_impl="torch"), DENSE_CHECK_BATCH, tag))
+    return res
+
+
+def q2_phase(dev, card):
+    """Cell Q2: qwen2-1.5b at full width and depth (28 layers, 12 heads
+    over Kv 2, qkv bias), f32: paged serving on flash-decode at G 6,
+    static vs paged, training."""
+    cfg = get_config("qwen2-1.5b")
+    res = dense_serve(dev, card, cfg, "Q2")
+    res["train"] = dense_train(dev, card, cfg, "Q2")
+    res["launches"] = add_launches(res["launches"],
+                                   res["train"]["launches"])
+    return res
+
+
+def h1_phase(dev, card):
+    """Cell H1: h2o-danube-1.8b at full width and depth (24 layers, head
+    dim 80, window 4096), f32: training on the head-dim-80 flash kernels;
+    then one request of H1_PROMPT tokens, past the window, and H1_NEW
+    greedy tokens through the static engine (its ring of 4096 slots; the
+    prefill on the flash forward with the window) and the paged engine
+    (the window mask, plain attention as the reference's gate)."""
+    cfg = get_config("h2o-danube-1.8b")
+    res = dict(train=dense_train(dev, card, cfg, "H1"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    prompts = _static_prompts(cfg.vocab_size, 1, H1_PROMPT)
+    t0 = time.perf_counter()
+    res["long"] = static_vs_paged(dev, card, cfg, params, prompts, H1_NEW,
+                                  "H1", dict(prefill_chunk=H1_CHUNK))
+    res["long"].update(
+        phase_s=time.perf_counter() - t0,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        ring_slots=attn_lib.cache_slots(cfg, H1_PROMPT + H1_NEW))
+    check(res["long"]["ring_slots"] == cfg.sliding_window,
+          f"H1 ring of {res['long']['ring_slots']} slots")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = add_launches(res["train"]["launches"],
+                                   res["long"]["launches"])
+    return res
+
+
+def g1_phase(dev, card):
+    """Cell G1: granite-20b at full width (d 6144, 48 heads over Kv 1,
+    d_ff 24576, layernorm, GELU, sinusoidal positions) cut to G1_LAYERS
+    layers, f32: paged serving on flash-decode at G 48 (three head tiles),
+    static vs paged; training under G1_SPEC on the 1-rank NCCL mesh
+    (``resolve`` -> ``to_plan`` -> ``apply_plan`` -> ``train_loop``),
+    launches exact; kernel vs plain gradients; then the dry run of that
+    plan (a fresh process, fake tensors on the card) against its
+    measured ``max_memory_allocated``, within G1_MEM_REL; then cell D4,
+    ``granite-20b x train_4k`` at full depth on the pod topology (256 fake
+    ranks), which must trace."""
+    cfg = dataclasses.replace(get_config("granite-20b"), n_layers=G1_LAYERS)
+    res = dense_serve(dev, card, cfg, "G1")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        strat, _ = strategy.resolve(G1_SPEC, cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape)
+        rt = par.make_runtime(cfg, plan, shape)
+        check(rt.param_dtype == rt.compute_dtype == torch.float32,
+              f"G1 runtime dtypes {rt}")
+        tc = TrainConfig(steps=G1_STEPS, warmup=DENSE_STEPS, log_every=1,
+                         opt=AdamWConfig(lr=G1_LR))
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        res["placements"] = check_placements(cfg, plan, params)
+        res["train"] = run_steps(dev, card, cfg, rt, tc, params,
+                                 train_expect(cfg), "G1", plan=plan)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    res["train"].update(spec=strat.format(), mesh=mesh_shape(plan.mesh))
+    res["train"].update(grad_check(
+        dev, cfg, Runtime(), Runtime(attn_impl="torch", norm_impl="torch"),
+        DENSE_CHECK_BATCH, "G1"))
+    res["launches"] = add_launches(res["launches"],
+                                   res["train"]["launches"])
+
+    measured = res["train"]["peak_mem_bytes"]
+    rec = dryrun.lower_fresh(cfg, shape, strat, strategy.host_topology(
+        n_devices=1), device="cuda")
+    tracked = rec["memory"]["peak_bytes_per_device"]
+    rel = abs(tracked - measured) / measured
+    print(f"[G1] dry run of {strat.format()} at {G1_LAYERS} layers, "
+          f"B{TRAIN_BATCH} x S{TRAIN_SEQ}, one fake rank (traced in "
+          f"{rec['trace_s']} s): tracked peak {tracked / 2**30:.3f} GiB vs "
+          f"max_memory_allocated {measured / 2**30:.3f} GiB: rel {rel:.3g} "
+          f"(tol {G1_MEM_REL}); on {card}")
+    check(rel <= G1_MEM_REL, f"G1 dry-run peak {tracked} B vs measured "
+                             f"{measured} B")
+    res["dryrun"] = dict(memory=rec["memory"], measured_peak_bytes=measured,
+                         rel=rel, trace_s=rec["trace_s"])
+    t0 = time.perf_counter()
+    pod = dryrun.run_one("granite-20b", "train_4k", False, DRYRUN_OUT,
+                         device="cuda")
+    check(pod["status"] == "ok" and pod["n_devices"] == 256
+          and pod["collectives"] and "resilience" in pod,
+          f"D4 granite-20b pod dry run: {pod.get('status')} "
+          f"{pod.get('error')}")
+    pod["wall_s"] = time.perf_counter() - t0
+    print(f"[D4] granite-20b x train_4k ({get_config('granite-20b').n_layers}"
+          f" layers) on pod ({pod['strategy']}, {pod['n_devices']} fake "
+          f"ranks) in {pod['wall_s']:.1f} s: peak/dev "
+          f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB, "
+          f"collective bytes {pod['collective_bytes_total']:.4g}")
+    res["d4"] = pod
+    return res
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -2547,10 +2876,10 @@ SOURCES = {
 # the training paths' norm rows, attention shape and WKV-6 shape
 REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "rmsnorm_bwd": dict(shape="(4096,1024)"),
-            "flash_decode": dict(n_splits=4, long_ctx=False),
-            "flash_attention": dict(timed=True),
-            "flash_attention_dq": dict(timed=True),
-            "flash_attention_dkv": dict(timed=True),
+            "flash_decode": dict(n_splits=4, long_ctx=False, case="qwen3"),
+            "flash_attention": dict(shape=FLASH_REPORTED),
+            "flash_attention_dq": dict(shape=FLASH_REPORTED),
+            "flash_attention_dkv": dict(shape=FLASH_REPORTED),
             "wkv6": dict(timed=True)}
 
 
@@ -2611,6 +2940,16 @@ def main(argv=None):
     print(f"[build] {took} -> {build.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.1f}s")
 
+    def phase(name, fn, *a):
+        """Run one phase between the card's memory being released before
+        it and its wall time printed after it."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = fn(*a)
+        print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s")
+        return res
+
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -2624,105 +2963,63 @@ def main(argv=None):
     del flush
     print(f"[kernels] ok in {time.perf_counter() - t0:.1f}s")
 
-    t0 = time.perf_counter()
-    served = serve_phase(dev)
-    print(f"[serve] ok in {time.perf_counter() - t0:.1f}s")
+    served = phase("serve", serve_phase, dev)
 
-    t0 = time.perf_counter()
     cfg = get_config("qwen3-0.6b")
-    n_norm, L = 2 * cfg.n_layers + 1, cfg.n_layers
-    trained = train_phase(
-        dev, card, cfg, TRAIN_STEPS, AdamWConfig().lr, Runtime(),
-        Runtime(attn_impl="torch", norm_impl="torch"),
-        {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "flash_decode": 0,
-         "flash_attention": L,
-         "flash_attention_dq": L, "flash_attention_dkv": L, "wkv6": 0},
+    qwen3_step = train_expect(cfg)
+    trained = phase(
+        "train", train_phase, dev, card, cfg, TRAIN_STEPS, AdamWConfig().lr,
+        Runtime(), Runtime(attn_impl="torch", norm_impl="torch"), qwen3_step,
         TRAIN_BATCH, "train")
-    print(f"[train] ok in {time.perf_counter() - t0:.1f}s")
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    strat = strategy_phase(
-        dev, card, {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
-                    "flash_decode": 0, "flash_attention": L,
-                    "flash_attention_dq": L, "flash_attention_dkv": L,
-                    "wkv6": 0})
+    strat = phase("strategy", strategy_phase, dev, card, qwen3_step)
     print(f"[strategy] host train/dispatch per step: "
           f"{strat['host_span_s']['dispatch'] * 1e3:.1f} ms under "
           f"{strat['spec']} (FSDP2, bf16) vs "
           f"{trained['host_span_s']['dispatch'] * 1e3:.1f} ms unsharded f32")
-    print(f"[strategy] ok in {time.perf_counter() - t0:.1f}s")
+    ck1 = phase("CK1", ck1_phase, dev, card, qwen3_step)
+    dry = phase("dryrun", dryrun_phase, card, strat["peak_mem_bytes"])
+    piped = phase("pipeline", pipeline_phase, card)
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ck1 = ck1_phase(
-        dev, card, {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
-                    "flash_decode": 0, "flash_attention": L,
-                    "flash_attention_dq": L, "flash_attention_dkv": L,
-                    "wkv6": 0})
-    print(f"[CK1] ok in {time.perf_counter() - t0:.1f}s")
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    dry = dryrun_phase(card, strat["peak_mem_bytes"])
-    print(f"[dryrun] ok in {time.perf_counter() - t0:.1f}s")
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    piped = pipeline_phase(card)
-    print(f"[pipeline] ok in {time.perf_counter() - t0:.1f}s")
-
-    # free the qwen3 phase's tensors before the larger model
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    cfg = get_config("rwkv6-1.6b")
-    rwkv_trained = train_phase(
-        dev, card, cfg, RWKV_STEPS, RWKV_LR, Runtime(rwkv_chunk=RWKV_CHUNK),
-        Runtime(attn_impl="torch", norm_impl="torch", rwkv_chunk=RWKV_CHUNK),
-        {k: 0 for k in ops.launch_counts()} | {"wkv6": cfg.n_layers},
-        RWKV_CHECK_BATCH, "rwkv6", floor=WKV_NOISE_REL)
-    rwkv_trained["shallow"] = grad_check(
-        dev, dataclasses.replace(cfg, n_layers=RWKV_SHALLOW_LAYERS),
-        Runtime(rwkv_chunk=RWKV_CHUNK),
-        Runtime(attn_impl="torch", norm_impl="torch", rwkv_chunk=RWKV_CHUNK),
-        RWKV_CHECK_BATCH, "rwkv6")
-    print(f"[rwkv6] ok in {time.perf_counter() - t0:.1f}s")
+    def rwkv6():
+        # free the qwen3 phases' tensors before the larger model
+        torch.cuda.reset_peak_memory_stats(dev)
+        rcfg = get_config("rwkv6-1.6b")
+        res = train_phase(
+            dev, card, rcfg, RWKV_STEPS, RWKV_LR,
+            Runtime(rwkv_chunk=RWKV_CHUNK),
+            Runtime(attn_impl="torch", norm_impl="torch",
+                    rwkv_chunk=RWKV_CHUNK),
+            {k: 0 for k in ops.launch_counts()} | {"wkv6": rcfg.n_layers},
+            RWKV_CHECK_BATCH, "rwkv6", floor=WKV_NOISE_REL)
+        res["shallow"] = grad_check(
+            dev, dataclasses.replace(rcfg, n_layers=RWKV_SHALLOW_LAYERS),
+            Runtime(rwkv_chunk=RWKV_CHUNK),
+            Runtime(attn_impl="torch", norm_impl="torch",
+                    rwkv_chunk=RWKV_CHUNK), RWKV_CHECK_BATCH, "rwkv6")
+        return res
+    rwkv_trained = phase("rwkv6", rwkv6)
 
     # static serving from dense caches, after the training phases' cells
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ss1 = static_phase(dev, card)
-    print(f"[SS1] ok in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    ss3 = static_plan_phase(dev, card, ss1["tokens"])
-    print(f"[SS3] ok in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    d3 = static_dryrun_phase(card, ss3["fsdp"]["decode_step_peak_bytes"])
-    print(f"[D3] ok in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    ss4 = static_tp_phase(dev, card)
-    print(f"[SS4] ok in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    ss2 = static_rwkv_phase(dev, card)
-    print(f"[SS2] ok in {time.perf_counter() - t0:.1f}s")
+    ss1 = phase("SS1", static_phase, dev, card)
+    ss3 = phase("SS3", static_plan_phase, dev, card, ss1["tokens"])
+    d3 = phase("D3", static_dryrun_phase, card,
+               ss3["fsdp"]["decode_step_peak_bytes"])
+    ss4 = phase("SS4", static_tp_phase, dev, card)
+    ss2 = phase("SS2", static_rwkv_phase, dev, card)
 
-    # each kernel's launches on the main paths: the serve phase's run plus
-    # each train phase's run and each static serving run, each counted
-    # from 0
-    launches = {k: served["launches"][k] + trained["launches"][k]
-                + strat["launches"][k] + strat["fp8"]["launches"][k]
-                + ck1["launches"][k]
-                + piped["launches"][k] + rwkv_trained["launches"][k]
-                + ss1["launches"][k] + ss3["launches"][k]
-                + ss4["launches"][k] + ss2["launches"][k]
-                for k in trained["launches"]}
+    # the dense extensions: qwen2-1.5b, h2o-danube-1.8b, granite-20b
+    q2 = phase("Q2", q2_phase, dev, card)
+    h1 = phase("H1", h1_phase, dev, card)
+    g1 = phase("G1", g1_phase, dev, card)
+
+    # each kernel's launches on the main paths: every run above, each
+    # counted from 0
+    launches = add_launches(
+        served["launches"], trained["launches"], strat["launches"],
+        strat["fp8"]["launches"], ck1["launches"], piped["launches"],
+        rwkv_trained["launches"], ss1["launches"], ss3["launches"],
+        ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
+        g1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2734,7 +3031,8 @@ def main(argv=None):
              "train_pipeline": piped,
              "train_rwkv6": rwkv_trained, "static_ss1": ss1,
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
-             "dryrun_d3": d3, "build_s": took,
+             "dryrun_d3": d3, "dense_q2": q2, "dense_h1": h1,
+             "dense_g1": g1, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

@@ -155,7 +155,10 @@ def main(argv=None):
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[-1]
-            for ci, (B, S, H, Kv, D, window) in enumerate(cs.FLASH_CASES):
+            # the head-dim-128 cases: a parent before the head-dim-80
+            # instantiation has no kernel for the others
+            cases = [c[:6] for c in cs.FLASH_CASES if c[4] == 128]
+            for ci, (B, S, H, Kv, D, window) in enumerate(cases):
                 q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev
                                        ).to(dtype) for h in (H, Kv, Kv))
                 o0, lse0 = fa.forward_plain(q, k, v, True, window)
@@ -324,7 +327,10 @@ def flash_decode_ab(dev, dtype, gen, flush, ab, other):
     rows = []
     lib = other["flash_decode"]
     two_launch = not hasattr(lib, f"flash_decode_{fd._SUFFIX[dtype]}")
-    for splits_list, long_ctx, kw in cs.DECODE_CASES:
+    # qwen3's shapes: a parent before the head tiles has no G past 16
+    for model, splits_list, long_ctx, kw in cs.DECODE_CASES:
+        if model != "qwen3":
+            continue
         case = cs.decode_case(dev, dtype, gen, **kw)
         for n_splits in splits_list:
             ref = fd.decode_plain(*case, n_splits)

@@ -1,26 +1,28 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The port runs dense attention-only stacks with RoPE, RMSNorm and a SwiGLU
-MLP (``qwen3-0.6b`` and the Llama-2 family) and the uniform RWKV-6 stack
-of ``rwkv6-1.6b`` (trained, and served from its recurrent state by the
-static engine).  The JAX package's other architectures need layers the
+The port runs dense attention-only stacks: with RoPE, RMSNorm and a SwiGLU
+MLP (``qwen3-0.6b``, the Llama-2 family, ``qwen2-1.5b`` with its qkv bias
+and ``h2o-danube-1.8b`` with its sliding window), or with sinusoidal
+positions, layernorm and a GELU MLP (``granite-20b``, multi-query); and
+the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from its
+recurrent state by the static engine).  The JAX package's other architectures need layers the
 port does not have yet; ``get_config`` names the ROADMAP item that brings
 each of them.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
+from repro_torch.configs.granite_20b import CONFIG as _granite
+from repro_torch.configs.h2o_danube_1p8b import CONFIG as _danube
 from repro_torch.configs.llama2 import CONFIGS as _llama2
+from repro_torch.configs.qwen2_1p5b import CONFIG as _qwen2
 from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
-REGISTRY = {_qwen3.name: _qwen3, _rwkv6.name: _rwkv6, **_llama2}
+REGISTRY = {c.name: c for c in (_qwen3, _rwkv6, _qwen2, _danube, _granite)}
+REGISTRY.update(_llama2)
 
 # arch -> the later slice of the port (ROADMAP Queue 1) that brings it
 LATER = {
-    "qwen2-1.5b": "dense extensions (qkv-bias serving at full size)",
-    "h2o-danube-1.8b": "dense extensions (sliding-window paged attention)",
-    "granite-20b": "dense extensions (layernorm, GELU MLP, sinusoidal "
-                   "positions)",
     "musicgen-medium": "other mixers and inputs (frame embeddings, "
                        "sinusoidal positions)",
     "qwen2-vl-2b": "other mixers and inputs (M-RoPE, vision embeddings)",

@@ -53,7 +53,10 @@
 //   All tiles are f32 in shared memory, [rows][D] with an XOR swizzle (swz)
 //   that keeps the fragment reads of both orientations conflict-free, so
 //   no transposed copy is needed; bf16 tiles arrive in a bf16 staging
-//   buffer and are widened once per tile.
+//   buffer and are widened once per tile.  The swizzle moves columns
+//   within 32-column groups, so a tile's rows are D rounded up to 32
+//   floats apart (kPitch: 96 at D 80, whose last 16 columns would
+//   otherwise spill into the next row).
 // - p and ds never leave the registers in the forward and dq: the C
 //   fragment of s / dp is the A fragment of o += p v / dq += ds k once its
 //   8 columns are read in the order 0, 2, 4, 6 | 1, 3, 5, 7, which the
@@ -74,7 +77,8 @@
 // - Shared memory per CTA (D 128, f32): forward 96 KB (4 warps, 64 query
 //   rows, 32-row kv tiles; two CTAs per SM), dq 192 KB (8 warps, 128 query
 //   rows; one CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs
-//   per SM).  The grid puts the block index on its slowest axis, heaviest
+//   per SM); at D 80 the tiles are 96 floats wide: 72, 144 and 76.5 KB.
+//   The grid puts the block index on its slowest axis, heaviest
 //   first (the last q block for the forward and dq, kv block 0 for dk/dv),
 //   so the causal tail is short.
 // wgmma (TF32 only K-major from shared memory), TMA and producer warps are
@@ -110,15 +114,27 @@ constexpr int kFwdWarps = 4, kFwdStream = 32;
 constexpr int kDqWarps = 8, kDqStream = 32;
 constexpr int kDkvWarps = 4, kDkvStream = 32;
 
-// Index of element (r, c) of a [rows][D] f32 tile whose columns are XOR-
-// swizzled in 4-column steps within each 32-column group.  Reads of both
+// Row pitch, in floats, of a shared f32 tile of head dim D: D rounded up
+// to a whole 32-column group.  The swizzle below moves a column anywhere
+// within its 32-column group, so a D that is not a multiple of 32 (80:
+// columns 64-79 of the last group may land on 64-95) needs the group's
+// whole width.  Logical columns D..kPitch-1 are never used, but the
+// swizzle may store any logical column of the last group in any physical
+// column of that group (at D 80, logical 64-79 land on physical 80-95 in
+// rows whose mask is 16 or more), so the whole group must be allocated
+// and no other data may live in its tail.
+template <int D>
+constexpr int kPitch = (D + 31) / 32 * 32;
+
+// Index of element (r, c) of a [rows][kPitch<D>] f32 tile whose columns are
+// XOR-swizzled in 4-column steps within each 32-column group.  Reads of both
 // fragment shapes below (8 rows x 4 columns; 4 or 8 rows x 8 columns in the
 // order 0, 2, 4, 6 | 1, 3, 5, 7) hit 32 distinct banks, so one layout of a
 // tile serves both orientations of every product.  16-byte chunks stay
 // whole, which the 16-byte copies need.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + (c ^ ((((r & 3) ^ ((r >> 2) & 1)) << 3) | (r & 4)));
+  return r * kPitch<D> + (c ^ ((((r & 3) ^ ((r >> 2) & 1)) << 3) | (r & 4)));
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -250,7 +266,8 @@ template <int D, int NT, bool kS>
 __device__ __forceinline__ void reduce_rows(float (&acc)[D / 8][4],
                                             const Frag<4, true> (&a)[NT],
                                             const float* t, int g, int tq) {
-  constexpr int kGroup = 4;
+  constexpr int kGroup = (D / 8) % 4 == 0 ? 4 : 2;   // D 80: 10 blocks
+  static_assert((D / 8) % kGroup == 0, "head dim: a multiple of 16");
 #pragma unroll
   for (int n0 = 0; n0 < D / 8; n0 += kGroup) {
     float part[kGroup][4];
@@ -375,11 +392,13 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
 // shared memory of a CTA with `own` f32 tiles of `rows` own rows and R rows
 // per streamed tile: two streamed f32 tiles (double-buffered for f32
 // inputs; for bf16 one f32 tile each plus two bf16 staging buffers), and
-// for dk/dv (`dkv`) p and the streamed rows' lse and delta
+// for dk/dv (`dkv`) p and the streamed rows' lse and delta.  f32 tiles have
+// rows of kPitch<D> floats, the bf16 staging buffers plain rows of D.
 template <typename T, int D, int R>
 constexpr size_t tile_smem_bytes(int own, int rows, bool dkv) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  return (own * rows * D + 2 * (kF32 ? 2 : 1) * R * D) * sizeof(float) +
+  constexpr int P = kPitch<D>;
+  return (own * rows * P + 2 * (kF32 ? 2 : 1) * R * P) * sizeof(float) +
          (kF32 ? 0 : 4 * R * D * sizeof(T)) +
          (dkv ? (rows * R + 4 * R) * sizeof(float) : 0);
 }
@@ -404,11 +423,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
+  constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
-  float* q_s = reinterpret_cast<float*>(fwd_smem);  // [BQ][D]
-  float* k_s = q_s + BQ * D;                         // [kBufs][BK][D]
-  float* v_s = k_s + kBufs * BK * D;                 // [kBufs][BK][D]
-  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * D);  // bf16 [2][2][BK][D]
+  float* q_s = reinterpret_cast<float*>(fwd_smem);  // [BQ][P]
+  float* k_s = q_s + BQ * P;                         // [kBufs][BK][P]
+  float* v_s = k_s + kBufs * BK * P;                 // [kBufs][BK][P]
+  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
@@ -427,9 +447,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
-    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * D)
+    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * P)
                     : static_cast<void*>(stage + 2 * buf * BK * D);
-    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * D)
+    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
     copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
     copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
@@ -460,8 +480,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();              // this thread's copies of tile kt
     __syncthreads();                 // everyone's
-    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * D;
-    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * D;
+    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * P;
+    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * P;
     if constexpr (!kF32) {
       widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
       widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
@@ -575,12 +595,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
+  constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  float* q_s = reinterpret_cast<float*>(bwd_smem);  // [BQ][D]
-  float* do_s = q_s + BQ * D;                        // [BQ][D]
-  float* k_s = do_s + BQ * D;                        // [kBufs][BK][D]
-  float* v_s = k_s + kBufs * BK * D;                 // [kBufs][BK][D]
-  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * D);  // bf16 [2][2][BK][D]
+  float* q_s = reinterpret_cast<float*>(bwd_smem);  // [BQ][P]
+  float* do_s = q_s + BQ * P;                        // [BQ][P]
+  float* k_s = do_s + BQ * P;                        // [kBufs][BK][P]
+  float* v_s = k_s + kBufs * BK * P;                 // [kBufs][BK][P]
+  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
@@ -600,9 +621,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
-    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * D)
+    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * P)
                     : static_cast<void*>(stage + 2 * buf * BK * D);
-    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * D)
+    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
     copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
     copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
@@ -633,8 +654,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();              // this thread's copies of tile kt
     __syncthreads();                 // everyone's
-    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * D;
-    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * D;
+    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * P;
+    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * P;
     if constexpr (!kF32) {
       widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
       widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
@@ -713,12 +734,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
   static_assert(W % 2 == 0 && 2 * BQ <= kThr, "warp pairs; lse/delta copies");
+  constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  float* k_s = reinterpret_cast<float*>(bwd_smem);  // [BKV][D]
-  float* v_s = k_s + BKV * D;                        // [BKV][D]
-  float* q_s = v_s + BKV * D;                        // [kBufs][BQ][D]
-  float* do_s = q_s + kBufs * BQ * D;                // [kBufs][BQ][D]
-  float* p_s = do_s + kBufs * BQ * D;                // [BKV * BQ] p, by lane
+  float* k_s = reinterpret_cast<float*>(bwd_smem);  // [BKV][P]
+  float* v_s = k_s + BKV * P;                        // [BKV][P]
+  float* q_s = v_s + BKV * P;                        // [kBufs][BQ][P]
+  float* do_s = q_s + kBufs * BQ * P;                // [kBufs][BQ][P]
+  float* p_s = do_s + kBufs * BQ * P;                // [BKV * BQ] p, by lane
   float* lse_s = p_s + BKV * BQ;                     // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;                   // [2][BQ]
   T* stage = reinterpret_cast<T*>(delta_s + 2 * BQ);  // bf16 [2][2][BQ][D]
@@ -745,9 +767,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hh = kvh * G + it / nt, q0 = (qt_begin + it % nt) * BQ;
     const int64_t q_base = (static_cast<int64_t>(b) * S * H + hh) * D;
     const int64_t r_base = (static_cast<int64_t>(b) * H + hh) * S;
-    void* qd = kF32 ? static_cast<void*>(q_s + buf * BQ * D)
+    void* qd = kF32 ? static_cast<void*>(q_s + buf * BQ * P)
                     : static_cast<void*>(stage + 2 * buf * BQ * D);
-    void* dd = kF32 ? static_cast<void*>(do_s + buf * BQ * D)
+    void* dd = kF32 ? static_cast<void*>(do_s + buf * BQ * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BQ * D);
     copy_rows_async<T, D, BQ, kThr>(qd, q + q_base, q_rs, q0, S);
     copy_rows_async<T, D, BQ, kThr>(dd, dout + q_base, q_rs, q0, S);
@@ -781,8 +803,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* qt_s = q_s + (kF32 ? buf : 0) * BQ * D;
-    const float* dt_s = do_s + (kF32 ? buf : 0) * BQ * D;
+    const float* qt_s = q_s + (kF32 ? buf : 0) * BQ * P;
+    const float* dt_s = do_s + (kF32 ? buf : 0) * BQ * P;
     if constexpr (!kF32) {
       widen_rows<D, BQ, kThr>(q_s, stage + 2 * buf * BQ * D);
       widen_rows<D, BQ, kThr>(do_s, stage + (2 * buf + 1) * BQ * D);
@@ -921,10 +943,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dims with a compiled kernel (those of the port's configs); anything
-// else is refused
+// head dims with a compiled kernel (those of the port's configs: 128, and
+// h2o-danube-1.8b's 2560 / 32 = 80); anything else is refused
 #define FLASH_DISPATCH_D(D, CALL)                                     \
   switch (D) {                                                        \
+    case 80: { constexpr int kD = 80; return CALL; }                  \
     case 128: { constexpr int kD = 128; return CALL; }                \
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }

@@ -4,10 +4,15 @@
 // (called from flash_decode) and the jnp logsumexp merge that follows it
 // there (flash_decode.py:147-153), in one launch:
 //
-//   flash_decode_kernel  grid (B*Kv, C), C = min(splits, kMaxCluster), one
-//                        CTA of kWarps warps per (request * kv head, rank
-//                        r < C), launched as clusters of (1, C): the C
-//                        CTAs of one (request, kv head) are one cluster.
+//   flash_decode_kernel  grid (B*Kv*T, C), C = min(splits, kMaxCluster),
+//                        one CTA of kWarps warps per (request * kv head,
+//                        head tile t < T, rank r < C), launched as
+//                        clusters of (1, C): the C CTAs of one (request,
+//                        kv head, head tile) are one cluster.  A kv head's
+//                        G query heads are cut into T = ceil(G / kMaxG)
+//                        tiles of at most kMaxG (head_tile): G 48 (MQA,
+//                        granite-20b) is three tiles of 16, each its own
+//                        cluster re-reading the kv head's rows.
 //                        The CTA of rank r takes the K-splits r, r + C,
 //                        ...  For each it reads its pool block ids from
 //                        the block table itself (the TPU fed them to the
@@ -58,8 +63,11 @@
 // in one wave; clusters of 8 fit 30 at once, a second wave that made
 // 12 splits slower than two launches, so C stops at 4 and a CTA takes
 // several splits in turn.
-// Registers bound the shapes: G <= kMaxG, D <= kMaxD; shared memory holds
-// q, the warps' states and the CTA's splits' states, smem_bytes().
+// Registers bound the shapes: a head tile of Gt <= kMaxG query heads, D <=
+// kMaxD; shared memory holds the tile's q, the warps' states and the
+// CTA's splits' states, smem_bytes().  Heads never meet in the arithmetic
+// (each has its own softmax, butterflies and merges), so the tiling
+// changes no head's numbers.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +80,7 @@ namespace {
 constexpr int kWarps = 8;            // warps per CTA
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 8;            // positions a warp takes per step
-constexpr int kMaxG = 16;            // query heads per kv head, at most
+constexpr int kMaxG = 16;            // query heads per CTA, at most
 constexpr int kMaxD = 256;           // head dim, at most (8 values a lane)
 constexpr int kMaxCluster = 4;       // CTAs per cluster, at most (header)
 constexpr float kNegInf = -1e30f;
@@ -121,10 +129,18 @@ __device__ __forceinline__ void load_lane(const T* p, float* o) {
   }
 }
 
-// Shared memory of one CTA, in floats' bytes: q (G*D), the warps' states
-// (kWarps * G * (D + 2)), then the states of the CTA's ceil(splits / C)
-// splits (G * (D + 2) each).  Every CTA of a cluster has the same layout,
-// so a split's state sits at the same offset in its owner's memory.
+// Query heads per CTA for G per kv head: G cut into ceil(G / kMaxG) tiles
+// as even as they come (the last may be smaller).
+int head_tile(int G) {
+  const int T = (G + kMaxG - 1) / kMaxG;
+  return (G + T - 1) / T;
+}
+
+// Shared memory of one CTA of a tile of G heads, in floats' bytes: q
+// (G*D), the warps' states (kWarps * G * (D + 2)), then the states of the
+// CTA's ceil(splits / C) splits (G * (D + 2) each).  Every CTA of a
+// cluster has the same layout, so a split's state sits at the same offset
+// in its owner's memory.
 int smem_bytes(int G, int D, int splits) {
   const int C = splits < kMaxCluster ? splits : kMaxCluster;
   const int slots = (splits + C - 1) / C;
@@ -282,22 +298,29 @@ __device__ __forceinline__ void split_state(
   __syncthreads();            // acc_s, m_s, l_s are reused by the next split
 }
 
-// grid (B*Kv, C), clusters of (1, C): see the header.  The splits' states
-// live in shared memory slots: split s in slot s / C of rank s % C.
+// grid (B*Kv*T, C), clusters of (1, C): see the header.  The CTA runs the
+// heads g0 .. g0 + G - 1 of its tile (G from here on counts the tile's
+// heads, Gall the kv head's).  The splits' states live in shared memory
+// slots: split s in slot s / C of rank s % C.
 template <typename T, int GM, int DPL>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q,       // (B*Kv, G, D)
+flash_decode_kernel(const T* __restrict__ q,       // (B*Kv, Gall, D)
                     const T* __restrict__ k_pool,  // (P, bs, Kv, D)
                     const T* __restrict__ v_pool,
                     const int* __restrict__ tbl,   // (B, nb)
                     const int* __restrict__ ctx,   // (B,)
-                    T* __restrict__ out,           // (B*Kv, G, D)
-                    int Kv, int G, int D, int P, int bs, int nb, int splits,
-                    int bps, float scale, int vec) {
+                    T* __restrict__ out,           // (B*Kv, Gall, D)
+                    int Kv, int Gall, int Gt, int D, int P, int bs, int nb,
+                    int splits, int bps, float scale, int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int slots = (splits + C - 1) / C;
+  const int n_tiles = (Gall + Gt - 1) / Gt;
+  const int bk = blockIdx.x / n_tiles;    // request * Kv + kv head
+  const int g0 = (blockIdx.x - bk * n_tiles) * Gt;
+  const int G = min(Gt, Gall - g0);       // this tile's heads
+  const int64_t q0 = (static_cast<int64_t>(bk) * Gall + g0) * D;
   extern __shared__ float smem[];
   float* q_s = smem;                      // G*D          query heads
   float* acc_s = q_s + G * D;             // kWarps*G*D   warps' acc
@@ -307,11 +330,10 @@ flash_decode_kernel(const T* __restrict__ q,       // (B*Kv, G, D)
   float* st_m = st_acc + slots * G * D;   // slots*G      splits' m
   float* st_l = st_m + slots * G;         // slots*G      splits' l
 
-  const int bk = blockIdx.x;              // request * Kv + kv head
   const int b = bk / Kv, h = bk - b * Kv;
   const int tid = threadIdx.x;
   for (int i = tid; i < G * D; i += kThreads)
-    q_s[i] = to_float(q[static_cast<int64_t>(bk) * G * D + i]);
+    q_s[i] = to_float(q[q0 + i]);
   __syncthreads();
 
   const int ctx_b = ctx[b];
@@ -339,8 +361,7 @@ flash_decode_kernel(const T* __restrict__ q,       // (B*Kv, G, D)
         l_tot += cluster.map_shared_rank(st_l, r)[slot * G + g] * alpha;
         o += cluster.map_shared_rank(st_acc, r)[slot * G * D + i] * alpha;
       }
-      out[static_cast<int64_t>(bk) * G * D + i] =
-          from_float<T>(o / fmaxf(l_tot, 1e-30f));
+      out[q0 + i] = from_float<T>(o / fmaxf(l_tot, 1e-30f));
     }
   }
   cluster.sync();             // no CTA leaves while rank 0 reads its memory
@@ -361,7 +382,8 @@ template <typename T, int GM, int DPL>
 int launch_tile(const DecodeArgs& a, cudaStream_t st) {
   auto* kernel = flash_decode_kernel<T, GM, DPL>;
   const int C = a.splits < kMaxCluster ? a.splits : kMaxCluster;
-  const int smem = smem_bytes(a.G, a.D, a.splits);
+  const int Gt = head_tile(a.G), n_tiles = (a.G + Gt - 1) / Gt;
+  const int smem = smem_bytes(Gt, a.D, a.splits);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(
@@ -379,7 +401,7 @@ int launch_tile(const DecodeArgs& a, cudaStream_t st) {
   attrs[1].val.clusterSchedulingPolicyPreference =
       cudaClusterSchedulingPolicyLoadBalancing;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.B * a.Kv, C);
+  cfg.gridDim = dim3(a.B * a.Kv * n_tiles, C);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -402,8 +424,8 @@ int launch_tile(const DecodeArgs& a, cudaStream_t st) {
       &cfg, kernel, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
       static_cast<const int*>(a.tbl), static_cast<const int*>(a.ctx),
-      static_cast<T*>(a.out), a.Kv, a.G, a.D, a.P, a.bs, a.nb, a.splits,
-      a.bps, a.scale, vec);
+      static_cast<T*>(a.out), a.Kv, a.G, Gt, a.D, a.P, a.bs, a.nb,
+      a.splits, a.bps, a.scale, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -417,14 +439,15 @@ int launch_g(const DecodeArgs& a, cudaStream_t st) {
 
 template <typename T>
 int launch(const DecodeArgs& a, void* stream) {
-  if (a.G < 1 || a.G > kMaxG || a.D < 1 || a.D > kMaxD || a.splits < 1)
+  if (a.G < 1 || a.D < 1 || a.D > kMaxD || a.splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.G == 1) return launch_g<T, 1>(a, st);
-  if (a.G == 2) return launch_g<T, 2>(a, st);
-  if (a.G <= 4) return launch_g<T, 4>(a, st);
-  if (a.G <= 8) return launch_g<T, 8>(a, st);
+  const int Gt = head_tile(a.G);
+  if (Gt == 1) return launch_g<T, 1>(a, st);
+  if (Gt == 2) return launch_g<T, 2>(a, st);
+  if (Gt <= 4) return launch_g<T, 4>(a, st);
+  if (Gt <= 8) return launch_g<T, 8>(a, st);
   return launch_g<T, 16>(a, st);
 }
 

@@ -24,7 +24,9 @@ Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Kv, D), query
 head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, S) f32 — the
 JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.  The
 kernels read rows with 16-byte copies, so their tensors must start on a
-16-byte boundary (fresh allocations do).
+16-byte boundary (fresh allocations do).  They are compiled for the head
+dims ``HEAD_DIMS``: 128, and h2o-danube-1.8b's 80, whose shared tiles are
+padded to 96 columns; any other head dim raises on the card.
 
 The plain versions walk blocks of positions in a Python loop with the
 kernels' update: the forward ``FWD_BLOCK`` kv positions per online-softmax
@@ -46,7 +48,7 @@ NEG_INF = -1e30
 BLOCK = 64                  # rows per block of the plain backward
 FWD_BLOCK = 32              # kv rows per step of the plain forward (the
 #                             kernel's streamed tile, kFwdStream)
-HEAD_DIMS = (128,)          # head dims the CUDA kernels are compiled for
+HEAD_DIMS = (80, 128)       # head dims the CUDA kernels are compiled for
 
 # launches of the CUDA kernels (plain-version calls do not count)
 LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,

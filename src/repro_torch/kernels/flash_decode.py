@@ -7,7 +7,10 @@ Replaces the TPU kernel ``src/repro/kernels/flash_decode.py::_decode_kernel``
 bytes — decode reads each cached K/V element once for one query token,
 2·G operations per element.  The kernel (``csrc/flash_decode.cu``) runs one
 thread-block cluster of C = min(splits, ``MAX_CLUSTER``) CTAs of
-``DECODE_WARPS`` warps per (request, kv head); the CTA of rank r takes the
+``DECODE_WARPS`` warps per (request, kv head, head tile): the G query heads
+of a kv head are cut into ``ceil(G / MAX_G)`` tiles of at most ``MAX_G``
+(:func:`head_tile`; granite-20b's G 48 is three tiles of 16, each
+re-reading the kv head's rows); the CTA of rank r takes the
 K-splits r, r + C, ... and stops at the request's last valid position.
 Within a split each warp takes its own chunks of ``DECODE_CHUNK``
 positions (chunk c of the split goes to warp c % ``DECODE_WARPS``), reads
@@ -17,13 +20,15 @@ updated once per chunk; the warps' states are merged in warp order into
 the split's state, which stays in the CTA's shared memory.  Rank 0 of the
 cluster then reads every split's state through distributed shared memory,
 merges them in split order and writes (B, 1, H, D) in q's type: the
-partials never reach device memory.  Registers bound the shapes the kernel
-takes — G ≤ ``MAX_G``, D ≤ ``MAX_D`` — and shared memory the splits a CTA
-holds, ``decode_smem_bytes``; not the TPU's ``head_dim % 8`` rule.
+partials never reach device memory.  Registers bound a CTA's tile —
+at most ``MAX_G`` heads, D ≤ ``MAX_D`` — and shared memory the splits a CTA
+holds, ``decode_smem_bytes``; not the TPU's ``head_dim % 8`` rule.  Any G
+that divides the heads goes, as in the JAX kernel.
 
 The plain versions repeat the kernel's arithmetic in its order: the same
 split plan, the same chunks per warp and online-softmax update per chunk,
-the same merge across warps, then across splits.
+the same merge across warps, then across splits.  Heads never meet in it,
+so the head tiles need no counterpart there.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 DECODE_WARPS = 8          # warps per CTA, each with its own softmax
 DECODE_CHUNK = 8          # positions a warp takes per step
-MAX_G = 16                # query heads per kv head the kernel holds
+MAX_G = 16                # query heads a CTA holds (a head tile)
 MAX_D = 256               # head dim the kernel holds (8 values a lane)
 MAX_CLUSTER = 4           # CTAs per cluster, at most
 NO_CLUSTER_FITS = -1      # the launch's code when no cluster fits the card
@@ -57,11 +62,20 @@ def plan_splits(nb: int, n_splits: int):
     return splits, -(-nb // splits)
 
 
+def head_tile(G: int) -> int:
+    """Query heads per CTA for G per kv head: G cut into ceil(G / MAX_G)
+    tiles as even as they come (the kernel's ``head_tile``)."""
+    n = -(-G // MAX_G)
+    return -(-G // n)
+
+
 def decode_smem_bytes(G: int, D: int, splits: int) -> int:
-    """Shared memory of one CTA: q, every warp's (acc, m, l), then the
-    (acc, m, l) of each of the ceil(splits / C) splits the CTA holds."""
+    """Shared memory of one CTA for G query heads per kv head: its head
+    tile's q, every warp's (acc, m, l), then the (acc, m, l) of each of the
+    ceil(splits / C) splits the CTA holds."""
     C = min(splits, MAX_CLUSTER)
-    return (G * D + (DECODE_WARPS + -(-splits // C)) * G * (D + 2)) * 4
+    Gt = head_tile(G)
+    return (Gt * D + (DECODE_WARPS + -(-splits // C)) * Gt * (D + 2)) * 4
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +179,9 @@ def decode_cuda(q, k_pool, v_pool, tbl, ctx, n_splits):
             raise ValueError(f"{name} must be contiguous on {dev}")
     G = H // Kv
     nb = tbl.shape[1]
-    if G > MAX_G or D > MAX_D:
-        raise ValueError(f"flash-decode holds G <= MAX_G {MAX_G} query "
-                         f"heads per kv head and head dim D <= MAX_D {MAX_D} "
-                         f"in registers, got G={G}, D={D}")
+    if D > MAX_D:
+        raise ValueError(f"flash-decode holds head dim D <= MAX_D {MAX_D} "
+                         f"in registers, got D={D}")
     splits, bps = plan_splits(nb, n_splits)
     smem = decode_smem_bytes(G, D, splits)
     if smem > build.SMEM_LIMIT:

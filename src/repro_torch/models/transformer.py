@@ -19,6 +19,7 @@ the serving path alike.  Caches are per-layer lists (``{'layers':
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -65,18 +66,48 @@ def _all_attention(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port's model covers token-input stacks that are dense
-    attention-only with RoPE (or no positions), or uniform RWKV-6 with
+    attention-only with RoPE, with sinusoidal positions added to the
+    embedding (and no RoPE), or with no positions; or uniform RWKV-6 with
     layernorm and no positions."""
     rwkv = (all(_sig(cfg, i) == ("rwkv6", False)
                 for i in range(cfg.n_layers))
-            and cfg.rope == "none" and cfg.norm == "layernorm")
-    attn = _all_attention(cfg) and cfg.rope in ("rope", "none")
-    if not (rwkv or attn) or cfg.input_mode != "tokens" \
-            or cfg.pos_embed != "none":
+            and cfg.rope == "none" and cfg.norm == "layernorm"
+            and cfg.pos_embed == "none")
+    attn = _all_attention(cfg) and (
+        (cfg.rope in ("rope", "none") and cfg.pos_embed == "none")
+        or (cfg.rope == "none" and cfg.pos_embed == "sinusoidal"))
+    if not (rwkv or attn) or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: the port runs token-input stacks that are dense "
-            "attention-only with RoPE, or uniform RWKV-6; other layers "
-            "come with later slices (ROADMAP Queue 1)")
+            "attention-only with RoPE or sinusoidal positions, or uniform "
+            "RWKV-6; other layers come with later slices (ROADMAP Queue 1)")
+
+
+def sinusoidal_from_positions(positions, d_model: int, dtype):
+    """positions (B, S) -> (B, S, d_model): sin of ``d_model // 2``
+    frequencies, then their cos (concatenated, not interleaved), in f32
+    and cast to ``dtype`` (the JAX package's ``_sinusoidal_from_positions``,
+    the table its forward adds to the embedding)."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _embed(cfg: ModelConfig, embed, tokens, positions, rt: Runtime,
+           sp: bool):
+    """The residual stream's start: the token embedding (this rank's
+    S-shard under sequence parallelism, ``sp``), plus the sinusoidal table
+    at the tokens' positions for a model with ``pos_embed ==
+    'sinusoidal'`` (the shard's rows of it)."""
+    h = embed_tokens(embed, tokens, rt, sp)
+    if cfg.pos_embed != "sinusoidal":
+        return h
+    if sp:
+        n = h.shape[1]
+        positions = positions[:, rt.tp_rank * n:(rt.tp_rank + 1) * n]
+    return h + sinusoidal_from_positions(positions, cfg.d_model, h.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +230,7 @@ class Params(nn.Module):
 
         sp = sequence_parallel(rt, S)
         embed = local_params(self.embed)
-        h = embed_tokens(embed, tokens, rt, sp)
+        h = _embed(cfg, embed, tokens, positions, rt, sp)
         rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
                     if cfg.rope == "rope" else None)
         paged = cache.get("paged") if cache is not None else None
@@ -252,12 +283,12 @@ class Params(nn.Module):
         B, S = tokens.shape
         sp = sequence_parallel(rt, S)
         embed = local_params(self.embed)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
         if stage.first:
-            h = embed_tokens(embed, tokens, rt, sp)
+            h = _embed(cfg, embed, tokens, positions, rt, sp)
         rope_ang = None
         if cfg.rope == "rope":
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device)[None].expand(B, S)
             rope_ang = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
         for i in stage.layers:
             h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt, None,

@@ -335,14 +335,27 @@ def test_cuda_flash_decode_empty_splits(dtype):
     _check_decode(case, dtype, 4)
 
 
+# G past one head tile (MAX_G 16): MQA granite-20b (G 48: three tiles of
+# 16), qwen2-1.5b's G 6, and tiles that do not divide G evenly (17: 9 + 8;
+# 40: 14 + 14 + 12); ctx of one position, a block edge, 320 and 4096
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Kv,n_splits", [(48, 1, 4), (48, 1, 1),
+                                           (6, 2, 4), (17, 1, 2),
+                                           (40, 2, 12)])
+def test_cuda_flash_decode_head_tiles(G, Kv, n_splits, dtype):
+    dev = _card()
+    case = _decode_case(dev, dtype, G, 128, (1, 32, 320, 4096), Kv=Kv,
+                        nb=256, seed=G + n_splits)
+    _check_decode(case, dtype, n_splits)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_decode_refuses_wide_tiles():
     dev = _card()
-    for G, D, what in ((tfd.MAX_G + 1, 64, "MAX_G"),
-                       (2, tfd.MAX_D + 1, "MAX_D")):
-        case = _decode_case(dev, torch.float32, G, D, (16,), nb=2)
-        with pytest.raises(ValueError, match=what):
-            tfd.decode_cuda(*case, 2)
+    case = _decode_case(dev, torch.float32, 2, tfd.MAX_D + 1, (16,), nb=2)
+    with pytest.raises(ValueError, match="MAX_D"):
+        tfd.decode_cuda(*case, 2)
     # G 16, D 256 with 64 splits: 8 split states per CTA overflow its
     # shared memory
     case = _decode_case(dev, torch.float32, 16, 256, (16,), nb=64)
@@ -376,6 +389,12 @@ ATTN_CASES = [  # B, S, H, Kv, D, causal, window
     (2, 33, 4, 2, 128, True, 0),      # one row into the second tile
     (1, 129, 4, 2, 128, True, 0),     # one row into the third q block
     (1, 129, 4, 2, 128, True, 32),    # a window of one streamed tile
+    # head dim 80 (h2o-danube-1.8b: tiles padded to 96 columns)
+    (2, 256, 8, 2, 80, True, 0),      # GQA, whole blocks
+    (1, 300, 4, 1, 80, True, 128),    # ragged S, window
+    (2, 33, 4, 2, 80, True, 0),       # one row into the second tile
+    (1, 130, 2, 2, 80, False, 0),     # not causal
+    (2, 1, 4, 2, 80, True, 0),        # S = 1
 ]
 
 
@@ -721,3 +740,59 @@ def test_cuda_checkpoint_of_a_dtensor_state_restores_bit_equal(tmp_path):
     for (path, a), (_, b) in zip(leaves(saved), leaves(restored),
                                  strict=True):
         assert a.dtype == b.dtype and np.array_equal(a, b), path
+
+
+# the dense extensions at full width, cut in depth: qwen2-1.5b (qkv bias,
+# G 6), h2o-danube-1.8b (head dim 80, window 4096) and granite-20b (MQA,
+# layernorm, GELU, sinusoidal positions), f32
+DENSE_FORWARDS = [("qwen2-1.5b", 2), ("h2o-danube-1.8b", 2),
+                  ("granite-20b", 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers", DENSE_FORWARDS)
+def test_cuda_dense_forward_matches_plain(arch, n_layers):
+    """A training forward (the flash forward at the model's heads) and a
+    paged decode step (flash-decode at G 6 and G 48; the window's plain
+    path for danube) of the kernel path against the plain path on the
+    same weights: logits within 1e-4 of their scale, every kernel the
+    path takes launched once a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import init_paged_pools
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=g,
+                         device=dev, dtype=torch.int32)
+    rts = {"kernel": Runtime(),
+           "plain": Runtime(attn_impl="torch", norm_impl="torch")}
+    out = {}
+    with torch.no_grad():
+        for name, rt in rts.items():
+            ops.reset_launch_counts()
+            train = tfm.forward(cfg, params, {"tokens": toks}, rt)
+            cache = init_paged_pools(cfg, 20, 16, torch.float32, dev)
+            tbl = torch.arange(18, dtype=torch.int32, device=dev).view(2, 9)
+            cache["paged"] = {"tbl": tbl, "ctx": torch.zeros(
+                2, dtype=torch.int32, device=dev)}
+            tfm.forward(cfg, params, {"tokens": toks, "pos": torch.zeros(
+                2, 1, dtype=torch.int32, device=dev)}, rt, cache)
+            ctx = torch.full((2,), 130, dtype=torch.int32, device=dev)
+            cache["paged"]["ctx"] = ctx
+            step = tfm.forward(cfg, params, {"tokens": toks[:, :1],
+                                             "pos": ctx[:, None]}, rt, cache)
+            out[name] = (train, step, ops.launch_counts())
+    assert _rel_err(out["kernel"][0], out["plain"][0]) < 1e-4
+    assert _rel_err(out["kernel"][1], out["plain"][1]) < 1e-4
+    counts = out["kernel"][2]
+    assert counts["flash_attention"] == n_layers
+    assert counts["flash_decode"] == (0 if cfg.sliding_window else n_layers)
+    assert counts["rmsnorm"] == (0 if cfg.norm == "layernorm"
+                                 else 3 * (2 * n_layers + 1))
+    assert not any(out["plain"][2].values())

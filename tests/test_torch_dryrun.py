@@ -159,7 +159,11 @@ SERVING = [("rwkv6-1.6b", "prefill_32k", ""),
            ("rwkv6-1.6b", "long_500k", "")] + \
     [(f"llama2-{n}", "decode_32k", "") for n in ("1b", "7b", "70b")] + \
     [("llama2-13b", "decode_32k", "hsdp_tp8"),
-     ("llama2-1b", "prefill_32k", ""), ("llama2-70b", "prefill_32k", "")]
+     ("llama2-1b", "prefill_32k", ""), ("llama2-70b", "prefill_32k", "")] + \
+    [("granite-20b", "decode_32k", ""),       # one KV head, 48 query heads
+     ("h2o-danube-1.8b", "decode_32k", ""),   # a ring of 4096 slots
+     ("h2o-danube-1.8b", "long_500k", ""),    # the window: sub-quadratic
+     ("qwen2-1.5b", "decode_32k", "hsdp_tp4")]   # 12 heads: tp 16 is cp
 
 
 @pytest.mark.parametrize("arch,shape,spec", SERVING)
@@ -177,6 +181,20 @@ def test_serving_points_trace_with_jax_cache_shards(arch, shape, spec,
     assert rec["memory"]["cache_bytes"] >= rec["cache_bytes_per_device"]
     axes = ["data", "model"] if shape == "long_500k" else ["model"]
     assert rec["plan"]["decode_cache_axes"] == axes
+
+
+def test_granite_20b_trains_at_full_depth_on_a_pod(tmp_path):
+    """granite-20b x train_4k at full size (52 layers, 20.3 B parameters,
+    more than one card holds in f32) traces on 256 fake ranks, with the
+    kernel path's head dim 128 and the census of its plan."""
+    rec = dryrun.run_one("granite-20b", "train_4k", False, str(tmp_path),
+                         device="cpu")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["n_devices"] == 256 and rec["kernels"] == "cuda"
+    assert get_config("granite-20b").n_layers == 52
+    assert rec["memory"]["peak_bytes_per_device"] > 0
+    assert {"all-gather", "reduce-scatter"} <= set(rec["collectives"])
+    assert rec["resilience"]["ckpt_bytes"] > 4 * 20e9    # f32 weights alone
 
 
 def test_cli_without_a_card_exits_naming_the_device_flag(tmp_path):
@@ -402,7 +420,8 @@ def test_census_fp8_wire_moves_a_quarter_of_the_layer_bytes():
 # ---------------------------------------------------------------------------
 
 # long_500k on full attention, for the JAX package's reason
-SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b")] \
+SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b",
+                                          "qwen2-1.5b", "granite-20b")] \
     + [(arch, "train_4k") for arch in sorted(LATER)]
 
 

@@ -32,19 +32,23 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, S, _batches,
                              _compare, _errors, _jax_trajectory, _jax_tree,
-                             _join, _leaves, _port_trajectory, _stop)
+                             _join, _leaves, _port_trajectory, _scales,
+                             _stop)
 from test_torch_tp import _floored
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2, n_layers=4), 0.0)
 LLAMA = ("llama2-1b", {}, 0.1)
 RWKV = ("rwkv6-1.6b", {}, 0.1)
+# sinusoidal positions, added on the first stage only; layernorm, GELU,
+# MQA with qkv bias
+GRANITE = ("granite-20b", {}, 0.1)
 # (spec, arch, config overrides, weight decay)
 WORLDS = {
     2: [("fsdp_pp2_mb4", *QWEN), ("fsdp_pp2_mb4_1f1b", *QWEN),
         ("fsdp_pp2_mb4_1f1b_i2", *QWEN), ("fsdp_pp2_mb4_zb", *QWEN),
         ("fsdp_pp2_mb4_bf16", *QWEN), ("fsdp_pp2_mb4_fp8", *QWEN),
         ("fsdp_pp2_mb4", *LLAMA), ("fsdp_pp2_mb4", *RWKV),
-        ("fsdp_pp2_mb4_1f1b", *RWKV)],
+        ("fsdp_pp2_mb4_1f1b", *RWKV), ("fsdp_pp2_mb4_1f1b", *GRANITE)],
     # pipe 2 x data 2; pipe 2 x model 2; four stages of one layer; two
     # grad-accumulation microbatches, each split into four
     4: [("fsdp_pp2_mb4", *QWEN), ("fsdp_tp2_pp2_mb4", *QWEN),
@@ -510,10 +514,10 @@ def test_gradients_and_their_norm_match_one_device(worlds, case):
         norm = got["probe"]["grad_norm"]
         assert abs(norm - want) <= (1e-5 if precision == "f32" else 2e-2) \
             * want, (spec, norm, want)
+        scales = _scales(probe["m"])
         for (path, a), (_, b) in zip(_leaves(got["probe_m"]),
                                      _leaves(probe["m"]), strict=True):
-            scale = max(np.max(np.abs(b)), 1e-30)
-            assert np.max(np.abs(a - b)) <= rel * scale, (spec, path)
+            assert np.max(np.abs(a - b)) <= rel * scales[path], (spec, path)
 
 
 def test_fp8_leaves_pipelined_stage_layers_unrounded(worlds):

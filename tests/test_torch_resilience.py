@@ -51,7 +51,7 @@ from repro_torch.train.trainer import prng_key_data
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B = 16, 4
-ARCHS = ("qwen3-0.6b", "rwkv6-1.6b")
+ARCHS = ("qwen3-0.6b", "rwkv6-1.6b", "granite-20b")
 # weight decay off in the runs held against JAX: the JAX tree stacks
 # qk-norm's 1-d scales, which then take decay there and not in the port
 # (the STACKED_1D caveat of tests/test_torch_train.py)
@@ -121,18 +121,27 @@ def _copy_tree(tree):
 
 def _errors(got, want, lr):
     """Worst differences of a final state from a reference: first moments
-    relative to each leaf's scale, parameters in units of ``lr``."""
+    relative to each leaf's scale, parameters in units of ``lr`` (max and
+    mean).  A key bias's (``bk``) gradient is zero but for rounding
+    (softmax ignores q·bk), so its moments are held to the scale of the
+    query bias's beside it, and its parameters, which Adam moves by that
+    noise in every entry, by their max only (``tests/test_torch_fsdp.py::
+    _scales``)."""
     err = dict(moment=0.0, lr_max=0.0, lr_mean=0.0)
+    ref = dict(_leaves(want["opt"]["m"]))
     for (path, a), (_, b) in zip(_leaves(got["opt"]["m"]),
                                  _leaves(want["opt"]["m"]), strict=True):
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        scale = np.asarray(ref[path[:-1] + ("bq",)] if path[-1] == "bk"
+                           else b, np.float32)
         err["moment"] = max(err["moment"], np.max(np.abs(a - b))
-                            / max(np.max(np.abs(b)), 1e-30))
+                            / max(np.max(np.abs(scale)), 1e-30))
     for (path, a), (_, b) in zip(_leaves(got["params"]),
                                  _leaves(want["params"]), strict=True):
         d = np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)) / lr
         err["lr_max"] = max(err["lr_max"], d.max())
-        err["lr_mean"] = max(err["lr_mean"], d.mean())
+        if path[-1] != "bk":
+            err["lr_mean"] = max(err["lr_mean"], d.mean())
     return err
 
 

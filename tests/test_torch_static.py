@@ -39,6 +39,8 @@ QWEN_KV1 = ("qwen3-0.6b", dict(n_kv_heads=1))     # kv_tp false at tp 2
 QWEN_SWA = ("qwen3-0.6b", dict(n_kv_heads=2, sliding_window=8))
 LLAMA = ("llama2-1b", {})
 RWKV = ("rwkv6-1.6b", {})
+QWEN2 = ("qwen2-1.5b", {})              # qkv bias, Kv 2 split at tp 2
+GRANITE = ("granite-20b", {})           # Kv 1 replicated; sinusoidal
 SINGLE = {"qwen3-gqa": QWEN, "llama2-1b": LLAMA, "rwkv6": RWKV,
           "qwen3-swa-ring": QWEN_SWA}
 # (spec, arch, config overrides, global batch) per world size
@@ -47,7 +49,8 @@ WORLDS = {
         ("fsdp", *QWEN, 2),
         # batch 1 < data 2: rows replicated, the cache over data x model
         ("fsdp", *QWEN, 1),
-        ("fsdp_tp2", *RWKV, 2), ("fsdp_pp2_mb2", *QWEN, 2)],
+        ("fsdp_tp2", *RWKV, 2), ("fsdp_pp2_mb2", *QWEN, 2),
+        ("fsdp_tp2", *QWEN2, 2), ("fsdp_tp2", *GRANITE, 2)],
     # data 2 x model 2: rows split over data, slots over model; then
     # batch 1, the slots over all four ranks
     4: [("fsdp_tp2", *QWEN, 4), ("fsdp_tp2", *QWEN, 1)],
@@ -317,13 +320,16 @@ PLACEMENTS = [("fsdp_tp2", "decode", 8, 4096), ("fsdp_tp4", "decode", 2, 4096),
 
 @pytest.mark.parametrize("spec,mode,B,S", PLACEMENTS)
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b",
-                                  "qwen3-0.6b-swa"])
+                                  "qwen3-0.6b-swa", "qwen2-1.5b",
+                                  "h2o-danube-1.8b", "granite-20b"])
 def test_cache_shardings_match_jax(arch, spec, mode, B, S):
     """Every leaf of the full-size dense cache: the port's fitted spec is
     the JAX ``cache_shardings`` spec (JAX's stacked layer dim dropped),
     and its shard shape the JAX sharding's ``shard_shape``, on abstract
     meshes of 8 devices (qwen3 with a window of 2048 keeps a ring of
-    slots)."""
+    slots; h2o-danube-1.8b's window of 4096 keeps one at S 8192; qwen2's
+    Kv 2 and granite's Kv 1 are sequence-sharded, never split by
+    heads)."""
     import jax
     from jax.sharding import AbstractMesh
 
@@ -588,7 +594,8 @@ def test_each_rank_holds_its_cache_shard(worlds, world_case):
         assert split == (n if first["cache_axes"] != ("model",)
                          else (2 if "tp2" in spec else 1))
         assert first["held"]["kpos"] == (Sc,)
-        assert first["held"]["k"][2] == over.get("n_kv_heads", 4)
+        # every KV head of its slots (qwen3 and Llama-2 reduced: 4)
+        assert first["held"]["k"][2] == _cfgs(arch, over)[1].kv_heads
     else:
         assert first["held"]["wkv"][1] == 4 // 2
 

@@ -35,7 +35,8 @@ MALFORMED = ["", "xdp", "fsdp_tp0", "fsdp_z1", "fsdp_bf16_fp8",
              "fsdp_tp2_tp2", "fsdp_ovl_ovl", "ddp_ovl", "fsdp_1f1b",
              "fsdp_pp2", "fsdp_foo", "fsdp_pp2_mb4_1f1b_i1",
              "fsdp_pp2_mb3_1f1b_i2", "fsdp_ga0"]
-ARCHS = ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b"]
+ARCHS = ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b", "qwen2-1.5b",
+         "h2o-danube-1.8b", "granite-20b"]
 # (name, port topology, JAX topology)
 TOPOLOGIES = {
     "host1": (strategy.host_topology(n_devices=1),

@@ -30,15 +30,23 @@ from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, S, _batches,
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2), 0.0)   # kv_tp at tp 2, not at 4
 RWKV = ("rwkv6-1.6b", {}, 0.1)
 LLAMA = ("llama2-1b", {}, 0.1)
+# qwen2-1.5b: qkv bias, Kv 2 split at tp 2; granite-20b: Kv 1 replicated
+# (its bk/bv too), layernorm, GELU and sinusoidal positions, whose rows
+# under sequence parallelism are each rank's S-shard
+QWEN2 = ("qwen2-1.5b", {}, 0.1)
+GRANITE = ("granite-20b", {}, 0.1)
 # (spec, arch, config overrides, weight decay)
 WORLDS = {
     2: [("fsdp_tp2", *QWEN), ("fsdp_tp2_nosp", *QWEN),
         ("fsdp_tp2_bf16", *QWEN), ("fsdp_tp2_fp8", *QWEN),
-        ("fsdp_tp2", *RWKV), ("fsdp_tp2", *LLAMA)],
+        ("fsdp_tp2", *RWKV), ("fsdp_tp2", *LLAMA), ("fsdp_tp2", *QWEN2),
+        ("fsdp_tp2", *GRANITE)],
     # data 2 x model 2; model 4 with the 2 KV heads replicated (one query
-    # head a rank); ZeRO-0 on its size-1 shard axis; two microbatches
+    # head a rank); ZeRO-0 on its size-1 shard axis; two microbatches;
+    # granite's one KV head on four model ranks
     4: [("fsdp_tp2", *QWEN), ("fsdp_tp4", *QWEN), ("ddp_tp2", *QWEN),
-        ("fsdp_tp2_ga2", *QWEN), ("fsdp_tp2_fp8", *QWEN)],
+        ("fsdp_tp2_ga2", *QWEN), ("fsdp_tp2_fp8", *QWEN),
+        ("fsdp_tp4", *GRANITE)],
 }
 # the collectives of one attention layer, forward and backward (counted
 # per call by models.layers.COLLECTIVES): Megatron-SP enters each sublayer
@@ -317,7 +325,8 @@ def test_layer_collectives_are_megatrons(worlds, spec):
 # specs against the JAX package's, at full size, with no process group
 # ---------------------------------------------------------------------------
 
-ARCHS = ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b"]
+ARCHS = ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b", "qwen2-1.5b",
+         "h2o-danube-1.8b", "granite-20b"]
 
 
 def _norm_entry(e):
@@ -389,7 +398,9 @@ def test_param_placements_match_jax_param_specs(arch):
     assert {n for n, _ in small.named_parameters()} == \
         {n for n in leaves if not n.startswith("layers.")
          or int(n.split(".")[1]) < 2}
-    for tp in (1, 2, 4, 8):
+    # qwen2-1.5b's 12 heads do not split 8 ways: tp 8 resolves to context
+    # attention, refused (test_activation_specs_match_jax)
+    for tp in (1, 2, 4) if arch == "qwen2-1.5b" else (1, 2, 4, 8):
         cfg, plan, jplan = _plans(arch, tp)
         metas = [(n, torch.empty(shape[1:] if stacked else shape,
                                  device="meta"))
@@ -425,6 +436,15 @@ def test_activation_specs_match_jax(arch, spec):
     from repro_torch.core import parallel as par
     cfg = get_config(arch)
     shape = ShapeConfig("x", 512, 8, "train")
+    if cfg.n_heads % strategy.parse(spec).tp:
+        # heads that do not split over the model axis resolve to context
+        # attention, as in the JAX package; the port names its slice
+        with pytest.raises(strategy.StrategyError,
+                           match="context parallelism"):
+            strategy.parse(spec).to_plan(
+                cfg, strategy.host_topology(n_devices=8), shape,
+                abstract=True)
+        return
     plan = strategy.parse(spec).to_plan(
         cfg, strategy.host_topology(n_devices=8), shape, abstract=True)
     jplan = jpar.ParallelPlan(
