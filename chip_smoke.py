@@ -29,7 +29,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               the plain splits and combine at splits 1, 2, 4 and 12, and
               at B 8, ctx 4096, with its device time; then at
               granite-20b's heads (H 48 over Kv 1: three head tiles of
-              16) and qwen2-1.5b's (H 12 over Kv 2), at both contexts.  At
+              16), qwen2-1.5b's (H 12 over Kv 2), deepseek-moe-16b's (H
+              16 over Kv 16: G 1) and dbrx-132b's (H 48 over Kv 8: G 6),
+              at both contexts.  At
               the training shape it also times ``attention_delta``, prints
               dq + dk/dv + delta against SDPA's backward, and names the
               kernels SDPA's backward ran; the same at h2o-danube-1.8b's
@@ -217,7 +219,31 @@ order; any failure ends the run with a non-zero exit and no result line:
               against its ``max_memory_allocated`` within 10 %; then cell
               D4, ``granite-20b x train_4k`` at full depth on the pod
               topology (256 fake ranks), which must trace.
-17. report  — one JSON line listing every kernel (its f32 case, and a
+17. M1      — deepseek-moe-16b at full width (d 2048, 16 heads over Kv
+              16, 64 experts top 6 with 2 shared, the dense first layer of
+              d_ff 10944) cut to 4 layers (28 hold 262 GB of f32 training
+              state), f32: Q2's serving (flash-decode at G 1) and static
+              vs paged; 4 unplanned AdamW steps (the dense dispatch: B S E
+              = 2**18), launches exact; kernel vs plain gradients; 4 steps
+              under ``fsdp`` on the 1-rank NCCL mesh (the dropping
+              dispatch); the dry run of that plan against its measured
+              peak within 10 %.
+18. M2      — dbrx-132b at full width (d 6144, 48 heads over Kv 8, 16
+              experts top 4) cut to 2 layers: Q2's serving (flash-decode
+              at G 6) and static vs paged; kernel vs plain gradients of
+              one forward and backward at 1 layer, B 2 x 512 (its f32
+              training state does not fit one card: no steps).
+19. E1      — ``fsdp_ep2`` on deepseek-moe-16b at 4 layers in two
+              processes sharing the card over gloo (NCCL cannot hold two
+              ranks of one card): the expert all-to-all on the card; the
+              first loss within 1e-5 relative and every gradient within
+              1e-4 of its scale of one process's dropping step with 2
+              dispatch groups; every MoE layer took the all-to-all
+              (``DISPATCH_STATS``).  Correctness only.
+20. D5      — ``deepseek-moe-16b x train_4k`` at full depth (28 layers) on
+              the pod topology (256 fake ranks) under ``fsdp_ep8``, which
+              must trace, its census holding the expert all-to-all.
+21. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -539,16 +565,22 @@ def decode_case(dev, dtype, gen, B=8, nb=20, ctx=(320, 1, 17, 100, 255, 64,
 # shape (its splits 4 row is reported), then B 8 at ctx 4096 (256 blocks,
 # 268 MB of f32 K/V); at splits 12 each CTA of a cluster of 4 takes 3
 # splits.  Then granite-20b's heads (H 48 over Kv 1: three head tiles of
-# 16, each its own cluster) and qwen2-1.5b's (H 12 over Kv 2, G 6), at the
-# same batch and contexts
+# 16, each its own cluster), qwen2-1.5b's (H 12 over Kv 2, G 6),
+# deepseek-moe-16b's (H 16 over Kv 16, G 1) and dbrx-132b's (H 48 over Kv
+# 8, G 6), at the same batch and contexts
 LONG = dict(B=8, nb=256, ctx=(4096,) * 8)
 GRANITE_HEADS, QWEN2_HEADS = dict(H=48, Kv=1), dict(H=12, Kv=2)
+DEEPSEEK_HEADS, DBRX_HEADS = dict(H=16, Kv=16), dict(H=48, Kv=8)
 DECODE_CASES = [("qwen3", (1, 2, 4, 12), False, {}),
                 ("qwen3", (4, 12), True, LONG),
                 ("granite", (4, 12), False, GRANITE_HEADS),
                 ("granite", (4,), True, dict(LONG, **GRANITE_HEADS)),
                 ("qwen2", (4,), False, QWEN2_HEADS),
-                ("qwen2", (4,), True, dict(LONG, **QWEN2_HEADS))]
+                ("qwen2", (4,), True, dict(LONG, **QWEN2_HEADS)),
+                ("deepseek", (4,), False, DEEPSEEK_HEADS),
+                ("deepseek", (4,), True, dict(LONG, **DEEPSEEK_HEADS)),
+                ("dbrx", (4,), False, DBRX_HEADS),
+                ("dbrx", (4,), True, dict(LONG, **DBRX_HEADS))]
 
 
 def flash_decode_phase(dev, flush, gen):
@@ -2855,6 +2887,261 @@ def g1_phase(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: mixture of experts (M1, M2), the expert all-to-all (E1), D5
+# ---------------------------------------------------------------------------
+
+M1_LAYERS = 4                       # deepseek-moe-16b: layer 0 dense + 3 MoE
+M1_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh: dropping
+M2_LAYERS, M2_CHECK_LAYERS = 2, 1   # dbrx-132b: 31.0 GB at 2 layers, f32
+M2_CHECK_BATCH = 2                  # its kernel vs plain gradients, 2 x 512
+E1_SPEC = "fsdp_ep2"
+E1_BATCH = 4                        # rows of E1's step (2 a rank)
+E1_LOSS_REL, E1_GRAD_REL = 1e-5, 1e-4
+E1_TIMEOUT_S = 600
+D5_SPEC = "fsdp_ep8"
+
+
+def _moe_cfg(arch, n_layers):
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def m1_phase(dev, card):
+    """Cell M1: deepseek-moe-16b at full width cut to M1_LAYERS layers
+    (the dense first layer and 3 MoE layers), f32: paged serving on
+    flash-decode at G 1 and static vs paged; DENSE_STEPS unplanned AdamW
+    steps (``auto``: the dense dispatch at B S E = 2**18) and kernel vs
+    plain gradients; DENSE_STEPS steps under M1_SPEC on the 1-rank NCCL
+    mesh (the plan's dropping dispatch), launches exact; the dry run of
+    that plan against its measured peak within G1_MEM_REL."""
+    cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
+    res = dense_serve(dev, card, cfg, "M1")
+    res["train"] = dense_train(dev, card, cfg, "M1")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    init_distributed(dev)
+    try:
+        strat, _ = strategy.resolve(M1_SPEC, cfg, strategy.host_topology(),
+                                    shape)
+        plan = strat.to_plan(cfg, strategy.host_topology(), shape)
+        rt = par.make_runtime(cfg, plan, shape)
+        check(rt.moe_impl == "dropping" and rt.moe_groups == 1,
+              f"M1 plan runtime: moe_impl {rt.moe_impl}, groups "
+              f"{rt.moe_groups}")
+        tc = TrainConfig(steps=DENSE_STEPS, warmup=DENSE_STEPS, log_every=1,
+                         opt=AdamWConfig(lr=DENSE_LR))
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        res["plan_train"] = run_steps(dev, card, cfg, rt, tc, params,
+                                      train_expect(cfg), "M1", plan=plan)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    res["plan_train"].update(spec=strat.format(), mesh=mesh_shape(plan.mesh))
+    measured = res["plan_train"]["peak_mem_bytes"]
+    rec = dryrun.lower_fresh(cfg, shape, strat, strategy.host_topology(
+        n_devices=1), device="cuda")
+    tracked = rec["memory"]["peak_bytes_per_device"]
+    rel = abs(tracked - measured) / measured
+    print(f"[M1] dry run of {strat.format()} at {M1_LAYERS} layers, "
+          f"B{TRAIN_BATCH} x S{TRAIN_SEQ}, one fake rank (traced in "
+          f"{rec['trace_s']} s): tracked peak {tracked / 2**30:.3f} GiB vs "
+          f"max_memory_allocated {measured / 2**30:.3f} GiB: rel {rel:.3g} "
+          f"(tol {G1_MEM_REL}); on {card}")
+    check(rel <= G1_MEM_REL, f"M1 dry-run peak {tracked} B vs measured "
+                             f"{measured} B")
+    res["dryrun"] = dict(memory=rec["memory"], measured_peak_bytes=measured,
+                         rel=rel, trace_s=rec["trace_s"],
+                         moe_dispatch=rec["moe_dispatch"])
+    res["launches"] = add_launches(res["launches"],
+                                   res["train"]["launches"],
+                                   res["plan_train"]["launches"])
+    return res
+
+
+def m2_phase(dev, card):
+    """Cell M2: dbrx-132b at full width cut to M2_LAYERS layers, f32:
+    paged serving on flash-decode at G 6 and static vs paged; then kernel
+    vs plain gradients of one forward and backward at M2_CHECK_LAYERS
+    layer(s), M2_CHECK_BATCH x TRAIN_SEQ (parameters and two sets of
+    gradients; the f32 training state of even one layer, 71.9 GB before
+    activations, leaves no room for AdamW on the card)."""
+    cfg = _moe_cfg("dbrx-132b", M2_LAYERS)
+    res = dense_serve(dev, card, cfg, "M2")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res["grads"] = grad_check(
+        dev, _moe_cfg("dbrx-132b", M2_CHECK_LAYERS), Runtime(),
+        Runtime(attn_impl="torch", norm_impl="torch"), M2_CHECK_BATCH, "M2")
+    res["grads"]["peak_mem_gib"] = \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _e1_batch(cfg):
+    return next(iter(Batcher(SyntheticSource(cfg.vocab_size, seed=SEED),
+                             TRAIN_SEQ, E1_BATCH)))
+
+
+def _e1_rank(rank, port, out_dir, device_type="cuda"):
+    """One rank of E1 (a spawned process on the card, gloo for every
+    collective): one process's dropping step (2 dispatch groups) on the
+    whole batch as the reference, then the E1_SPEC step on this rank's
+    rows; every local gradient against the reference's cut of it."""
+    import datetime
+    from repro_torch.core import expert as expert_lib
+    from repro_torch.train.trainer import _DataParallel
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=E1_TIMEOUT_S // 2))
+    try:
+        cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
+        batch = batch_to_device(_e1_batch(cfg), dev)
+        params = tfm.init_params(cfg, seed=SEED, device=dev)
+        ref_loss, ref = loss_and_grads(cfg, params, batch, Runtime(
+            moe_impl="dropping", moe_groups=2))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = ShapeConfig("chip_smoke", TRAIN_SEQ, E1_BATCH, "train")
+        plan = strategy.parse(E1_SPEC).to_plan(
+            cfg, strategy.host_topology(), shape, device_type=dev.type)
+        rt = par.make_runtime(cfg, plan, shape)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        dp = _DataParallel(plan)
+        mine, denom = dp.rows(batch, (batch["labels"] >= 0).sum().float())
+        expert_lib.reset_dispatch_stats()
+        layers.reset_collective_counts()
+        ops.reset_launch_counts()
+        loss, _ = tfm.loss_fn(cfg, params, mine, rt, denom)
+        loss.backward()
+        named = dict(params.named_parameters())
+        dp.sum_over_experts(named, rt)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        loss = float(dp.mean(loss.detach().clone()))
+        errs = {}
+        for name, p in named.items():
+            want = bridge._local_cut(ref[name], p.grad)
+            got = p.grad.to_local()
+            errs[name] = float((got - want).abs().max()
+                               / ref[name].abs().max().clamp_min(1e-30))
+        worst = max(errs, key=errs.get)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+            loss=loss, ref_loss=ref_loss, grad_rel_err_max=errs[worst],
+            worst_leaf=worst, leaves=len(errs),
+            dispatch=expert_lib.dispatch_stats_snapshot(),
+            all_to_all=layers.COLLECTIVES["all_to_all"],
+            launches=counts,
+            expert_local_shape=list(
+                named["layers.1.ffn.w_up"].to_local().shape),
+            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)))
+    finally:
+        dist.destroy_process_group()
+
+
+def e1_phase(dev, card):
+    """E1: E1_SPEC on deepseek-moe-16b at M1_LAYERS layers in two
+    processes sharing the card over gloo: the dispatch and combine
+    all-to-all, the router's statistics all-reduce and the expert units'
+    reduction on the card; each rank's share of the loss, averaged, and
+    its local gradients against one process's dropping step (2 dispatch
+    groups, the two ranks' rows) computed in the rank itself.  No time is
+    meaningful (two processes time-slice one card)."""
+    import multiprocessing
+    import socket
+    cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_e1")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_e1_rank, args=(r, port, out_dir, dev.type))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.time() + E1_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"E1 ranks exited with {codes} (None: still "
+                           f"running after {E1_TIMEOUT_S} s)")
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    expect = train_expect(cfg)
+    launches = {k: 0 for k in ops.launch_counts()}
+    for r, got in enumerate(ranks):
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        check(rel <= E1_LOSS_REL, f"E1 rank {r}: loss {got['loss']} vs "
+                                  f"{got['ref_loss']} ({rel:.3g} relative)")
+        check(got["grad_rel_err_max"] <= E1_GRAD_REL,
+              f"E1 rank {r}: gradient {got['worst_leaf']} differs by "
+              f"{got['grad_rel_err_max']:.3g} of its scale")
+        check(got["dispatch"]["ep_calls"] == n_moe
+              and got["all_to_all"] == 4 * n_moe,
+              f"E1 rank {r}: dispatch {got['dispatch']}, "
+              f"{got['all_to_all']} all-to-alls")
+        check(got["expert_local_shape"][0] == cfg.moe.n_experts // 2,
+              f"E1 rank {r}: expert stack shard {got['expert_local_shape']}")
+        check(got["launches"] == expect,
+              f"E1 rank {r} launches {got['launches']} != {expect}")
+        launches = {k: launches[k] + got["launches"][k] for k in launches}
+    print(f"[E1] {E1_SPEC} at {M1_LAYERS} layers in 2 processes (gloo) in "
+          f"{time.perf_counter() - t0:.1f} s: loss {ranks[0]['loss']:.6f} vs "
+          f"one process's {ranks[0]['ref_loss']:.6f}; gradients rel err "
+          f"max " + " / ".join(f"{g['grad_rel_err_max']:.3g} "
+                               f"({g['worst_leaf']})" for g in ranks)
+          + f" (tol {E1_GRAD_REL}); each rank {n_moe} EP calls, "
+          f"{ranks[0]['all_to_all']} all-to-alls, expert stacks "
+          f"{ranks[0]['expert_local_shape']}; launches {launches}; "
+          f"on {card}")
+    return dict(card=card, ranks=ranks, launches=launches)
+
+
+def d5_phase(card):
+    """Cell D5: deepseek-moe-16b x train_4k at full depth (28 layers) on
+    the pod topology (256 fake ranks) under D5_SPEC: it must trace, with
+    the expert all-to-all in its census and every MoE layer's call on
+    the all-to-all path."""
+    cfg = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    pod = dryrun.run_one("deepseek-moe-16b", "train_4k", False, DRYRUN_OUT,
+                         strategy=D5_SPEC, device="cuda")
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    a2a = pod.get("collectives", {}).get("all-to-all", {})
+    check(pod["status"] == "ok" and pod["n_devices"] == 256
+          and pod["plan"]["expert"] == "expert"
+          and pod["moe_dispatch"]["ep_calls"] == n_moe
+          and a2a.get("count") == 4 * n_moe,
+          f"D5 deepseek-moe-16b pod dry run: {pod.get('status')} "
+          f"{pod.get('error')} {pod.get('moe_dispatch')} {a2a}")
+    pod["wall_s"] = time.perf_counter() - t0
+    print(f"[D5] deepseek-moe-16b x train_4k ({cfg.n_layers} layers) on pod "
+          f"({pod['strategy']}, mesh {pod['plan']['mesh']}) in "
+          f"{pod['wall_s']:.1f} s: peak/dev "
+          f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB; "
+          f"all-to-all {a2a['count']} x, {a2a['bytes']:.4g} B of "
+          f"{pod['collective_bytes_total']:.4g} B collective bytes")
+    return pod
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3012,6 +3299,12 @@ def main(argv=None):
     h1 = phase("H1", h1_phase, dev, card)
     g1 = phase("G1", g1_phase, dev, card)
 
+    # mixture of experts: deepseek-moe-16b, dbrx-132b, the all-to-all
+    m1 = phase("M1", m1_phase, dev, card)
+    m2 = phase("M2", m2_phase, dev, card)
+    e1 = phase("E1", e1_phase, dev, card)
+    d5 = phase("D5", d5_phase, card)
+
     # each kernel's launches on the main paths: every run above, each
     # counted from 0
     launches = add_launches(
@@ -3019,7 +3312,7 @@ def main(argv=None):
         strat["fp8"]["launches"], ck1["launches"], piped["launches"],
         rwkv_trained["launches"], ss1["launches"], ss3["launches"],
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
-        g1["launches"])
+        g1["launches"], m1["launches"], m2["launches"], e1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3032,7 +3325,8 @@ def main(argv=None):
              "train_rwkv6": rwkv_trained, "static_ss1": ss1,
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
              "dryrun_d3": d3, "dense_q2": q2, "dense_h1": h1,
-             "dense_g1": g1, "build_s": took,
+             "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
+             "dryrun_d5": d5, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

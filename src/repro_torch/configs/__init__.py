@@ -3,14 +3,18 @@
 The port runs dense attention-only stacks: with RoPE, RMSNorm and a SwiGLU
 MLP (``qwen3-0.6b``, the Llama-2 family, ``qwen2-1.5b`` with its qkv bias
 and ``h2o-danube-1.8b`` with its sliding window), or with sinusoidal
-positions, layernorm and a GELU MLP (``granite-20b``, multi-query); and
-the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from its
-recurrent state by the static engine).  The JAX package's other architectures need layers the
-port does not have yet; ``get_config`` names the ROADMAP item that brings
-each of them.
+positions, layernorm and a GELU MLP (``granite-20b``, multi-query); the
+mixture-of-experts stacks of ``deepseek-moe-16b`` (64 routed experts top
+6, 2 shared, a dense first layer) and ``dbrx-132b`` (16 experts top 4);
+and the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from
+its recurrent state by the static engine).  The JAX package's other
+architectures need layers the port does not have yet; ``get_config``
+names the ROADMAP item that brings each of them.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
+from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
+from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.granite_20b import CONFIG as _granite
 from repro_torch.configs.h2o_danube_1p8b import CONFIG as _danube
 from repro_torch.configs.llama2 import CONFIGS as _llama2
@@ -18,17 +22,16 @@ from repro_torch.configs.qwen2_1p5b import CONFIG as _qwen2
 from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
-REGISTRY = {c.name: c for c in (_qwen3, _rwkv6, _qwen2, _danube, _granite)}
+REGISTRY = {c.name: c for c in (_qwen3, _rwkv6, _qwen2, _danube, _granite,
+                                 _deepseek, _dbrx)}
 REGISTRY.update(_llama2)
 
 # arch -> the later slice of the port (ROADMAP Queue 1) that brings it
 LATER = {
     "musicgen-medium": "other mixers and inputs (frame embeddings, "
-                       "sinusoidal positions)",
+                       "flash attention at head dim 64)",
     "qwen2-vl-2b": "other mixers and inputs (M-RoPE, vision embeddings)",
-    "deepseek-moe-16b": "MoE and expert parallelism",
-    "dbrx-132b": "MoE and expert parallelism",
-    "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid), after MoE",
+    "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid)",
 }
 
 

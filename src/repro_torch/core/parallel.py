@@ -38,8 +38,9 @@ collective.  The data axes:
 Gathers run at the parameter dtype (f32), as the JAX package gathers
 (``comm_dtype ''``); the bf16 cast stays where the model casts (the
 embedding, the LM head, each product).  Under a policy with a
-``comm_dtype`` (fp8) on a plan that shards parameters, each layer's
-floating parameters go on FSDP2's all-gather in that dtype: their local
+``comm_dtype`` (fp8) on a plan that shards parameters, each stacked
+layer's floating parameters (``transformer.wired_layers``: not a prefix
+layer's) go on FSDP2's all-gather in that dtype: their local
 shards are :class:`Fp8Wire` tensors, whose ``fsdp_pre_all_gather`` casts
 f32 straight to float8_e4m3fn (no scale) and ``fsdp_post_all_gather``
 back to ``compute_dtype``, as ``make_param_gatherer`` quantizes, gathers
@@ -235,11 +236,20 @@ def _param_spec(cfg: ModelConfig, plan: ParallelPlan, path: Tuple[str, ...],
         return spec(f, m if vocab_tp else None)
     if leaf in ("scale", "bias") or ndim == 0:
         return spec()
-    if leaf == "router" or (ndim == 3 and leaf in ("w_up", "w_gate",
-                                                   "w_down")):
-        raise NotImplementedError(
-            f"{'.'.join(path)}: MoE expert stacks come with the MoE and "
-            "expert parallelism slice of the port (ROADMAP Queue 1)")
+    if leaf == "router":
+        return spec(f, None)
+    # MoE expert stacks (E, d, f) / (E, f, d)
+    if ndim == 3 and leaf in ("w_up", "w_gate", "w_down"):
+        if plan.expert:
+            # EP: the E dim shards over the 'expert' axis for good (no
+            # gather over it); the d dim ZeRO-shards over the other data
+            # axes and the hidden dim takes the model axis
+            f_ne = plan.fsdp_no_expert or None
+            return spec(plan.expert,
+                        f_ne if leaf != "w_down" else m,
+                        m if leaf != "w_down" else f_ne)
+        return spec(m, f if leaf != "w_down" else None,
+                    f if leaf == "w_down" else None)
     if in_attention:
         kind = _mixer_kind(cfg, path)
         if kind == "attn":
@@ -299,18 +309,37 @@ def param_placements(cfg: ModelConfig, plan: ParallelPlan, params):
     """{name: placement on the model axis} for every parameter of
     ``params`` (a module, or (name, tensor) pairs): ``Shard(d)`` where the
     fitted ``_param_spec`` puts the model axis on dim d, else
-    ``Replicate()``.  The data axes' placements are FSDP2's (dim 0)."""
+    ``Replicate()``.  The data axes' placements are FSDP2's (dim 0).
+    Under an expert axis a MoE FFN's leaves are placed on that axis
+    instead (:func:`on_expert_axis`): the expert stacks ``Shard(0)``
+    (``_param_spec``'s E dim), the router and shared experts
+    ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
     named = (params.named_parameters() if hasattr(params, "named_parameters")
              else params)
     out = {}
     for name, p in named:
+        if on_expert_axis(name, cfg, plan):
+            # only a stack's E dim: the data axes of a router's or shared
+            # expert's spec are ZeRO's, which FSDP2 owns
+            out[name] = Shard(0) if p.ndim == 3 else Replicate()
+            continue
         path = tuple(name.split("."))
         spec = fitted(plan, _param_spec(cfg, plan, path, p.ndim), p.shape)
         dims = [d for d, e in enumerate(spec)
                 if plan.tp in (e if isinstance(e, tuple) else (e,))]
         out[name] = Shard(dims[0]) if dims else Replicate()
     return out
+
+
+def on_expert_axis(name: str, cfg: ModelConfig, plan: ParallelPlan) -> bool:
+    """Whether a parameter lives on the expert axis under ``plan``: every
+    leaf of a MoE layer's FFN (its expert stacks sharded over the axis,
+    the router and shared experts replicated on it), in the unit of its
+    own that :func:`apply_plan` makes of that FFN."""
+    parts = name.split(".")
+    return bool(plan.expert) and parts[0] == "layers" and \
+        parts[2] == "ffn" and cfg.is_moe_layer(int(parts[1]))
 
 
 def grad_sums_over_model(name: str, placement, seq_parallel: bool) -> bool:
@@ -518,8 +547,34 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
                       pipe_rank=plan.mesh.get_local_rank(plan.pipe))
     if shape.mode != "train" and mesh:
         kw.update(_cache_coords(cfg, plan, shape))
+    if cfg.moe.n_experts:
+        kw.update(_moe_coords(plan, shape, mesh))
     kw.update(overrides)
     return Runtime(**kw)
+
+
+def _moe_coords(plan: ParallelPlan, shape: ShapeConfig, mesh: bool):
+    """A MoE model's dispatch under ``plan``: 'ep' with an expert axis,
+    else 'dropping' in the reference's ``moe_groups`` = data degree groups
+    over the global batch.  A rank holds the rows of its coordinate on the
+    axes that split the batch (all data axes for a train step, the
+    serving shape's :func:`row_axes` otherwise): its share of the groups
+    is the data degree over theirs, and the router averages its load
+    statistics over their groups.  The expert axis' group and size go to
+    the all-to-all."""
+    dp = plan.axis_size(plan.dp)
+    kw = dict(moe_impl="ep" if plan.expert else "dropping", moe_groups=dp)
+    if not mesh:
+        return kw
+    axes = plan.dp if shape.mode == "train" else row_axes(
+        plan, shape.global_batch)
+    axes = tuple(a for a in axes if mesh_shape(plan.mesh)[a] > 1)
+    kw.update(moe_groups=dp // plan.axis_size(axes),
+              moe_stat_groups=tuple(plan.mesh.get_group(a) for a in axes))
+    if plan.expert:
+        kw.update(expert_group=plan.mesh.get_group(plan.expert),
+                  expert_size=plan.ep_size)
+    return kw
 
 
 def _cache_coords(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig):
@@ -638,38 +693,60 @@ def all_gather_buffers(module) -> Dict[torch.dtype, int]:
     return out
 
 
+def _flat(mesh, axes: Tuple[str, ...]) -> str:
+    """The name of ``mesh``'s dims ``axes`` as one (flattened, registered
+    on the root mesh) dim; an axis alone keeps its name."""
+    if len(axes) == 1:
+        return axes[0]
+    return mesh[axes]._flatten().mesh_dim_names[0]
+
+
 def _meshes(plan: ParallelPlan):
-    """(root mesh, the submesh of it FSDP2 runs over).  The root is the
-    plan's mesh (under a pipeline, the submesh of this rank's pipe
+    """(root mesh, the submesh of it FSDP2 runs over, the submesh a MoE
+    FFN's unit runs over under an expert axis, else None).  The root is
+    the plan's mesh (under a pipeline, the submesh of this rank's pipe
     coordinate: every axis but ``pipe``) when the plan shards over
     ``data`` (FSDP2 1-D over it, or 2-D (replicate ``pod``, shard
     ``data``)); under ZeRO-0 it is a mesh of its own, ([pipe,] dp, zero,
-    model) with a size-1 ``zero`` axis, sliced the same way, and FSDP2
-    replicates over ``dp`` and shards over ``zero``.  Ranks lie in the
-    same order on both (row-major, model innermost)."""
+    model) with a size-1 ``zero`` axis (dp split into data and expert
+    under an expert axis), sliced the same way, and FSDP2 replicates over
+    ``dp`` and shards over ``zero``.  Ranks lie in the same order on both
+    (row-major, model innermost).  An expert axis shards the batch
+    together with ``data``: FSDP2 runs over the two as one flattened dim,
+    and a MoE FFN's unit over the data axes without it (its expert stacks
+    are already split over it)."""
     if plan.fsdp:
         replicate = tuple(a for a in plan.dp if a not in plan.fsdp)
-        if len(plan.fsdp) != 1 or len(replicate) > 1:
-            raise ValueError(f"FSDP2 shards over one mesh axis and "
-                             f"replicates over at most one; plan shards "
-                             f"over {plan.fsdp} of {plan.dp}")
+        if len(replicate) > 1 or len(plan.fsdp) - bool(plan.expert) != 1:
+            raise ValueError(f"FSDP2 shards over one mesh axis (with the "
+                             f"expert axis) and replicates over at most "
+                             f"one; plan shards over {plan.fsdp} of "
+                             f"{plan.dp}")
         mesh = plan.mesh
         if plan.pipe:
             mesh = mesh[tuple(a for a in mesh.mesh_dim_names
                               if a != plan.pipe)]
-        if not replicate:
-            return mesh, mesh[plan.fsdp[0]]
-        return mesh, mesh[replicate + plan.fsdp]
+        no_expert = mesh[replicate + plan.fsdp_no_expert] \
+            if plan.expert else None
+        if not replicate and len(plan.fsdp) > 1:
+            # the flattened mesh itself (slicing a flattened dim from the
+            # root is deprecated; with a replicate axis there is no other
+            # way to the 2-D mesh)
+            return mesh, mesh[plan.fsdp]._flatten(), no_expert
+        return mesh, mesh[replicate + (_flat(mesh, plan.fsdp),)], no_expert
     from torch.distributed.device_mesh import init_device_mesh
     pipe = (plan.pipe_size,) if plan.pipe else ()
+    dp = ((plan.axis_size(plan.dp) // plan.ep_size, plan.ep_size)
+          if plan.expert else (plan.axis_size(plan.dp),))
+    dp_names = ("data", plan.expert) if plan.expert else ("dp",)
     root = init_device_mesh(
-        plan.mesh.device_type,
-        pipe + (plan.axis_size(plan.dp), 1, plan.tp_size),
+        plan.mesh.device_type, pipe + dp + (1, plan.tp_size),
         mesh_dim_names=(("pipe",) if plan.pipe else ())
-        + ("dp", "zero", plan.tp))
+        + dp_names + ("zero", plan.tp))
     if plan.pipe:
-        root = root["dp", "zero", plan.tp]
-    return root, root["dp", "zero"]
+        root = root[dp_names + ("zero", plan.tp)]
+    return (root, root[(_flat(root, dp_names), "zero")],
+            root[("data", "zero")] if plan.expert else None)
 
 
 def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
@@ -681,10 +758,11 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
     ``init_params``): each keeps its model-axis shard of them.  The
     embedding, the LM head and the final norm stay in the root unit: tied
     embeddings use one table at both ends.  Where :func:`wires`, each
-    layer's floating parameters are :class:`Fp8Wire` shards, gathered into
-    ``compute_dtype``.  Under a ``pipe`` axis a rank keeps only its stages'
-    layers (``core.pipeline.keep_stage_layers``) and shards them over the
-    (data, model) submesh of its pipe coordinate."""
+    stacked layer's floating parameters (``transformer.wired_layers``)
+    are :class:`Fp8Wire` shards, gathered into ``compute_dtype``.  Under
+    a ``pipe`` axis a rank keeps only its stages' layers
+    (``core.pipeline.keep_stage_layers``) and shards them over the (data,
+    model) submesh of its pipe coordinate."""
     from torch import nn
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import DTensor
@@ -692,42 +770,75 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
     if plan.pipe:
         from repro_torch.core.pipeline import keep_stage_layers
         keep_stage_layers(params, cfg, plan)
-    root, dp_mesh = _meshes(plan)
+    root, dp_mesh, expert_dp_mesh = _meshes(plan)
     tp_mesh = root[plan.tp]
-    n, rank = tp_mesh.size(), tp_mesh.get_local_rank()
-    wire = wires(plan)
+    ep_mesh = root[plan.expert] if plan.expert else None
+    from repro_torch.models.transformer import wired_layers
+    wired = wired_layers(cfg) if wires(plan) else ()
     for name, place in param_placements(cfg, plan, params).items():
         owner, leaf = name.rsplit(".", 1)
         sub = params.get_submodule(owner)
         full = sub[leaf].detach()
+        mesh = ep_mesh if on_expert_axis(name, cfg, plan) else tp_mesh
+        n, rank = mesh.size(), mesh.get_local_rank()
         local = (full.chunk(n, place.dim)[rank].contiguous()
                  if place.is_shard() else full)
-        if wire and name.startswith("layers.") and local.is_floating_point():
+        if (name.startswith("layers.") and local.is_floating_point()
+                and int(name.split(".")[1]) in wired):
             local = Fp8Wire(local)
         sub[leaf] = nn.Parameter(DTensor.from_local(
-            local, tp_mesh, [place], run_check=False))
+            local, mesh, [place], run_check=False))
     # inputs keep their dtype: the model casts where the JAX package casts
     mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.param_dtype],
                               reduce_dtype=_DTYPES[pol.grad_dtype],
                               cast_forward_inputs=False)
     # the wired layers gather into compute_dtype; their gradients are cast
     # to grad_dtype before the reduce-scatter
-    layer_mp = (MixedPrecisionPolicy(param_dtype=_DTYPES[pol.compute_dtype],
-                                     reduce_dtype=_DTYPES[pol.grad_dtype],
-                                     cast_forward_inputs=False)
-                if wire else mp)
+    wire_mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.compute_dtype],
+                                   reduce_dtype=_DTYPES[pol.grad_dtype],
+                                   cast_forward_inputs=False)
     reshard = bool(plan.fsdp) and plan.zero >= 3
     # a pipe rank's layers of other stages are empty placeholders
     layers = {i: layer for i, layer in enumerate(params.layers)
               if len(layer._modules)}
-    for layer in layers.values():
+    for i, layer in layers.items():
+        layer_mp = wire_mp if i in wired else mp
+        if plan.expert and cfg.is_moe_layer(i):
+            # the MoE FFN's own unit over the data axes without the expert
+            # axis; its gradients are summed over dp / ep ranks there and
+            # (router, shared experts) over the expert group by the train
+            # step, so they divide by the whole data degree
+            ffn = layer["ffn"]
+            fully_shard(ffn, mesh=expert_dp_mesh,
+                        reshard_after_forward=reshard, mp_policy=layer_mp)
+            _set_divide_factor(ffn, plan.axis_size(plan.dp),
+                               expert_dp_mesh.shape[-1])
         fully_shard(layer, mesh=dp_mesh, reshard_after_forward=reshard,
                     mp_policy=layer_mp)
     fully_shard(params, mesh=dp_mesh, reshard_after_forward=reshard,
                 mp_policy=mp)
     if plan.zero_overlap:
+        # (a MoE FFN's unit gathers in its own pre-forward hook)
         for i, cur in layers.items():
             if i + 1 in layers:
                 cur.set_modules_to_forward_prefetch([layers[i + 1]])
                 layers[i + 1].set_modules_to_backward_prefetch([cur])
     return params
+
+
+def _set_divide_factor(unit, factor: int, ranks: int) -> None:
+    """FSDP2's divisor of ``unit``'s reduced gradients, where it shards
+    over ``ranks`` (the last dim of its mesh; torch 2.13 names the setter
+    ``set_gradient_divide_factor``, torch 2.11 may have only
+    ``set_reduce_scatter_divide_factor``).  Over more than one rank the
+    reduce-scatter (and an HSDP all-reduce after it) sums and divides
+    after it: a divisor other than the group's size would take NCCL's
+    pre-multiplied sum, which gloo lacks.  Over one rank FSDP2 divides
+    the copy it makes in place of the reduce-scatter, and an HSDP
+    all-reduce then sums: forcing the sum there would divide twice."""
+    setter = getattr(unit, "set_gradient_divide_factor", None) or \
+        unit.set_reduce_scatter_divide_factor
+    setter(float(factor))
+    force_sum = getattr(unit, "set_force_sum_reduction_for_comms", None)
+    if force_sum is not None and ranks > 1:
+        force_sum(True)

@@ -45,7 +45,9 @@ the peak bytes per device, split into parameters, gradients, optimizer
 state, activations and temporaries (``perf.memory``); ``trace_s`` stands
 where JAX has ``lower_s``.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
-``generated_code_bytes`` and ``compile_s``.  The archs of
+``generated_code_bytes`` and ``compile_s``.  A MoE arch's record also
+counts its MoE layer calls by dispatch entry (``moe_dispatch``), and its
+census the expert all-to-all.  The archs of
 ``repro_torch.configs.LATER`` need their own slices, and ``long_500k``
 needs a sub-quadratic mixer (``configs.supports_shape``, the JAX
 package's reason): those points are recorded as ``status: "skipped"``
@@ -180,13 +182,18 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
               rt_overrides=None, device="cuda") -> Dict:
     """Trace one step of ``strat`` on ``topo`` for ``shape`` as global rank
     ``rank`` of a fake process group, the fake tensors on ``device`` ->
-    {'plan', 'memory', 'collectives', 'trace_s'}, and for a serving shape
-    'cache_bytes_per_device'.  ``grad_accum`` > 1 overrides the spec's
-    ``ga<k>``."""
+    {'plan', 'memory', 'collectives', 'trace_s', 'moe_dispatch'}, and for
+    a serving shape 'cache_bytes_per_device'.  ``grad_accum`` > 1
+    overrides the spec's ``ga<k>``.  ``moe_dispatch`` counts the MoE
+    layer calls by the expert-parallel entry each took
+    (``core.expert.DISPATCH_STATS``' deltas over the step)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import expert as expert_lib
     device = resolve_device(device)
     impl = IMPLS[kernels]
     extra = {}
+    stats0 = expert_lib.dispatch_stats_snapshot()
     with fake_group(topo.n_devices, rank):
         plan = strat.to_plan(cfg, topo, shape, device_type=device.type)
         rt = par.make_runtime(
@@ -219,7 +226,9 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
                     "expert": plan.expert, "mesh": mesh_shape(plan.mesh),
                     "decode_cache_axes": list(plan.decode_cache_axes)}
         del params
+    stats1 = expert_lib.dispatch_stats_snapshot()
     return {"plan": plan_rec, "trace_s": round(took, 1),
+            "moe_dispatch": {k: stats1[k] - stats0[k] for k in stats1},
             "memory": {"peak_bytes_per_device": mem.peak,
                        **{f"{k}_bytes": v for k, v in
                           mem.breakdown().items()}},
@@ -408,6 +417,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "params_active": cfg.active_param_count(),
             "resilience": resilience(cfg, strat, topo),
         }
+        if cfg.moe.n_experts:
+            # which EP entry the step's MoE layer calls took: 'ep_calls'
+            # the all-to-all on the rank's own tokens, 'ep_padded_calls'
+            # small token counts padded to the expert group
+            rec["moe_dispatch"] = traced[worst]["moe_dispatch"]
         if "cache_bytes_per_device" in traced[worst]:
             rec["cache_bytes_per_device"] = \
                 traced[worst]["cache_bytes_per_device"]

@@ -13,9 +13,12 @@ CLI's does:
                          parallelism ``tp<k>`` (head-TP with Megatron-SP;
                          ``nosp`` keeps the residual stream whole),
                          pipeline parallelism ``pp<k>_mb<m>`` with a
-                         schedule ``gpipe``/``1f1b``/``1f1b_i<v>``/``zb``;
-                         cp or ep above 1 raise ``StrategyError`` naming
-                         the slice that brings them
+                         schedule ``gpipe``/``1f1b``/``1f1b_i<v>``/``zb``,
+                         expert parallelism ``ep<k>`` (MoE archs: the
+                         expert all-to-all over an expert axis factored
+                         out of data); cp above 1, and tp or pp on a MoE
+                         arch, raise ``StrategyError`` naming the slice
+                         that brings them
 
 ``--topology host`` (the default) is every rank of this job as one island.
 The strategy runs on the plan's ``DeviceMesh`` ([pipe x] data axes x model

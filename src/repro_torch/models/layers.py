@@ -49,8 +49,9 @@ class Runtime:
     every policy), activations and products run in ``compute_dtype``,
     gradients accumulate in ``grad_dtype``.  ``gather_dtype``, when set
     (the fp8 policy on a plan that shards parameters), is the wire dtype
-    of each layer's gathered parameters: every floating leaf reaches the
-    layer rounded through it to ``compute_dtype``.  With ``fsdp_wire``
+    of each stacked layer's gathered parameters (``transformer.
+    wired_layers``; a prefix layer gathers at f32): every floating leaf
+    reaches the layer rounded through it to ``compute_dtype``.  With ``fsdp_wire``
     FSDP2's all-gather does the rounding (``core.parallel.Fp8Wire``);
     without it (one device, no gather) the layer rounds its leaves itself
     (:func:`wire_round`).  Either way each gradient of a layer parameter is
@@ -94,6 +95,11 @@ class Runtime:
     pipe_via_host: bool = False         # stage p2p through host memory
     cache_shard: int = 0                # this rank's shard of the KV slots
     cache_groups: Tuple[Any, ...] = ()  # groups of the axes sharding them
+    moe_impl: str = "auto"              # 'auto' | 'dense' | 'dropping' | 'ep'
+    moe_groups: int = 1                 # dispatch groups of this rank's tokens
+    moe_stat_groups: Tuple[Any, ...] = ()  # groups sharding the tokens
+    expert_group: Any = None            # the expert axis' process group
+    expert_size: int = 1                # ranks on the expert axis
 
 
 class CacheLeaf(NamedTuple):
@@ -143,7 +149,7 @@ def wire_round_grad(g: torch.Tensor, rt: Runtime) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 COLLECTIVES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
-                               "all_reduce": 0}
+                               "all_reduce": 0, "all_to_all": 0}
 
 
 def reset_collective_counts() -> None:

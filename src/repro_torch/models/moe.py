@@ -1,0 +1,312 @@
+"""Mixture-of-experts FFN: shared and routed top-k experts — the port of the
+JAX package's ``models/moe.py``.
+
+Two dispatches, as the reference has them:
+
+  * ``dense``    — every expert computes every token, combined by the
+                   router's weights: exact (nothing dropped), E/k times the
+                   FLOPs; the oracle, and what ``auto`` picks for small
+                   token counts (decode, short batches);
+  * ``dropping`` — GShard's fixed-capacity dispatch built from a stable
+                   argsort over expert ids (no (T, E, C) one-hot): the
+                   tokens split into ``moe_groups`` dispatch groups, each
+                   expert takes at most C items of a group, the rest are
+                   dropped.  Items move into the (E, C, d) expert buffer
+                   and back with gathers both ways (:class:`_RoutedTake`).
+
+``ep`` (a plan with an expert axis) routes through ``core.expert``: the
+same capacity routing on this rank's tokens, then the dispatch and
+combine all-to-all over the expert group.  Leaves keep the JAX names and
+layouts: ``router`` (d, E), ``w_up``/``w_gate`` (E, d, f), ``w_down`` (E,
+f, d) and ``shared.{w_up, w_gate, w_down}`` ((d, n_shared f) and back).
+
+The switch-style balance loss comes from the router's statistics over the
+tokens of the step.  A rank holds a shard of those tokens under a
+data-parallel plan, so the statistics are averaged over the groups that
+shard them (``Runtime.moe_stat_groups``) with an all-reduce whose
+backward is the all-reduce of the cotangents: every rank then holds the
+global aux, and its gradient reaches each rank's router through that
+rank's own tokens.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.models.layers import (COLLECTIVES, Runtime, _act, _randn,
+                                       local_params, wire_round)
+
+
+def init_moe(cfg, gen, device):
+    """The MoE FFN's leaves (the JAX package's names, shapes and scales)
+    drawn from ``gen`` on ``device``."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.expert_d_ff, m.n_experts
+    s_in, s_out = d ** -0.5, f ** -0.5
+    p = {"router": _randn(gen, (d, E), s_in, device),
+         "w_up": _randn(gen, (E, d, f), s_in, device),
+         "w_down": _randn(gen, (E, f, d), s_out, device)}
+    if cfg.glu:
+        p["w_gate"] = _randn(gen, (E, d, f), s_in, device)
+    if m.n_shared_experts:
+        fs = m.n_shared_experts * f
+        p["shared"] = {"w_up": _randn(gen, (d, fs), s_in, device),
+                       "w_down": _randn(gen, (fs, d), fs ** -0.5, device)}
+        if cfg.glu:
+            p["shared"]["w_gate"] = _randn(gen, (d, fs), s_in, device)
+    return p
+
+
+class MoEFFN(nn.ParameterDict):
+    """A MoE layer's FFN parameters, called as a module (so that FSDP2's
+    hooks fire on it when a plan with an expert axis makes it a unit of
+    its own, ``core.parallel.apply_plan``): ``ffn(cfg, x, rt)`` -> (y,
+    aux)."""
+
+    # a ParameterDict refuses calls; this one runs like any module
+    __call__ = nn.Module.__call__
+
+    def forward(self, cfg, x, rt: Runtime):
+        lp = local_params(self)
+        if rt.gather_dtype is not None and not rt.fsdp_wire:
+            lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
+        return apply_moe(cfg, lp, x, rt)
+
+
+# ---------------------------------------------------------------------------
+# router
+# ---------------------------------------------------------------------------
+
+class _SumOverGroups(torch.autograd.Function):
+    """All-reduce (sum) over each group in turn; the backward all-reduces
+    the cotangent the same way (the adjoint of a sum every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        x = x.clone()
+        for g in groups:
+            COLLECTIVES["all_reduce"] += 1
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for grp in ctx.groups:
+            COLLECTIVES["all_reduce"] += 1
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
+def mean_over_groups(x: torch.Tensor, groups) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``groups`` (each rank holding a
+    shard of the same token count), differentiable."""
+    if not groups:
+        return x
+    n = 1
+    for g in groups:
+        n *= dist.get_world_size(g)
+    return _SumOverGroups.apply(x, tuple(groups)) / n
+
+
+def _router(cfg, p, xf, rt: Runtime = None, stat_groups=None):
+    """xf (T, d) -> probs (T, E) f32, weights and ids (T, k), aux loss.
+
+    Top-k of the softmax (ties to the lower id), renormalised by
+    max(sum, 1e-9); the balance loss
+    E * sum(frac_tokens * frac_probs) * coef, its fractions averaged over
+    ``stat_groups`` (by default ``rt.moe_stat_groups``): every shard holds
+    the same token count, so the mean of the local fractions is the
+    global one."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    # the top k, ties to the lower expert id as jax.lax.top_k breaks them
+    # (torch.topk does not; a stable descending sort does)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = vals[:, :k], order[:, :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    flat = ids.reshape(-1)
+    occupancy = torch.zeros(E, dtype=torch.float32, device=xf.device
+                            ).index_add_(0, flat, torch.ones(
+                                flat.shape, dtype=torch.float32,
+                                device=xf.device))
+    frac_tokens = occupancy / (xf.shape[0] * k)
+    frac_probs = probs.mean(0)
+    groups = (rt.moe_stat_groups if rt is not None else ()) \
+        if stat_groups is None else stat_groups
+    if groups:
+        both = mean_over_groups(torch.stack([frac_tokens, frac_probs]),
+                                groups)
+        frac_tokens, frac_probs = both[0], both[1]
+    aux = E * torch.sum(frac_tokens * frac_probs) * m.aux_loss_coef
+    return probs, weights, ids, aux
+
+
+# ---------------------------------------------------------------------------
+# experts
+# ---------------------------------------------------------------------------
+
+def _expert_ffn(cfg, p, buf, rt: Runtime = None):
+    """buf (E, C, d) -> (E, C, d) through each expert's FFN (``p`` holds
+    the stacks of the experts in ``buf``'s dim 0)."""
+    act = _act(cfg.act)
+    dt = buf.dtype
+    up = torch.bmm(buf, p["w_up"].to(dt))
+    if "w_gate" in p:
+        h = act(torch.bmm(buf, p["w_gate"].to(dt))) * up
+    else:
+        h = act(up)
+    return torch.bmm(h, p["w_down"].to(dt))
+
+
+def _moe_dense(cfg, p, xf, rt: Runtime = None):
+    """The oracle: every expert on every token, (E, T, f) and (E, T, d)
+    intermediates."""
+    m = cfg.moe
+    _, weights, ids, aux = _router(cfg, p, xf, rt)
+    act = _act(cfg.act)
+    dt = xf.dtype
+    up = torch.matmul(xf, p["w_up"].to(dt))                  # (E, T, f)
+    if "w_gate" in p:
+        h = act(torch.matmul(xf, p["w_gate"].to(dt))) * up
+    else:
+        h = act(up)
+    y_e = torch.matmul(h, p["w_down"].to(dt))                # (E, T, d)
+    w_full = torch.zeros((xf.shape[0], m.n_experts), dtype=torch.float32,
+                         device=xf.device).scatter_add(1, ids, weights)
+    return torch.einsum("etd,te->td", y_e, w_full.to(dt)), aux
+
+
+def _take(x, idx):
+    """y[i] = x[idx[i]], a zero row where idx[i] < 0."""
+    mask = (idx >= 0).to(x.dtype)[:, None]
+    return x.index_select(0, idx.clamp_min(0)) * mask
+
+
+class _RoutedTake(torch.autograd.Function):
+    """y[i] = x[idx[i]] (idx < 0 -> a zero row).  ``idx`` is an injective
+    partial map and ``inv_idx`` its inverse, so the backward is a gather
+    too (dx[j] = dy[inv_idx[j]]), as the reference's custom VJP: no
+    d-wide scatter either way."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx):
+        ctx.save_for_backward(inv_idx)
+        return _take(x, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inv_idx, = ctx.saved_tensors
+        return _take(dy, inv_idx), None, None
+
+
+def _routed_take(x, idx, inv_idx):
+    return _RoutedTake.apply(x, idx, inv_idx)
+
+
+def _route_capacity(fids, n_experts: int, capacity: int):
+    """Index plumbing only: fids (n,) expert ids -> (dest (n,), inv (E C,)):
+    ``dest[i]`` is item i's slot in the (E, C) buffer (-1: dropped),
+    ``inv[s]`` the item in slot s (-1: empty).  Items keep their order
+    within an expert (a stable sort), so the first C of each expert stay.
+    Dropped items are written to one slot past the buffer, cut off."""
+    n = fids.shape[0]
+    E, C = n_experts, capacity
+    dev = fids.device
+    fids = fids.long()
+    order = torch.argsort(fids, stable=True)
+    sorted_ids = fids[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, fids, torch.ones_like(fids))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(n, device=dev) - starts[sorted_ids]
+    keep = pos_sorted < C
+    slot_sorted = sorted_ids * C + torch.clamp(pos_sorted, max=C - 1)
+    dest = torch.full((n,), -1, dtype=torch.long, device=dev).scatter(
+        0, order, torch.where(keep, slot_sorted, -1))
+    inv = torch.full((E * C + 1,), -1, dtype=torch.long, device=dev).scatter(
+        0, torch.where(keep, slot_sorted, E * C), order)[:E * C]
+    return dest, inv
+
+
+def capacity(tokens: int, cfg) -> int:
+    """Slots per expert for one dispatch group of ``tokens`` tokens:
+    ceil(tokens k cf / E), padded up to a multiple of 8, at least 8."""
+    m = cfg.moe
+    c = int(math.ceil(tokens * m.top_k * m.capacity_factor / m.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def _items(xf, k):
+    """(T, d) -> (T k, d): each token once per routed choice, token-major
+    (the reference's broadcast, whose backward sums over the choices)."""
+    T, d = xf.shape
+    return xf[:, None].expand(T, k, d).reshape(T * k, d)
+
+
+def _moe_dropping(cfg, p, xf, rt: Runtime):
+    """Fixed-capacity dispatch in G = ``rt.moe_groups`` groups of
+    contiguous tokens (halved until G divides T), each with its own
+    capacity; the G groups' routing runs as one: group g's ids become
+    g E + id, so one stable sort routes every group into its own (E, C)
+    block."""
+    m = cfg.moe
+    T, d = xf.shape
+    k, E = m.top_k, m.n_experts
+    _, weights, ids, aux = _router(cfg, p, xf, rt)
+    G = max(1, min(rt.moe_groups, T))
+    while T % G:
+        G //= 2
+    Tg = T // G
+    Cg = capacity(Tg, cfg)
+    gid = torch.arange(G, device=xf.device).repeat_interleave(Tg * k)
+    dest, inv = _route_capacity(gid * E + ids.reshape(T * k), G * E, Cg)
+    buf = _routed_take(_items(xf, k), inv, dest)             # (G E Cg, d)
+    buf = buf.reshape(G, E, Cg, d).transpose(0, 1).reshape(E, G * Cg, d)
+    out = _expert_ffn(cfg, p, buf, rt)                       # (E, G Cg, d)
+    out = out.reshape(E, G, Cg, d).transpose(0, 1).reshape(G * E * Cg, d)
+    rows = _routed_take(out, dest, inv)                      # (T k, d)
+    y = (rows.reshape(T, k, d) * weights[..., None].to(rows.dtype)).sum(1)
+    return y, aux
+
+
+def apply_moe(cfg, p, x, rt: Runtime):
+    """x (B, S, d) -> (out (B, S, d), aux 0-d f32).
+
+    ``rt.moe_impl``: 'dense', 'dropping', 'ep' (``core.expert``), or
+    'auto' — dense while B S E <= 2**22, else dropping (the reference's
+    rule)."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    impl = rt.moe_impl
+    if impl == "auto":
+        impl = ("dense" if B * S * cfg.moe.n_experts <= (1 << 22)
+                else "dropping")
+    if impl == "ep":
+        from repro_torch.core import expert as expert_lib
+        y, aux = expert_lib.moe_expert_parallel_any(cfg, p, xf, rt)
+    elif impl == "dense":
+        y, aux = _moe_dense(cfg, p, xf, rt)
+    elif impl == "dropping":
+        y, aux = _moe_dropping(cfg, p, xf, rt)
+    else:
+        raise ValueError(f"moe_impl {rt.moe_impl!r} not in auto | dense | "
+                         "dropping | ep")
+    y = y.reshape(B, S, d)
+    if "shared" in p:
+        sp = p["shared"]
+        act = _act(cfg.act)
+        dt = x.dtype
+        up = x @ sp["w_up"].to(dt)
+        if "w_gate" in sp:
+            h = act(x @ sp["w_gate"].to(dt)) * up
+        else:
+            h = act(up)
+        y = y + h @ sp["w_down"].to(dt)
+    return y, aux

@@ -1,16 +1,18 @@
 """Decoder-only model, cache-less (training), over dense caches (static
 serving: a KV cache per attention layer, the recurrent state per RWKV-6
 layer) or over a paged KV cache (continuous batching of attention-only
-stacks): the dense attention-only and the RWKV-6 parts of the JAX
+stacks): the attention (dense and MoE) and the RWKV-6 parts of the JAX
 package's ``models/transformer.py``.
 
 A model is a stack of layers; each layer = (norm -> mixer -> residual,
-norm -> FFN -> residual): attention and an MLP, or RWKV-6 time mix and
-channel mix.  Parameters live in an :class:`Params` module whose
-``layers`` is an ``nn.ModuleList`` of :class:`Layer` modules, one per
-layer; a Python loop calls them in turn, in place of the JAX package's
-``lax.scan`` over stacked blocks (``layer_plan`` is kept: the bridge uses
-it to map the JAX stack onto layers).  Every layer and the whole model
+norm -> FFN -> residual): attention and an MLP or a mixture of experts
+(``models.moe``, whose load-balance losses the forward collects in an
+:class:`AuxLoss`), or RWKV-6 time mix and channel mix.  Parameters live
+in an :class:`Params` module whose ``layers`` is an ``nn.ModuleList`` of
+:class:`Layer` modules, one per layer; a Python loop calls them in
+turn, in place of the JAX package's ``lax.scan`` over stacked blocks
+(``layer_plan`` is kept: the bridge uses it to map the JAX stack onto
+layers).  Every layer and the whole model
 are called as modules, so FSDP2's hooks on them fire on the training and
 the serving path alike.  Caches are per-layer lists (``{'layers':
 [...]}``), updated in place by the forward; ``bridge.cache_from_jax`` and
@@ -28,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
                                        apply_mlp, apply_norm, embed_tokens,
@@ -60,15 +63,24 @@ def layer_plan(cfg: ModelConfig):
     return list(range(L)), L, 1, 0
 
 
+def wired_layers(cfg: ModelConfig) -> range:
+    """The layers whose parameters a wire dtype (``Runtime.gather_dtype``,
+    the fp8 policy) rounds: the JAX package's per-layer gatherer runs only
+    in its scan over the stacked blocks of :func:`layer_plan`, so the
+    prefix layers (deepseek-moe-16b's dense first layer) gather at f32."""
+    return range(layer_plan(cfg)[1], cfg.n_layers)
+
+
 def _all_attention(cfg: ModelConfig) -> bool:
-    return all(_sig(cfg, i) == ("attn", False) for i in range(cfg.n_layers))
+    """Every layer mixes by attention (its FFN dense or MoE)."""
+    return all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model covers token-input stacks that are dense
-    attention-only with RoPE, with sinusoidal positions added to the
-    embedding (and no RoPE), or with no positions; or uniform RWKV-6 with
-    layernorm and no positions."""
+    """The port's model covers token-input stacks that are attention-only
+    (each FFN dense or MoE) with RoPE, with sinusoidal positions added to
+    the embedding (and no RoPE), or with no positions; or uniform RWKV-6
+    with layernorm and no positions."""
     rwkv = (all(_sig(cfg, i) == ("rwkv6", False)
                 for i in range(cfg.n_layers))
             and cfg.rope == "none" and cfg.norm == "layernorm"
@@ -78,8 +90,9 @@ def check_supported(cfg: ModelConfig) -> None:
         or (cfg.rope == "none" and cfg.pos_embed == "sinusoidal"))
     if not (rwkv or attn) or cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs token-input stacks that are dense "
-            "attention-only with RoPE or sinusoidal positions, or uniform "
+            f"{cfg.name}: the port runs token-input stacks that are "
+            "attention-only (dense or MoE FFNs) with RoPE or sinusoidal "
+            "positions, or uniform "
             "RWKV-6; other layers come with later slices (ROADMAP Queue 1)")
 
 
@@ -117,9 +130,27 @@ def _embed(cfg: ModelConfig, embed, tokens, positions, rt: Runtime,
 def _pdict(tree: Dict[str, Any]) -> nn.ParameterDict:
     """Tensors become parameters; a nested dict becomes a nested
     ParameterDict (a submodule), so ``named_parameters`` gives
-    ``mixer.ln_x.scale``."""
-    return nn.ParameterDict({k: _pdict(v) if isinstance(v, dict)
-                             else nn.Parameter(v) for k, v in tree.items()})
+    ``mixer.ln_x.scale``.  A MoE FFN's dict (it holds a ``router``)
+    becomes a :class:`models.moe.MoEFFN`, a module called by its layer."""
+    cls = moe_lib.MoEFFN if "router" in tree else nn.ParameterDict
+    return cls({k: _pdict(v) if isinstance(v, dict) else nn.Parameter(v)
+                for k, v in tree.items()})
+
+
+class AuxLoss:
+    """The MoE layers' load-balance losses of one forward, collected as
+    they run (an object, not a container, so FSDP2's input handling
+    passes it through untouched)."""
+
+    def __init__(self):
+        self.terms: List[torch.Tensor] = []
+
+    def total(self, device) -> torch.Tensor:
+        """Their sum in f32 (0 for a dense stack)."""
+        out = torch.zeros((), dtype=torch.float32, device=device)
+        for t in self.terms:
+            out = out + t
+        return out
 
 
 class Layer(nn.Module):
@@ -142,14 +173,18 @@ class Layer(nn.Module):
         return self._modules.items()
 
     def forward(self, cfg: ModelConfig, kind: str, h, rope_ang,
-                rt: Runtime, cache=None, paged=None, sp: bool = False):
+                rt: Runtime, cache=None, paged=None, sp: bool = False,
+                aux: Optional[AuxLoss] = None):
         """h: the residual stream, (B, S, d), or this rank's S-shard of it
         under sequence parallelism (``sp``).  The layer computes from its
         parameters' local shards (``to_local`` views of the ``DTensor``s
         FSDP2 has gathered).  ``cache``: the layer's paged pools (with
         ``paged``) or its dense cache ({'kv'}, or an RWKV-6 layer's
-        {'att', 'ffn'} state), updated in place."""
-        lp = local_params(self)
+        {'att', 'ffn'} state), updated in place.  A MoE FFN is called as
+        its own module; its load-balance loss goes to ``aux``."""
+        moe = isinstance(self._modules["ffn"], moe_lib.MoEFFN)
+        lp = local_params({k: v for k, v in self.items()
+                           if not (moe and k == "ffn")})
         if rt.gather_dtype is not None and not rt.fsdp_wire:
             lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
         x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
@@ -171,6 +206,11 @@ class Layer(nn.Module):
         h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
                                          cache=cache, paged=paged, sp=sp)
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
+        if moe:
+            y, a = self._modules["ffn"](cfg, x, rt)
+            if aux is not None:
+                aux.terms.append(a)
+            return h + y
         return h + apply_mlp(cfg, lp["ffn"], x, rt, sp)
 
 
@@ -206,7 +246,8 @@ class Params(nn.Module):
         return self.embed["tok"].device
 
     def forward(self, cfg: ModelConfig, batch, rt: Runtime, cache=None,
-                h=None, stage: Optional[Stage] = None):
+                h=None, stage: Optional[Stage] = None,
+                aux: Optional[AuxLoss] = None):
         """-> logits (B, S, vocab), on a model axis this rank's columns of
         the vocabulary; see :func:`forward`.  Under sequence parallelism
         (:func:`sequence_parallel`) the residual stream holds this rank's
@@ -217,7 +258,8 @@ class Params(nn.Module):
         stream ``h``, through the stage's layers, to the residual stream,
         or on the last virtual stage to the masked nll sum over
         ``stage.denom`` (:func:`masked_nll`).  The whole model module is
-        called for each op, so FSDP2's root hooks fire on every stage."""
+        called for each op, so FSDP2's root hooks fire on every stage.
+        The MoE layers' load-balance losses go to ``aux``."""
         if stage is not None:
             return self._stage(cfg, batch, rt, h, stage)
         tokens = batch["tokens"]
@@ -239,10 +281,15 @@ class Params(nn.Module):
         if rt.pipe_size > 1 and cache is not None:
             h = self._through_pipe(cfg, h, rope_ang, rt, layer_caches)
         else:
+            wired, plain = range(cfg.n_layers), rt
+            if rt.gather_dtype is not None:
+                wired = wired_layers(cfg)
+                plain = dataclasses.replace(rt, gather_dtype=None,
+                                            fsdp_wire=False)
             for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
                                                 strict=True)):
-                h = layer(cfg, cfg.layer_kind(i), h, rope_ang, rt, lc, paged,
-                          sp)
+                h = layer(cfg, cfg.layer_kind(i), h, rope_ang,
+                          rt if i in wired else plain, lc, paged, sp, aux)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         return lm_logits(embed, h, rt, sp)
 
@@ -307,7 +354,8 @@ def _init_layer(cfg: ModelConfig, i: int, gen, device):
         p["ffn"] = rwkv_lib.init_rwkv_channel_mix(cfg, gen, device)
     else:
         p["mixer"] = attn_lib.init_attention(cfg, gen, device)
-        p["ffn"] = init_mlp(cfg, gen, device)
+        p["ffn"] = (moe_lib.init_moe(cfg, gen, device) if cfg.is_moe_layer(i)
+                    else init_mlp(cfg, gen, device))
     return p
 
 
@@ -329,7 +377,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
-            cache=None):
+            cache=None, aux: Optional[AuxLoss] = None):
     """-> logits (B, S, vocab).
 
     Without a cache (training): batch {'tokens' (B, S)} at positions
@@ -343,13 +391,16 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     for a prefill chunk, (B, 1) for a decode step (broadcast over S).
     cache: {'layers': [{'k_pool', 'v_pool'}] per layer, updated in place,
     'paged': {'tbl' (B, max_blocks) int32, 'ctx' (B,) int32}}.
+
+    ``aux`` (an :class:`AuxLoss`) collects the MoE layers' load-balance
+    losses.
     """
     if cache is not None and "paged" in cache and not _all_attention(cfg):
         raise NotImplementedError(
             f"{cfg.name}: only attention-only stacks serve from a paged "
             "cache; a recurrent stack serves from dense caches "
             "(ServeEngine.generate_static)")
-    return params(cfg, batch, rt, cache)
+    return params(cfg, batch, rt, cache, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +535,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
             denom=None):
     """Next-token cross entropy in f32; labels < 0 are masked.
     -> (loss, {'nll', 'aux', 'ntok'}), all 0-d tensors on the batch's
-    device (``aux``, the MoE load-balance loss, is 0 for a dense stack).
+    device (``aux``, the sum of the MoE layers' load-balance losses, is 0
+    for a dense stack).  Under a data-parallel plan each rank's aux is the
+    global one (the routers average their statistics over the ranks), so
+    the mean of the ranks' gradients is its gradient.
 
     ``nll`` is the masked sum over ``denom``: by default this batch's
     count of unmasked labels (``ntok``); a data-parallel step passes its
@@ -493,9 +547,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     its columns of the logits, and the max, the sum of exponentials and
     the label's logit are each reduced over the model group, so the whole
     (B, S, V) logits are never gathered."""
-    nll, ntok = masked_nll(forward(cfg, params, batch, rt), batch["labels"],
-                           rt, denom)
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    terms = AuxLoss()
+    nll, ntok = masked_nll(forward(cfg, params, batch, rt, aux=terms),
+                           batch["labels"], rt, denom)
+    aux = terms.total(nll.device)
     return nll + aux, {"nll": nll, "aux": aux, "ntok": ntok}
 
 

@@ -63,20 +63,26 @@ def _square_sum(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     tensors (``DTensor``s) add their local shards' squares, summed over
     the mesh dimensions they are sharded on and not over those they are
     replicated on (which hold the same values): tensors are summed in
-    groups of the same sharded dimensions, and each group's sum is reduced
-    over its own.  On a 2-D (data, model) mesh a leaf replicated over the
-    model axis is thus counted once, not once per model rank."""
+    groups of the same mesh and sharded dimensions, and each group's sum
+    is reduced over its own.  On a 2-D (data, model) mesh a leaf
+    replicated over the model axis is thus counted once, not once per
+    model rank."""
     totals, groups = {}, {}
     for x in tensors:
         sq = torch.sum(torch.square(_local(x).float()))
         key = ()
         if isinstance(x, DTensor):
             # FSDP2 over a sharded model axis places dim 0 as a
-            # _StridedShard, which is no Shard: test for replicas instead
-            key = tuple(dim for dim, place in enumerate(x.placements)
-                        if not place.is_replicate()
-                        and x.device_mesh.size(dim) > 1)
-            groups[key] = [x.device_mesh.get_group(dim) for dim in key]
+            # _StridedShard, which is no Shard: test for replicas instead.
+            # Leaves of one model may lie on different meshes (a MoE FFN's
+            # unit on (data, expert) beside the layers' on the flattened
+            # data axes), so the mesh is part of the key
+            dims = tuple(dim for dim, place in enumerate(x.placements)
+                         if not place.is_replicate()
+                         and x.device_mesh.size(dim) > 1)
+            key = (x.device_mesh, dims) if dims else ()
+            if dims:
+                groups[key] = [x.device_mesh.get_group(d) for d in dims]
         totals[key] = sq if key not in totals else totals[key] + sq
     if not totals:
         return torch.zeros(())

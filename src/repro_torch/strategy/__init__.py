@@ -10,8 +10,9 @@ package's; see descriptor.py for the design).
     ranked = strategy.search(cfg, topo, shape)        # planner
 """
 from repro_torch.strategy.descriptor import (DP_MODES, LATER_DEGREES,
-                                             Strategy, StrategyError,
-                                             format_spec, parse)
+                                             LATER_MOE, Strategy,
+                                             StrategyError, format_spec,
+                                             parse)
 from repro_torch.strategy.planner import (OBJECTIVES, PlannedStrategy, best,
                                           candidates, default_objective,
                                           evaluate, pareto_front, resolve,
@@ -21,7 +22,8 @@ from repro_torch.strategy.topology import (Topology, build_mesh,
                                            pod_topology)
 
 __all__ = [
-    "DP_MODES", "LATER_DEGREES", "OBJECTIVES", "PlannedStrategy", "Strategy",
+    "DP_MODES", "LATER_DEGREES", "LATER_MOE", "OBJECTIVES",
+    "PlannedStrategy", "Strategy",
     "StrategyError", "Topology", "best", "build_mesh", "candidates",
     "default_objective", "evaluate", "format_spec", "get_topology",
     "host_topology", "parse", "pareto_front", "pod_topology", "resolve",

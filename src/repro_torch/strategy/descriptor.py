@@ -2,11 +2,12 @@
 
 A copy of the JAX package's ``strategy/descriptor.py``: the same fields,
 spec grammar, checks and cost-model lowering.  Two things differ.
-``Strategy.check`` refuses context and expert degrees above 1
-(``LATER_DEGREES``: each names the slice of the port that brings it), and
-a tensor-parallel degree that resolves to context attention or whose
-Megatron split of the model does not divide (``_check_tensor``), so the
-planner never picks a strategy the port cannot run; and ``to_plan``
+``Strategy.check`` refuses context degrees above 1 (``LATER_DEGREES``:
+each names the slice of the port that brings it), a tensor-parallel
+degree that resolves to context attention or whose Megatron split of the
+model does not divide (``_check_tensor``), and tensor or pipeline degrees
+on a model with MoE layers (``LATER_MOE``), so the planner never picks a
+strategy the port cannot run; and ``to_plan``
 builds the port's ``ParallelPlan`` over a ``torch.distributed``
 ``DeviceMesh``.  What follows is the JAX package's account of the design.
 
@@ -88,8 +89,9 @@ class StrategyError(ValueError):
 # degrees the port cannot run yet -> the slice of the port that brings each
 LATER_DEGREES = {
     "cp": "other mixers and inputs, and context parallelism",
-    "ep": "MoE and expert parallelism",
 }
+# the slice that brings tp > 1 and pp > 1 to models with MoE layers
+LATER_MOE = "MoE under tensor and pipeline parallelism"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,16 +226,18 @@ class Strategy:
 
         Passing ``cfg`` additionally validates the model-dependent pipeline
         constraints (uniform layer stack, layer count divisible by pp);
-        ``to_plan`` always does.  In the port, a cp or ep degree above 1
-        raises first, naming the slice that brings it; so does, given
-        ``cfg``, a tp degree whose attention resolves to context mode.
+        ``to_plan`` always does.  In the port, a cp degree above 1 raises
+        first, naming the slice that brings it; so do, given ``cfg``, a tp
+        degree whose attention resolves to context mode and a tp or pp
+        degree on a model with MoE layers.
         """
         for degree, slice_name in LATER_DEGREES.items():
             if getattr(self, degree) > 1:
                 raise StrategyError(
                     f"{degree}={getattr(self, degree)}: the PyTorch port runs "
-                    f"data, tensor and pipeline parallelism (dp modes, ZeRO "
-                    f"stages, ovl, ga, precision, tp, pp); {degree} > 1 "
+                    f"data, tensor, pipeline and expert parallelism (dp "
+                    f"modes, ZeRO stages, ovl, ga, precision, tp, pp, ep); "
+                    f"{degree} > 1 "
                     f"arrives with the '{slice_name}' slice (ROADMAP "
                     f"Queue 1)")
         n = topology.n_devices
@@ -261,6 +265,13 @@ class Strategy:
             raise StrategyError(
                 f"ep={self.ep} does not divide the island-local data "
                 f"group {self.dp_degree(topology) // pods}")
+        if cfg is not None and (self.tp > 1 or self.pp > 1) and any(
+                cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
+            raise StrategyError(
+                f"tp={self.tp}, pp={self.pp} on {cfg.name}: the PyTorch "
+                f"port runs MoE layers under data and expert parallelism; "
+                f"tp > 1 and pp > 1 on them arrive with the '{LATER_MOE}' "
+                f"slice (ROADMAP Queue 1)")
         if cfg is not None and self.tp > 1:
             self._check_tensor(cfg)
         if cfg is not None and self.ep > 1:

@@ -67,6 +67,7 @@ class _DataParallel:
         self.groups = [plan.mesh.get_group(axis) for axis in plan.dp
                        if shape[axis] > 1]
         self.tp = plan.tp
+        self.expert = plan.expert
 
     def rows(self, micro, ntok):
         """-> (this rank's rows of ``micro``, the loss's divisor), given
@@ -82,6 +83,11 @@ class _DataParallel:
         n, B = self.size, micro["labels"].shape[0]
         denom = ntok.clamp_min(1.0)
         if B % n:
+            if self.expert:
+                raise ValueError(
+                    f"a microbatch of {B} rows does not split over the "
+                    f"{n} data-parallel ranks: the expert all-to-all "
+                    "needs each rank's own rows")
             return micro, denom
         r, b = self.rank, B // n
         return {k: v[r * b:(r + 1) * b] for k, v in micro.items()}, denom / n
@@ -92,6 +98,39 @@ class _DataParallel:
         for group in self.groups:
             dist.all_reduce(values, group=group)
         return values / self.size
+
+    def runtime(self, rt: Runtime, B: int) -> Runtime:
+        """The runtime of a microbatch of ``B`` rows: as planned where its
+        rows split over the ranks; where they do not (each rank computes
+        them all), a MoE router's statistics are the local ones and its
+        dropping dispatch takes all of the plan's groups."""
+        if not B % self.size or not rt.moe_stat_groups:
+            return rt
+        return dataclasses.replace(rt, moe_stat_groups=(),
+                                   moe_groups=rt.moe_groups * self.size)
+
+    def sum_over_experts(self, named, rt: Runtime):
+        """Sum over the expert group, in place and in one all-reduce, the
+        local gradients of the leaves of MoE FFNs that every expert rank
+        holds whole (router, shared experts): each rank's is that of its
+        own tokens.  The expert stacks' are whole already: each rank's
+        experts saw every token routed to them."""
+        if rt.expert_size == 1:
+            return
+        grads = []
+        for p in named.values():
+            if p.grad is None or self.expert not in (
+                    p.device_mesh.mesh_dim_names or ()):
+                continue
+            dim = p.device_mesh.mesh_dim_names.index(self.expert)
+            if p.placements[dim].is_replicate():
+                grads.append(p.grad.to_local())
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=rt.expert_group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def sum_over_model(self, named, rt: Runtime, seq_parallel: bool):
         """Sum over the model group, in place and in one all-reduce, the
@@ -125,13 +164,19 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
     its data-parallel 1/n of the rows (``_DataParallel.rows``), and FSDP2
     reduces the gradients over the data axes after every microbatch's
     backward; then the replicated parameters whose gradient is partial on
-    each model rank are summed over the model group.  The metrics are the
+    each model rank are summed over the model group, and under an expert
+    axis the MoE FFNs' leaves every expert rank holds (router, shared
+    experts) over the expert group.  A MoE model's loss carries its aux
+    loss, the global one on every rank (``models.moe``), so the mean of
+    the ranks' gradients is its gradient; ``ga<k>`` averages it over the
+    microbatches with the loss, as the JAX step does.  The metrics are the
     global ones: loss, nll and aux averaged over the data-parallel ranks,
-    ntok counted over the global batch, grad_norm over every shard.  With a wire dtype
-    (``rt.gather_dtype``, the fp8 policy) each microbatch's gradients of
-    the layers' parameters are rounded through it once they are reduced
-    (``wire_round_grad``), as the JAX package's casts round the summed
-    cotangent.
+    ntok counted over the global batch, grad_norm over every shard.  With
+    a wire dtype (``rt.gather_dtype``, the fp8 policy) each microbatch's
+    gradients of the stacked layers' parameters
+    (``transformer.wired_layers``) are rounded through it once they are
+    reduced (``wire_round_grad``), as the JAX package's casts round the
+    summed cotangent.
 
     Under a plan with a ``pipe`` axis (``rt.pipe_size`` > 1) each
     grad-accumulation microbatch splits again into ``rt.pipe_microbatches``
@@ -159,8 +204,9 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
                 f"batch {B} / grad_accum {tc.grad_accum} does not split "
                 f"into {rt.pipe_microbatches} pipeline microbatches")
         named = dict(params.named_parameters())
-        # the layers' parameters, which a wire dtype rounds
-        wired = ({f"layers.{n}" for n, _ in params.layers.named_parameters()}
+        # the stacked layers' parameters, which a wire dtype rounds
+        wired = ({f"layers.{i}.{n}" for i in tfm.wired_layers(cfg)
+                  for n, _ in params.layers[i].named_parameters()}
                  if rt.gather_dtype is not None else ())
         for p in named.values():
             p.grad = None
@@ -173,13 +219,16 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
             if pipelined:
                 loss, metrics = _pipelined(params, micro, dp)
             else:
+                rt_m = rt
                 if dp is not None:
                     ntok = (micro["labels"] >= 0).sum().float()
+                    rt_m = dp.runtime(rt, micro["labels"].shape[0])
                     micro, denom = dp.rows(micro, ntok)
-                loss, metrics = tfm.loss_fn(cfg, params, micro, rt, denom)
+                loss, metrics = tfm.loss_fn(cfg, params, micro, rt_m, denom)
                 loss.backward()
             if dp is not None:
                 dp.sum_over_model(named, rt, sequence_parallel(rt, S))
+                dp.sum_over_experts(named, rt)
             loss, metrics = loss.detach(), {k: v.detach()
                                             for k, v in metrics.items()}
             if ntok is not None:
@@ -234,6 +283,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
             micros.append(pm)
         run = pipe_lib.run_schedule(cfg, params, micros, rt, denom)
         train_step.last_run = run
+        # pipelines run dense stacks only (pp on MoE layers waits for its
+        # slice, ``strategy.LATER_MOE``): no aux
         aux = torch.zeros_like(run.nll)
         return run.nll + aux, {"nll": run.nll, "aux": aux, "ntok": ntok}
 

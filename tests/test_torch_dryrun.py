@@ -1,7 +1,12 @@
 """The port's dry run (``launch/dryrun.py``: one train step, prefill or
 decode step traced on a fake process group under ``FakeTensorMode``)
 against the JAX package's, on the CPU (``--device cpu``: the dry run
-refuses to run without a card otherwise).
+refuses to run without a card otherwise): the CLI's records on the pod,
+the full-depth granite point and the pipelined points.  The serving
+points of the other archs are in ``tests/test_torch_dryrun_serving.py``;
+the memory tracker, the census, the MoE points, the skips and the
+kernels' fake branches in ``tests/test_torch_dryrun_memory.py`` (three
+files, so that ``--dist loadfile`` spreads them over workers).
 
 Its analytic fields and its ``resilience`` and ``pipeline`` blocks equal
 what the JAX package's functions give for the same point; its tracked
@@ -20,7 +25,6 @@ runs in this process (each call brings its fake group up and tears it
 down; only rank 0 is traced, so no two worlds of one layout differ in
 their groups); ``run_one`` traces each rank in a fresh process.
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -30,13 +34,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
 from repro_torch import strategy
-from repro_torch.configs import LATER, SHAPES, ShapeConfig, get_config, \
-    reduced
+from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.launch import dryrun
-from repro_torch.models import layers
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN = "qwen3-0.6b"
@@ -146,42 +147,6 @@ def test_cli_records_serving_shapes_as_skipped(pod_records, shape):
             "decode_32k": (["model"], {"all-gather", "all-reduce"})}[shape]
     assert rec["plan"]["decode_cache_axes"] == want[0]
     assert want[1] <= set(rec["collectives"])
-
-
-# the serving points of the other archs the port serves, on the pod:
-# RWKV-6's three (long_500k too: a recurrent state, batch 1 < data 16
-# spreads the caches over data x model), the Llama-2 family's decode
-# (70B's 8 KV heads do not split over the model axis of 16; 13B's 40
-# query heads do not either, which resolves tp 16 to context attention,
-# so it runs hsdp_tp8) and two prefills
-SERVING = [("rwkv6-1.6b", "prefill_32k", ""),
-           ("rwkv6-1.6b", "decode_32k", ""),
-           ("rwkv6-1.6b", "long_500k", "")] + \
-    [(f"llama2-{n}", "decode_32k", "") for n in ("1b", "7b", "70b")] + \
-    [("llama2-13b", "decode_32k", "hsdp_tp8"),
-     ("llama2-1b", "prefill_32k", ""), ("llama2-70b", "prefill_32k", "")] + \
-    [("granite-20b", "decode_32k", ""),       # one KV head, 48 query heads
-     ("h2o-danube-1.8b", "decode_32k", ""),   # a ring of 4096 slots
-     ("h2o-danube-1.8b", "long_500k", ""),    # the window: sub-quadratic
-     ("qwen2-1.5b", "decode_32k", "hsdp_tp4")]   # 12 heads: tp 16 is cp
-
-
-@pytest.mark.parametrize("arch,shape,spec", SERVING)
-def test_serving_points_trace_with_jax_cache_shards(arch, shape, spec,
-                                                    tmp_path):
-    """Each point traces on 256 fake ranks (the legacy pod layout unless a
-    spec is given); its caches take exactly the bytes per device of JAX's
-    shards on the same plan, and the decode cache axes are JAX's
-    choice."""
-    rec = dryrun.run_one(arch, shape, False, str(tmp_path), strategy=spec,
-                         device="cpu")
-    assert rec["status"] == "ok", rec.get("traceback")
-    assert rec["cache_bytes_per_device"] == _jax_cache_bytes(
-        arch, shape, rec["plan"])
-    assert rec["memory"]["cache_bytes"] >= rec["cache_bytes_per_device"]
-    axes = ["data", "model"] if shape == "long_500k" else ["model"]
-    assert rec["plan"]["decode_cache_axes"] == axes
-
 
 def test_granite_20b_trains_at_full_depth_on_a_pod(tmp_path):
     """granite-20b x train_4k at full size (52 layers, 20.3 B parameters,
@@ -302,230 +267,3 @@ def test_pipeline_records_match_the_jax_functions(spec, tmp_path):
     # head and loss on the last; under 1f1b and zb the first holds more
     # microbatch graphs)
     assert peaks["pipe1"] != peaks["pipe0"]
-
-
-# ---------------------------------------------------------------------------
-# memory: fake mode against a real step on the CPU
-# ---------------------------------------------------------------------------
-
-def _real_peak(cfg, shape, s):
-    """The tracker's peak over the step ``dryrun.lower_one`` traces, run
-    for real on a 1-rank gloo group: the same functions on real
-    tensors."""
-    from repro_torch.core import parallel as par
-    from repro_torch.launch.specs import train_batch_specs
-    from repro_torch.models import init_params
-    from repro_torch.optim import init_opt_state
-    from repro_torch.perf.memory import MemoryTracker
-    from repro_torch.train.trainer import TrainConfig, make_train_step
-    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        topo = strategy.host_topology()
-        plan = s.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape, attn_impl="torch",
-                              norm_impl="torch",
-                              attn_min_chunked_len=shape.seq_len + 1)
-        params = par.apply_plan(init_params(cfg, 0, "cpu"), plan, cfg)
-        opt_state = init_opt_state(params)
-        batch = {k: torch.zeros(v.shape, dtype=v.dtype)
-                 for k, v in train_batch_specs(cfg, shape).items()}
-        step = make_train_step(cfg, rt, TrainConfig(
-            steps=max(s.grad_accum, 2), warmup=1,
-            grad_accum=s.grad_accum), plan)
-        mem = MemoryTracker()
-        mem.register([p.to_local() for p in params.parameters()],
-                     "parameters")
-        mem.register([t.to_local() for k in ("m", "v")
-                      for t in opt_state[k].values()], "optimizer")
-        mem.register(batch.values(), "activations")
-        with mem:
-            step(params, opt_state, batch)
-        return mem.peak, mem.breakdown()
-    finally:
-        dist.destroy_process_group()
-
-
-@pytest.mark.parametrize("spec", ["fsdp", "fsdp_bf16", "ddp_ga2"])
-def test_fake_peak_matches_a_real_step(spec):
-    cfg = reduced(get_config(QWEN))
-    shape = ShapeConfig("t", 64, 8, "train")
-    s = strategy.parse(spec)
-    fake = dryrun.lower_one(cfg, shape, s, strategy.host_topology(
-        n_devices=1), kernels="torch", device="cpu")["memory"]
-    real, split = _real_peak(cfg, shape, s)
-    assert abs(fake["peak_bytes_per_device"] - real) <= 0.02 * real, \
-        (fake, real, split)
-    assert fake["parameters_bytes"] == split["parameters"]
-    assert fake["optimizer_bytes"] == split["optimizer"]
-
-
-# ---------------------------------------------------------------------------
-# the collective census against the plan
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("spec", ["fsdp", "fsdp_z2", "fsdp_ga2", "hsdp",
-                                  "fsdp_tp2", "fsdp_tp2_nosp",
-                                  "fsdp_pp2_mb4"])
-def test_census_counts_what_the_plan_issues(spec):
-    """On 8 fake ranks, per FSDP2 unit on the rank (its layers and the
-    root) and per backward pass: an all-gather for the forward and, under
-    ZeRO-3, one for the backward, and one reduce-scatter; plus the
-    tensor-parallel collectives the layers counted; under a pipeline one
-    send per microbatch on pipe rank 0."""
-    cfg = reduced(get_config(QWEN))
-    s = strategy.parse(spec)
-    layers.reset_collective_counts()
-    rec = dryrun.lower_one(cfg, SMALL, s, strategy.host_topology(
-        n_devices=8), kernels="torch", device="cpu")
-    tp = dict(layers.COLLECTIVES)
-    coll = rec["collectives"]
-    units = cfg.n_layers // s.pp + 1
-    passes = s.grad_accum * s.microbatches
-    gathers = 2 if s.zero >= 3 else 1
-    assert coll["all-gather"]["count"] == \
-        units * passes * gathers + tp["all_gather"]
-    assert coll["reduce-scatter"]["count"] == \
-        units * passes + tp["reduce_scatter"]
-    assert coll["all-reduce"]["count"] >= tp["all_reduce"] + 1
-    if s.tp == 1:
-        assert not any(tp.values())
-    if s.pp > 1:
-        dp = 8 // (s.pp * s.tp)
-        assert coll["collective-permute"] == {
-            "count": passes,
-            "bytes": SMALL.global_batch // dp * SMALL.seq_len
-            * cfg.d_model * 4}
-    else:
-        assert "collective-permute" not in coll
-
-
-def test_census_fp8_wire_moves_a_quarter_of_the_layer_bytes():
-    """Under ``fsdp_fp8`` each layer unit gathers float8_e4m3fn, a quarter
-    of f32's bytes; the root unit (embedding, final norm) gathers f32."""
-    cfg = reduced(get_config(QWEN))
-    topo = strategy.host_topology(n_devices=8)
-    got = {spec: dryrun.lower_one(cfg, SMALL, strategy.parse(spec), topo,
-                                  kernels="torch", device="cpu")[
-                                      "collectives"]
-           ["all-gather"] for spec in ("fsdp", "fsdp_fp8")}
-    root = 4 * (cfg.vocab_size * cfg.d_model + cfg.d_model)
-    f32_layers = got["fsdp"]["bytes"] - 2 * root
-    assert got["fsdp_fp8"]["count"] == got["fsdp"]["count"]
-    assert got["fsdp_fp8"]["bytes"] == 2 * root + f32_layers // 4
-
-
-# ---------------------------------------------------------------------------
-# skips, refusals and the kernels' fake branches
-# ---------------------------------------------------------------------------
-
-# long_500k on full attention, for the JAX package's reason
-SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b",
-                                          "qwen2-1.5b", "granite-20b")] \
-    + [(arch, "train_4k") for arch in sorted(LATER)]
-
-
-@pytest.mark.parametrize("arch,shape", SKIPS)
-def test_unported_points_are_skipped_naming_their_slice(arch, shape,
-                                                         tmp_path):
-    rec = dryrun.run_one(arch, shape, False, str(tmp_path), device="cpu")
-    assert json.loads(next(tmp_path.glob("*.json")).read_text()) == rec
-    assert rec["status"] == "skipped"
-    want = (f"'{LATER[arch]}' slice" if arch in LATER
-            else dryrun.SUBQUADRATIC)
-    assert want in rec["reason"]
-
-
-def test_context_attention_is_refused_as_cp(tmp_path):
-    """``--attn context`` on the pod layout resolves tp 16 to context
-    attention, which ``Strategy.check`` refuses, naming the cp slice."""
-    rec = dryrun.run_one(QWEN, "train_4k", False, str(tmp_path),
-                         attn_override="context", device="cpu")
-    assert rec["status"] == "error"
-    assert "context parallelism" in rec["error"]
-
-
-def _kernel_calls():
-    from repro_torch.kernels import ops
-    g = torch.Generator().manual_seed(0)
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=g)
-
-    tbl = torch.arange(4, dtype=torch.int32).reshape(2, 2)
-    return {
-        "rmsnorm": (lambda x, s: ops.rmsnorm_forward(x, s),
-                    (rnd(6, 128), rnd(128))),
-        "attention": (lambda q, k, v: ops.attention(q, k, v),
-                      (rnd(2, 16, 4, 128), rnd(2, 16, 2, 128),
-                       rnd(2, 16, 2, 128))),
-        "wkv6": (lambda r, k, v, w, u: ops.wkv6(r, k, v, w, u, chunk=16),
-                 (rnd(1, 32, 2, 64), rnd(1, 32, 2, 64), rnd(1, 32, 2, 64),
-                  torch.rand(1, 32, 2, 64, generator=g) * 0.5 + 0.4,
-                  rnd(2, 64))),
-        "decode": (lambda q, kp, vp: ops.paged_decode_attention(
-            q, kp, vp, tbl, torch.tensor([20, 9], dtype=torch.int32)),
-                   (rnd(2, 1, 4, 128), rnd(4, 16, 2, 128),
-                    rnd(4, 16, 2, 128))),
-    }
-
-
-@pytest.mark.parametrize("name", ["rmsnorm", "attention", "wkv6",
-                                  "decode"])
-def test_kernel_fake_branch_only_on_fake_tensors(name):
-    """A real CPU tensor takes the plain version (its values, bit for bit
-    a second call's); a fake tensor takes the shape-only branch: outputs
-    of the kernel's shapes and dtypes, backward included, and no launch
-    counted."""
-    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
-
-    from repro_torch.kernels import ops
-    fn, args = _kernel_calls()[name]
-    ops.reset_launch_counts()
-    real = fn(*args)
-    again = fn(*args)
-    flat = real if isinstance(real, tuple) else (real,)
-    for a, b in zip(flat, again if isinstance(again, tuple) else (again,)):
-        assert not isinstance(a, FakeTensor) and torch.equal(a, b)
-        assert np.isfinite(a.numpy()).all()
-    with FakeTensorMode() as mode:
-        fargs = [mode.from_tensor(a).requires_grad_(name != "decode")
-                 for a in args]
-        fake = fn(*fargs)
-        fflat = fake if isinstance(fake, tuple) else (fake,)
-        for a, b in zip(fflat, flat):
-            assert isinstance(a, FakeTensor)
-            assert (a.shape, a.dtype) == (b.shape, b.dtype)
-        if name != "decode":
-            fflat[0].sum().backward()
-            assert all(isinstance(a.grad, FakeTensor)
-                       and a.grad.shape == a.shape for a in fargs
-                       if a.grad is not None)
-    assert not any(ops.launch_counts().values())
-
-
-def test_fake_branch_refuses_what_the_card_refuses():
-    """The shape-only branch keeps the kernels' compiled head dims: a
-    reduced config (head dim 64) on the kernel path fails as on the card,
-    and traces with the plain layers."""
-    cfg = reduced(get_config(QWEN))
-    s = strategy.parse("fsdp")
-    topo = strategy.host_topology(n_devices=1)
-    with pytest.raises(ValueError, match="head dim 64 has no kernel"):
-        dryrun.lower_one(cfg, SMALL, s, topo, kernels="cuda", device="cpu")
-    assert not dist.is_initialized()
-    assert dryrun.lower_one(cfg, SMALL, s, topo, kernels="torch",
-                            device="cpu")[
-        "memory"]["peak_bytes_per_device"] > 0
-
-
-def test_train_batch_specs():
-    from repro_torch.launch.specs import train_batch_specs
-    cfg = get_config(QWEN)
-    specs = train_batch_specs(cfg, SHAPES["train_4k"])
-    assert {k: (tuple(v.shape), v.dtype) for k, v in specs.items()} == {
-        "tokens": ((256, 4096), torch.int32),
-        "labels": ((256, 4096), torch.int32)}
-    with pytest.raises(NotImplementedError, match="other mixers"):
-        train_batch_specs(dataclasses.replace(cfg, input_mode="embeddings"),
-                          SHAPES["train_4k"])

@@ -102,8 +102,9 @@ def test_cost_model_reports_equal_jax(arch, topo):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_planner_ranks_dp_strategies_as_jax(arch, topo):
     """The port's ranking equals the JAX package's with every strategy of
-    cp or ep above 1, or of a tp that resolves to context attention,
-    taken out, and holds no such strategy: the data-, tensor- and
+    cp above 1, or of a tp that resolves to context attention, taken out
+    (and tp or pp on a MoE config: ``tests/test_torch_moe.py`` ranks
+    those), and holds no such strategy: the data-, tensor- and
     pipeline-parallel strategies rank as JAX ranks them."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     mine_t, ref_t = TOPOLOGIES[topo]
@@ -128,8 +129,11 @@ def test_planner_ranks_dp_strategies_as_jax(arch, topo):
 
 
 def _lowers_in_the_port(s, cfg):
-    """No cp or ep above 1, and head-TP attention."""
-    return s.cp * s.ep == 1 and s.resolved_attn(cfg) == "head_tp"
+    """No cp above 1, head-TP attention, and no tp or pp on a MoE
+    config."""
+    moe = any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return s.cp == 1 and s.resolved_attn(cfg) == "head_tp" and not (
+        moe and (s.tp > 1 or s.pp > 1))
 
 
 def test_precision_policies_equal_jax():
@@ -188,17 +192,24 @@ def test_plans_lower_with_the_jax_axis_rules():
 
 # the meshes the strategies the port runs lower to, on 8 devices
 LOWERED_MESHES = {"hsdp_tp4": {"data": 2, "model": 4},
-                  "fsdp_pp2_mb4_1f1b": {"pipe": 2, "data": 4, "model": 1}}
+                  "fsdp_pp2_mb4_1f1b": {"pipe": 2, "data": 4, "model": 1},
+                  "fsdp_ep2": {"data": 4, "expert": 2, "model": 1}}
 
 
-@pytest.mark.parametrize("spec,degree", [
-    ("hsdp_tp4", None), ("fsdp_cp2", "cp"), ("fsdp_pp2_mb4_1f1b", None),
-    ("fsdp_ep2", "ep"), ("hsdp_tp2_ep4", "ep"), ("fsdp_tp8_ctx", "cp")])
-def test_model_parallel_degrees_name_their_slice(spec, degree):
+@pytest.mark.parametrize("spec,arch,degree", [
+    ("hsdp_tp4", "qwen3-0.6b", None), ("fsdp_cp2", "qwen3-0.6b", "cp"),
+    ("fsdp_pp2_mb4_1f1b", "qwen3-0.6b", None),
+    ("fsdp_ep2", "deepseek-moe-16b", None),
+    ("hsdp_tp2_ep4", "deepseek-moe-16b", "moe"),
+    ("fsdp_pp2_mb4", "dbrx-132b", "moe"),
+    ("fsdp_tp8_ctx", "qwen3-0.6b", "cp")])
+def test_model_parallel_degrees_name_their_slice(spec, arch, degree):
     """A degree the port cannot run names its slice (tp resolved to
-    context attention names context parallelism's); head-TP and pipeline
-    stages (``degree`` None) lower, on the model and pipe axes."""
-    cfg = get_config("qwen3-0.6b")
+    context attention names context parallelism's; tp or pp on a MoE
+    config names MoE under tensor and pipeline parallelism); head-TP,
+    pipeline stages and expert parallelism (``degree`` None) lower, on
+    the model, pipe and expert axes."""
+    cfg = get_config(arch)
     shape = ShapeConfig("t", 512, 64, "train")
     topo = strategy.host_topology(n_devices=8)
     s = strategy.parse(spec)
@@ -209,12 +220,13 @@ def test_model_parallel_degrees_name_their_slice(spec, degree):
         assert plan.mesh == LOWERED_MESHES[spec] and plan.attn == "head_tp"
         assert strategy.resolve(spec, cfg, topo, shape)[0] == s
         return
-    slice_name = strategy.LATER_DEGREES[degree]
+    slice_name = (strategy.LATER_MOE if degree == "moe"
+                  else strategy.LATER_DEGREES[degree])
     with pytest.raises(strategy.StrategyError, match="PyTorch port") as e:
         s.check(topo, cfg)
     assert slice_name in str(e.value)
     assert not s.lowerable(topo, cfg)
-    with pytest.raises(strategy.StrategyError, match=degree):
+    with pytest.raises(strategy.StrategyError, match=slice_name):
         strategy.resolve(spec, cfg, topo, shape)
 
 

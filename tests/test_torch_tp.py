@@ -54,12 +54,14 @@ WORLDS = {
 # backwards are each other; without SP the exits all-reduce forward and
 # the entries backward
 LAYER_COLLECTIVES = {
-    "fsdp_tp2": ({"all_gather": 2, "reduce_scatter": 2, "all_reduce": 0},
-                 {"all_gather": 2, "reduce_scatter": 2, "all_reduce": 0}),
+    "fsdp_tp2": ({"all_gather": 2, "reduce_scatter": 2, "all_reduce": 0,
+                  "all_to_all": 0},
+                 {"all_gather": 2, "reduce_scatter": 2, "all_reduce": 0,
+                  "all_to_all": 0}),
     "fsdp_tp2_nosp": ({"all_gather": 0, "reduce_scatter": 0,
-                       "all_reduce": 2},
+                       "all_reduce": 2, "all_to_all": 0},
                       {"all_gather": 0, "reduce_scatter": 0,
-                       "all_reduce": 2}),
+                       "all_reduce": 2, "all_to_all": 0}),
 }
 # Against a reference, a trajectory may differ by the bars of
 # tests/test_torch_fsdp.py or by FLOOR times what the port's single-device
