@@ -92,8 +92,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               per term and ``train/mfu``; fails without a window, with a
               ``step`` ratio not finite and positive, or with
               ``train/mfu`` outside (0, 1].  No target ratio is checked.
-   CK1      — checkpointing and resilience: qwen3-0.6b at full width and
-              depth, f32, under ``fsdp`` on the 1-rank NCCL mesh (every
+   CK1      — checkpointing and resilience: qwen3-0.6b at full width cut
+              to 4 of its 28 layers (the script's time), f32, under
+              ``fsdp`` on the 1-rank NCCL mesh (every
               parameter and moment a ``DTensor``), B 8 x S 512.  Run A: 4
               uninterrupted steps; run A': the same again (a control for
               nondeterminism); run B: ``supervise_training`` with async
@@ -108,7 +109,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               for bit, and an async save: bytes on disk, the seconds of
               each, and the cost model's ``checkpoint_write_time`` for the
               plan beside them.  Needs 16 GB free in the temporary
-              directory (a 7.15 GB checkpoint, two while keep 1 commits),
+              directory (a 2.6 GB checkpoint, two while keep 1 commits),
               which it removes.
    dryrun   — cell D2: the port's dry run (``launch.dryrun.lower_fresh``,
               a fresh process on a fake process group of one rank, fake
@@ -118,8 +119,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               Then ``qwen3-0.6b x train_4k`` on the pod topology (256 fake
               ranks) must trace and record a census and the resilience
               block.
-7. pipeline — qwen3-0.6b at full width and depth, f32, in two spawned
-              processes sharing the one card (pipe 2, 14 layers a rank, 7
+7. pipeline — qwen3-0.6b at full width cut to 8 of its 28 layers (the
+              script's time), f32, in two spawned
+              processes sharing the one card (pipe 2, 4 layers a rank, 2
               a chunk under ``1f1b_i2``; data and model groups of one rank
               on NCCL, the pipe group on gloo: activations and cotangents
               cross through host memory, ``pipe_via_host``), B 8 x S 512,
@@ -128,7 +130,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               CLI's functions.  Per rank and schedule: the ops run equal
               its column of the table; the most microbatch graphs held
               equal the table's (over the ranks ``inflight_microbatches``);
-              launches per step exact (4 x 14 flash forwards, dq and dk/dv,
+              launches per step exact (4 x 4 flash forwards, dq and dk/dv,
               twice as many RMSNorms and the final norm's 4 on the last
               stage); the first step's loss within 1e-5 relative and every
               gradient (from AdamW's first moment) within 1e-4 of its
@@ -238,12 +240,38 @@ order; any failure ends the run with a non-zero exit and no result line:
               ranks of one card): the expert all-to-all on the card; the
               first loss within 1e-5 relative and every gradient within
               1e-4 of its scale of one process's dropping step with 2
-              dispatch groups; every MoE layer took the all-to-all
-              (``DISPATCH_STATS``).  Correctness only.
+              dispatch groups, the gradients read from AdamW's first
+              moment after one ``make_train_step``; every MoE layer took
+              the all-to-all (``DISPATCH_STATS``).  Correctness only.
 20. D5      — ``deepseek-moe-16b x train_4k`` at full depth (28 layers) on
               the pod topology (256 fake ranks) under ``fsdp_ep8``, which
               must trace, its census holding the expert all-to-all.
-21. report  — one JSON line listing every kernel (its f32 case, and a
+21. MT1     — ``fsdp_tp2`` on deepseek-moe-16b at full width and 4 layers
+              in two processes sharing the card over gloo: each rank routes
+              every token and runs 32 of the 64 experts (stacks [32, 2048,
+              1408]), the combine reduce-scattered over the model axis
+              once a MoE layer; one ``make_train_step``: loss within 1e-5
+              and every gradient (AdamW's first moment) within 1e-4 of
+              scale of one process's dropping step.
+22. MP1     — ``fsdp_pp2_mb2_1f1b`` on dbrx-132b at full width and 2 layers:
+              the dry run of each pipe rank's train step on the card, its
+              peak printed.  A stage's step needs more than the card
+              holds, so no pair trains it here; the pipelined aux is held
+              against the JAX package on the CPU.
+23. C1      — ``fsdp_cp2`` on qwen3-0.6b at full width and 4 layers in two
+              processes over gloo: a ``make_train_step`` at B 4 x S 1024
+              (each rank its half of every sequence, the offset flash
+              launches counted exactly) against one process's; then
+              static serving of B 8 x 128 + 32 greedy tokens, every token
+              one process's.
+              The kernel phase (K-CP) holds the three flash kernels at a
+              query offset (B 4, 512 rows at q0 0 and 512 against 1024
+              keys) against their plain versions, each timed beside its
+              bound and SDPA with an explicit boolean mask.
+24. D6      — full-depth dry runs on the pod: ``qwen2-1.5b x train_4k``
+              under ``fsdp_tp8`` (context attention) and ``dbrx-132b x
+              train_4k`` under what ``--strategy auto`` ranks first.
+25. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -276,7 +304,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import checkpointing as ckpt_lib  # noqa: E402
 from repro_torch import strategy  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs import SHAPES, ShapeConfig, get_config  # noqa: E402
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import parallel as par  # noqa: E402
 from repro_torch.data import Batcher, SyntheticSource  # noqa: E402
@@ -381,11 +409,12 @@ FP8_STEPS = 3
 CK_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh
 CK_STEPS, CK_EVERY, CK_CRASH = 4, 2, 3
 CK_RUNS_B = 5                       # steps 0-2, crash at 3, steps 2-3 again
-CK_MIN_FREE = 16e9                  # two 7.15 GB checkpoints while keep 1
+CK_LAYERS = 4                       # of qwen3's 28: a 2.6 GB state
+CK_MIN_FREE = 16e9                  # two checkpoints while keep 1
 #                                     commits the next
 DRYRUN_MEM_REL = 0.10
 DRYRUN_OUT = "results/dryrun_torch"   # the pod dry run's record
-# pipeline phase: qwen3-0.6b at full width and depth, f32, in two
+# pipeline phase: qwen3-0.6b at full width and PIPE_LAYERS, f32, in two
 # processes on the one card (pipe 2; data and model groups of one rank on
 # NCCL, the pipe group on gloo through host memory), each schedule from
 # the same seed; the first step's loss within 1e-5 relative and every
@@ -393,6 +422,7 @@ DRYRUN_OUT = "results/dryrun_torch"   # the pod dry run's record
 # card (the port's f32 bar)
 PIPE_SCHEDULES = ("gpipe", "1f1b", "1f1b_i2", "zb")
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_STEPS = 2, 4, 2
+PIPE_LAYERS = 8                     # of qwen3's 28 (the script's time)
 PIPE_LOSS_REL, PIPE_GRAD_REL = 1e-5, 1e-4
 PIPE_TIMEOUT_S = 600
 FLUSH_BYTES = 256 << 20   # > 50 MB L2: every timed launch starts cold
@@ -722,9 +752,10 @@ def rmsnorm_bwd_phase(dev, flush, gen):
     return rows
 
 
-def visible_pairs(S, window):
-    """(query, key) pairs a causal (windowed) attention computes per head."""
-    n = torch.arange(1, S + 1)
+def visible_pairs(S, window, Sk=None, q0=0):
+    """(query, key) pairs a causal (windowed) attention computes per head:
+    S query rows at positions q0.. against Sk keys (default S)."""
+    n = (q0 + torch.arange(1, S + 1)).clamp(max=Sk or S)
     if window:
         n = n.clamp(max=window)
     return int(n.sum())
@@ -783,12 +814,13 @@ def flash_case(dev, gen, dtype, B, S, H, Kv, D, window):
     return q, k, v, do, o0, args, errs, shape
 
 
-def flash_bounds(dtype, B, S, H, Kv, D, window):
+def flash_bounds(dtype, B, S, H, Kv, D, window, Sk=None, q0=0):
     """-> ({kernel: (bound ms, bound by)}, {kernel: notes}) of the flash
-    forward, dq and dk/dv at one shape."""
+    forward, dq and dk/dv at one shape (S query rows at positions q0..
+    against Sk keys, by default self-attention)."""
     isz = torch.tensor([], dtype=dtype).element_size()
-    pairs = visible_pairs(S, window) * B * H
-    q_bytes, kv_bytes = B * S * H * D * isz, B * S * Kv * D * isz
+    pairs = visible_pairs(S, window, Sk, q0) * B * H
+    q_bytes, kv_bytes = B * S * H * D * isz, B * (Sk or S) * Kv * D * isz
     row_bytes = B * H * S * 4
     # all three kernels multiply on the tensor cores.  f32: bound at the
     # 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S) kept beside it
@@ -1450,8 +1482,15 @@ def _dir_bytes(path):
                if f.is_file())
 
 
+def ck_cfg():
+    """CK1's model: qwen3-0.6b at full width cut to CK_LAYERS layers."""
+    return dataclasses.replace(get_config("qwen3-0.6b"), n_layers=CK_LAYERS)
+
+
 def ck1_phase(dev, card, expect):
-    """Cell CK1: qwen3-0.6b at full width and depth, f32, under ``fsdp`` on
+    """Cell CK1: qwen3-0.6b at full width cut to CK_LAYERS layers (the
+    script's time: the whole depth took ~120 s of save, restore and
+    CRC), f32, under ``fsdp`` on
     the 1-rank NCCL mesh (every parameter and moment a ``DTensor``).  Run
     A trains CK_STEPS steps uninterrupted, run A' again as a control for
     nondeterminism, run B under ``supervise_training`` saves every
@@ -1470,7 +1509,7 @@ def ck1_phase(dev, card, expect):
           f"CK1 needs {CK_MIN_FREE / 1e9:.0f} GB free under {tmp}, has "
           f"{free / 1e9:.1f} GB: {(CK_MIN_FREE - free) / 1e9:.1f} GB short")
     root = Path(tempfile.mkdtemp(prefix="ck1-"))
-    cfg = get_config("qwen3-0.6b")
+    cfg = ck_cfg()
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     tc = TrainConfig(steps=CK_STEPS, warmup=max(CK_STEPS // 20, 1),
                      log_every=1, opt=AdamWConfig())
@@ -1820,9 +1859,9 @@ def _pipe_expect(cfg, rank):
     the final norm."""
     n = PIPE_MICROBATCHES * cfg.n_layers // PIPE_STAGES
     norms = 2 * n + (PIPE_MICROBATCHES if rank == PIPE_STAGES - 1 else 0)
-    return {"rmsnorm": norms, "rmsnorm_bwd": norms, "flash_decode": 0,
-            "flash_attention": n, "flash_attention_dq": n,
-            "flash_attention_dkv": n, "wkv6": 0}
+    return {k: 0 for k in ops.launch_counts()} | {
+        "rmsnorm": norms, "rmsnorm_bwd": norms, "flash_attention": n,
+        "flash_attention_dq": n, "flash_attention_dkv": n}
 
 
 def _pipe_rank(rank, port, out_dir):
@@ -1845,7 +1884,8 @@ def _pipe_rank(rank, port, out_dir):
         rank=rank, world_size=PIPE_STAGES,
         timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S // 2))
     try:
-        cfg = get_config("qwen3-0.6b")
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=PIPE_LAYERS)
         shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
         it = iter(Batcher(SyntheticSource(cfg.vocab_size, seed=SEED),
                           TRAIN_SEQ, TRAIN_BATCH))
@@ -2898,7 +2938,6 @@ M2_CHECK_BATCH = 2                  # its kernel vs plain gradients, 2 x 512
 E1_SPEC = "fsdp_ep2"
 E1_BATCH = 4                        # rows of E1's step (2 a rank)
 E1_LOSS_REL, E1_GRAD_REL = 1e-5, 1e-4
-E1_TIMEOUT_S = 600
 D5_SPEC = "fsdp_ep8"
 
 
@@ -2990,60 +3029,26 @@ def _e1_batch(cfg):
 def _e1_rank(rank, port, out_dir, device_type="cuda"):
     """One rank of E1 (a spawned process on the card, gloo for every
     collective): one process's dropping step (2 dispatch groups) on the
-    whole batch as the reference, then the E1_SPEC step on this rank's
-    rows; every local gradient against the reference's cut of it."""
-    import datetime
-    from repro_torch.core import expert as expert_lib
-    from repro_torch.train.trainer import _DataParallel
-    dev = torch.device(device_type, 0)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-        world_size=2, timeout=datetime.timedelta(seconds=E1_TIMEOUT_S // 2))
+    whole batch as the reference, then the first E1_SPEC train step on
+    this rank's rows; every local gradient against the reference's cut of
+    it."""
+    dev = _pair_group(rank, port, device_type)
     try:
         cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
         batch = batch_to_device(_e1_batch(cfg), dev)
-        params = tfm.init_params(cfg, seed=SEED, device=dev)
-        ref_loss, ref = loss_and_grads(cfg, params, batch, Runtime(
+        ref_loss, ref = _reference(cfg, batch, dev, Runtime(
             moe_impl="dropping", moe_groups=2))
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
-        shape = ShapeConfig("chip_smoke", TRAIN_SEQ, E1_BATCH, "train")
-        plan = strategy.parse(E1_SPEC).to_plan(
-            cfg, strategy.host_topology(), shape, device_type=dev.type)
-        rt = par.make_runtime(cfg, plan, shape)
-        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
-                                plan, cfg)
-        dp = _DataParallel(plan)
-        mine, denom = dp.rows(batch, (batch["labels"] >= 0).sum().float())
-        expert_lib.reset_dispatch_stats()
-        layers.reset_collective_counts()
-        ops.reset_launch_counts()
-        loss, _ = tfm.loss_fn(cfg, params, mine, rt, denom)
-        loss.backward()
-        named = dict(params.named_parameters())
-        dp.sum_over_experts(named, rt)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        loss = float(dp.mean(loss.detach().clone()))
-        errs = {}
-        for name, p in named.items():
-            want = bridge._local_cut(ref[name], p.grad)
-            got = p.grad.to_local()
-            errs[name] = float((got - want).abs().max()
-                               / ref[name].abs().max().clamp_min(1e-30))
+        got = _first_step(cfg, E1_SPEC, batch, dev)
+        errs = _grad_errs(got["moments"], ref)
         worst = max(errs, key=errs.get)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
-            loss=loss, ref_loss=ref_loss, grad_rel_err_max=errs[worst],
-            worst_leaf=worst, leaves=len(errs),
-            dispatch=expert_lib.dispatch_stats_snapshot(),
-            all_to_all=layers.COLLECTIVES["all_to_all"],
-            launches=counts,
-            expert_local_shape=list(
-                named["layers.1.ffn.w_up"].to_local().shape),
-            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)))
+            loss=got["loss"], ref_loss=ref_loss,
+            grad_rel_err_max=errs[worst], worst_leaf=worst,
+            leaves=len(errs), dispatch=got["dispatch"],
+            all_to_all=got["collectives"]["all_to_all"],
+            launches=got["launches"],
+            expert_local_shape=got["shapes"]["layers.1.ffn.w_up"],
+            peak_mem_gib=got["peak_mem_gib"])))
     finally:
         dist.destroy_process_group()
 
@@ -3052,41 +3057,18 @@ def e1_phase(dev, card):
     """E1: E1_SPEC on deepseek-moe-16b at M1_LAYERS layers in two
     processes sharing the card over gloo: the dispatch and combine
     all-to-all, the router's statistics all-reduce and the expert units'
-    reduction on the card; each rank's share of the loss, averaged, and
-    its local gradients against one process's dropping step (2 dispatch
-    groups, the two ranks' rows) computed in the rank itself.  No time is
-    meaningful (two processes time-slice one card)."""
-    import multiprocessing
-    import socket
+    reduction on the card; each rank's first train step (its loss the
+    mean over the ranks) and its local gradients against one process's
+    dropping step (2 dispatch groups, the two ranks' rows) computed in the
+    rank itself.  No time is meaningful (two processes time-slice one
+    card)."""
     cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_e1")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_e1_rank, args=(r, port, out_dir, dev.type))
-             for r in range(2)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.time() + E1_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(deadline - time.time(), 1))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-    codes = [p.exitcode for p in procs]
-    check(codes == [0, 0], f"E1 ranks exited with {codes} (None: still "
-                           f"running after {E1_TIMEOUT_S} s)")
-    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
-             for r in range(2)]
+    ranks = _pair("E1", _e1_rank, out_dir, dev.type)
     shutil.rmtree(out_dir, ignore_errors=True)
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     expect = train_expect(cfg)
-    launches = {k: 0 for k in ops.launch_counts()}
     for r, got in enumerate(ranks):
         rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
         check(rel <= E1_LOSS_REL, f"E1 rank {r}: loss {got['loss']} vs "
@@ -3102,7 +3084,7 @@ def e1_phase(dev, card):
               f"E1 rank {r}: expert stack shard {got['expert_local_shape']}")
         check(got["launches"] == expect,
               f"E1 rank {r} launches {got['launches']} != {expect}")
-        launches = {k: launches[k] + got["launches"][k] for k in launches}
+    launches = add_launches(*(g["launches"] for g in ranks))
     print(f"[E1] {E1_SPEC} at {M1_LAYERS} layers in 2 processes (gloo) in "
           f"{time.perf_counter() - t0:.1f} s: loss {ranks[0]['loss']:.6f} vs "
           f"one process's {ranks[0]['ref_loss']:.6f}; gradients rel err "
@@ -3142,6 +3124,499 @@ def d5_phase(card):
     return pod
 
 
+# ---------------------------------------------------------------------------
+# phases 21-25: the flash kernels at a query offset (K-CP), MoE under
+# tensor (MT1) and pipeline (MP1) parallelism, context parallelism (C1),
+# and the dry runs of the new compositions (D6)
+# ---------------------------------------------------------------------------
+
+# K-CP: C1's per-rank attention, B 4, S_loc 512 of Sk 1024, at q0 0 and 512
+KCP_SHAPE = (4, 512, 1024, 16, 8, 128)        # B, S_loc, Sk, H, Kv, D
+KCP_OFFSETS = (0, 512)
+KCP_REPORTED = "B4 S512 Sk1024 H16 Kv8 D128 causal q0 512"
+Q0_KERNELS = ("flash_attention_q0", "flash_attention_dq_q0",
+              "flash_attention_dkv_q0")
+MT1_SPEC, MT1_LAYERS, MT1_BATCH = "fsdp_tp2", 4, 2
+MT1_LOSS_REL, MT1_GRAD_REL = 1e-5, 1e-4
+# MP1: dbrx-132b's 2-layer pipeline at full width, traced by the dry run
+# on the card.  Its pair does not run: a stage's train step holds ~96 GiB
+# a rank (the dry run's reading: the stage's MoE layer, the embedding and
+# head every pipe rank holds, FSDP2's unsharded copies, the gradients and
+# AdamW's moments), past the card for one rank at any sequence length
+MP1_SPEC, MP1_LAYERS, MP1_BATCH = "fsdp_pp2_mb2_1f1b", 2, 2
+C1_SPEC, C1_LAYERS, C1_BATCH, C1_SEQ = "fsdp_cp2", 4, 4, 1024
+C1_SERVE_B, C1_PROMPT, C1_NEW = 8, 128, 32
+C1_LOSS_REL, C1_GRAD_REL = 1e-5, 1e-4
+PAIR_TIMEOUT_S = 600
+D6_POINTS = (("qwen2-1.5b", "fsdp_tp8"), ("dbrx-132b", "auto"))
+
+
+def kcp_phase(dev, flush, gen):
+    """K-CP: the flash forward, dq and dk/dv kernels with a query offset at
+    C1's per-rank shape (KCP_SHAPE), q0 in KCP_OFFSETS, f32 and bf16,
+    against their plain versions at the same offset (the forward also to
+    its own bits on a second launch); each timed beside its plain version,
+    its bound (``flash_bounds`` over the visible pairs of the offset rows)
+    and SDPA with an explicit boolean mask of the same visibility (its
+    ``is_causal`` is top-left aligned)."""
+    B, S, Sk, H, Kv, D = KCP_SHAPE
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        q_all, do_all = (torch.randn(B, Sk, H, D, generator=gen, device=dev)
+                         .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, Sk, Kv, D, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        for q0 in KCP_OFFSETS:
+            q = q_all[:, q0:q0 + S].contiguous()
+            do = do_all[:, q0:q0 + S].contiguous()
+            o, lse = fa.forward_cuda(q, k, v, True, 0, q0)
+            o2, lse2 = fa.forward_cuda(q, k, v, True, 0, q0)
+            o0, lse0 = fa.forward_plain(q, k, v, True, 0, q0)
+            delta = fa.attention_delta(o0, do)
+            args = (q, k, v, do, lse0, delta, True, 0, q0)
+            dq, (dk, dv) = fa.dq_cuda(*args), fa.dkv_cuda(*args)
+            dq0, (dk0, dv0) = fa.dq_plain(*args), fa.dkv_plain(*args)
+            torch.cuda.synchronize()
+            e_o, ok = max_err(o, o0, dtype)
+            e_lse = (lse - lse0).abs().max().item()
+            rels = {"dq": rel_err(dq, dq0), "dk": rel_err(dk, dk0),
+                    "dv": rel_err(dv, dv0)}
+            shape = f"B{B} S{S} Sk{Sk} H{H} Kv{Kv} D{D} causal q0 {q0}"
+            check(ok and e_lse <= 1e-5
+                  and max(rels.values()) <= GRAD_REL_TOL[dtype],
+                  f"K-CP {dt} {shape}: |do| {e_o:.3g}, |dlse| {e_lse:.3g},"
+                  f" grads rel {rels} over tolerance")
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"K-CP forward {dt} {shape}: a second launch gave other "
+                  f"bits")
+            errs = dict(zip(Q0_KERNELS, (
+                max(e_o, e_lse), (dq - dq0).abs().max().item(),
+                max((dk - dk0).abs().max().item(),
+                    (dv - dv0).abs().max().item()))))
+            bounds, notes = flash_bounds(dtype, B, S, H, Kv, D, 0, Sk, q0)
+            qs, ks, vs, dos = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v, do))
+            i = torch.arange(Sk, device=dev)
+            mask = i[None] <= (q0 + i[:S])[:, None]          # (S, Sk)
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True), flush, 20)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+                out = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, enable_gqa=True)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, dos, retain_graph=True), flush, 20)
+            timings = dict(zip(Q0_KERNELS, (
+                (lambda: fa.forward_cuda(q, k, v, True, 0, q0),
+                 lambda: fa.forward_plain(q, k, v, True, 0, q0), lib_fwd),
+                (lambda: fa.dq_cuda(*args), lambda: fa.dq_plain(*args),
+                 lib_bwd),
+                (lambda: fa.dkv_cuda(*args), lambda: fa.dkv_plain(*args),
+                 lib_bwd))))
+            for (name, (kern, plain, lib)), base in zip(
+                    timings.items(), Q0_KERNELS):
+                bnd, by = bounds[base.replace("_q0", "")]
+                row = dict(name=name, dtype=dt, shape=shape, timed=True,
+                           max_abs_err=errs[name],
+                           ms=time_ms(kern, flush, 20),
+                           plain_ms=time_ms(plain, flush, 20),
+                           library_ms=lib, bound_ms=bnd, bound_by=by,
+                           sdpa_masked_forward_ms=lib_fwd,
+                           sdpa_masked_backward_ms=lib_bwd,
+                           **notes[base.replace("_q0", "")])
+                rows.append(row)
+                print(f"[K-CP] {name} {dt} {shape}: err "
+                      f"{errs[name]:.3g}; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, masked SDPA "
+                      f"{'forward' if name == Q0_KERNELS[0] else 'backward'}"
+                      f" {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+    return rows
+
+
+def _pair(tag, target, out_dir, *args):
+    """Two spawned processes of ``target(rank, port, out_dir, *args)``
+    sharing the card (gloo for every collective: NCCL cannot put two
+    ranks of one card in one communicator) -> each rank's JSON record
+    (``out_dir/rank<r>.json``); both must exit cleanly within
+    PAIR_TIMEOUT_S, and none is left running."""
+    import multiprocessing
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, port, out_dir, *args))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PAIR_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"{tag} ranks exited with {codes} (None: still "
+                           f"running after {PAIR_TIMEOUT_S} s)")
+    return [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def _pair_group(rank, port, device_type):
+    """This pair rank's device (the card; the host for a rehearsal) and
+    its gloo group of 2."""
+    import datetime
+    dev = torch.device("cpu")
+    if device_type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=PAIR_TIMEOUT_S // 2))
+    return dev
+
+
+def _reference(cfg, batch, dev, rt):
+    """One process's loss and gradients of ``batch`` under ``rt``, the
+    gradients held on the host (the planned step needs the card) and the
+    model freed."""
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    loss, grads = loss_and_grads(cfg, params, batch, rt)
+    grads = {n: g.cpu() for n, g in grads.items()}
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return loss, grads
+
+
+def _first_step(cfg, spec, batch, dev):
+    """This rank's first train step of ``batch`` under ``spec`` through
+    the train CLI's functions: the plan, its runtime and the planned
+    parameters as ``launch.train`` builds them, ``make_train_step`` and a
+    fresh AdamW state without clipping, its counters set to 0 just before
+    the step -> {'loss' (the step's global one), 'moments' ({leaf: AdamW's
+    first moment: (1 - b1) x this rank's gradient, as the pipeline phase
+    reads it}), 'shapes' (each leaf's local shape), 'launches',
+    'dispatch', 'collectives', 'sites', 'rt', 'peak_mem_gib'}."""
+    from repro_torch.core import expert as expert_lib
+    from repro_torch.train.trainer import make_train_step
+    B, S = batch["labels"].shape
+    shape = ShapeConfig("chip_smoke", S, B, "train")
+    plan = strategy.parse(spec).to_plan(cfg, strategy.host_topology(),
+                                        shape, device_type=dev.type)
+    rt = par.make_runtime(cfg, plan, shape)
+    params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                            plan, cfg)
+    step = make_train_step(cfg, rt, TrainConfig(
+        steps=1, warmup=1, opt=AdamWConfig(grad_clip=0.0)), plan)
+    state = init_opt_state(params)
+    expert_lib.reset_dispatch_stats()
+    layers.reset_collective_counts()
+    ops.reset_launch_counts()
+    _, state, metrics = step(params, state, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(
+        loss=float(metrics["loss"]), moments=state["m"],
+        shapes={n: list(m.to_local().shape) for n, m in state["m"].items()},
+        launches=ops.launch_counts(),
+        dispatch=expert_lib.dispatch_stats_snapshot(),
+        collectives=dict(layers.COLLECTIVES),
+        sites=dict(layers.COLLECTIVE_SITES), rt=rt,
+        peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                      if dev.type == "cuda" else None))
+
+
+def _grad_errs(moments, ref):
+    """{leaf: max |this rank's gradient (its first moment over 1 - b1) -
+    the reference's cut of it| over the reference's scale}."""
+    b1 = AdamWConfig().b1
+    out = {}
+    for name, m in moments.items():
+        got = m.to_local() / (1 - b1)
+        want = bridge._local_cut(ref[name], m).to(got.device)
+        out[name] = float((got - want).abs().max()
+                          / ref[name].abs().max().clamp_min(1e-30))
+    return out
+
+
+def _mt1_rank(rank, port, out_dir, device_type="cuda"):
+    """One rank of MT1: one process's step (the plan's dropping dispatch,
+    one group: every model rank routes the whole batch) as the reference,
+    then MT1_SPEC's first train step on this rank's share of the
+    experts."""
+    dev = _pair_group(rank, port, device_type)
+    try:
+        cfg = _moe_cfg("deepseek-moe-16b", MT1_LAYERS)
+        batch = batch_to_device(next(iter(Batcher(SyntheticSource(
+            cfg.vocab_size, seed=SEED), TRAIN_SEQ, MT1_BATCH))), dev)
+        ref_loss, ref = _reference(cfg, batch, dev, Runtime(
+            moe_impl="dropping", moe_groups=1))
+        got = _first_step(cfg, MT1_SPEC, batch, dev)
+        errs = _grad_errs(got["moments"], ref)
+        worst = max(errs, key=errs.get)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+            loss=got["loss"], ref_loss=ref_loss,
+            grad_rel_err_max=errs[worst], worst_leaf=worst,
+            leaves=len(errs), launches=got["launches"],
+            dispatch=got["dispatch"], sites=got["sites"],
+            tp_size=got["rt"].tp_size,
+            expert_local_shape=got["shapes"]["layers.1.ffn.w_up"],
+            peak_mem_gib=got["peak_mem_gib"])))
+    finally:
+        dist.destroy_process_group()
+
+
+def mt1_phase(dev, card):
+    """MT1: deepseek-moe-16b at full width cut to MT1_LAYERS layers, f32,
+    under MT1_SPEC in two processes sharing the card over gloo: each rank
+    routes the whole batch with the router whole and runs 32 of the 64
+    experts (stacks [32, 2048, 1408]), its shared experts and attention
+    heads split like a dense layer's, the partial outputs reduce-scattered
+    along S (Megatron-SP).  One train step: each rank's loss within
+    MT1_LOSS_REL of one process's dropping step, every local gradient
+    within MT1_GRAD_REL of its scale; one combine over the model axis per
+    MoE layer; launches exact.  No time is meaningful (two processes
+    time-slice one card)."""
+    cfg = _moe_cfg("deepseek-moe-16b", MT1_LAYERS)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mt1")
+    t0 = time.perf_counter()
+    ranks = _pair("MT1", _mt1_rank, out_dir, dev.type)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    expect = train_expect(cfg)
+    m = cfg.moe
+    for r, got in enumerate(ranks):
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        check(rel <= MT1_LOSS_REL, f"MT1 rank {r}: loss {got['loss']} vs "
+                                   f"{got['ref_loss']} ({rel:.3g} relative)")
+        check(got["grad_rel_err_max"] <= MT1_GRAD_REL,
+              f"MT1 rank {r}: gradient {got['worst_leaf']} differs by "
+              f"{got['grad_rel_err_max']:.3g} of its scale")
+        check(got["expert_local_shape"] == [m.n_experts // 2, cfg.d_model,
+                                            m.expert_d_ff],
+              f"MT1 rank {r}: expert stacks {got['expert_local_shape']}")
+        check(got["sites"]["moe_combine"] == n_moe
+              and got["tp_size"] == 2,
+              f"MT1 rank {r}: dispatch {got['dispatch']}, sites "
+              f"{got['sites']}")
+        check(got["launches"] == expect,
+              f"MT1 rank {r} launches {got['launches']} != {expect}")
+    launches = add_launches(*(g["launches"] for g in ranks))
+    print(f"[MT1] {MT1_SPEC} deepseek-moe-16b at {MT1_LAYERS} layers, B"
+          f"{MT1_BATCH} x S{TRAIN_SEQ}, one train step in 2 processes "
+          f"(gloo) in {time.perf_counter() - t0:.1f} s: loss "
+          f"{ranks[0]['loss']:.6f} vs one process's "
+          f"{ranks[0]['ref_loss']:.6f}; gradients rel err max "
+          + " / ".join(f"{g['grad_rel_err_max']:.3g} ({g['worst_leaf']})"
+                       for g in ranks)
+          + f" (tol {MT1_GRAD_REL}); expert stacks "
+          f"{ranks[0]['expert_local_shape']} a rank; {n_moe} combines over "
+          f"the model axis; peak "
+          + " / ".join(f"{g['peak_mem_gib']:.2f}" for g in ranks)
+          + f" GiB; launches {launches}; on {card}")
+    return dict(card=card, ranks=ranks, launches=launches)
+
+
+def mp1_phase(card):
+    """MP1: dbrx-132b, the MoE config that pipelines (a uniform stack),
+    under MP1_SPEC at full width and MP1_LAYERS layers, B MP1_BATCH x S
+    TRAIN_SEQ, through the dry run on the card (a fake process group of
+    two pipe ranks), each pipe rank's train step in a fresh process: each
+    must trace, its MoE layer's dispatch recorded, and its peak is
+    printed.  No pair of processes trains it here: one stage's step needs
+    more than the card holds (the peak the dry run reads), so the
+    pipelined aux is held against the JAX package on the CPU only
+    (tests/test_torch_moe_pp.py)."""
+    cfg = _moe_cfg("dbrx-132b", MP1_LAYERS)
+    s = strategy.parse(MP1_SPEC)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, MP1_BATCH, "train")
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    out = {"card": card, "card_gib": card_gib, "ranks": []}
+    for rank in range(s.pp):
+        rec = dryrun.lower_fresh(cfg, shape, s, strategy.host_topology(
+            n_devices=s.pp), rank=rank, device="cuda")
+        peaks = {k.replace("_bytes", ""): v / 2 ** 30
+                 for k, v in rec["memory"].items()}
+        check(peaks["peak_per_device"] > 0,
+              f"MP1 pipe rank {rank}: memory record {peaks}")
+        out["ranks"].append(dict(peaks_gib=peaks, trace_s=rec["trace_s"]))
+        print(f"[MP1] dry run of {MP1_SPEC} on dbrx-132b at full width, "
+              f"{MP1_LAYERS} layers, B{MP1_BATCH} x S{TRAIN_SEQ}, pipe rank "
+              f"{rank} of {s.pp} (fake) on the card in {rec['trace_s']} s, "
+              "GiB: " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+              + f" (the card holds {card_gib:.2f}); on {card}")
+    return out
+
+
+def _c1_expect(cfg, kinds):
+    out = {k: 0 for k in ops.launch_counts()}
+    out["rmsnorm"] = kinds["norms"]
+    if "rmsnorm_bwd" in kinds:
+        out["rmsnorm_bwd"] = kinds["rmsnorm_bwd"]
+    for name in kinds.get("flash", ()):
+        out[name] = cfg.n_layers
+    return out
+
+
+def _c1_rank(rank, port, out_dir, device_type="cuda"):
+    """One rank of C1: one process's step on the whole batch as the
+    reference, then C1_SPEC's first train step on this rank's half of
+    every sequence; then static serving under C1_SPEC (its serving
+    shape), the prompts' prefill split over the ranks."""
+    dev = _pair_group(rank, port, device_type)
+    try:
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=C1_LAYERS)
+        batch = batch_to_device(next(iter(Batcher(SyntheticSource(
+            cfg.vocab_size, seed=SEED), C1_SEQ, C1_BATCH))), dev)
+        ref_loss, ref = _reference(cfg, batch, dev, Runtime())
+        got = _first_step(cfg, C1_SPEC, batch, dev)
+        errs = _grad_errs(got["moments"], ref)
+        worst = max(errs, key=errs.get)
+        train = dict(loss=got["loss"], ref_loss=ref_loss,
+                     grad_rel_err_max=errs[worst], worst_leaf=worst,
+                     launches=got["launches"], sites=got["sites"],
+                     context=got["rt"].context, tp_size=got["rt"].tp_size)
+        del got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        max_len = C1_PROMPT + C1_NEW
+        shape = ShapeConfig("chip_smoke", max_len, C1_SERVE_B, "decode")
+        plan = strategy.parse(C1_SPEC).to_plan(
+            cfg, strategy.host_topology(), shape, device_type=dev.type)
+        srt = par.make_runtime(cfg, plan, shape)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        eng = ServeEngine(cfg, params, srt, max_len=max_len, plan=plan,
+                          device=dev)
+        prompts = _static_prompts(cfg.vocab_size, C1_SERVE_B, C1_PROMPT)
+        layers.reset_collective_counts()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            _, cache = eng._prefill(params, {"tokens": torch.as_tensor(
+                prompts, device=dev)})
+        k_local = list(cache["layers"][0]["kv"]["k"].shape)
+        del cache
+        ops.reset_launch_counts()
+        out = eng.generate_static(prompts, C1_NEW)
+        torch.cuda.synchronize()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+            train=train, tokens=out[:, C1_PROMPT:].tolist(),
+            serve_launches=ops.launch_counts(),
+            serve_sites=dict(layers.COLLECTIVE_SITES), k_local=k_local,
+            cache_shard=srt.cache_shard,
+            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)))
+    finally:
+        dist.destroy_process_group()
+
+
+def c1_phase(dev, card):
+    """C1: qwen3-0.6b at full width cut to C1_LAYERS layers, f32, under
+    C1_SPEC in two processes sharing the card over gloo.  Train: B
+    C1_BATCH x S C1_SEQ, each rank its 512 positions of every row, K and V
+    gathered over the model axis and its queries attended at q0 = 512
+    rank through the flash kernels' offset launches (their ``_q0``
+    counts exact; no self-attention launch); the loss within C1_LOSS_REL
+    of one process's and every gradient within C1_GRAD_REL of its scale.
+    Serve: a static prefill of C1_SERVE_B x C1_PROMPT (each rank half the
+    prompt, K/V gathered, the cache's slots split over the ranks) and
+    C1_NEW greedy tokens over the sharded cache, every token equal to a
+    one-process static run's.  No time is meaningful."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=C1_LAYERS)
+    prompts = _static_prompts(cfg.vocab_size, C1_SERVE_B, C1_PROMPT)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    eng = ServeEngine(cfg, params, Runtime(), max_len=C1_PROMPT + C1_NEW,
+                      device=dev)
+    gens = eng.generate_static(prompts, C1_NEW)[:, C1_PROMPT:]
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_c1")
+    t0 = time.perf_counter()
+    ranks = _pair("C1", _c1_rank, out_dir, dev.type)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    L = cfg.n_layers
+    train_want = _c1_expect(cfg, dict(norms=2 * L + 1, rmsnorm_bwd=2 * L + 1,
+                                      flash=Q0_KERNELS))
+    serve_want = _c1_expect(cfg, dict(norms=(2 * L + 1) * C1_NEW,
+                                      flash=Q0_KERNELS[:1]))
+    for r, got in enumerate(ranks):
+        tr = got["train"]
+        rel = abs(tr["loss"] - tr["ref_loss"]) / abs(tr["ref_loss"])
+        check(rel <= C1_LOSS_REL, f"C1 rank {r}: loss {tr['loss']} vs "
+                                  f"{tr['ref_loss']} ({rel:.3g} relative)")
+        check(tr["grad_rel_err_max"] <= C1_GRAD_REL,
+              f"C1 rank {r}: gradient {tr['worst_leaf']} differs by "
+              f"{tr['grad_rel_err_max']:.3g} of its scale")
+        check(tr["launches"] == train_want,
+              f"C1 rank {r} train launches {tr['launches']} != {train_want}")
+        check(tr["context"] and tr["tp_size"] == 2
+              and tr["sites"]["context_kv_gather"] == 2 * L,
+              f"C1 rank {r}: sites {tr['sites']}")
+        check(np.array_equal(np.asarray(got["tokens"]), gens),
+              f"C1 rank {r}: served tokens differ from the one-process run")
+        check(got["serve_launches"] == serve_want,
+              f"C1 rank {r} serve launches {got['serve_launches']} != "
+              f"{serve_want}")
+        check(got["k_local"][1] == (C1_PROMPT + C1_NEW) // 2,
+              f"C1 rank {r}: cache shard {got['k_local']}")
+    launches = add_launches(*(g["train"]["launches"] for g in ranks),
+                            *(g["serve_launches"] for g in ranks))
+    tr = [g["train"] for g in ranks]
+    print(f"[C1] {C1_SPEC} qwen3-0.6b at {L} layers in 2 processes (gloo) "
+          f"in {time.perf_counter() - t0:.1f} s: train B{C1_BATCH} x "
+          f"S{C1_SEQ}: loss {tr[0]['loss']:.6f} vs one process's "
+          f"{tr[0]['ref_loss']:.6f}; gradients rel err max "
+          + " / ".join(f"{g['grad_rel_err_max']:.3g} ({g['worst_leaf']})"
+                       for g in tr)
+          + f" (tol {C1_GRAD_REL}); serve B{C1_SERVE_B} x {C1_PROMPT} + "
+          f"{C1_NEW}: tokens equal one process's, KV slots per rank "
+          f"{ranks[0]['k_local'][1]} of {C1_PROMPT + C1_NEW}; peak "
+          + " / ".join(f"{g['peak_mem_gib']:.2f}" for g in ranks)
+          + f" GiB; launches {launches}; on {card}")
+    return dict(card=card, ranks=ranks, launches=launches)
+
+
+def d6_phase(card):
+    """D6: full-depth dry runs on the pod topology (256 fake ranks) of the
+    new compositions: qwen2-1.5b x train_4k under fsdp_tp8 (its 12 heads
+    do not split 8 ways: context attention, K/V gathered in every layer),
+    and dbrx-132b x train_4k under what ``--strategy auto`` ranks first
+    (printed).  Each must trace."""
+    out = {}
+    for arch, spec in D6_POINTS:
+        cfg = get_config(arch)
+        if spec == "auto":
+            spec = strategy.resolve("auto", cfg, strategy.pod_topology(),
+                                    SHAPES["train_4k"])[0].format()
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, "train_4k", False, DRYRUN_OUT,
+                             strategy=spec, device="cuda")
+        check(rec["status"] == "ok",
+              f"D6 {arch} under {spec}: {rec.get('error')}")
+        rec["wall_s"] = time.perf_counter() - t0
+        sites = rec["collective_sites"]
+        if arch == "qwen2-1.5b":
+            check(rec["plan"]["attn"] == "context"
+                  and sites["context_kv_gather"] == 2 * cfg.n_layers,
+                  f"D6 qwen2-1.5b: plan {rec['plan']}, sites {sites}")
+        print(f"[D6] {arch} x train_4k ({cfg.n_layers} layers) on pod under "
+              f"{spec} (mesh {rec['plan']['mesh']}, attn "
+              f"{rec['plan']['attn']}, expert '{rec['plan']['expert']}') in "
+              f"{rec['wall_s']:.1f} s: peak/dev "
+              f"{rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB; "
+              f"sites {sites}; moe dispatch {rec.get('moe_dispatch')}; "
+              f"collectives {rec['collectives']}")
+        out[arch] = rec
+    return out
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3157,6 +3632,15 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:134"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6.py:24"),
+    # the three flash kernels' launches with a query offset (K-CP, C1)
+    "flash_attention_q0": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:60"),
+    "flash_attention_dq_q0": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:102"),
+    "flash_attention_dkv_q0": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:134"),
 }
 # the case each kernel's line reports, f32 throughout: the serving path's
 # decode shape (the RMSNorm forward's training rows are printed beside it),
@@ -3167,7 +3651,8 @@ REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "flash_attention": dict(shape=FLASH_REPORTED),
             "flash_attention_dq": dict(shape=FLASH_REPORTED),
             "flash_attention_dkv": dict(shape=FLASH_REPORTED),
-            "wkv6": dict(timed=True)}
+            "wkv6": dict(timed=True),
+            **{name: dict(shape=KCP_REPORTED) for name in Q0_KERNELS}}
 
 
 # the bf16 case of each kernel: the training rows for the RMSNorm forward
@@ -3247,6 +3732,7 @@ def main(argv=None):
         rows += flash_phase(dev, flush, gen)
         rows += wkv6_phase(dev, flush, gen)
         tp_rows = tp_kernels_phase(dev, flush, gen)
+        rows += kcp_phase(dev, flush, gen)
     del flush
     print(f"[kernels] ok in {time.perf_counter() - t0:.1f}s")
 
@@ -3263,7 +3749,7 @@ def main(argv=None):
           f"{strat['host_span_s']['dispatch'] * 1e3:.1f} ms under "
           f"{strat['spec']} (FSDP2, bf16) vs "
           f"{trained['host_span_s']['dispatch'] * 1e3:.1f} ms unsharded f32")
-    ck1 = phase("CK1", ck1_phase, dev, card, qwen3_step)
+    ck1 = phase("CK1", ck1_phase, dev, card, train_expect(ck_cfg()))
     dry = phase("dryrun", dryrun_phase, card, strat["peak_mem_bytes"])
     piped = phase("pipeline", pipeline_phase, card)
 
@@ -3305,6 +3791,12 @@ def main(argv=None):
     e1 = phase("E1", e1_phase, dev, card)
     d5 = phase("D5", d5_phase, card)
 
+    # MoE under tensor and pipeline parallelism; context parallelism
+    mt1 = phase("MT1", mt1_phase, dev, card)
+    mp1 = phase("MP1", mp1_phase, card)
+    c1 = phase("C1", c1_phase, dev, card)
+    d6 = phase("D6", d6_phase, card)
+
     # each kernel's launches on the main paths: every run above, each
     # counted from 0
     launches = add_launches(
@@ -3312,7 +3804,8 @@ def main(argv=None):
         strat["fp8"]["launches"], ck1["launches"], piped["launches"],
         rwkv_trained["launches"], ss1["launches"], ss3["launches"],
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
-        g1["launches"], m1["launches"], m2["launches"], e1["launches"])
+        g1["launches"], m1["launches"], m2["launches"], e1["launches"],
+        mt1["launches"], c1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3326,7 +3819,8 @@ def main(argv=None):
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
              "dryrun_d3": d3, "dense_q2": q2, "dense_h1": h1,
              "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
-             "dryrun_d5": d5, "build_s": took,
+             "dryrun_d5": d5, "moe_tp_mt1": mt1, "moe_pp_mp1": mp1,
+             "cp_c1": c1, "dryrun_d6": d6, "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

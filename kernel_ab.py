@@ -10,7 +10,11 @@ Builds ``flash_attention.cu``, ``wkv6.cu``, ``rmsnorm.cu`` and
 same ``nvcc`` flags as this tree's (into ``DIR/build/kernels``), then, on
 ``chip_smoke.py``'s cases:
 
-- holds each side's flash forward (o, lse) against ``forward_plain``;
+- holds each side's flash forward (o, lse) against ``forward_plain``,
+  and this tree's flash forward, dq and dk/dv to the other side's bits
+  (``torch.equal``: self-attention is q0 = 0 with as many rows as keys,
+  whatever either side's entry points take; a side whose entry points
+  predate the query offset runs through :class:`_NoOffset`);
 - holds this tree's WKV-6 outputs (y and the final state) against the
   other side's with ``torch.equal``, and both against ``wkv6_plain``;
 - holds each side's RMSNorm forward (y, rstd) against ``rmsnorm_plain`` at
@@ -68,6 +72,43 @@ RMS_FWD_CASES = [(8, 1024), (256, 1024), (4096, 1024), (4096, 2048),
                  (4096, 4096)]
 
 
+# the flash entry points before the query offset: (B, S, H, Kv, D, causal,
+# window), S both the query rows and the keys
+NO_OFFSET = {
+    **{f"flash_attn_fwd_{s}": [_P] * 5 + [_I] * 7 + [_F, _P]
+       for s in ("f32", "bf16")},
+    **{f"flash_attn_dq_{s}": [_P] * 7 + [_I] * 7 + [_F, _P]
+       for s in ("f32", "bf16")},
+    **{f"flash_attn_dkv_{s}": [_P] * 8 + [_I] * 7 + [_F, _P]
+       for s in ("f32", "bf16")}}
+
+
+class _NoOffset:
+    """A flash library whose entry points predate the query offset, called
+    with this tree's arguments: (B, Sq, Sk, H, Kv, D, q0, causal, window)
+    pass as (B, S, H, Kv, D, causal, window), which only self-attention
+    (q0 0, Sq == Sk) can."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.flash_attention_error_string = lib.flash_attention_error_string
+        for name, argtypes in NO_OFFSET.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            setattr(self, name, self._call(fn, len(argtypes) - 9))
+
+    @staticmethod
+    def _call(fn, n_ptr):
+        def call(*a):
+            B, Sq, Sk, H, Kv, D, q0, causal, window = a[n_ptr:n_ptr + 9]
+            if q0 or Sq != Sk:
+                raise ValueError("the other side's flash kernels predate "
+                                 "the query offset")
+            return fn(*a[:n_ptr], B, Sq, H, Kv, D, causal, window,
+                      *a[n_ptr + 9:])
+        return call
+
+
 def build_other(root: Path):
     """The other checkout's sources, built with this tree's flags ->
     {name: loaded library}."""
@@ -94,6 +135,8 @@ def build_other(root: Path):
                 getattr(lib, fn).restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        if name == "flash_attention" and "int q0" not in src.read_text():
+            lib = _NoOffset(lib)
         libs[name] = lib
     return libs
 
@@ -165,9 +208,12 @@ def main(argv=None):
                 row = dict(dtype=dt, shape=f"B{B} S{S} H{H} Kv{Kv} D{D} "
                                            f"window{window}")
                 for side in ("this", "other"):
-                    ctx = (using("flash_attention", other["flash_attention"])
-                           if side == "other" else contextlib.nullcontext())
-                    with ctx:
+                    def ctx():
+                        return (using("flash_attention",
+                                      other["flash_attention"])
+                                if side == "other"
+                                else contextlib.nullcontext())
+                    with ctx():
                         o, lse = fa.forward_cuda(q, k, v, True, window)
                         o2, lse2 = fa.forward_cuda(q, k, v, True, window)
                     torch.cuda.synchronize()
@@ -177,6 +223,20 @@ def main(argv=None):
                     row[f"{side}_lse_err"] = (lse - lse0).abs().max().item()
                     row[f"{side}_repeat_equal"] = bool(
                         torch.equal(o, o2) and torch.equal(lse, lse2))
+                    do = torch.randn(q.shape, generator=torch.Generator(
+                        device=dev).manual_seed(ci), device=dev).to(dtype)
+                    bwd = (q, k, v, do, lse0, fa.attention_delta(o0, do),
+                           True, window)
+                    with ctx():
+                        outs = (o, lse, fa.dq_cuda(*bwd),
+                                *fa.dkv_cuda(*bwd))
+                    torch.cuda.synchronize()
+                    if side == "this":
+                        mine = outs
+                    else:
+                        row["bits_equal_other"] = [
+                            bool(torch.equal(a, b))
+                            for a, b in zip(mine, outs)]
                 if ci == 0:
                     row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
                         "flash_attention",
@@ -223,10 +283,13 @@ def main(argv=None):
     ok = all(r["this_o_within_tol"] and r["this_lse_err"] <= 1e-5
              and r["this_repeat_equal"] for r in res["flash"])
     same = all(r["y_equal"] and r["state_equal"] for r in res["wkv6"])
+    flash_same = all(all(r["bits_equal_other"]) for r in res["flash"])
     ok_new = all(r["this_ok"] and r["other_ok"] and r["this_repeat_equal"]
                  for r in res["rmsnorm"] + res["rmsnorm_bwd"]
                  + res["flash_decode"])
     print(f"[ab] flash forward within tolerance and repeatable: {ok}; "
+          f"flash o, lse, dq, dk, dv bits equal to the other side's: "
+          f"{flash_same}; "
           f"wkv6 bits equal to the other side's: {same}; RMSNorm forward "
           f"and backward and flash-decode within tolerance on both sides "
           f"and repeatable here: {ok_new}")

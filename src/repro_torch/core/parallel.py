@@ -59,6 +59,16 @@ the rows ``serve_rows`` gives it; ``make_runtime`` gives a serving shape's
 runtime this rank's shard of the KV slots and the groups over which a
 decode step merges its attention (``models.attention``).
 
+A context plan (``attn`` 'context': ``cp<k>``, or a tp whose heads do not
+split) keeps every weight whole on the model axis but the MoE expert
+stacks (their E dim on it, as ``_param_spec`` places them in every plan
+without an expert axis); its runtime takes the axis as its sequence axis
+(``Runtime.cp_*``), and the train step sums every replicated leaf's
+gradient over it.  Under an expert axis a MoE FFN's leaves lie on the
+(expert, model) submesh: the stacks' E dim on the expert axis and, where
+the model axis has more than one rank, their hidden dim on it
+(:func:`expert_placements`).
+
 A plan with a ``pipe`` axis (``core.pipeline``) keeps on each pipe rank
 only the layers of its stages; they are lowered as above over the (data,
 model) submesh of its pipe coordinate, and the embedding, final norm and
@@ -313,7 +323,9 @@ def param_placements(cfg: ModelConfig, plan: ParallelPlan, params):
     Under an expert axis a MoE FFN's leaves are placed on that axis
     instead (:func:`on_expert_axis`): the expert stacks ``Shard(0)``
     (``_param_spec``'s E dim), the router and shared experts
-    ``Replicate()``."""
+    ``Replicate()``; their model-axis placement is
+    :func:`model_placement`'s, on the (expert, model) mesh
+    (:func:`expert_placements`)."""
     from torch.distributed.tensor import Replicate, Shard
     named = (params.named_parameters() if hasattr(params, "named_parameters")
              else params)
@@ -324,11 +336,29 @@ def param_placements(cfg: ModelConfig, plan: ParallelPlan, params):
             # expert's spec are ZeRO's, which FSDP2 owns
             out[name] = Shard(0) if p.ndim == 3 else Replicate()
             continue
-        path = tuple(name.split("."))
-        spec = fitted(plan, _param_spec(cfg, plan, path, p.ndim), p.shape)
-        dims = [d for d, e in enumerate(spec)
-                if plan.tp in (e if isinstance(e, tuple) else (e,))]
-        out[name] = Shard(dims[0]) if dims else Replicate()
+        out[name] = model_placement(cfg, plan, name, p)
+    return out
+
+
+def model_placement(cfg: ModelConfig, plan: ParallelPlan, name: str, p):
+    """``Shard(d)`` where the fitted ``_param_spec`` of parameter ``name``
+    (shaped as ``p``) puts the model axis on dim d, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    spec = fitted(plan, _param_spec(cfg, plan, tuple(name.split(".")),
+                                    p.ndim), p.shape)
+    dims = [d for d, e in enumerate(spec)
+            if plan.tp in (e if isinstance(e, tuple) else (e,))]
+    return Shard(dims[0]) if dims else Replicate()
+
+
+def expert_placements(cfg: ModelConfig, plan: ParallelPlan, name: str, p):
+    """A MoE FFN leaf's placements under an expert axis: on the expert
+    axis (:func:`param_placements`), then, where the model axis has more
+    than one rank, on it (the expert stacks' hidden dim, the shared
+    experts' as a dense FFN's, the router whole)."""
+    out = [param_placements(cfg, plan, [(name, p)])[name]]
+    if plan.tp_size > 1:
+        out.append(model_placement(cfg, plan, name, p))
     return out
 
 
@@ -509,6 +539,24 @@ def wires(plan: ParallelPlan) -> bool:
     return bool(plan.policy.comm_dtype and plan.fsdp and not plan.pipe)
 
 
+def _moe_model_axis(cfg: ModelConfig, plan: ParallelPlan) -> Dict:
+    """{'moe_experts_split', 'moe_shared_split'}: whether the plan's
+    placements put a MoE layer's expert stacks (E dim) and shared experts
+    (hidden dim) on the model axis."""
+    m = cfg.moe
+    i = next(i for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+    d, f = cfg.d_model, m.expert_d_ff
+
+    def split(leaf, *shape):
+        return model_placement(cfg, plan, f"layers.{i}.ffn.{leaf}",
+                               torch.empty(shape, device="meta")).is_shard()
+
+    return dict(moe_experts_split=not plan.expert
+                and split("w_up", m.n_experts, d, f),
+                moe_shared_split=bool(m.n_shared_experts)
+                and split("shared.w_up", d, m.n_shared_experts * f))
+
+
 def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
                  **overrides):
     """Runtime with this plan's dtypes: ``param_dtype``, ``compute_dtype``
@@ -516,10 +564,17 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     dtype where :func:`wires` (the JAX package turns its per-layer
     gatherer on under the same condition; on a ``DeviceMesh`` the wire is
     FSDP2's all-gather).  Its model axis: the size, and on a
-    ``DeviceMesh`` the process group and this rank's coordinate; the
-    residual stream is sequence-parallel where ``activation_specs`` shards
-    ``act_btd`` along S.  Its pipe axis: the size, the microbatches and
-    schedule, and on a ``DeviceMesh`` the process group and this rank's
+    ``DeviceMesh`` the process group and this rank's coordinate
+    (``tp_*``), and whether it shards the sequence (``context``, a
+    context plan: every weight but the MoE experts whole); under head-TP
+    the residual stream is sequence-parallel where ``activation_specs``
+    shards ``act_btd`` along S.  A MoE model's ``moe_experts_split`` and
+    ``moe_shared_split`` say whether the plan puts the expert stacks' E
+    dim and the shared experts' hidden dim on the model axis
+    (:func:`model_placement`; under an expert axis the stacks' E dim is
+    on that axis instead).  Its pipe axis: the
+    size, the microbatches and schedule, and on a ``DeviceMesh`` the
+    process group and this rank's
     coordinate (a serving plan runs its stages in order,
     ``transformer.Params._through_pipe``).  A serving shape's runtime
     also gets its shard of the KV cache's slots (``cache_shard``,
@@ -527,12 +582,15 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     from repro_torch.models.layers import Runtime
     pol = plan.policy
     mesh = not isinstance(plan.mesh, dict)
+    context = plan.attn == "context"
     kw = dict(param_dtype=_DTYPES[pol.param_dtype],
               compute_dtype=_DTYPES[pol.compute_dtype],
               grad_dtype=_DTYPES[pol.grad_dtype],
-              tp_size=plan.tp_size,
-              seq_parallel=activation_specs(cfg, plan)["act_btd"][1]
-              == plan.tp)
+              tp_size=plan.tp_size, context=context,
+              seq_parallel=not context and activation_specs(
+                  cfg, plan)["act_btd"][1] == plan.tp)
+    if cfg.moe.n_experts and plan.tp_size > 1:
+        kw.update(_moe_model_axis(cfg, plan))
     if wires(plan):
         kw.update(gather_dtype=_DTYPES[pol.comm_dtype], fsdp_wire=mesh)
     if plan.tp_size > 1 and mesh:
@@ -772,22 +830,30 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
         keep_stage_layers(params, cfg, plan)
     root, dp_mesh, expert_dp_mesh = _meshes(plan)
     tp_mesh = root[plan.tp]
-    ep_mesh = root[plan.expert] if plan.expert else None
+    ep_mesh = None
+    if plan.expert:
+        ep_mesh = root[(plan.expert, plan.tp)] if plan.tp_size > 1 \
+            else root[plan.expert]
     from repro_torch.models.transformer import wired_layers
     wired = wired_layers(cfg) if wires(plan) else ()
     for name, place in param_placements(cfg, plan, params).items():
         owner, leaf = name.rsplit(".", 1)
         sub = params.get_submodule(owner)
         full = sub[leaf].detach()
-        mesh = ep_mesh if on_expert_axis(name, cfg, plan) else tp_mesh
-        n, rank = mesh.size(), mesh.get_local_rank()
-        local = (full.chunk(n, place.dim)[rank].contiguous()
-                 if place.is_shard() else full)
+        mesh, places = tp_mesh, [place]
+        if on_expert_axis(name, cfg, plan):
+            mesh, places = ep_mesh, expert_placements(cfg, plan, name, full)
+        local = full
+        for d, pl in enumerate(places):
+            if pl.is_shard():
+                local = local.chunk(mesh.size(d), pl.dim)[
+                    mesh.get_local_rank(d)]
+        local = local.contiguous()
         if (name.startswith("layers.") and local.is_floating_point()
                 and int(name.split(".")[1]) in wired):
             local = Fp8Wire(local)
         sub[leaf] = nn.Parameter(DTensor.from_local(
-            local, mesh, [place], run_check=False))
+            local, mesh, places, run_check=False))
     # inputs keep their dtype: the model casts where the JAX package casts
     mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.param_dtype],
                               reduce_dtype=_DTYPES[pol.grad_dtype],

@@ -17,6 +17,16 @@ the schedule's table (``get_schedule(name).tick_table``, or
     run chunk c's layers, send the output on (or compute the loss);
   * ``B(c, j)`` — receive the output's cotangent (or start from the loss),
     run backward through the graph F kept, send the input's cotangent;
+
+A chunk's F also returns the sum of its MoE layers' aux losses (the
+routers' statistics all-reduced over the groups that shard the
+microbatch's tokens, ``Runtime.moe_stat_groups``).  The step's aux is the
+mean over the M microbatches of each one's aux summed over the stages
+(the JAX package threads it through its schedule beside the activation
+and divides by M); here each chunk's B runs backward from its output's
+cotangent and from its own aux over M together, so the aux's gradient
+reaches the routers and, through the residual stream, the earlier
+stages, and the pipe ranks' aux sums add up to the step's.
   * ``W`` (``zb``) — see below.
 
 :func:`run_schedule` runs one rank's row of any table.  At each tick a
@@ -587,11 +597,13 @@ def keep_stage_layers(params, cfg, plan) -> None:
 @dataclasses.dataclass
 class ScheduleRun:
     """What one rank's run of a table did: the ops in the order run,
-    the most microbatch graphs held at once, and the summed loss shares
-    of the microbatches whose last virtual stage it ran (0 elsewhere)."""
+    the most microbatch graphs held at once, the summed loss shares
+    of the microbatches whose last virtual stage it ran (0 elsewhere), and
+    its chunks' aux losses summed over the microbatches over M."""
     ops: List[Tuple[str, int, int]]
     peak_held: int
     nll: torch.Tensor
+    aux: torch.Tensor
 
 
 def boundary_dtype(cfg, rt) -> torch.dtype:
@@ -653,7 +665,7 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
     (FSDP2 reduces them over the data axes after each backward).  Every
     last-stage microbatch adds its masked nll sum over ``denom`` (the
     global count of labels over the data ranks) -> a ``ScheduleRun``."""
-    from repro_torch.models.layers import sequence_parallel
+    from repro_torch.models.layers import context_parallel, sequence_parallel
     from repro_torch.models.transformer import Stage
     P, r, M = rt.pipe_size, rt.pipe_rank, len(micros)
     v = virtual_stages(rt.pipe_schedule)
@@ -663,12 +675,14 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
     device = params.device
     net = _Transport(rt, device)
     B, S = micros[0]["tokens"].shape
-    act = ((B, S // rt.tp_size if sequence_parallel(rt, S) else S,
-            cfg.d_model), boundary_dtype(cfg, rt))
+    S_loc = (S // rt.tp_size if sequence_parallel(rt, S)
+             or context_parallel(rt, S) else S)
+    act = ((B, S_loc, cfg.d_model), boundary_dtype(cfg, rt))
     inbox: Dict[Tuple[str, int, int], torch.Tensor] = {}
     held: Dict[Tuple[int, int], Tuple] = {}
     ops, peak = [], 0
     nll = torch.zeros((), dtype=torch.float32, device=device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=device)
     for row in table:
         op, c, j = row[r]
         sends = []
@@ -677,21 +691,25 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
             h = None
             if sv > 0:
                 h = inbox.pop(("F", sv, j)).requires_grad_()
-            out = params(cfg, micros[j], rt, h=h, stage=Stage(
+            out, aux = params(cfg, micros[j], rt, h=h, stage=Stage(
                 tuple(chunks[c]), sv == 0, sv == S_v - 1, denom))
-            held[c, j] = (h, out)
+            aux = aux / M
+            held[c, j] = (h, out, aux)
             peak = max(peak, len(held))
+            aux_sum = aux_sum + aux.detach()
             if sv == S_v - 1:
                 nll = nll + out.detach()
             else:
                 sends.append((out.detach(), 1))
         elif op == "B":
             sv = c * P + r
-            h, out = held.pop((c, j))
-            if sv == S_v - 1:
-                out.backward()
-            else:
-                out.backward(inbox.pop(("B", sv, j)))
+            h, out, aux = held.pop((c, j))
+            roots = [out]
+            cots = [None] if sv == S_v - 1 else [inbox.pop(("B", sv, j))]
+            if aux.requires_grad:
+                roots.append(aux)
+                cots.append(None)
+            torch.autograd.backward(roots, cots)
             if sv > 0:
                 sends.append((h.grad, -1))
         if op != "idle":
@@ -712,7 +730,7 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
         raise RuntimeError(f"pipeline rank {r} ended {rt.pipe_schedule} "
                            f"with {len(held)} graphs and {len(inbox)} "
                            "messages left")
-    return ScheduleRun(ops, peak, nll)
+    return ScheduleRun(ops, peak, nll, aux_sum)
 
 
 # ---------------------------------------------------------------------------

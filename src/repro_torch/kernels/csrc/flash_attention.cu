@@ -21,16 +21,23 @@
 //                         dk/dv stay in registers; no atomics, so the result
 //                         is the same bits from run to run.
 //
-// Layouts are the JAX package's: q, o, do (B, S, H, D); k, v (B, S, Kv, D);
-// query head h reads kv head h / G (GQA by index arithmetic, no repeated
-// K/V); lse and delta (B, H, S) f32.  Masks as _block_mask: key position
-// < S, causal k <= q, window k > q - window; query rows >= S are masked
-// too and never written.  The TPU pads S up to a block multiple and visits
-// every block; here each CTA masks the ragged edge itself (rows past S are
-// zero-filled in shared memory) and loops only over the tiles that the
-// causal and window bounds leave visible.  A fully masked tile is an exact
-// no-op of the online update (alpha = 1, p = 0), so the bounds change no
-// number.
+// Layouts are the JAX package's: q, o, do (B, Sq, H, D); k, v (B, Sk, Kv,
+// D); query head h reads kv head h / G (GQA by index arithmetic, no
+// repeated K/V); lse and delta (B, H, Sq) f32.  Query row i sits at
+// position q0 + i, key row j at position j: self-attention has q0 = 0 and
+// Sq = Sk; a context-parallel rank attends its Sq = Sk / n queries at
+// q0 = rank * Sq against every key (the JAX package's _cp_attend).  Masks
+// as _block_mask, on positions: key row < Sk, causal k <= q, window
+// k > q - window; query rows >= Sq are masked too and never written.  The
+// TPU pads S up to a block multiple and visits every block; here each CTA
+// masks the ragged edge itself (rows past Sq or Sk are zero-filled in
+// shared memory) and loops only over the tiles that the causal and window
+// bounds leave visible (with q0: the forward and dq stop at the key tile
+// of their last row's position, dk/dv starts at the first q tile whose
+// rows reach its key block).  With q0 = 0 and Sq = Sk every bound is the
+// self-attention one, so those launches run as before, bit for bit.  A
+// fully masked tile is an exact no-op of the online update (alpha = 1,
+// p = 0), so the bounds change no number.
 //
 // Bound on the H100: operations.  At the training shape (S 512, D 128) the
 // causal forward does ~S/2 * D * 4 operations per query row against ~D * 4
@@ -93,9 +100,11 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
-                                        int window) {
-  bool m = kp < S && qp < S;
+// query row qr at position q0 + qr against key kp
+__device__ __forceinline__ bool visible(int qr, int q0, int kp, int Sq, int Sk,
+                                        int causal, int window) {
+  const int qp = q0 + qr;
+  bool m = kp < Sk && qr < Sq;
   if (causal) m = m && kp <= qp;
   if (window) m = m && kp > qp - window;
   return m;
@@ -418,8 +427,8 @@ template <typename T, int D, int W, int BK>
 __global__ void __launch_bounds__(32 * W, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int Kv, int causal,
-                 int window, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Kv,
+                 int q0, int causal, int window, float scale) {
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
@@ -431,19 +440,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
+  const int qb = (Sq + BQ - 1) / BQ - 1 - blockIdx.z;
   const int kvh = h / (H / Kv);
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             tq = threadIdx.x & 3, wr = 16 * warp;
-  const int q0 = qb * BQ;
+  const int r0 = qb * BQ;            // the CTA's first query row
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(Kv) * D;
-  const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
-  const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
+  const int64_t q_base = (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const int64_t k_base = (static_cast<int64_t>(b) * Sk * Kv + kvh) * D;
 
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_end = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
-  const int first = q0 - window + 1;
+  // the visible kv tiles: up to the last row's position (causal), from
+  // the first row's window start
+  const int nkt = (Sk + BK - 1) / BK;
+  const int q_last = q0 + min(r0 + BQ, Sq) - 1;
+  const int kt_end = causal ? min(q_last / BK + 1, nkt) : nkt;
+  const int first = q0 + r0 - window + 1;
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
@@ -451,19 +463,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     : static_cast<void*>(stage + 2 * buf * BK * D);
     void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
-    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
-    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
+    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, Sk);
+    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, Sk);
   };
   prefetch(kt_begin, 0);
   cp_async_commit();
-  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, q0, S);
+  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
 
   // this lane's two rows (g and g + 8 of the warp's 16)
   int qp[2];
   float m[2], l[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qp[i] = q0 + wr + g + 8 * i;
+    qp[i] = r0 + wr + g + 8 * i;
     m[i] = kNegInf;
     l[i] = 0.f;
   }
@@ -520,8 +532,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
-        s[j][e] = visible(qp[i], kp, S, causal, window) ? s[j][e] * scale
-                                                        : kNegInf;
+        s[j][e] = visible(qp[i], q0, kp, Sq, Sk, causal, window)
+                      ? s[j][e] * scale : kNegInf;
         mx[i] = fmaxf(mx[i], s[j][e]);
       }
     float alpha[2], sum[2] = {0.f, 0.f};
@@ -538,7 +550,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
-        s[j][e] = visible(qp[i], kp, S, causal, window)
+        s[j][e] = visible(qp[i], q0, kp, Sq, Sk, causal, window)
                       ? expf(s[j][e] - m[i]) : 0.f;         // p
         sum[i] += s[j][e];
       }
@@ -560,10 +572,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     reduce_rows<D, NT, kF32>(acc, a, vt_s, g, tq);
   }
 
-  const int64_t r_base = (static_cast<int64_t>(b) * H + h) * S;
+  const int64_t r_base = (static_cast<int64_t>(b) * H + h) * Sq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qp[i] >= S) continue;
+    if (qp[i] >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* row = o + q_base + static_cast<int64_t>(qp[i]) * q_rs;
 #pragma unroll
@@ -590,8 +602,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int Kv, int causal, int window,
-                    float scale) {
+                    int Sq, int Sk, int H, int Kv, int q0, int causal,
+                    int window, float scale) {
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
@@ -604,20 +616,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int qb = (S + BQ - 1) / BQ - 1 - blockIdx.z;
+  const int qb = (Sq + BQ - 1) / BQ - 1 - blockIdx.z;
   const int kvh = h / (H / Kv);
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             tq = threadIdx.x & 3, wr = 16 * warp;
-  const int q0 = qb * BQ;
+  const int r0 = qb * BQ;            // the CTA's first query row
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(Kv) * D;
-  const int64_t q_base = (static_cast<int64_t>(b) * S * H + h) * D;
-  const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
-  const int64_t r_base = (static_cast<int64_t>(b) * H + h) * S;
+  const int64_t q_base = (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const int64_t k_base = (static_cast<int64_t>(b) * Sk * Kv + kvh) * D;
+  const int64_t r_base = (static_cast<int64_t>(b) * H + h) * Sq;
 
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_end = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
-  const int first = q0 - window + 1;
+  // the visible kv tiles: up to the last row's position (causal), from
+  // the first row's window start
+  const int nkt = (Sk + BK - 1) / BK;
+  const int q_last = q0 + min(r0 + BQ, Sq) - 1;
+  const int kt_end = causal ? min(q_last / BK + 1, nkt) : nkt;
+  const int first = q0 + r0 - window + 1;
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
@@ -625,21 +640,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     : static_cast<void*>(stage + 2 * buf * BK * D);
     void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
-    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, S);
-    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, S);
+    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, Sk);
+    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, Sk);
   };
   prefetch(kt_begin, 0);
   cp_async_commit();
-  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, q0, S);
-  load_rows<T, D, BQ, kThr>(do_s, dout + q_base, q_rs, q0, S);
+  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
+  load_rows<T, D, BQ, kThr>(do_s, dout + q_base, q_rs, r0, Sq);
 
   int qp[2];
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qp[i] = q0 + wr + g + 8 * i;
-    lse_r[i] = qp[i] < S ? lse[r_base + qp[i]] : 0.f;
-    delta_r[i] = qp[i] < S ? delta[r_base + qp[i]] : 0.f;
+    qp[i] = r0 + wr + g + 8 * i;
+    lse_r[i] = qp[i] < Sq ? lse[r_base + qp[i]] : 0.f;
+    delta_r[i] = qp[i] < Sq ? delta[r_base + qp[i]] : 0.f;
   }
   float acc[DT][4];
 #pragma unroll
@@ -687,7 +702,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, kp = k0 + 8 * j + 2 * tq + (e & 1);
-        const float p = visible(qp[i], kp, S, causal, window)
+        const float p = visible(qp[i], q0, kp, Sq, Sk, causal, window)
                             ? expf(s[j][e] * scale - lse_r[i]) : 0.f;
         s[j][e] = p * (dp[j][e] - delta_r[i]) * scale;   // ds
       }
@@ -699,7 +714,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qp[i] >= S) continue;
+    if (qp[i] >= Sq) continue;
     T* row = dq + q_base + static_cast<int64_t>(qp[i]) * q_rs;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
@@ -728,8 +743,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int Kv, int causal,
-                     int window, float scale) {
+                     T* __restrict__ dv, int Sq, int Sk, int H, int Kv,
+                     int q0, int causal, int window, float scale) {
   constexpr int kThr = 32 * W, BKV = 8 * W, NT = BQ / 8, DT = D / 8;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kBufs = kF32 ? 2 : 1;
@@ -754,36 +769,40 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kb * BKV;
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(Kv) * D;
-  const int64_t k_base = (static_cast<int64_t>(b) * S * Kv + kvh) * D;
+  const int64_t k_base = (static_cast<int64_t>(b) * Sk * Kv + kvh) * D;
 
-  const int nqt = (S + BQ - 1) / BQ;
-  const int k_last = min(k0 + BKV, S) - 1;
-  const int qt_begin = causal ? k0 / BQ : 0;
+  // the visible q tiles (of rows; row r sits at position q0 + r): none
+  // that lies wholly before the kv block (causal), none wholly past its
+  // window
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int k_last = min(k0 + BKV, Sk) - 1;
+  const int qt_begin = causal ? max(k0 - q0, 0) / BQ : 0;
+  const int w_last = k_last + window - 1 - q0;   // last row in the window
   const int qt_end =
-      window ? min(nqt, (k_last + window - 1) / BQ + 1) : nqt;
-  const int nt = qt_end - qt_begin, n_it = G * nt;
+      window ? (w_last < 0 ? 0 : min(nqt, w_last / BQ + 1)) : nqt;
+  const int nt = max(qt_end - qt_begin, 0), n_it = G * nt;
 
   auto prefetch = [&](int it, int buf) {
-    const int hh = kvh * G + it / nt, q0 = (qt_begin + it % nt) * BQ;
-    const int64_t q_base = (static_cast<int64_t>(b) * S * H + hh) * D;
-    const int64_t r_base = (static_cast<int64_t>(b) * H + hh) * S;
+    const int hh = kvh * G + it / nt, r0 = (qt_begin + it % nt) * BQ;
+    const int64_t q_base = (static_cast<int64_t>(b) * Sq * H + hh) * D;
+    const int64_t r_base = (static_cast<int64_t>(b) * H + hh) * Sq;
     void* qd = kF32 ? static_cast<void*>(q_s + buf * BQ * P)
                     : static_cast<void*>(stage + 2 * buf * BQ * D);
     void* dd = kF32 ? static_cast<void*>(do_s + buf * BQ * P)
                     : static_cast<void*>(stage + (2 * buf + 1) * BQ * D);
-    copy_rows_async<T, D, BQ, kThr>(qd, q + q_base, q_rs, q0, S);
-    copy_rows_async<T, D, BQ, kThr>(dd, dout + q_base, q_rs, q0, S);
-    const int i = threadIdx.x % BQ, qp = q0 + i;
-    const int64_t at = r_base + (qp < S ? qp : 0);
+    copy_rows_async<T, D, BQ, kThr>(qd, q + q_base, q_rs, r0, Sq);
+    copy_rows_async<T, D, BQ, kThr>(dd, dout + q_base, q_rs, r0, Sq);
+    const int i = threadIdx.x % BQ, qr = r0 + i;
+    const int64_t at = r_base + (qr < Sq ? qr : 0);
     if (threadIdx.x < BQ)
-      cp_async4(lse_s + buf * BQ + i, lse + at, qp < S);
+      cp_async4(lse_s + buf * BQ + i, lse + at, qr < Sq);
     else if (threadIdx.x < 2 * BQ)
-      cp_async4(delta_s + buf * BQ + i, delta + at, qp < S);
+      cp_async4(delta_s + buf * BQ + i, delta + at, qr < Sq);
   };
   if (n_it > 0) prefetch(0, 0);
   cp_async_commit();
-  load_rows<T, D, BKV, kThr>(k_s, k + k_base, k_rs, k0, S);
-  load_rows<T, D, BKV, kThr>(v_s, v + k_base, k_rs, k0, S);
+  load_rows<T, D, BKV, kThr>(k_s, k + k_base, k_rs, k0, Sk);
+  load_rows<T, D, BKV, kThr>(v_s, v + k_base, k_rs, k0, Sk);
 
   int kp[2];
   float acc[DT][4];
@@ -812,7 +831,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const float* ls = lse_s + buf * BQ;
     const float* dl = delta_s + buf * BQ;
-    const int q0 = (qt_begin + it % nt) * BQ;
+    const int r0 = (qt_begin + it % nt) * BQ;
 
     // s^T = k q^T (dv half) or dp^T = v do^T (dk half)
     const float* a_t = dk_half ? v_s : k_s;
@@ -838,7 +857,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = 8 * j + 2 * tq + (e & 1);
-          c[j][e] = visible(q0 + r, kp[e >> 1], S, causal, window)
+          c[j][e] = visible(r0 + r, q0, kp[e >> 1], Sq, Sk, causal, window)
                         ? expf(c[j][e] * scale - ls[r]) : 0.f;   // p
         }
         p_mine[32 * j] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
@@ -869,7 +888,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* out = dk_half ? dk : dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (kp[i] >= S) continue;
+    if (kp[i] >= Sk) continue;
     T* row = out + k_base + static_cast<int64_t>(kp[i]) * k_rs;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
@@ -890,56 +909,57 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int S, int H, int Kv, int causal, int window, float scale,
-        cudaStream_t st) {
+        int B, int Sq, int Sk, int H, int Kv, int q0, int causal, int window,
+        float scale, cudaStream_t st) {
   constexpr int W = kFwdWarps, R = kFwdStream;
   constexpr size_t smem = tile_smem_bytes<T, D, R>(1, 16 * W, false);
   auto* kernel = flash_fwd_kernel<T, D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(H, B, (S + 16 * W - 1) / (16 * W));
+  dim3 grid(H, B, (Sq + 16 * W - 1) / (16 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, Kv, causal, window, scale);
+      Sq, Sk, H, Kv, q0, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int B, int S, int H,
-           int Kv, int causal, int window, float scale, cudaStream_t st) {
+           const void* lse, const void* delta, void* dq, int B, int Sq,
+           int Sk, int H, int Kv, int q0, int causal, int window, float scale,
+           cudaStream_t st) {
   constexpr int W = kDqWarps, R = kDqStream;
   constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 16 * W, false);
   auto* kernel = flash_bwd_dq_kernel<T, D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(H, B, (S + 16 * W - 1) / (16 * W));
+  dim3 grid(H, B, (Sq + 16 * W - 1) / (16 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, H, Kv, causal, window, scale);
+      static_cast<T*>(dq), Sq, Sk, H, Kv, q0, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
-            int S, int H, int Kv, int causal, int window, float scale,
-            cudaStream_t st) {
+            int Sq, int Sk, int H, int Kv, int q0, int causal, int window,
+            float scale, cudaStream_t st) {
   constexpr int W = kDkvWarps, R = kDkvStream;
   constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 8 * W, true);
   auto* kernel = flash_bwd_dkv_kernel<T, D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(Kv, B, (S + 8 * W - 1) / (8 * W));
+  dim3 grid(Kv, B, (Sk + 8 * W - 1) / (8 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Kv, causal, window,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, Kv, q0, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -954,95 +974,102 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 template <typename T>
 int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int S, int H, int Kv, int D, int causal, int window,
-            float scale, void* stream) {
-  if (B <= 0 || S <= 0) return 0;
+            int B, int Sq, int Sk, int H, int Kv, int D, int q0, int causal,
+            int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_D(D, (fwd<T, kD>(q, k, v, o, lse, B, S, H, Kv, causal,
-                                  window, scale, st)))
+  FLASH_DISPATCH_D(D, (fwd<T, kD>(q, k, v, o, lse, B, Sq, Sk, H, Kv, q0,
+                                  causal, window, scale, st)))
 }
 
 template <typename T>
 int dq_any(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int B, int S, int H,
-           int Kv, int D, int causal, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0) return 0;
+           const void* lse, const void* delta, void* dq, int B, int Sq,
+           int Sk, int H, int Kv, int D, int q0, int causal, int window,
+           float scale, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_D(D, (bwd_dq<T, kD>(q, k, v, dout, lse, delta, dq, B, S, H,
-                                     Kv, causal, window, scale, st)))
+  FLASH_DISPATCH_D(D, (bwd_dq<T, kD>(q, k, v, dout, lse, delta, dq, B, Sq,
+                                     Sk, H, Kv, q0, causal, window, scale,
+                                     st)))
 }
 
 template <typename T>
 int dkv_any(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
-            int S, int H, int Kv, int D, int causal, int window, float scale,
-            void* stream) {
-  if (B <= 0 || S <= 0) return 0;
+            int Sq, int Sk, int H, int Kv, int D, int q0, int causal,
+            int window, float scale, void* stream) {
+  if (B <= 0 || Sk <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH_D(D, (bwd_dkv<T, kD>(q, k, v, dout, lse, delta, dk, dv, B,
-                                      S, H, Kv, causal, window, scale, st)))
+                                      Sq, Sk, H, Kv, q0, causal, window,
+                                      scale, st)))
 }
 
 }  // namespace
 
-// Forward: q, o (B, S, H, D) and k, v (B, S, Kv, D) in the named type;
-// lse (B, H, S) f32; all contiguous.  Returns cudaGetLastError() right
-// after the launch (cudaErrorInvalidValue for a head dim with no kernel).
+// Forward: q, o (B, Sq, H, D) and k, v (B, Sk, Kv, D) in the named type;
+// lse (B, H, Sq) f32; all contiguous; query row i at position q0 + i.
+// Returns cudaGetLastError() right after the launch
+// (cudaErrorInvalidValue for a head dim with no kernel).
 extern "C" int flash_attn_fwd_f32(const void* q, const void* k,
                                   const void* v, void* o, void* lse, int B,
-                                  int S, int H, int Kv, int D, int causal,
-                                  int window, float scale, void* stream) {
-  return fwd_any<float>(q, k, v, o, lse, B, S, H, Kv, D, causal, window,
-                        scale, stream);
+                                  int Sq, int Sk, int H, int Kv, int D,
+                                  int q0, int causal, int window, float scale,
+                                  void* stream) {
+  return fwd_any<float>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, q0, causal,
+                        window, scale, stream);
 }
 
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
-                                   int S, int H, int Kv, int D, int causal,
-                                   int window, float scale, void* stream) {
-  return fwd_any<__nv_bfloat16>(q, k, v, o, lse, B, S, H, Kv, D, causal,
-                                window, scale, stream);
+                                   int Sq, int Sk, int H, int Kv, int D,
+                                   int q0, int causal, int window,
+                                   float scale, void* stream) {
+  return fwd_any<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, q0,
+                                causal, window, scale, stream);
 }
 
-// Backward dq: dout and dq as q; lse and delta (B, H, S) f32.
+// Backward dq: dout and dq as q; lse and delta (B, H, Sq) f32.
 extern "C" int flash_attn_dq_f32(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, int B, int S,
-                                 int H, int Kv, int D, int causal, int window,
-                                 float scale, void* stream) {
-  return dq_any<float>(q, k, v, dout, lse, delta, dq, B, S, H, Kv, D, causal,
-                       window, scale, stream);
+                                 const void* delta, void* dq, int B, int Sq,
+                                 int Sk, int H, int Kv, int D, int q0,
+                                 int causal, int window, float scale,
+                                 void* stream) {
+  return dq_any<float>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Kv, D, q0,
+                       causal, window, scale, stream);
 }
 
 extern "C" int flash_attn_dq_bf16(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dq, int B, int S, int H, int Kv,
-                                  int D, int causal, int window, float scale,
-                                  void* stream) {
-  return dq_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, S, H, Kv, D,
-                               causal, window, scale, stream);
+                                  void* dq, int B, int Sq, int Sk, int H,
+                                  int Kv, int D, int q0, int causal,
+                                  int window, float scale, void* stream) {
+  return dq_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H,
+                               Kv, D, q0, causal, window, scale, stream);
 }
 
 // Backward dk/dv: dk and dv as k.
 extern "C" int flash_attn_dkv_f32(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int S, int H,
-                                  int Kv, int D, int causal, int window,
-                                  float scale, void* stream) {
-  return dkv_any<float>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Kv, D,
-                        causal, window, scale, stream);
+                                  void* dk, void* dv, int B, int Sq, int Sk,
+                                  int H, int Kv, int D, int q0, int causal,
+                                  int window, float scale, void* stream) {
+  return dkv_any<float>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Kv,
+                        D, q0, causal, window, scale, stream);
 }
 
 extern "C" int flash_attn_dkv_bf16(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
-                                   void* dk, void* dv, int B, int S, int H,
-                                   int Kv, int D, int causal, int window,
-                                   float scale, void* stream) {
-  return dkv_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                Kv, D, causal, window, scale, stream);
+                                   void* dk, void* dv, int B, int Sq, int Sk,
+                                   int H, int Kv, int D, int q0, int causal,
+                                   int window, float scale, void* stream) {
+  return dkv_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
+                                H, Kv, D, q0, causal, window, scale, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

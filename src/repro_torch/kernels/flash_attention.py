@@ -20,9 +20,14 @@ of S to a block multiple (``_dims``) does not carry over.  dk/dv
 accumulate in registers across the G query heads: no atomics, the same
 bits from run to run.
 
-Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Kv, D), query
-head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, S) f32 — the
-JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.  The
+Layouts are the JAX package's: q (B, Sq, H, D), k/v (B, Sk, Kv, D), query
+head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, Sq) f32 — the
+JAX kernel's grouped (B·Kv·G, Sp) with its padded columns dropped.  Query
+row i sits at position ``q0`` + i and key row j at position j: self-
+attention is q0 = 0 with Sq = Sk; a context-parallel rank attends its
+Sq = Sk / n rows at q0 = rank · Sq against the gathered keys (the JAX
+package's ``_cp_attend``), and the causal bound, the window and every
+kernel's tile-skip bounds read positions.  The
 kernels read rows with 16-byte copies, so their tensors must start on a
 16-byte boundary (fresh allocations do).  They are compiled for the head
 dims ``HEAD_DIMS``: 128, and h2o-danube-1.8b's 80, whose shared tiles are
@@ -50,25 +55,35 @@ FWD_BLOCK = 32              # kv rows per step of the plain forward (the
 #                             kernel's streamed tile, kFwdStream)
 HEAD_DIMS = (80, 128)       # head dims the CUDA kernels are compiled for
 
-# launches of the CUDA kernels (plain-version calls do not count)
+# launches of the CUDA kernels (plain-version calls do not count); a
+# launch with a query offset or fewer query rows than keys (a context
+# rank's) counts under its kernel's ``_q0`` name
 LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0}
+            "flash_attention_dkv": 0, "flash_attention_q0": 0,
+            "flash_attention_dq_q0": 0, "flash_attention_dkv_q0": 0}
+
+
+def _counted(name, S, Sk, q0):
+    return name + ("_q0" if q0 or S != Sk else "")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    **{f"flash_attn_fwd_{s}": [_P] * 5 + [_I] * 7 + [_F, _P]
+    # (B, Sq, Sk, H, Kv, D, q0, causal, window)
+    **{f"flash_attn_fwd_{s}": [_P] * 5 + [_I] * 9 + [_F, _P]
        for s in ("f32", "bf16")},
-    **{f"flash_attn_dq_{s}": [_P] * 7 + [_I] * 7 + [_F, _P]
+    **{f"flash_attn_dq_{s}": [_P] * 7 + [_I] * 9 + [_F, _P]
        for s in ("f32", "bf16")},
-    **{f"flash_attn_dkv_{s}": [_P] * 8 + [_I] * 7 + [_F, _P]
+    **{f"flash_attn_dkv_{s}": [_P] * 8 + [_I] * 9 + [_F, _P]
        for s in ("f32", "bf16")},
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _visible(q_pos, k_pos, S, causal, window):
-    """(len(q_pos), len(k_pos)) mask, as the kernels' ``visible``."""
-    m = (k_pos[None, :] < S) & (q_pos[:, None] < S)
+def _visible(q_pos, k_pos, causal, window):
+    """(len(q_pos), len(k_pos)) mask of positions, as the kernels'
+    ``visible`` (every row given here is a real one)."""
+    m = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                   device=q_pos.device)
     if causal:
         m &= k_pos[None, :] <= q_pos[:, None]
     if window:
@@ -85,24 +100,24 @@ def _grouped(q, Kv):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def forward_plain(q, k, v, causal=True, window=0):
-    """-> (o (B, S, H, D) in q's type, lse (B, H, S) f32): an online
+def forward_plain(q, k, v, causal=True, window=0, q0=0):
+    """-> (o (B, Sq, H, D) in q's type, lse (B, H, Sq) f32): an online
     softmax over the FWD_BLOCK-row kv blocks in order."""
     B, S, H, D = q.shape
-    Kv = k.shape[2]
+    Sk, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     scale = D ** -0.5
     qg = _grouped(q, Kv)
     kf, vf = k.float(), v.float()
     dev = q.device
-    q_pos = torch.arange(S, device=dev)
+    q_pos = q0 + torch.arange(S, device=dev)
     m = torch.full((B, Kv, G, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Kv, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Kv, G, S, D), dtype=torch.float32, device=dev)
-    for k0 in range(0, S, FWD_BLOCK):
+    for k0 in range(0, Sk, FWD_BLOCK):
         kb, vb = kf[:, k0:k0 + FWD_BLOCK], vf[:, k0:k0 + FWD_BLOCK]
         mask = _visible(q_pos, torch.arange(k0, k0 + kb.shape[1], device=dev),
-                        S, causal, window)
+                        causal, window)
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kb) * scale
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -116,10 +131,11 @@ def forward_plain(q, k, v, causal=True, window=0):
     return o.to(q.dtype), (m + torch.log(denom)).reshape(B, H, S)
 
 
-def dq_plain(q, k, v, do, lse, delta, causal=True, window=0):
-    """-> dq (B, S, H, D) in q's type, summed over the kv blocks in order."""
+def dq_plain(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
+    """-> dq (B, Sq, H, D) in q's type, summed over the kv blocks in
+    order."""
     B, S, H, D = q.shape
-    Kv = k.shape[2]
+    Sk, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     scale = D ** -0.5
     qg, dog = _grouped(q, Kv), _grouped(do, Kv)
@@ -127,12 +143,12 @@ def dq_plain(q, k, v, do, lse, delta, causal=True, window=0):
     lse_g = lse.reshape(B, Kv, G, S, 1)
     delta_g = delta.reshape(B, Kv, G, S, 1)
     dev = q.device
-    q_pos = torch.arange(S, device=dev)
+    q_pos = q0 + torch.arange(S, device=dev)
     dq = torch.zeros((B, Kv, G, S, D), dtype=torch.float32, device=dev)
-    for k0 in range(0, S, BLOCK):
+    for k0 in range(0, Sk, BLOCK):
         kb, vb = kf[:, k0:k0 + BLOCK], vf[:, k0:k0 + BLOCK]
         mask = _visible(q_pos, torch.arange(k0, k0 + kb.shape[1], device=dev),
-                        S, causal, window)
+                        causal, window)
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kb)
         p = torch.where(mask, torch.exp(s * scale - lse_g), 0.0)
         dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vb)
@@ -141,11 +157,12 @@ def dq_plain(q, k, v, do, lse, delta, causal=True, window=0):
     return dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
-def dkv_plain(q, k, v, do, lse, delta, causal=True, window=0):
-    """-> (dk, dv) (B, S, Kv, D) in k's type, summed over the G query heads
-    of each kv head and their q blocks in order, as the kernel loops."""
+def dkv_plain(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
+    """-> (dk, dv) (B, Sk, Kv, D) in k's type, summed over the G query
+    heads of each kv head and their q blocks in order, as the kernel
+    loops."""
     B, S, H, D = q.shape
-    Kv = k.shape[2]
+    Sk, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     scale = D ** -0.5
     qg, dog = _grouped(q, Kv), _grouped(do, Kv)
@@ -153,20 +170,20 @@ def dkv_plain(q, k, v, do, lse, delta, causal=True, window=0):
     lse_g = lse.reshape(B, Kv, G, S)
     delta_g = delta.reshape(B, Kv, G, S)
     dev = q.device
-    k_pos = torch.arange(S, device=dev)
-    dk = torch.zeros((B, S, Kv, D), dtype=torch.float32, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    dk = torch.zeros((B, Sk, Kv, D), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
     for g in range(G):
-        for q0 in range(0, S, BLOCK):
-            qb, dob = qg[:, q0:q0 + BLOCK, :, g], dog[:, q0:q0 + BLOCK, :, g]
+        for r0 in range(0, S, BLOCK):
+            qb, dob = qg[:, r0:r0 + BLOCK, :, g], dog[:, r0:r0 + BLOCK, :, g]
             n = qb.shape[1]
-            mask = _visible(torch.arange(q0, q0 + n, device=dev), k_pos, S,
-                            causal, window).t()                   # (S, n)
+            mask = _visible(q0 + torch.arange(r0, r0 + n, device=dev), k_pos,
+                            causal, window).t()                   # (Sk, n)
             st = torch.einsum("bskd,bqkd->bksq", kf, qb)
             p = torch.where(mask, torch.exp(
-                st * scale - lse_g[:, :, g, None, q0:q0 + n]), 0.0)
+                st * scale - lse_g[:, :, g, None, r0:r0 + n]), 0.0)
             dpt = torch.einsum("bskd,bqkd->bksq", vf, dob)
-            ds = p * (dpt - delta_g[:, :, g, None, q0:q0 + n]) * scale
+            ds = p * (dpt - delta_g[:, :, g, None, r0:r0 + n]) * scale
             dv = dv + torch.einsum("bksq,bqkd->bskd", p, dob)
             dk = dk + torch.einsum("bksq,bqkd->bskd", ds, qb)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -176,20 +193,23 @@ def dkv_plain(q, k, v, do, lse, delta, causal=True, window=0):
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, what):
-    """Validate the kernels' inputs; -> (B, S, H, Kv, D)."""
+def _check(q, k, v, what, q0=0):
+    """Validate the kernels' inputs; -> (B, Sq, Sk, H, Kv, D)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{what}: q (B, S, H, D) and k, v (B, S, Kv, D), "
+        raise ValueError(f"{what}: q (B, Sq, H, D) and k, v (B, Sk, Kv, D), "
                          f"got {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
     B, S, H, D = q.shape
-    Kv = k.shape[2]
-    if k.shape != (B, S, Kv, D) or H % Kv:
-        raise ValueError(f"{what}: k, v must be (B={B}, S={S}, Kv, D={D}) "
+    Sk, Kv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Kv, D) or H % Kv:
+        raise ValueError(f"{what}: k, v must be (B={B}, Sk, Kv, D={D}) "
                          f"with Kv dividing H={H}, got {tuple(k.shape)}")
+    if q0 < 0 or q0 + S > Sk:
+        raise ValueError(f"{what}: query rows at q0={q0} + [0, {S}) must "
+                         f"lie within the {Sk} key positions")
     if D not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {D} has no kernel "
                          f"(compiled for {HEAD_DIMS})")
@@ -199,7 +219,7 @@ def _check(q, k, v, what):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous on {dev}")
-    return B, S, H, Kv, D
+    return B, S, Sk, H, Kv, D
 
 
 def _check_residuals(q, tensors, what):
@@ -227,25 +247,26 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def forward_cuda(q, k, v, causal=True, window=0):
+def forward_cuda(q, k, v, causal=True, window=0, q0=0):
     """Launch the forward kernel; same contract as :func:`forward_plain`."""
-    B, S, H, Kv, D = _check(q, k, v, "flash-attention forward")
+    B, S, Sk, H, Kv, D = _check(q, k, v, "flash-attention forward", q0)
     _check_aligned((("q", q), ("k", k), ("v", v)), "flash-attention forward")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     code = getattr(lib, f"flash_attn_fwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, S, H, Kv, D, int(bool(causal)), int(window),
-        float(D ** -0.5), _stream(q))
+        lse.data_ptr(), B, S, Sk, H, Kv, D, int(q0), int(bool(causal)),
+        int(window), float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention forward launch")
-    build.count_launch(LAUNCHES, "flash_attention", q.dtype)
+    build.count_launch(LAUNCHES, _counted("flash_attention", S, Sk, q0),
+                       q.dtype)
     return o, lse
 
 
-def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
+def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     """Launch the dq kernel; same contract as :func:`dq_plain`."""
-    B, S, H, Kv, D = _check(q, k, v, "flash-attention dq")
+    B, S, Sk, H, Kv, D = _check(q, k, v, "flash-attention dq", q0)
     _check_residuals(q, (("do", do, None, None),
                          ("lse", lse, (B, H, S), torch.float32),
                          ("delta", delta, (B, H, S), torch.float32)),
@@ -256,16 +277,18 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     lib = _lib()
     code = getattr(lib, f"flash_attn_dq_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, Kv, D,
-        int(bool(causal)), int(window), float(D ** -0.5), _stream(q))
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, Sk, H, Kv, D,
+        int(q0), int(bool(causal)), int(window), float(D ** -0.5),
+        _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dq launch")
-    build.count_launch(LAUNCHES, "flash_attention_dq", q.dtype)
+    build.count_launch(LAUNCHES, _counted("flash_attention_dq", S, Sk, q0),
+                       q.dtype)
     return dq
 
 
-def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
+def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     """Launch the dk/dv kernel; same contract as :func:`dkv_plain`."""
-    B, S, H, Kv, D = _check(q, k, v, "flash-attention dk/dv")
+    B, S, Sk, H, Kv, D = _check(q, k, v, "flash-attention dk/dv", q0)
     _check_residuals(q, (("do", do, None, None),
                          ("lse", lse, (B, H, S), torch.float32),
                          ("delta", delta, (B, H, S), torch.float32)),
@@ -277,10 +300,11 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     code = getattr(lib, f"flash_attn_dkv_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, Kv, D, int(bool(causal)), int(window), float(D ** -0.5),
-        _stream(q))
+        B, S, Sk, H, Kv, D, int(q0), int(bool(causal)), int(window),
+        float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dk/dv launch")
-    build.count_launch(LAUNCHES, "flash_attention_dkv", q.dtype)
+    build.count_launch(LAUNCHES, _counted("flash_attention_dkv", S, Sk, q0),
+                       q.dtype)
     return dk, dv
 
 
@@ -290,7 +314,7 @@ def _fake_head_dim(q, what):
                          f"(compiled for {HEAD_DIMS})")
 
 
-def forward_fake(q, k, v, causal=True, window=0):
+def forward_fake(q, k, v, causal=True, window=0, q0=0):
     """The forward's shape-only branch on fake tensors
     (``build.is_fake``): o and lse, empty, as the launch allocates them."""
     _fake_head_dim(q, "flash-attention forward")
@@ -299,13 +323,13 @@ def forward_fake(q, k, v, causal=True, window=0):
                                             device=q.device)
 
 
-def dq_fake(q, k, v, do, lse, delta, causal=True, window=0):
+def dq_fake(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     """The dq kernel's shape-only branch on fake tensors."""
     _fake_head_dim(q, "flash-attention dq")
     return torch.empty_like(q)
 
 
-def dkv_fake(q, k, v, do, lse, delta, causal=True, window=0):
+def dkv_fake(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     """The dk/dv kernel's shape-only branch on fake tensors."""
     _fake_head_dim(q, "flash-attention dk/dv")
     return torch.empty_like(k), torch.empty_like(v)
@@ -318,18 +342,18 @@ def attention_delta(o, do):
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """o = FlashAttentionFn.apply(q, k, v, causal, window): the forward
-    kernel, with the dq and dk/dv kernels as its backward (the JAX
+    """o = FlashAttentionFn.apply(q, k, v, causal, window, q0): the
+    forward kernel, with the dq and dk/dv kernels as its backward (the JAX
     ``_flash`` custom_vjp).  Kernels or plain versions by q's device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q0=0):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         fwd = (forward_fake if build.is_fake(q) else
                forward_plain if build.on_cpu(q) else forward_cuda)
-        o, lse = fwd(q, k, v, causal, window)
+        o, lse = fwd(q, k, v, causal, window, q0)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q0 = causal, window, q0
         return o
 
     @staticmethod
@@ -343,6 +367,7 @@ class FlashAttentionFn(torch.autograd.Function):
             dq_fn, dkv_fn = dq_plain, dkv_plain
         else:
             dq_fn, dkv_fn = dq_cuda, dkv_cuda
-        dq = dq_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window)
-        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        dq = dq_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window, ctx.q0)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.causal, ctx.window,
+                        ctx.q0)
+        return dq, dk, dv, None, None, None

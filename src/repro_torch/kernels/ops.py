@@ -38,12 +38,12 @@ def rmsnorm(x, scale, *, eps=1e-6):
     return rmsnorm_forward(x, scale, eps=eps)[0]
 
 
-def attention(q, k, v, *, causal=True, window=0):
-    """Self-attention over positions 0..S-1: q (B, S, H, D), k/v
-    (B, S, Kv, D) with Kv | H -> (B, S, H, D) in q's type.  The CUDA
-    kernels take head dims ``flash_attention.HEAD_DIMS`` and raise for
-    any other."""
-    return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
+def attention(q, k, v, *, causal=True, window=0, q0=0):
+    """Attention of q (B, Sq, H, D) at positions q0..q0+Sq-1 over k/v
+    (B, Sk, Kv, D) at positions 0..Sk-1, with Kv | H -> (B, Sq, H, D) in
+    q's type (self-attention: q0 = 0, Sq = Sk).  The CUDA kernels take
+    head dims ``flash_attention.HEAD_DIMS`` and raise for any other."""
+    return _fa.FlashAttentionFn.apply(q, k, v, causal, window, q0)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tbl, ctx, *, n_splits=4):

@@ -87,6 +87,7 @@ from repro_torch.core import pipeline as pipe_lib
 from repro_torch.device import resolve_device
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models import init_params
+from repro_torch.models import layers as layers_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import init_opt_state
 from repro_torch.perf import flops as flops_lib
@@ -194,6 +195,7 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
     impl = IMPLS[kernels]
     extra = {}
     stats0 = expert_lib.dispatch_stats_snapshot()
+    sites0 = dict(layers_lib.COLLECTIVE_SITES)
     with fake_group(topo.n_devices, rank):
         plan = strat.to_plan(cfg, topo, shape, device_type=device.type)
         rt = par.make_runtime(
@@ -229,6 +231,9 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
     stats1 = expert_lib.dispatch_stats_snapshot()
     return {"plan": plan_rec, "trace_s": round(took, 1),
             "moe_dispatch": {k: stats1[k] - stats0[k] for k in stats1},
+            "collective_sites": {
+                k: v - sites0[k]
+                for k, v in layers_lib.COLLECTIVE_SITES.items()},
             "memory": {"peak_bytes_per_device": mem.peak,
                        **{f"{k}_bytes": v for k, v in
                           mem.breakdown().items()}},
@@ -412,6 +417,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "flops_model_6nd": flops_lib.model_flops(cfg, shape),
             "memory": traced[worst]["memory"],
             "collectives": coll,
+            # the calls of the model's own sites among them: a context
+            # plan's K/V all-gathers and their reduce-scatters, a MoE
+            # FFN's combine over the model axis
+            "collective_sites": traced[worst]["collective_sites"],
             "collective_bytes_total": total_bytes(coll),
             "params_total": cfg.param_count(),
             "params_active": cfg.active_param_count(),
@@ -494,8 +503,9 @@ def main(argv=None):
     ap.add_argument("--dp_mode", default="hsdp", choices=["hsdp", "fsdp2d"])
     ap.add_argument("--attn", default=None,
                     choices=[None, "head_tp", "context"],
-                    help="context is refused until context parallelism "
-                         "is ported, as Strategy.check refuses cp")
+                    help="force the attention mode of the legacy layout's "
+                         "model axis (context: the sequence shards over "
+                         "it, K/V gathered)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip_existing", action="store_true")

@@ -6,7 +6,10 @@ the static dense-cache engine.
 ``--strategy`` routes through the strategy API, as the JAX CLI's does:
 '' (the default) serves on one device; 'auto' asks the planner for the
 decode shape (``ShapeConfig("serve", prompt_len + n_new, batch,
-"decode")``); anything else is a spec such as ``tp2`` or ``fsdp_tp2``.
+"decode")``); anything else is a spec such as ``tp2``, ``fsdp_tp2`` or
+``fsdp_cp2`` (the prompt's prefill split along the sequence over the model
+axis, K/V gathered, the cache's slots split over it; decode merges over
+the slots).
 Under a strategy the process group comes up (``launch.mesh``: one rank
 alone, or every rank of ``torchrun --standalone --nproc_per_node N -m
 repro_torch.launch.serve ...``, gloo with ``--device cpu``), the plan's

@@ -16,9 +16,12 @@ CLI's does:
                          schedule ``gpipe``/``1f1b``/``1f1b_i<v>``/``zb``,
                          expert parallelism ``ep<k>`` (MoE archs: the
                          expert all-to-all over an expert axis factored
-                         out of data); cp above 1, and tp or pp on a MoE
-                         arch, raise ``StrategyError`` naming the slice
-                         that brings them
+                         out of data), context parallelism ``cp<k>`` (the
+                         sequence sharded over the model axis, K/V
+                         gathered; also what a ``tp<k>`` whose heads do
+                         not split, or ``_ctx``, resolves to), and tp or
+                         pp on a MoE arch (its experts split over the
+                         model axis; dbrx-132b's uniform stack pipelines)
 
 ``--topology host`` (the default) is every rank of this job as one island.
 The strategy runs on the plan's ``DeviceMesh`` ([pipe x] data axes x model
@@ -27,7 +30,8 @@ model axis, FSDP2 over the data axes; one rank on one card (a 1-rank NCCL
 group), N ranks under ``torchrun --standalone --nproc_per_node N -m
 repro_torch.launch.train ...`` (one card each, or gloo processes with
 ``--device cpu``; ``--strategy fsdp_tp2`` on 2 ranks is one model group
-of 2, ``fsdp_pp2_mb4_1f1b`` two pipeline stages).  Every rank builds the
+of 2, ``fsdp_cp2`` each rank half of every sequence,
+``fsdp_pp2_mb4_1f1b`` two pipeline stages).  Every rank builds the
 same global batch and trains the rows of its data-parallel coordinate;
 rank 0 prints, and the ``[strategy]`` line shows the mesh, model and pipe
 axes included.

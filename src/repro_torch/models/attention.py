@@ -25,6 +25,15 @@ kernels for ``Runtime.attn_impl == "kernel"`` (any S; a head dim they are
 not compiled for raises on the card), else dense masked attention up to
 ``attn_min_chunked_len`` positions and an online softmax over (q, kv)
 chunks beyond.
+
+Under a context plan (``layers.context_parallel``) a rank holds the
+contiguous positions [r S_loc, (r + 1) S_loc) of the sequence: it
+projects its own q, k and v (RoPE at those positions), gathers K and V
+over the group (the backward reduce-scatters dK and dV) and attends its
+queries at the offset q0 = r S_loc against every key (:func:`cp_attend`,
+the JAX package's ``_cp_attend``): the flash kernels take the offset, the
+plain path is ``_attend_dense`` at offset positions.  Prefilling a dense
+cache does the same and writes the gathered K/V into this rank's slots.
 """
 from __future__ import annotations
 
@@ -36,8 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
-                                       apply_rope, gather_heads,
-                                       rms_norm_headwise, tp_enter, tp_exit)
+                                       apply_rope, cp_gather, gather_heads,
+                                       head_parallel, rms_norm_headwise,
+                                       tp_enter, tp_exit)
 
 NEG_INF = -1e30
 
@@ -154,6 +164,24 @@ def sdpa_causal(q, k, v, window=0, rt: Runtime = None):
         return _attend_dense(q, k, v, pos, pos, window, scale)
     return _attend_blocked(q, k, v, window, scale, rt.attn_q_chunk,
                            rt.attn_kv_chunk)
+
+
+def cp_attend(q, k, v, window, rt: Runtime):
+    """A context rank's attention: q/k/v (B, S_loc, ., D) of its positions
+    [r S_loc, (r + 1) S_loc); K and V gathered over ``rt.tp_group`` ->
+    (out (B, S_loc, H, D), the gathered K, V)."""
+    S_loc = q.shape[1]
+    k_all, v_all = cp_gather(k, rt), cp_gather(v, rt)
+    q0 = rt.tp_rank * S_loc
+    if rt.attn_impl == "kernel":
+        out = kernel_ops.attention(q, k_all, v_all, window=window, q0=q0)
+    else:
+        dev = q.device
+        out = _attend_dense(q, k_all, v_all,
+                            q0 + torch.arange(S_loc, device=dev),
+                            torch.arange(k_all.shape[1], device=dev),
+                            window, q.shape[-1] ** -0.5)
+    return out, k_all, v_all
 
 
 # ---------------------------------------------------------------------------
@@ -427,11 +455,12 @@ def _project_qkv(cfg, p, x, rt: Runtime, all_kv: bool = False):
 def _kv_replicated(cfg, rt: Runtime, kv: int) -> bool:
     """Whether this rank holds every KV projection on a model axis whose
     size does not divide the KV heads."""
-    return rt.tp_size > 1 and kv == cfg.kv_heads and \
+    return head_parallel(rt) and kv == cfg.kv_heads and \
         cfg.kv_heads % rt.tp_size != 0
 
 
-def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
+def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache,
+                       cp: bool = False):
     """Prefill (S > 1) into, or decode one token (S == 1) from, a dense
     cache on this rank's heads.  The cache holds every KV head: on a model
     axis the new k/v are gathered over it where they are head-sharded.
@@ -439,7 +468,10 @@ def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
     flash-attention kernel on the kernel path).  Decode attends with every
     query head (gathered over the model axis) over this rank's slots,
     merged over the cache axes where the slots are sharded, and keeps its
-    own heads for the row-parallel ``wo``."""
+    own heads for the row-parallel ``wo``.  A context rank (``cp``)
+    prefills its shard of the prompt, attending over the K/V gathered from
+    every rank's shard, and writes the whole prompt's K/V into its
+    slots."""
     S = x.shape[1]
     h = p["wq"].shape[1] // cfg.head_dim_
     q, k, v = _project_qkv(cfg, p, x, rt, all_kv=True)
@@ -448,8 +480,12 @@ def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
         k = apply_rope(k, rope_ang)
     replicated = _kv_replicated(cfg, rt, k.shape[2])
     k_all, v_all = k, v
-    if rt.tp_size > 1 and not replicated:
+    if head_parallel(rt) and not replicated:
         k_all, v_all = gather_heads(k, rt), gather_heads(v, rt)
+    if S > 1 and cp:
+        out, k_all, v_all = cp_attend(q, k, v, cfg.sliding_window, rt)
+        prefill_kv_cache(cache, k_all, v_all, rt.cache_shard)
+        return out
     if S > 1:
         if replicated:
             sel = torch.tensor(_kv_heads_of_rank(cfg, rt, h),
@@ -460,7 +496,7 @@ def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
         return out
     idx = cache["idx"]
     _decode_write(cache, k_all, v_all, rt.cache_shard)
-    q_all = gather_heads(q, rt) if rt.tp_size > 1 else q
+    q_all = gather_heads(q, rt) if head_parallel(rt) else q
     n, Sc = cache["k"].shape[1], cache["kpos"].shape[0]
     if n == Sc:
         out = sdpa_decode(q_all, cache["k"], cache["v"], cache["kpos"], idx,
@@ -471,16 +507,19 @@ def _dense_cache_block(cfg, p, x, rope_ang, rt: Runtime, cache):
                                   cache["kpos"][lo:lo + n], idx,
                                   cfg.sliding_window, rt)
     cache["idx"].add_(1)
-    if rt.tp_size > 1:
+    if head_parallel(rt):
         out = out[:, :, rt.tp_rank * h:(rt.tp_rank + 1) * h]
     return out
 
 
 def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
-                    want_cache: bool = False, paged=None, sp: bool = False):
+                    want_cache: bool = False, paged=None, sp: bool = False,
+                    cp: bool = False):
     """Attention sublayer: x (B, S, d) -> (B, S, d); on a model axis, x
     and the result are the residual stream's (its S-shard under sequence
     parallelism, ``sp``), the heads this rank's, and ``wo`` row-parallel.
+    Under a context plan (``cp``) x is this rank's shard of the sequence
+    and ``rope_ang`` its positions' angles (:func:`cp_attend`).
 
     Train:         cache None -> causal self-attention over positions
                    0..S-1 (``sdpa_causal``); with ``want_cache`` ->
@@ -497,7 +536,7 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
     x = tp_enter(x, rt, sp)
     B, S, _ = x.shape
     if cache is not None and paged is None:
-        out = _dense_cache_block(cfg, p, x, rope_ang, rt, cache)
+        out = _dense_cache_block(cfg, p, x, rope_ang, rt, cache, cp)
         return tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)
     q, k, v = _project_qkv(cfg, p, x, rt)
     if rope_ang is not None:
@@ -505,13 +544,13 @@ def attention_block(cfg, p, x, rope_ang, rt: Runtime, cache=None,
         k = apply_rope(k, rope_ang)
     if paged is not None:
         out = _paged_attention_block(cfg, q, k, v, cache, paged, rt)
+    elif cp:
+        out = cp_attend(q, k, v, cfg.sliding_window, rt)[0]
     else:
-        # context parallelism (the JAX _cp_attend) comes with its slice
-        # (ROADMAP Queue 1, "other mixers and inputs")
         out = sdpa_causal(q, k, v, cfg.sliding_window, rt)
     out = tp_exit(out.reshape(B, S, -1) @ p["wo"].to(out.dtype), rt, sp)
     if want_cache:
-        if rt.tp_size > 1:
+        if head_parallel(rt) or cp:
             raise NotImplementedError(
                 "want_cache builds a single-device cache; a sharded one "
                 "comes from transformer.init_cache under the plan")

@@ -58,12 +58,20 @@ class Runtime:
     rounded back through it once it is reduced (:func:`wire_round_grad`).
 
     The model axis (``core.parallel.make_runtime``): ``tp_size`` ranks in
-    ``tp_group``, this one at ``tp_rank``; with ``seq_parallel`` the
+    ``tp_group``, this one at ``tp_rank``.  Under head-TP it splits the
+    heads and weights (:func:`head_parallel`); with ``seq_parallel`` the
     residual stream between sublayers holds this rank's 1/tp of the
     sequence (Megatron-SP) wherever S splits evenly
-    (:func:`sequence_parallel`).  The pipe axis: ``pipe_size`` stages in
-    ``pipe_group``, this rank at ``pipe_rank``, running
-    ``pipe_microbatches`` microbatches under ``pipe_schedule``
+    (:func:`sequence_parallel`).  Under a context plan (``context``) it
+    shards the sequence instead: every weight but the MoE experts is
+    whole on each rank, a forward over S positions holds this rank's
+    contiguous S / tp of them wherever S splits evenly
+    (:func:`context_parallel`), and attention gathers K and V over the
+    group.  ``moe_experts_split``: the plan puts the expert stacks' E dim
+    on the model axis (each rank holds E / tp experts);
+    ``moe_shared_split``: it puts the shared experts' hidden dim there.
+    The pipe axis: ``pipe_size`` stages in ``pipe_group``, this rank at
+    ``pipe_rank``, running ``pipe_microbatches`` microbatches under ``pipe_schedule``
     (``core.pipeline``); with ``pipe_via_host`` what crosses the pipe
     group goes through host memory (a gloo pipe group between ranks on
     cards).  A serving plan that shards the dense KV cache along its slots
@@ -85,6 +93,9 @@ class Runtime:
     tp_rank: int = 0                    # this rank's model coordinate
     tp_group: Any = None                # the model axis' process group
     seq_parallel: bool = False          # Megatron-SP residual stream
+    context: bool = False               # the model axis shards the sequence
+    moe_experts_split: bool = False     # the E dim on the model axis
+    moe_shared_split: bool = False      # shared experts' hidden dim on it
     fsdp_wire: bool = False             # gather_dtype is FSDP2's wire
     pipe_size: int = 1                  # pipeline stages (core.pipeline)
     pipe_rank: int = 0                  # this rank's pipe coordinate
@@ -150,11 +161,17 @@ def wire_round_grad(g: torch.Tensor, rt: Runtime) -> torch.Tensor:
 
 COLLECTIVES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
                                "all_reduce": 0, "all_to_all": 0}
+# some of the same calls at the sites the dry run's record names: a
+# context rank's K/V all-gathers and a MoE FFN's combine over the model
+# axis (its exit collective), forward
+COLLECTIVE_SITES: Dict[str, int] = {"context_kv_gather": 0,
+                                    "moe_combine": 0}
 
 
 def reset_collective_counts() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for counts in (COLLECTIVES, COLLECTIVE_SITES):
+        for k in counts:
+            counts[k] = 0
 
 
 def local_params(tree) -> Dict[str, Any]:
@@ -172,6 +189,19 @@ def sequence_parallel(rt: "Runtime", S: int) -> bool:
     sharded along S over the model axis: under a sequence-parallel plan,
     where S splits evenly (the JAX package's fitted ``act_btd``)."""
     return rt.tp_size > 1 and rt.seq_parallel and S % rt.tp_size == 0
+
+
+def context_parallel(rt: "Runtime", S: int) -> bool:
+    """Whether a forward over S positions runs this rank's contiguous
+    S / tp of them under a context plan (S > 1 splitting evenly: a decode
+    step's one position runs whole on every rank)."""
+    return rt.context and rt.tp_size > 1 and S > 1 and S % rt.tp_size == 0
+
+
+def head_parallel(rt: "Runtime") -> bool:
+    """Whether the model axis splits the heads and the weights (head-TP):
+    more than one rank, and not a context plan's."""
+    return rt.tp_size > 1 and not rt.context
 
 
 def all_reduce(x: torch.Tensor, rt: "Runtime", op=dist.ReduceOp.SUM,
@@ -265,20 +295,82 @@ class _ScatterSeq(torch.autograd.Function):
         return _gather_seq(g, ctx.rt), None
 
 
-def tp_enter(x, rt: "Runtime", sp: bool):
+def cp_gather(x, rt: "Runtime", kv: bool = True):
+    """(B, S / cp, ...) of this context rank -> (B, S, ...) of every
+    rank's, in rank order; the backward sums the cotangents over the
+    group and keeps this rank's rows (the JAX ``_cp_attend``'s tiled
+    all-gather and its transpose).  ``kv``: K or V of an attention layer
+    (counted at their site)."""
+    COLLECTIVE_SITES["context_kv_gather"] += int(kv)
+    return _GatherSeq.apply(x, rt)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce over the group forward, identity backward (Megatron's
+    g), for a context plan's loss terms: every rank holds the sum, and
+    each rank's gradient is that of its own part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        COLLECTIVES["all_reduce"] += 1
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def cp_sum(x, rt: "Runtime"):
+    """``x`` summed over the context group, with an identity backward."""
+    return _SumOverModel.apply(x, rt.tp_group)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the cotangent times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grad(x, scale: float):
+    return _ScaleGrad.apply(x, scale)
+
+
+def model_enter(x, rt: "Runtime", seq: bool):
     """A sublayer's input on every model rank: the whole sequence,
-    gathered from the S-shards under sequence parallelism (``sp``)."""
+    gathered from the S-shards where x holds this rank's (``seq``)."""
     if rt.tp_size == 1:
         return x
-    return _GatherSeq.apply(x, rt) if sp else _Copy.apply(x, rt)
+    return _GatherSeq.apply(x, rt) if seq else _Copy.apply(x, rt)
+
+
+def model_exit(y, rt: "Runtime", seq: bool):
+    """A sublayer's partial outputs summed over the model ranks: this
+    rank's S-shard of the sum where the stream is sharded (``seq``)."""
+    if rt.tp_size == 1:
+        return y
+    return _ScatterSeq.apply(y, rt) if seq else _Reduce.apply(y, rt)
+
+
+def tp_enter(x, rt: "Runtime", sp: bool):
+    """:func:`model_enter` of a sublayer whose weights the model axis
+    splits (head-TP; ``sp``: Megatron-SP); under a context plan every
+    such weight is whole, and x passes as it is."""
+    return x if rt.context else model_enter(x, rt, sp)
 
 
 def tp_exit(y, rt: "Runtime", sp: bool):
-    """A sublayer's partial outputs summed over the model ranks: this
-    rank's S-shard of the sum under sequence parallelism (``sp``)."""
-    if rt.tp_size == 1:
-        return y
-    return _ScatterSeq.apply(y, rt) if sp else _Reduce.apply(y, rt)
+    """:func:`model_exit` of a sublayer whose weights the model axis
+    splits; under a context plan y is whole, and passes as it is."""
+    return y if rt.context else model_exit(y, rt, sp)
 
 
 def _randn(gen, shape, scale, device):
@@ -367,7 +459,7 @@ def embed_tokens(p, tokens, rt: Runtime, sp: bool = False):
     the ranks is all-reduced, or reduce-scattered to this rank's S-shard
     under sequence parallelism (``sp``)."""
     tok = p["tok"]
-    if rt.tp_size == 1:
+    if not head_parallel(rt):
         # gather, then cast: the same values as casting the table first
         return F.embedding(tokens, tok).to(rt.compute_dtype)
     rows = tok.shape[0]

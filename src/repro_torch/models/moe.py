@@ -20,6 +20,21 @@ combine all-to-all over the expert group.  Leaves keep the JAX names and
 layouts: ``router`` (d, E), ``w_up``/``w_gate`` (E, d, f), ``w_down`` (E,
 f, d) and ``shared.{w_up, w_gate, w_down}`` ((d, n_shared f) and back).
 
+On a model axis (a plan's tp, or the sequence axis of a context plan)
+every model rank routes the same tokens — the whole sequence, gathered
+along S where the residual stream is sharded along it — with the router
+whole, and computes only its part of the experts, as the reference's
+``_param_spec`` places them: with no expert axis its E / m experts (the
+stacks' E dim on the model axis; a dropping rank fills its own experts'
+capacity buffers, capacity the global one), under an expert axis the
+all-to-all's experts split on their hidden dim.  Shared experts split on
+the hidden dim like a dense FFN.  The partial sums leave through the
+dense FFN's exit collective (``models.layers.model_exit``: a reduce-scatter
+along S, else an all-reduce), and every model rank holds the same aux,
+whose gradient each takes 1/m of (their gradients are summed over the
+model group).  Each such call adds one to
+``models.layers.COLLECTIVE_SITES['moe_combine']``.
+
 The switch-style balance loss comes from the router's statistics over the
 tokens of the step.  A rank holds a shard of those tokens under a
 data-parallel plan, so the statistics are averaged over the groups that
@@ -36,8 +51,10 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.models.layers import (COLLECTIVES, Runtime, _act, _randn,
-                                       local_params, wire_round)
+from repro_torch.models.layers import (COLLECTIVE_SITES, COLLECTIVES,
+                                       Runtime, _act, _randn, local_params,
+                                       model_enter, model_exit, scale_grad,
+                                       wire_round)
 
 
 def init_moe(cfg, gen, device):
@@ -63,17 +80,23 @@ def init_moe(cfg, gen, device):
 class MoEFFN(nn.ParameterDict):
     """A MoE layer's FFN parameters, called as a module (so that FSDP2's
     hooks fire on it when a plan with an expert axis makes it a unit of
-    its own, ``core.parallel.apply_plan``): ``ffn(cfg, x, rt)`` -> (y,
-    aux)."""
+    its own, ``core.parallel.apply_plan``): ``ffn(cfg, x, rt, seq)`` ->
+    (y, aux).  ``seq``: x (and y) are this rank's shard of the sequence
+    on the model axis (Megatron-SP, or a context plan's shard)."""
 
     # a ParameterDict refuses calls; this one runs like any module
     __call__ = nn.Module.__call__
 
-    def forward(self, cfg, x, rt: Runtime):
+    def forward(self, cfg, x, rt: Runtime, seq: bool = False):
         lp = local_params(self)
         if rt.gather_dtype is not None and not rt.fsdp_wire:
             lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
-        return apply_moe(cfg, lp, x, rt)
+        m = rt.tp_size
+        if m == 1:
+            return apply_moe(cfg, lp, x, rt)
+        y, aux = apply_moe(cfg, lp, model_enter(x, rt, seq), rt)
+        COLLECTIVE_SITES["moe_combine"] += 1
+        return model_exit(y, rt, seq), scale_grad(aux, 1.0 / m)
 
 
 # ---------------------------------------------------------------------------
@@ -165,9 +188,29 @@ def _expert_ffn(cfg, p, buf, rt: Runtime = None):
     return torch.bmm(h, p["w_down"].to(dt))
 
 
+def _local_experts(cfg, p, rt):
+    """(first, count) of the experts whose stacks ``p`` holds: all of
+    them, or on a model axis that splits the E dim (``moe_experts_split``)
+    this rank's E / m."""
+    n = p["w_up"].shape[0]
+    if rt is None or not rt.moe_experts_split:
+        return 0, n
+    return rt.tp_rank * n, n
+
+
+def _share(y, cfg, p, rt):
+    """A routed output as this rank's part of the sum over the model
+    axis: where the stacks are whole on every model rank (the plan does
+    not split E over it) each rank's is 1/m of the whole."""
+    if rt is not None and rt.tp_size > 1 and not rt.moe_experts_split:
+        return y / rt.tp_size
+    return y
+
+
 def _moe_dense(cfg, p, xf, rt: Runtime = None):
     """The oracle: every expert on every token, (E, T, f) and (E, T, d)
-    intermediates."""
+    intermediates (on a model axis that splits E, this rank's experts
+    only)."""
     m = cfg.moe
     _, weights, ids, aux = _router(cfg, p, xf, rt)
     act = _act(cfg.act)
@@ -180,7 +223,9 @@ def _moe_dense(cfg, p, xf, rt: Runtime = None):
     y_e = torch.matmul(h, p["w_down"].to(dt))                # (E, T, d)
     w_full = torch.zeros((xf.shape[0], m.n_experts), dtype=torch.float32,
                          device=xf.device).scatter_add(1, ids, weights)
-    return torch.einsum("etd,te->td", y_e, w_full.to(dt)), aux
+    e0, n = _local_experts(cfg, p, rt)
+    y = torch.einsum("etd,te->td", y_e, w_full[:, e0:e0 + n].to(dt))
+    return _share(y, cfg, p, rt), aux
 
 
 def _take(x, idx):
@@ -267,13 +312,29 @@ def _moe_dropping(cfg, p, xf, rt: Runtime):
     Cg = capacity(Tg, cfg)
     gid = torch.arange(G, device=xf.device).repeat_interleave(Tg * k)
     dest, inv = _route_capacity(gid * E + ids.reshape(T * k), G * E, Cg)
-    buf = _routed_take(_items(xf, k), inv, dest)             # (G E Cg, d)
-    buf = buf.reshape(G, E, Cg, d).transpose(0, 1).reshape(E, G * Cg, d)
-    out = _expert_ffn(cfg, p, buf, rt)                       # (E, G Cg, d)
-    out = out.reshape(E, G, Cg, d).transpose(0, 1).reshape(G * E * Cg, d)
+    e0, n = _local_experts(cfg, p, rt)
+    if n < E:
+        dest, inv = _own_slots(dest, inv, G, E, Cg, e0, n)
+    buf = _routed_take(_items(xf, k), inv, dest)             # (G n Cg, d)
+    buf = buf.reshape(G, n, Cg, d).transpose(0, 1).reshape(n, G * Cg, d)
+    out = _expert_ffn(cfg, p, buf, rt)                       # (n, G Cg, d)
+    out = out.reshape(n, G, Cg, d).transpose(0, 1).reshape(G * n * Cg, d)
     rows = _routed_take(out, dest, inv)                      # (T k, d)
     y = (rows.reshape(T, k, d) * weights[..., None].to(rows.dtype)).sum(1)
-    return y, aux
+    return _share(y, cfg, p, rt), aux
+
+
+def _own_slots(dest, inv, G, E, C, e0, n):
+    """The routing maps of G groups' (E, C) buffers cut to the n experts
+    from e0 that this rank holds: ``dest`` (an item's slot, -1 dropped)
+    to their (G, n, C) buffer, -1 for an item routed elsewhere; ``inv``
+    to its slots.  Still an injective map and its inverse."""
+    slot = dest.clamp_min(0)
+    g, e, c = slot // (E * C), (slot // C) % E, slot % C
+    mine = (dest >= 0) & (e >= e0) & (e < e0 + n)
+    dest = torch.where(mine, (g * n + e - e0) * C + c, -1)
+    inv = inv.reshape(G, E, C)[:, e0:e0 + n].reshape(-1)
+    return dest, inv
 
 
 def apply_moe(cfg, p, x, rt: Runtime):
@@ -308,5 +369,9 @@ def apply_moe(cfg, p, x, rt: Runtime):
             h = act(x @ sp["w_gate"].to(dt)) * up
         else:
             h = act(up)
-        y = y + h @ sp["w_down"].to(dt)
+        ys = h @ sp["w_down"].to(dt)
+        if rt.tp_size > 1 and not rt.moe_shared_split:
+            # whole on every model rank (a context plan keeps them so)
+            ys = ys / rt.tp_size
+        y = y + ys
     return y, aux

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.wkv6 import wkv6_plain as wkv_chunked
-from repro_torch.models.layers import Runtime, tp_enter, tp_exit
+from repro_torch.models.layers import (Runtime, head_parallel, tp_enter,
+                                       tp_exit)
 
 TM_RANK = 32   # low-rank dim of the token-shift ddlerp
 TD_RANK = 64   # low-rank dim of the decay lora
@@ -149,7 +150,7 @@ def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None):
     dt = x.dtype
     # this rank's channels: heads [c0 / N, (c0 + dl) / N) of H
     dl = p["wr"].shape[1]
-    H, c0 = dl // N, rt.tp_rank * dl
+    H, c0 = dl // N, (rt.tp_rank * dl if head_parallel(rt) else 0)
     r = _mm(xr, p["wr"], dt).reshape(B, T, H, N)
     k = _mm(xk, p["wk"], dt).reshape(B, T, H, N)
     v = _mm(xv, p["wv"], dt).reshape(B, T, H, N)

@@ -33,10 +33,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
-                                       apply_mlp, apply_norm, embed_tokens,
-                                       init_embed, init_mlp, init_norm,
-                                       lm_logits, local_params, rope_angles,
-                                       sequence_parallel, tp_exit, wire_round)
+                                       apply_mlp, apply_norm,
+                                       context_parallel, cp_gather, cp_sum,
+                                       embed_tokens, head_parallel,
+                                       init_embed, init_mlp,
+                                       init_norm, lm_logits, local_params,
+                                       rope_angles, sequence_parallel,
+                                       tp_exit, wire_round)
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +177,9 @@ class Layer(nn.Module):
 
     def forward(self, cfg: ModelConfig, kind: str, h, rope_ang,
                 rt: Runtime, cache=None, paged=None, sp: bool = False,
-                aux: Optional[AuxLoss] = None):
+                aux: Optional[AuxLoss] = None, cp: bool = False):
         """h: the residual stream, (B, S, d), or this rank's S-shard of it
-        under sequence parallelism (``sp``).  The layer computes from its
+        under sequence parallelism (``sp``) or a context plan (``cp``).  The layer computes from its
         parameters' local shards (``to_local`` views of the ``DTensor``s
         FSDP2 has gathered).  ``cache``: the layer's paged pools (with
         ``paged``) or its dense cache ({'kv'}, or an RWKV-6 layer's
@@ -204,10 +207,11 @@ class Layer(nn.Module):
         if cache is not None and paged is None:
             cache = cache["kv"]
         h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
-                                         cache=cache, paged=paged, sp=sp)
+                                         cache=cache, paged=paged, sp=sp,
+                                         cp=cp)
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
         if moe:
-            y, a = self._modules["ffn"](cfg, x, rt)
+            y, a = self._modules["ffn"](cfg, x, rt, sp or cp)
             if aux is not None:
                 aux.terms.append(a)
             return h + y
@@ -219,7 +223,9 @@ class Stage:
     """One pipeline F op's part of the model (``core.pipeline``): the
     layers of a chunk; whether its virtual stage is the first (it embeds
     the tokens) and the last (it computes the final norm, the head and the
-    masked nll sum over ``denom``)."""
+    masked nll sum over ``denom``).  Its F returns the residual stream, or
+    on the last stage the nll, beside the sum of its MoE layers' aux
+    losses."""
     layers: Tuple[int, ...]
     first: bool
     last: bool
@@ -251,15 +257,22 @@ class Params(nn.Module):
         """-> logits (B, S, vocab), on a model axis this rank's columns of
         the vocabulary; see :func:`forward`.  Under sequence parallelism
         (:func:`sequence_parallel`) the residual stream holds this rank's
-        S-shard from the embedding to the final norm.
+        S-shard from the embedding to the final norm.  Under a context plan
+        (:func:`layers.context_parallel`) this rank runs its contiguous
+        S / cp of the tokens and positions from the embedding to the
+        logits, which are its positions' (a cached forward, a prefill,
+        gathers the final residual stream over the group first: every
+        rank gets the whole prompt's logits).
 
         With a ``stage`` (a pipeline F op, ``core.pipeline``) it runs only
         that part: from the tokens (first virtual stage) or the residual
         stream ``h``, through the stage's layers, to the residual stream,
         or on the last virtual stage to the masked nll sum over
-        ``stage.denom`` (:func:`masked_nll`).  The whole model module is
-        called for each op, so FSDP2's root hooks fire on every stage.
-        The MoE layers' load-balance losses go to ``aux``."""
+        ``stage.denom`` (:func:`masked_nll`), beside the sum of the
+        stage's MoE layers' load-balance losses (0 for a dense stack).
+        The whole model module is called for each op, so FSDP2's root
+        hooks fire on every stage.  Otherwise the MoE layers'
+        load-balance losses go to ``aux``."""
         if stage is not None:
             return self._stage(cfg, batch, rt, h, stage)
         tokens = batch["tokens"]
@@ -269,6 +282,10 @@ class Params(nn.Module):
         if cache is not None:
             positions = batch.get("pos", 0) + positions
         positions = positions.expand(B, S)
+        cp = context_parallel(rt, S)
+        if cp:
+            tokens, positions = _cp_shard(tokens, rt), _cp_shard(positions,
+                                                                 rt)
 
         sp = sequence_parallel(rt, S)
         embed = local_params(self.embed)
@@ -279,7 +296,7 @@ class Params(nn.Module):
         layer_caches = (cache["layers"] if cache is not None
                         else [None] * len(self.layers))
         if rt.pipe_size > 1 and cache is not None:
-            h = self._through_pipe(cfg, h, rope_ang, rt, layer_caches)
+            h = self._through_pipe(cfg, h, rope_ang, rt, layer_caches, cp)
         else:
             wired, plain = range(cfg.n_layers), rt
             if rt.gather_dtype is not None:
@@ -289,11 +306,13 @@ class Params(nn.Module):
             for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
                                                 strict=True)):
                 h = layer(cfg, cfg.layer_kind(i), h, rope_ang,
-                          rt if i in wired else plain, lc, paged, sp, aux)
+                          rt if i in wired else plain, lc, paged, sp, aux, cp)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
+        if cp and cache is not None:
+            h = cp_gather(h, rt, kv=False)
         return lm_logits(embed, h, rt, sp)
 
-    def _through_pipe(self, cfg, h, rope_ang, rt, layer_caches):
+    def _through_pipe(self, cfg, h, rope_ang, rt, layer_caches, cp=False):
         """The layers in order across the pipe ranks, as the JAX package
         runs a serving plan's pipe-sharded stack (a plain scan, with no
         schedule): each rank runs its stages' chunks of layers, the
@@ -314,7 +333,7 @@ class Params(nn.Module):
                 h, = link.exchange([], [(shape, dt, -1)])
             for i in ids:
                 h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt,
-                                   layer_caches[i], None, False)
+                                   layer_caches[i], None, False, None, cp)
             if c + 1 < len(chunks) and (c + 1) % P != rt.pipe_rank:
                 link.exchange([(h.to(dt), 1)], [])
         last = (len(chunks) - 1) % P
@@ -329,22 +348,34 @@ class Params(nn.Module):
         tokens = batch["tokens"]
         B, S = tokens.shape
         sp = sequence_parallel(rt, S)
+        cp = context_parallel(rt, S)
         embed = local_params(self.embed)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+        if cp:
+            tokens, positions = _cp_shard(tokens, rt), _cp_shard(positions,
+                                                                 rt)
         if stage.first:
             h = _embed(cfg, embed, tokens, positions, rt, sp)
         rope_ang = None
         if cfg.rope == "rope":
             rope_ang = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+        aux = AuxLoss()
         for i in stage.layers:
             h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt, None,
-                               None, sp)
+                               None, sp, aux, cp)
+        aux = aux.total(h.device)
         if not stage.last:
-            return h
+            return h, aux
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         return masked_nll(lm_logits(embed, h, rt, sp), batch["labels"], rt,
-                          stage.denom)[0]
+                          stage.denom)[0], aux
+
+
+def _cp_shard(x, rt: Runtime):
+    """(B, S, ...) -> this context rank's contiguous (B, S / cp, ...)."""
+    n = x.shape[1] // rt.tp_size
+    return x[:, rt.tp_rank * n:(rt.tp_rank + 1) * n]
 
 
 def _init_layer(cfg: ModelConfig, i: int, gen, device):
@@ -546,7 +577,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     On a model axis the cross entropy is vocab-parallel: every rank holds
     its columns of the logits, and the max, the sum of exponentials and
     the label's logit are each reduced over the model group, so the whole
-    (B, S, V) logits are never gathered."""
+    (B, S, V) logits are never gathered.  Under a context plan each rank
+    holds its shard of the sequence's logits and labels: the nll sum and
+    the label count are summed over the group (the sum's backward is the
+    identity: each rank's gradient is its positions')."""
     terms = AuxLoss()
     nll, ntok = masked_nll(forward(cfg, params, batch, rt, aux=terms),
                            batch["labels"], rt, denom)
@@ -557,15 +591,22 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, rt: Runtime,
 def masked_nll(logits, labels, rt: Runtime, denom=None):
     """-> (the masked sum of the next-token nll over ``denom``, by default
     the count of unmasked labels; that count), in f32 (vocab-parallel on a
-    model axis, see :func:`loss_fn`)."""
+    model axis, summed over the sequence shards of a context plan, see
+    :func:`loss_fn`)."""
+    cp = context_parallel(rt, labels.shape[1])
+    if cp:
+        labels = _cp_shard(labels, rt)
     lf = logits.float()
-    if rt.tp_size > 1:
+    if head_parallel(rt):
         lse, ll = _vocab_parallel_terms(lf, labels, rt)
     else:
         lse = torch.logsumexp(lf, dim=-1)
         ll = torch.gather(lf, -1,
                           labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
+    nll, count = ((lse - ll) * mask).sum(), mask.sum()
+    if cp:
+        nll, count = cp_sum(nll, rt), cp_sum(count, rt)
     if denom is None:
-        denom = mask.sum().clamp_min(1.0)
-    return ((lse - ll) * mask).sum() / denom, mask.sum()
+        denom = count.clamp_min(1.0)
+    return nll / denom, count

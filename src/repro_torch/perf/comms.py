@@ -17,6 +17,11 @@ an all-gather, the scattered shard of a reduce-scatter, the reduced
 tensor of an all-reduce, the sent tensor of a point-to-point message
 (kind ``collective-permute``, JAX's for its pipeline transfers; each
 message counted once, at its sender).
+
+The census counts by kind; which of those calls the model's own sites
+issued — a context plan's K/V all-gathers, a MoE FFN's combine over the
+model axis — is ``models.layers.COLLECTIVE_SITES``, which the dry run
+records beside it (``collective_sites``).
 """
 from __future__ import annotations
 

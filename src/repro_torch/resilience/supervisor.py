@@ -88,6 +88,9 @@ class SupervisorConfig:
     backoff_max_s: float = 5.0
     replan_on_degrade: bool = True    # lost devices -> planner re-pick
     event_log_path: str = ""          # write the structured log here
+    # keywords of the planner's ``search`` at a re-plan, e.g.
+    # ``{"precisions": ("f32",)}`` to keep a run's numerics
+    replan_search: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 class Supervisor:
@@ -177,7 +180,7 @@ class Supervisor:
         topo2 = dataclasses.replace(topology, name=topology.name + "-deg",
                                     n_devices=n,
                                     island=min(topology.island, n))
-        planned = best(cfg, topo2, shape)
+        planned = best(cfg, topo2, shape, **self.config.replan_search)
         if planned is None:
             return strategy, topology
         return planned.strategy, topo2

@@ -58,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Runtime
+from repro_torch.models.layers import Runtime, head_parallel
 from repro_torch.serve.paged_cache import BlockAllocator, init_paged_pools
 from repro_torch.serve.scheduler import Scheduler
 
@@ -437,7 +437,7 @@ class ServeEngine:
         """(B, V / tp) logits of this rank's vocabulary columns -> (B, V)
         f32, gathered over the model axis."""
         lg = lg.float()
-        if self.rt.tp_size == 1:
+        if not head_parallel(self.rt):
             return lg
         parts = lg.new_empty((self.rt.tp_size * lg.shape[0], lg.shape[1]))
         dist.all_gather_into_tensor(parts, lg.contiguous(),

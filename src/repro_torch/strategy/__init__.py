@@ -9,8 +9,7 @@ package's; see descriptor.py for the design).
     report = strategy.evaluate(cfg, s, topo, shape)   # analytic price
     ranked = strategy.search(cfg, topo, shape)        # planner
 """
-from repro_torch.strategy.descriptor import (DP_MODES, LATER_DEGREES,
-                                             LATER_MOE, Strategy,
+from repro_torch.strategy.descriptor import (DP_MODES, Strategy,
                                              StrategyError, format_spec,
                                              parse)
 from repro_torch.strategy.planner import (OBJECTIVES, PlannedStrategy, best,
@@ -22,7 +21,7 @@ from repro_torch.strategy.topology import (Topology, build_mesh,
                                            pod_topology)
 
 __all__ = [
-    "DP_MODES", "LATER_DEGREES", "LATER_MOE", "OBJECTIVES",
+    "DP_MODES", "OBJECTIVES",
     "PlannedStrategy", "Strategy",
     "StrategyError", "Topology", "best", "build_mesh", "candidates",
     "default_objective", "evaluate", "format_spec", "get_topology",

@@ -2,12 +2,10 @@
 
 A copy of the JAX package's ``strategy/descriptor.py``: the same fields,
 spec grammar, checks and cost-model lowering.  Two things differ.
-``Strategy.check`` refuses context degrees above 1 (``LATER_DEGREES``:
-each names the slice of the port that brings it), a tensor-parallel
-degree that resolves to context attention or whose Megatron split of the
-model does not divide (``_check_tensor``), and tensor or pipeline degrees
-on a model with MoE layers (``LATER_MOE``), so the planner never picks a
-strategy the port cannot run; and ``to_plan``
+``Strategy.check`` also refuses a head-TP degree whose Megatron split of
+the model does not divide (``_check_tensor``: the port splits heads, FFN
+hidden units and the vocabulary evenly, where GSPMD would pad), so the
+planner never picks a strategy the port cannot run; and ``to_plan``
 builds the port's ``ParallelPlan`` over a ``torch.distributed``
 ``DeviceMesh``.  What follows is the JAX package's account of the design.
 
@@ -85,13 +83,6 @@ PRECISION_TOKENS = tuple(cm.PRECISIONS)   # 'f32' | 'bf16' | 'fp8'
 class StrategyError(ValueError):
     """A spec that cannot be parsed, or a strategy that cannot lower."""
 
-
-# degrees the port cannot run yet -> the slice of the port that brings each
-LATER_DEGREES = {
-    "cp": "other mixers and inputs, and context parallelism",
-}
-# the slice that brings tp > 1 and pp > 1 to models with MoE layers
-LATER_MOE = "MoE under tensor and pipeline parallelism"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,20 +217,9 @@ class Strategy:
 
         Passing ``cfg`` additionally validates the model-dependent pipeline
         constraints (uniform layer stack, layer count divisible by pp);
-        ``to_plan`` always does.  In the port, a cp degree above 1 raises
-        first, naming the slice that brings it; so do, given ``cfg``, a tp
-        degree whose attention resolves to context mode and a tp or pp
-        degree on a model with MoE layers.
+        ``to_plan`` always does.  In the port, given ``cfg``, a head-TP
+        degree that does not split the model evenly raises too.
         """
-        for degree, slice_name in LATER_DEGREES.items():
-            if getattr(self, degree) > 1:
-                raise StrategyError(
-                    f"{degree}={getattr(self, degree)}: the PyTorch port runs "
-                    f"data, tensor, pipeline and expert parallelism (dp "
-                    f"modes, ZeRO stages, ovl, ga, precision, tp, pp, ep); "
-                    f"{degree} > 1 "
-                    f"arrives with the '{slice_name}' slice (ROADMAP "
-                    f"Queue 1)")
         n = topology.n_devices
         if self.tp > 1 and self.cp > 1:
             raise StrategyError(
@@ -265,13 +245,6 @@ class Strategy:
             raise StrategyError(
                 f"ep={self.ep} does not divide the island-local data "
                 f"group {self.dp_degree(topology) // pods}")
-        if cfg is not None and (self.tp > 1 or self.pp > 1) and any(
-                cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
-            raise StrategyError(
-                f"tp={self.tp}, pp={self.pp} on {cfg.name}: the PyTorch "
-                f"port runs MoE layers under data and expert parallelism; "
-                f"tp > 1 and pp > 1 on them arrive with the '{LATER_MOE}' "
-                f"slice (ROADMAP Queue 1)")
         if cfg is not None and self.tp > 1:
             self._check_tensor(cfg)
         if cfg is not None and self.ep > 1:
@@ -280,16 +253,13 @@ class Strategy:
             self._check_pipeline(cfg)
 
     def _check_tensor(self, cfg: ModelConfig) -> None:
-        """The port's tp constraints: head-TP, with the heads, FFN hidden
-        units and vocabulary split evenly over the model axis (the
-        Megatron pairs of column- and row-parallel products shard
-        together; the KV heads may replicate)."""
+        """The port's head-TP constraints: the heads, FFN hidden units and
+        vocabulary split evenly over the model axis (the Megatron pairs of
+        column- and row-parallel products shard together; the KV heads
+        may replicate).  A tp that resolves to context attention shards
+        the sequence and keeps every weight whole: nothing to split."""
         if self.resolved_attn(cfg) == "context":
-            raise StrategyError(
-                f"tp={self.tp} on {cfg.name} resolves to context attention "
-                f"(n_heads={cfg.n_heads}): the PyTorch port runs head-TP; "
-                f"context parallelism (cp) arrives with the "
-                f"'{LATER_DEGREES['cp']}' slice (ROADMAP Queue 1)")
+            return
         heads = (cfg.rwkv_heads if cfg.mixer == "rwkv6" else cfg.n_heads)
         dims = {"heads": heads, "d_ff": cfg.dense_d_ff or cfg.d_ff,
                 "vocab_size": cfg.vocab_size}

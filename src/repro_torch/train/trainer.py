@@ -135,13 +135,20 @@ class _DataParallel:
     def sum_over_model(self, named, rt: Runtime, seq_parallel: bool):
         """Sum over the model group, in place and in one all-reduce, the
         local gradients of ``named`` ({name: parameter}) that are a part
-        of their whole on each model rank."""
+        of their whole on each model rank: under a context plan every
+        replicated one (each rank's is that of its shard of the sequence;
+        the MoE expert stacks that the axis splits saw every token)."""
         if rt.tp_size == 1:
             return
-        grads = [p.grad.to_local() for n, p in named.items()
-                 if p.grad is not None and par.grad_sums_over_model(
-                     n, p.placements[p.device_mesh.mesh_dim_names.index(
-                         self.tp)], seq_parallel)]
+        context = rt.context
+        grads = []
+        for n, p in named.items():
+            if p.grad is None:
+                continue
+            place = p.placements[p.device_mesh.mesh_dim_names.index(self.tp)]
+            if (place.is_replicate() if context else
+                    par.grad_sums_over_model(n, place, seq_parallel)):
+                grads.append(p.grad.to_local())
         if not grads:
             return
         flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), rt)
@@ -283,10 +290,10 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
             micros.append(pm)
         run = pipe_lib.run_schedule(cfg, params, micros, rt, denom)
         train_step.last_run = run
-        # pipelines run dense stacks only (pp on MoE layers waits for its
-        # slice, ``strategy.LATER_MOE``): no aux
-        aux = torch.zeros_like(run.nll)
-        return run.nll + aux, {"nll": run.nll, "aux": aux, "ntok": ntok}
+        # this rank's stages' aux, averaged over the microbatches (the
+        # pipe ranks' add up to the step's)
+        return run.nll + run.aux, {"nll": run.nll, "aux": run.aux,
+                                   "ntok": ntok}
 
     def _sum_replicated_over_pipe(grads):
         """Sum over the pipe group, in one all-reduce, the local

@@ -434,6 +434,50 @@ def test_cuda_flash_attention_matches_plain(case, dtype):
                                        window))
 
 
+# B, S (query rows), Sk (keys), H, Kv, D, q0 (the rows' first position),
+# window: a context rank's shard of the queries against every key
+ATTN_Q0_CASES = [
+    (2, 128, 256, 8, 4, 128, 128, 0),   # rank 1 of 2: rows 128..255
+    (2, 128, 256, 8, 4, 128, 0, 0),     # rank 0 of 2: fewer rows than keys
+    (1, 100, 400, 4, 2, 128, 300, 0),   # rank 3 of 4, ragged tiles
+    (1, 100, 400, 4, 2, 128, 200, 64),  # a window over the offset rows
+    (2, 75, 300, 4, 1, 80, 150, 0),     # head dim 80, MQA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_Q0_CASES)
+def test_cuda_flash_attention_with_query_offset_matches_plain(case, dtype):
+    """The forward, dq and dk/dv kernels with a query offset q0 (rows at
+    positions q0 + i against keys 0..Sk-1) against their plain versions
+    at the same offset, counted under their ``_q0`` names."""
+    dev = _card()
+    B, S, Sk, H, Kv, D, q0, window = case
+    g = torch.Generator(device=dev).manual_seed(q0 + S)
+    q, do = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, Kv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    o, lse = tfa.forward_cuda(q, k, v, True, window, q0)
+    o0, lse0 = tfa.forward_plain(q, k, v, True, window, q0)
+    delta = tfa.attention_delta(o0, do)
+    args = (q, k, v, do, lse0, delta, True, window, q0)
+    dq, (dk, dv) = tfa.dq_cuda(*args), tfa.dkv_cuda(*args)
+    dq0, (dk0, dv0) = tfa.dq_plain(*args), tfa.dkv_plain(*args)
+    torch.cuda.synchronize()
+    fwd_tol, grad_tol = CARD_TOL[dtype]
+    assert _rel_err(o, o0) < fwd_tol
+    assert (lse - lse0).abs().max().item() < 1e-5
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert _rel_err(a, b) < grad_tol
+    counts = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert (counts[name], counts[name + "_q0"]) == (0, 1), counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_forward_is_deterministic(dtype):

@@ -173,12 +173,18 @@ def test_moe_points_trace_under_ep(arch, tmp_path):
 
 
 def test_moe_under_the_legacy_tp_layout_is_refused(tmp_path):
-    """The legacy pod layout (hsdp_tp16) on a MoE arch is refused, naming
-    the slice that brings MoE under tensor parallelism."""
+    """The legacy pod layout (hsdp_tp16) on a MoE arch traces: every MoE
+    layer splits its experts over the model axis (4 of deepseek's 64 a
+    rank) and leaves through its combine's reduce-scatter (one a layer
+    in the forward), which the record names (``collective_sites``)."""
     rec = dryrun.run_one("deepseek-moe-16b", "train_4k", False,
                          str(tmp_path), device="cpu")
-    assert rec["status"] == "error"
-    assert strategy.LATER_MOE in rec["error"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg = get_config("deepseek-moe-16b")
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert rec["plan"]["mesh"]["model"] == 16 and rec["plan"]["attn"] == \
+        "head_tp"
+    assert rec["collective_sites"]["moe_combine"] == n_moe
 
 
 @pytest.mark.parametrize("arch,shape", SKIPS)
@@ -194,11 +200,17 @@ def test_unported_points_are_skipped_naming_their_slice(arch, shape,
 
 def test_context_attention_is_refused_as_cp(tmp_path):
     """``--attn context`` on the pod layout resolves tp 16 to context
-    attention, which ``Strategy.check`` refuses, naming the cp slice."""
+    attention, which traces: every layer gathers K and V over the model
+    axis, named in the record (``collective_sites``), and the census
+    holds their backward's reduce-scatters beside FSDP2's."""
     rec = dryrun.run_one(QWEN, "train_4k", False, str(tmp_path),
                          attn_override="context", device="cpu")
-    assert rec["status"] == "error"
-    assert "context parallelism" in rec["error"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    L = get_config(QWEN).n_layers
+    assert rec["plan"]["attn"] == "context"
+    assert rec["collective_sites"]["context_kv_gather"] == 2 * L
+    assert rec["collective_sites"]["moe_combine"] == 0
+    assert rec["collectives"]["reduce-scatter"]["count"] >= 2 * L
 
 
 def _kernel_calls():

@@ -249,9 +249,9 @@ def _four_task(rank, tmp):
     """4 ranks: ``fsdp_tp2`` saved and restored (data 2 x model 2: FSDP2
     shards the model axis' shards again), then under ``fsdp`` a crash at
     step 2 loses 2 devices; the supervisor re-plans onto the first 2
-    ranks, which restore the 4-rank checkpoint, crash again at step 3
-    (ranks 2-3, outside the mesh, join that restore too) and finish 4
-    steps."""
+    ranks among the f32 strategies, which restore the 4-rank checkpoint,
+    crash again at step 3 (ranks 2-3, outside the mesh, join that restore
+    too) and finish 4 steps."""
     meshes = _meshes_task(rank, tmp, ("fsdp_tp2",))
     cfg = _cfg()
     shape = ShapeConfig("res", S, B, "train")
@@ -263,7 +263,8 @@ def _four_task(rank, tmp):
         lambda: _batches(cfg), seed=0, device="cpu",
         fault_plan=FaultPlan(events=[
             FaultEvent(2, "crash", lost_devices=2), FaultEvent(3, "crash")]),
-        sup_cfg=SupervisorConfig(backoff_base_s=0.0, event_log_path=log))
+        sup_cfg=SupervisorConfig(backoff_base_s=0.0, event_log_path=log,
+                                 replan_search={"precisions": ("f32",)}))
     tree = (bridge.train_state_to_tree(params, opt, cfg)
             if params is not None else None)
     left_out = [None] * dist.get_world_size()
@@ -931,7 +932,9 @@ def test_degraded_replan_trains_on_the_first_ranks(worlds):
     0-1 (ranks 2-3 return None), restores the 4-rank checkpoint, survives
     a second crash at step 3 (every rank of the world restores step 3)
     and ends within tests/test_torch_fsdp.py's f32 bars of the port's
-    single-device run (computed in the world, at one thread)."""
+    single-device run (computed in the world, at one thread).  The re-plan
+    searches the f32 strategies only (``replan_search``): the planner's
+    pick on 2 devices is then the best f32 one."""
     got = worlds["four"]
     assert got["left_out"] == [False, False, True, True]
     events = json.load(open(got["log"]))
@@ -947,7 +950,9 @@ def test_degraded_replan_trains_on_the_first_ranks(worlds):
     err = _errors(got["tree"], ref, OPT.lr)
     err["metric"] = max(_metric_err(h, m)
                         for h, m in zip(got["history"], history[3:]))
-    assert all(err[k] < F32_BARS[k] for k in F32_BARS), (err, F32_BARS)
+    assert strategy.parse(replan[0]["new_spec"]).precision == "f32"
+    assert all(err[k] < F32_BARS[k] for k in F32_BARS), (
+        err, F32_BARS, replan[0]["new_spec"])
 
 
 # ---------------------------------------------------------------------------

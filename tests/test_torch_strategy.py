@@ -101,11 +101,10 @@ def test_cost_model_reports_equal_jax(arch, topo):
 @pytest.mark.parametrize("topo", sorted(TOPOLOGIES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_planner_ranks_dp_strategies_as_jax(arch, topo):
-    """The port's ranking equals the JAX package's with every strategy of
-    cp above 1, or of a tp that resolves to context attention, taken out
-    (and tp or pp on a MoE config: ``tests/test_torch_moe.py`` ranks
-    those), and holds no such strategy: the data-, tensor- and
-    pipeline-parallel strategies rank as JAX ranks them."""
+    """The port's ranking equals the JAX package's over every candidate,
+    those of cp above 1 and of a tp that resolves to context attention
+    included, and every strategy it ranks lowers (MoE configs:
+    ``tests/test_torch_moe.py``)."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     mine_t, ref_t = TOPOLOGIES[topo]
     ranked_tp = ranked_pp = False
@@ -117,23 +116,13 @@ def test_planner_ranks_dp_strategies_as_jax(arch, topo):
                                      **kw)
             ref = jstrategy.search(jcfg, ref_t, JShapeConfig("x", S, B, mode),
                                    **kw)
-            ref = [p for p in ref if _lowers_in_the_port(p.strategy, jcfg)]
             assert [p.spec for p in ranked] == [p.spec for p in ref]
             assert [p.report.row() for p in ranked] == \
                 [p.report.row() for p in ref]
-            assert all(_lowers_in_the_port(p.strategy, cfg)
-                       and p.lowers for p in ranked)
+            assert all(p.lowers for p in ranked)
             ranked_tp |= any(p.strategy.tp > 1 for p in ranked)
             ranked_pp |= any(p.strategy.pp > 1 for p in ranked)
     assert ranked_tp == ranked_pp == (topo != "host1")
-
-
-def _lowers_in_the_port(s, cfg):
-    """No cp above 1, head-TP attention, and no tp or pp on a MoE
-    config."""
-    moe = any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    return s.cp == 1 and s.resolved_attn(cfg) == "head_tp" and not (
-        moe and (s.tp > 1 or s.pp > 1))
 
 
 def test_precision_policies_equal_jax():
@@ -190,10 +179,16 @@ def test_plans_lower_with_the_jax_axis_rules():
         assert plan.axis_size(plan.dp) == 8
 
 
-# the meshes the strategies the port runs lower to, on 8 devices
-LOWERED_MESHES = {"hsdp_tp4": {"data": 2, "model": 4},
-                  "fsdp_pp2_mb4_1f1b": {"pipe": 2, "data": 4, "model": 1},
-                  "fsdp_ep2": {"data": 4, "expert": 2, "model": 1}}
+# the meshes the strategies the port runs lower to, on 8 devices, and the
+# attention each resolves to
+LOWERED_MESHES = {
+    "hsdp_tp4": ({"data": 2, "model": 4}, "head_tp"),
+    "fsdp_cp2": ({"data": 4, "model": 2}, "context"),
+    "fsdp_pp2_mb4_1f1b": ({"pipe": 2, "data": 4, "model": 1}, "head_tp"),
+    "fsdp_ep2": ({"data": 4, "expert": 2, "model": 1}, "head_tp"),
+    "hsdp_tp2_ep4": ({"data": 1, "expert": 4, "model": 2}, "head_tp"),
+    "fsdp_pp2_mb4": ({"pipe": 2, "data": 4, "model": 1}, "head_tp"),
+    "fsdp_tp8_ctx": ({"data": 1, "model": 8}, "context")}
 
 
 @pytest.mark.parametrize("spec,arch,degree", [
@@ -204,30 +199,20 @@ LOWERED_MESHES = {"hsdp_tp4": {"data": 2, "model": 4},
     ("fsdp_pp2_mb4", "dbrx-132b", "moe"),
     ("fsdp_tp8_ctx", "qwen3-0.6b", "cp")])
 def test_model_parallel_degrees_name_their_slice(spec, arch, degree):
-    """A degree the port cannot run names its slice (tp resolved to
-    context attention names context parallelism's; tp or pp on a MoE
-    config names MoE under tensor and pipeline parallelism); head-TP,
-    pipeline stages and expert parallelism (``degree`` None) lower, on
-    the model, pipe and expert axes."""
+    """Every model-parallel degree lowers: head-TP, context parallelism
+    (``cp<k>``, and a tp forced to context attention), pipeline stages,
+    expert parallelism and tp or pp on a MoE config (``degree``: the
+    degree a slice of the port once refused), on the model, pipe and
+    expert axes."""
     cfg = get_config(arch)
     shape = ShapeConfig("t", 512, 64, "train")
     topo = strategy.host_topology(n_devices=8)
     s = strategy.parse(spec)
-    if degree is None:
-        s.check(topo, cfg)
-        assert s.lowerable(topo, cfg)
-        plan = s.to_plan(cfg, topo, shape, abstract=True)
-        assert plan.mesh == LOWERED_MESHES[spec] and plan.attn == "head_tp"
-        assert strategy.resolve(spec, cfg, topo, shape)[0] == s
-        return
-    slice_name = (strategy.LATER_MOE if degree == "moe"
-                  else strategy.LATER_DEGREES[degree])
-    with pytest.raises(strategy.StrategyError, match="PyTorch port") as e:
-        s.check(topo, cfg)
-    assert slice_name in str(e.value)
-    assert not s.lowerable(topo, cfg)
-    with pytest.raises(strategy.StrategyError, match=slice_name):
-        strategy.resolve(spec, cfg, topo, shape)
+    s.check(topo, cfg)
+    assert s.lowerable(topo, cfg)
+    plan = s.to_plan(cfg, topo, shape, abstract=True)
+    assert (plan.mesh, plan.attn) == LOWERED_MESHES[spec], degree
+    assert strategy.resolve(spec, cfg, topo, shape)[0] == s
 
 
 def test_meshes_on_a_one_rank_group(tmp_path):
@@ -326,10 +311,19 @@ def test_cli_fsdp_tp2_on_two_gloo_ranks_matches_one_rank():
 
 
 def test_cli_refuses_tensor_parallelism_by_name():
-    """A model-parallel degree the port lacks is refused by name: context
-    parallelism (what tensor parallelism resolves to where the heads do
-    not split)."""
-    r = _run([*TRAIN, "--strategy", "fsdp_cp2"])
-    assert r.returncode != 0
-    assert "StrategyError" in r.stderr
-    assert strategy.LATER_DEGREES["cp"] in r.stderr
+    """Context parallelism trains: ``--strategy fsdp_cp2`` on two gloo
+    ranks (each its half of the sequence, K and V gathered) trains the
+    losses of one unsharded rank; on one rank it is refused, as its model
+    axis needs two."""
+    one_rank = _run([*TRAIN, "--strategy", "fsdp_cp2"])
+    assert one_rank.returncode != 0 and "StrategyError" in one_rank.stderr
+    two = _run(["-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2", *TRAIN, "--strategy", "fsdp_cp2"])
+    assert two.returncode == 0, two.stderr[-3000:]
+    one = _run([*TRAIN, "--strategy", "fsdp"])
+    assert one.returncode == 0, one.stderr[-3000:]
+    assert "{'data': 1, 'model': 2}" in two.stdout
+    got, want = _losses(two.stdout), _losses(one.stdout)
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), (got, want)

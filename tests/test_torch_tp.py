@@ -328,7 +328,7 @@ def test_layer_collectives_are_megatrons(worlds, spec):
 # ---------------------------------------------------------------------------
 
 ARCHS = ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b", "qwen2-1.5b",
-         "h2o-danube-1.8b", "granite-20b"]
+         "h2o-danube-1.8b", "granite-20b", "deepseek-moe-16b", "dbrx-132b"]
 
 
 def _norm_entry(e):
@@ -401,8 +401,9 @@ def test_param_placements_match_jax_param_specs(arch):
         {n for n in leaves if not n.startswith("layers.")
          or int(n.split(".")[1]) < 2}
     # qwen2-1.5b's 12 heads do not split 8 ways: tp 8 resolves to context
-    # attention, refused (test_activation_specs_match_jax)
-    for tp in (1, 2, 4) if arch == "qwen2-1.5b" else (1, 2, 4, 8):
+    # attention, whose weights stay whole on the model axis (the MoE
+    # expert stacks aside)
+    for tp in (1, 2, 4, 8):
         cfg, plan, jplan = _plans(arch, tp)
         metas = [(n, torch.empty(shape[1:] if stacked else shape,
                                  device="meta"))
@@ -430,7 +431,8 @@ def test_param_placements_match_jax_param_specs(arch):
 def test_activation_specs_match_jax(arch, spec):
     """``activation_specs`` equal the JAX package's for the names the
     port uses; ``make_runtime`` reads sequence parallelism off
-    ``act_btd``."""
+    ``act_btd``, and gives a plan whose heads do not split over the
+    model axis (context attention) that axis as its sequence axis."""
     from repro.configs import get_config as jax_get_config
     from repro.core import parallel as jpar
     from repro_torch import strategy
@@ -438,15 +440,7 @@ def test_activation_specs_match_jax(arch, spec):
     from repro_torch.core import parallel as par
     cfg = get_config(arch)
     shape = ShapeConfig("x", 512, 8, "train")
-    if cfg.n_heads % strategy.parse(spec).tp:
-        # heads that do not split over the model axis resolve to context
-        # attention, as in the JAX package; the port names its slice
-        with pytest.raises(strategy.StrategyError,
-                           match="context parallelism"):
-            strategy.parse(spec).to_plan(
-                cfg, strategy.host_topology(n_devices=8), shape,
-                abstract=True)
-        return
+    context = bool(cfg.n_heads % strategy.parse(spec).tp)
     plan = strategy.parse(spec).to_plan(
         cfg, strategy.host_topology(n_devices=8), shape, abstract=True)
     jplan = jpar.ParallelPlan(
@@ -458,5 +452,10 @@ def test_activation_specs_match_jax(arch, spec):
         assert tuple(_norm_entry(e) for e in mine) == \
             tuple(_norm_entry(e) for e in want[name]), (arch, spec, name)
     rt = par.make_runtime(cfg, plan, shape)
+    assert plan.attn == ("context" if context else "head_tp")
+    if context:
+        assert rt.context and rt.tp_size == plan.tp_size
+        assert not rt.seq_parallel
+        return
     assert rt.tp_size == plan.tp_size
     assert rt.seq_parallel == (arch != "rwkv6-1.6b" and "nosp" not in spec)
