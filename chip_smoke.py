@@ -211,16 +211,15 @@ order; any failure ends the run with a non-zero exit and no result line:
               of 4,096 slots, the prefill on the windowed flash forward)
               and the paged engine (the window mask on the plain path, as
               the reference gates flash-decode), held as in Q2.
-16. G1, D4  — granite-20b at full width (d 6144, 48 heads over Kv 1, d_ff
+16. G1      — granite-20b at full width (d 6144, 48 heads over Kv 1, d_ff
               24576, layernorm, GELU, sinusoidal positions) cut to 4
               layers (52 hold 81 GB of f32 weights), f32: Q2's serving
               (flash-decode at G 48); 6 AdamW steps under ``fsdp`` on the
               1-rank NCCL mesh (lr warmed up to 1e-5: G1_LR), launches
               exact, losses finite and falling; kernel vs plain gradients
               at 2 x 512; the dry run of that plan
-              against its ``max_memory_allocated`` within 10 %; then cell
-              D4, ``granite-20b x train_4k`` at full depth on the pod
-              topology (256 fake ranks), which must trace.
+              against its ``max_memory_allocated`` within 10 % (its pod
+              dry run, D4, runs with the others at the end).
 17. M1      — deepseek-moe-16b at full width (d 2048, 16 heads over Kv
               16, 64 experts top 6 with 2 shared, the dense first layer of
               d_ff 10944) cut to 4 layers (28 hold 262 GB of f32 training
@@ -243,22 +242,19 @@ order; any failure ends the run with a non-zero exit and no result line:
               dispatch groups, the gradients read from AdamW's first
               moment after one ``make_train_step``; every MoE layer took
               the all-to-all (``DISPATCH_STATS``).  Correctness only.
-20. D5      — ``deepseek-moe-16b x train_4k`` at full depth (28 layers) on
-              the pod topology (256 fake ranks) under ``fsdp_ep8``, which
-              must trace, its census holding the expert all-to-all.
-21. MT1     — ``fsdp_tp2`` on deepseek-moe-16b at full width and 4 layers
+20. MT1     — ``fsdp_tp2`` on deepseek-moe-16b at full width and 4 layers
               in two processes sharing the card over gloo: each rank routes
               every token and runs 32 of the 64 experts (stacks [32, 2048,
               1408]), the combine reduce-scattered over the model axis
               once a MoE layer; one ``make_train_step``: loss within 1e-5
               and every gradient (AdamW's first moment) within 1e-4 of
               scale of one process's dropping step.
-22. MP1     — ``fsdp_pp2_mb2_1f1b`` on dbrx-132b at full width and 2 layers:
+21. MP1     — ``fsdp_pp2_mb2_1f1b`` on dbrx-132b at full width and 2 layers:
               the dry run of each pipe rank's train step on the card, its
               peak printed.  A stage's step needs more than the card
               holds, so no pair trains it here; the pipelined aux is held
               against the JAX package on the CPU.
-23. C1      — ``fsdp_cp2`` on qwen3-0.6b at full width and 4 layers in two
+22. C1      — ``fsdp_cp2`` on qwen3-0.6b at full width and 4 layers in two
               processes over gloo: a ``make_train_step`` at B 4 x S 1024
               (each rank its half of every sequence, the offset flash
               launches counted exactly) against one process's; then
@@ -268,10 +264,44 @@ order; any failure ends the run with a non-zero exit and no result line:
               query offset (B 4, 512 rows at q0 0 and 512 against 1024
               keys) against their plain versions, each timed beside its
               bound and SDPA with an explicit boolean mask.
-24. D6      — full-depth dry runs on the pod: ``qwen2-1.5b x train_4k``
-              under ``fsdp_tp8`` (context attention) and ``dbrx-132b x
-              train_4k`` under what ``--strategy auto`` ranks first.
-25. report  — one JSON line listing every kernel (its f32 case, and a
+23. AU1     — musicgen-medium at full width and depth (48 layers, d 1536,
+              24 heads of 64, layernorm, GELU, sinusoidal positions; f32):
+              ``generate_static`` of 8 token prompts (codec tokens) of 128
+              + 64 greedy tokens (the paged engine refuses the arch, as
+              the JAX gate does), launches exact, its logits and tokens
+              against the teacher-forced training forward (kernel and
+              plain); a prefill of 128 frame embeddings and 8 decode steps
+              that each take a frame embedding (``decode_step(extra=)``)
+              against the forward over all 136 embeddings; 4 steps of
+              ``make_train_step`` under ``fsdp`` on the 1-rank NCCL mesh on
+              B 8 x S 512 frame embeddings (the head-dim-64 flash kernels'
+              launches exact, the unused token table decayed as AdamW
+              decays a leaf with a zero gradient), the peak; kernel vs
+              plain loss and gradients at B 2 x S 512.  The kernel phase
+              (K-D64) holds the three flash kernels at musicgen's shape (B
+              8, S 512, H 24, Kv 24, D 64; timed beside their bounds and
+              SDPA), a ragged S and a G 2 case.
+24. VL1     — qwen2-vl-2b at full width and depth (28 layers, d 1536, 12
+              heads over Kv 2, qkv bias, M-RoPE (16, 24, 24), tied; f32):
+              the same static serving of text prompts (M-RoPE's t = h = w
+              fallback); a prefill of 256 vision embeddings (a 16 x 16
+              patch grid at t 0) and 64 text tokens with their 3-D
+              position ids, then 8 decode steps, against the forward over
+              the whole stream; 4 ``make_train_step`` steps of B 8 x S
+              512 in that layout, and kernel vs plain gradients.
+25. pods    — every full-depth dry run on the pod topology (256 fake
+              ranks), each through the dry-run CLI in a process of its own,
+              all at once, each of which must trace: D4 ``granite-20b x
+              train_4k`` (52 layers); D5 ``deepseek-moe-16b x train_4k``
+              (28 layers) under ``fsdp_ep8``, its census holding the
+              expert all-to-all; D6 ``qwen2-1.5b x train_4k`` under
+              ``fsdp_tp8`` (context attention) and ``dbrx-132b x
+              train_4k`` under what ``--strategy auto`` ranks first; D7
+              ``musicgen-medium`` and ``qwen2-vl-2b x train_4k`` (both
+              resolve tp 16 to context attention).  Beside them D7 traces
+              AU1's and VL1's training plans at their shape, one fake
+              rank each, against the steps' measured peaks.
+26. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -315,6 +345,7 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as specs_lib  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
 from repro_torch.launch.train import drift_monitor  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
@@ -323,11 +354,13 @@ from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.optim.schedule import linear_warmup_cosine  # noqa: E402
 from repro_torch.resilience import (FaultPlan, SupervisorConfig,  # noqa: E402
                                     supervise_training)
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
 from repro_torch.strategy.topology import mesh_shape  # noqa: E402
-from repro_torch.train import TrainConfig, train_loop  # noqa: E402
+from repro_torch.train import (TrainConfig, make_train_step,  # noqa: E402
+                               train_loop)
 from repro_torch.train.trainer import (batch_to_device,  # noqa: E402
                                       prng_key_data)
 
@@ -764,13 +797,20 @@ def visible_pairs(S, window, Sk=None, q0=0):
 # B, S, H, Kv, D, window, timed: qwen3's training shape (timed; the
 # reported row), then ragged S, a sliding window and MQA (checked, not
 # timed); then h2o-danube-1.8b's training shape at head dim 80 (timed),
-# with a window that bites at that length (timed), and ragged S
+# with a window that bites at that length (timed), and ragged S; then
+# K-D64: musicgen-medium's training shape at head dim 64 (timed; the
+# reported row of the ``_d64`` kernels), ragged S, and the reduced
+# qwen2-vl's G 2 (Kv 2)
 FLASH_CASES = [(8, 512, 16, 8, 128, 0, True), (2, 300, 16, 8, 128, 0, False),
                (2, 300, 16, 8, 128, 128, False),
                (2, 512, 16, 1, 128, 0, False),
                (8, 512, 32, 8, 80, 0, True), (8, 512, 32, 8, 80, 128, True),
-               (2, 300, 32, 8, 80, 0, False)]
+               (2, 300, 32, 8, 80, 0, False),
+               (8, 512, 24, 24, 64, 0, True), (2, 300, 24, 24, 64, 0, False),
+               (2, 512, 4, 2, 64, 0, False)]
 FLASH_REPORTED = "B8 S512 H16 Kv8 D128 causal window0"
+FLASH_D64_REPORTED = "B8 S512 H24 Kv24 D64 causal window0"
+D64_KERNELS = tuple(fa.counter_name(k, 64) for k in fa.KERNELS)
 
 
 def flash_case(dev, gen, dtype, B, S, H, Kv, D, window):
@@ -807,17 +847,20 @@ def flash_case(dev, gen, dtype, B, S, H, Kv, D, window):
     print(f"[kernels] flash_attention {dt} {shape}: o err {e_o:.3g}"
           f", lse err {e_lse:.3g}; dq/dk/dv rel err "
           + "/".join(f"{r:.3g}" for r in rels.values()))
-    errs = {"flash_attention": max(e_o, e_lse),
-            "flash_attention_dq": (dq - dq0).abs().max().item(),
-            "flash_attention_dkv": max((dk - dk0).abs().max().item(),
-                                       (dv - dv0).abs().max().item())}
+    errs = {fa.counter_name("flash_attention", D): max(e_o, e_lse),
+            fa.counter_name("flash_attention_dq", D):
+                (dq - dq0).abs().max().item(),
+            fa.counter_name("flash_attention_dkv", D):
+                max((dk - dk0).abs().max().item(),
+                    (dv - dv0).abs().max().item())}
     return q, k, v, do, o0, args, errs, shape
 
 
 def flash_bounds(dtype, B, S, H, Kv, D, window, Sk=None, q0=0):
     """-> ({kernel: (bound ms, bound by)}, {kernel: notes}) of the flash
     forward, dq and dk/dv at one shape (S query rows at positions q0..
-    against Sk keys, by default self-attention)."""
+    against Sk keys, by default self-attention), keyed by the kernels'
+    base names (``fa.KERNELS``)."""
     isz = torch.tensor([], dtype=dtype).element_size()
     pairs = visible_pairs(S, window, Sk, q0) * B * H
     q_bytes, kv_bytes = B * S * H * D * isz, B * (Sk or S) * Kv * D * isz
@@ -897,18 +940,20 @@ def flash_phase(dev, flush, gen):
                 "flash_attention_dkv": (lambda: fa.dkv_cuda(*args),
                                         lambda: fa.dkv_plain(*args), lib_bwd,
                                         "backward")}
-            for name, (kern, plain, lib, lib_what) in timings.items():
-                bnd, by = bounds[name]
+            for base_name, (kern, plain, lib, lib_what) in timings.items():
+                bnd, by = bounds[base_name]
+                name = fa.counter_name(base_name, D)
                 row = dict(base, name=name, max_abs_err=errs[name],
                            ms=time_ms(kern, flush, 20),
                            plain_ms=time_ms(plain, flush, 20),
                            library_ms=lib, bound_ms=bnd, bound_by=by,
                            sdpa_forward_ms=lib_fwd,
                            sdpa_backward_ms=lib_bwd)
-                row.update(notes.get(name, {}))
+                row.update(notes.get(base_name, {}))
                 arith = "".join(f"; {k} {v:.5f} ms" if isinstance(v, float)
                                 else f"; {v}"
-                                for k, v in notes.get(name, {}).items())
+                                for k, v in notes.get(base_name,
+                                                      {}).items())
                 rows.append(row)
                 print(f"[kernels] {name} {dt} {shape}: kernel "
                       f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -2239,7 +2284,7 @@ def _static_expect(cfg, n_new, kinds=("rmsnorm", "flash_attention")):
     if "rmsnorm" in kinds and cfg.norm == "rmsnorm":
         out["rmsnorm"] = (2 * cfg.n_layers + 1) * n_new
     if "flash_attention" in kinds:
-        out["flash_attention"] = cfg.n_layers
+        out[fa.counter_name("flash_attention", cfg.head_dim_)] = cfg.n_layers
     return out
 
 
@@ -2715,8 +2760,8 @@ def train_expect(cfg):
     out = {k: 0 for k in ops.launch_counts()}
     if cfg.norm == "rmsnorm":
         out["rmsnorm"] = out["rmsnorm_bwd"] = 2 * cfg.n_layers + 1
-    for k in ("flash_attention", "flash_attention_dq", "flash_attention_dkv"):
-        out[k] = cfg.n_layers
+    for k in fa.KERNELS:
+        out[fa.counter_name(k, cfg.head_dim_)] = cfg.n_layers
     return out
 
 
@@ -2863,9 +2908,8 @@ def g1_phase(dev, card):
     (``resolve`` -> ``to_plan`` -> ``apply_plan`` -> ``train_loop``),
     launches exact; kernel vs plain gradients; then the dry run of that
     plan (a fresh process, fake tensors on the card) against its
-    measured ``max_memory_allocated``, within G1_MEM_REL; then cell D4,
-    ``granite-20b x train_4k`` at full depth on the pod topology (256 fake
-    ranks), which must trace."""
+    measured ``max_memory_allocated``, within G1_MEM_REL (cell D4, its
+    pod dry run at full depth, is traced by :func:`pod_phase`)."""
     cfg = dataclasses.replace(get_config("granite-20b"), n_layers=G1_LAYERS)
     res = dense_serve(dev, card, cfg, "G1")
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -2910,21 +2954,20 @@ def g1_phase(dev, card):
                              f"{measured} B")
     res["dryrun"] = dict(memory=rec["memory"], measured_peak_bytes=measured,
                          rel=rel, trace_s=rec["trace_s"])
-    t0 = time.perf_counter()
-    pod = dryrun.run_one("granite-20b", "train_4k", False, DRYRUN_OUT,
-                         device="cuda")
-    check(pod["status"] == "ok" and pod["n_devices"] == 256
-          and pod["collectives"] and "resilience" in pod,
-          f"D4 granite-20b pod dry run: {pod.get('status')} "
-          f"{pod.get('error')}")
-    pod["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def d4_report(pod):
+    """Cell D4: ``granite-20b x train_4k`` at full depth on the pod
+    topology (256 fake ranks), traced by :func:`pod_phase`."""
+    check("resilience" in pod and pod["collectives"],
+          f"D4 granite-20b pod dry run: {pod}")
     print(f"[D4] granite-20b x train_4k ({get_config('granite-20b').n_layers}"
           f" layers) on pod ({pod['strategy']}, {pod['n_devices']} fake "
           f"ranks) in {pod['wall_s']:.1f} s: peak/dev "
           f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB, "
           f"collective bytes {pod['collective_bytes_total']:.4g}")
-    res["d4"] = pod
-    return res
+    return pod
 
 
 # ---------------------------------------------------------------------------
@@ -3097,24 +3140,19 @@ def e1_phase(dev, card):
     return dict(card=card, ranks=ranks, launches=launches)
 
 
-def d5_phase(card):
+def d5_report(pod):
     """Cell D5: deepseek-moe-16b x train_4k at full depth (28 layers) on
-    the pod topology (256 fake ranks) under D5_SPEC: it must trace, with
-    the expert all-to-all in its census and every MoE layer's call on
-    the all-to-all path."""
+    the pod topology (256 fake ranks) under D5_SPEC, traced by
+    :func:`pod_phase`: the expert all-to-all in its census and every MoE
+    layer's call on the all-to-all path."""
     cfg = get_config("deepseek-moe-16b")
-    t0 = time.perf_counter()
-    pod = dryrun.run_one("deepseek-moe-16b", "train_4k", False, DRYRUN_OUT,
-                         strategy=D5_SPEC, device="cuda")
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     a2a = pod.get("collectives", {}).get("all-to-all", {})
-    check(pod["status"] == "ok" and pod["n_devices"] == 256
-          and pod["plan"]["expert"] == "expert"
+    check(pod["plan"]["expert"] == "expert"
           and pod["moe_dispatch"]["ep_calls"] == n_moe
           and a2a.get("count") == 4 * n_moe,
-          f"D5 deepseek-moe-16b pod dry run: {pod.get('status')} "
-          f"{pod.get('error')} {pod.get('moe_dispatch')} {a2a}")
-    pod["wall_s"] = time.perf_counter() - t0
+          f"D5 deepseek-moe-16b pod dry run: {pod.get('moe_dispatch')} "
+          f"{a2a}")
     print(f"[D5] deepseek-moe-16b x train_4k ({cfg.n_layers} layers) on pod "
           f"({pod['strategy']}, mesh {pod['plan']['mesh']}) in "
           f"{pod['wall_s']:.1f} s: peak/dev "
@@ -3583,24 +3621,69 @@ def c1_phase(dev, card):
     return dict(card=card, ranks=ranks, launches=launches)
 
 
-def d6_phase(card):
-    """D6: full-depth dry runs on the pod topology (256 fake ranks) of the
-    new compositions: qwen2-1.5b x train_4k under fsdp_tp8 (its 12 heads
-    do not split 8 ways: context attention, K/V gathered in every layer),
-    and dbrx-132b x train_4k under what ``--strategy auto`` ranks first
-    (printed).  Each must trace."""
+POD_TIMEOUT_S = 600
+
+
+def pod_dryruns(points):
+    """Start the dry run of each (arch, spec) point x train_4k on the pod
+    topology (256 fake ranks; spec '' the legacy layout), each through the
+    dry-run CLI in a process of its own, all at once -> the running
+    points, for :func:`pod_records`."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, ["src", os.environ.get("PYTHONPATH")])))
+    return {(arch, spec): (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--out", DRYRUN_OUT]
+        + (["--strategy", spec] if spec else []),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for arch, spec in points}
+
+
+def pod_records(running, tag):
+    """Wait for the points :func:`pod_dryruns` started -> {(arch, spec):
+    record, with the seconds from its start until its end was read as
+    ``wall_s``}; each must have traced on 256 fake ranks.  Kills what is
+    left on failure."""
     out = {}
-    for arch, spec in D6_POINTS:
-        cfg = get_config(arch)
-        if spec == "auto":
-            spec = strategy.resolve("auto", cfg, strategy.pod_topology(),
+    try:
+        for (arch, spec), (t0, proc) in running.items():
+            log, _ = proc.communicate(timeout=POD_TIMEOUT_S)
+            _, label = dryrun.run_label(arch, "train_4k", False, spec)
+            path = Path(DRYRUN_OUT) / f"{label}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            check(proc.returncode == 0 and rec.get("status") == "ok"
+                  and rec.get("n_devices") == 256,
+                  f"{tag} {arch} under {spec or 'the legacy layout'}: rc "
+                  f"{proc.returncode}, {rec.get('status')} "
+                  f"{rec.get('error')}; {log[-2000:]}")
+            rec["wall_s"] = time.perf_counter() - t0
+            out[arch, spec] = rec
+    finally:
+        for _, proc in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def d6_points():
+    """D6's (arch, spec) points, ``auto`` resolved on the pod."""
+    return [(arch, strategy.resolve("auto", get_config(arch),
+                                    strategy.pod_topology(),
                                     SHAPES["train_4k"])[0].format()
-        t0 = time.perf_counter()
-        rec = dryrun.run_one(arch, "train_4k", False, DRYRUN_OUT,
-                             strategy=spec, device="cuda")
-        check(rec["status"] == "ok",
-              f"D6 {arch} under {spec}: {rec.get('error')}")
-        rec["wall_s"] = time.perf_counter() - t0
+             if spec == "auto" else spec) for arch, spec in D6_POINTS]
+
+
+def d6_report(recs):
+    """D6: full-depth dry runs on the pod topology (256 fake ranks) of the
+    new compositions, traced by :func:`pod_phase`: qwen2-1.5b x train_4k
+    under fsdp_tp8 (its 12 heads do not split 8 ways: context attention,
+    K/V gathered in every layer), and dbrx-132b x train_4k under what
+    ``--strategy auto`` ranks first (printed)."""
+    out = {}
+    for arch, spec in d6_points():
+        rec = recs[arch, spec]
+        cfg = get_config(arch)
         sites = rec["collective_sites"]
         if arch == "qwen2-1.5b":
             check(rec["plan"]["attn"] == "context"
@@ -3614,6 +3697,385 @@ def d6_phase(card):
               f"sites {sites}; moe dispatch {rec.get('moe_dispatch')}; "
               f"collectives {rec['collectives']}")
         out[arch] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 25-27: non-token inputs — musicgen-medium (AU1), qwen2-vl-2b (VL1)
+# and their dry runs (D7)
+# ---------------------------------------------------------------------------
+
+IN_DECODE = 8                       # decode steps of AU1's and VL1's streams
+VL1_GRID = (16, 16)                 # VL1's 256 patches: a grid at t 0
+VL1_TEXT = 64                       # text positions after the grid
+IN_STEPS = 4                        # make_train_step steps of AU1, VL1
+IN_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh
+D7_MEM_REL = 0.10
+D7_ARCHS = ("musicgen-medium", "qwen2-vl-2b")
+
+
+def _plain_rt():
+    return Runtime(attn_impl="torch", norm_impl="torch")
+
+
+def input_static(dev, card, cfg, params, tag):
+    """``generate_static`` of SS_BATCH token prompts of SS_PROMPT +
+    SS_NEW greedy tokens on the kernel path (the paged engine refuses a
+    non-token arch, as the JAX package's gate does), launches exact; the
+    static path's logits and greedy tokens against the teacher-forced
+    training forward over the prompts and the generated tokens, on the
+    kernel path and on the plain path."""
+    prompts = _static_prompts(cfg.vocab_size, SS_BATCH, SS_PROMPT)
+    eng = ServeEngine(cfg, params, Runtime(), max_len=SS_PROMPT + SS_NEW,
+                      device=dev)
+    check(not eng.paged_ok, f"{tag}: the paged engine must refuse "
+                            f"{cfg.input_mode!r} inputs")
+    eng.generate_static(prompts, 2)
+    prefill_ms, step_ms = _timed_static(eng, prompts, SS_NEW, dev)
+    out, wall, counts = _counted_static(eng, prompts, SS_NEW,
+                                        _static_expect(cfg, SS_NEW), tag)
+    gens = out[:, SS_PROMPT:]
+    check(gens.shape == (SS_BATCH, SS_NEW)
+          and bool(((gens >= 0) & (gens < cfg.vocab_size)).all()),
+          f"{tag} static tokens {gens.shape} out of range")
+    static = static_logits(cfg, params, Runtime(), prompts, gens, dev)
+    seq = torch.as_tensor(np.concatenate([prompts, gens[:, :-1]], 1),
+                          device=dev)
+    forced = {}
+    with torch.no_grad():
+        for name, rt in (("kernel", Runtime()), ("plain", _plain_rt())):
+            forced[name] = tfm.forward(cfg, params, {"tokens": seq},
+                                       rt)[:, SS_PROMPT - 1:].float()
+    worst = (static - forced["kernel"]).abs().max().item()
+    worst_plain = (forced["kernel"] - forced["plain"]).abs().max().item()
+    served = float((forced["kernel"].argmax(-1).cpu().numpy()
+                    == gens).mean())
+    agree = (forced["kernel"].argmax(-1)
+             == forced["plain"].argmax(-1)).float().mean().item()
+    del static, forced
+    print(f"[{tag}] static B{SS_BATCH} prompt {SS_PROMPT} +{SS_NEW} greedy "
+          f"(f32, kernel path): prefill {prefill_ms:.2f} ms, {step_ms:.3f} "
+          f"ms a decode step, {SS_BATCH * SS_NEW / wall:.1f} tok/s over "
+          f"{wall:.3f} s; teacher-forced forward: max |static - forward| "
+          f"{worst:.3g}, |kernel - plain| {worst_plain:.3g} (tol "
+          f"{LOGIT_ATOL}); served tokens = the forward's argmax at "
+          f"{served:.4f}, kernel/plain argmax {agree:.4f} (bar "
+          f"{MIN_AGREEMENT}); on {card}")
+    check(max(worst, worst_plain) <= LOGIT_ATOL,
+          f"{tag} static/forward logits differ by {worst:.3g} / "
+          f"{worst_plain:.3g}")
+    check(min(served, agree) >= MIN_AGREEMENT,
+          f"{tag} agreement {served:.4f} / {agree:.4f}")
+    del eng
+    return dict(batch=SS_BATCH, prompt=SS_PROMPT, new=SS_NEW,
+                prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                tok_s=SS_BATCH * SS_NEW / wall, wall_s=wall, launches=counts,
+                logits_max_abs_err=worst, plain_max_abs_err=worst_plain,
+                served_agreement=served, greedy_agreement=agree)
+
+
+def input_decode(dev, card, cfg, params, full, prefill_batch, steps, tag):
+    """A prefill of ``prefill_batch`` into dense caches, then one
+    ``decode_step`` per entry of ``steps`` ((tokens, pos, extra)) on the
+    kernel path, launches exact; every logit against the forward over the
+    whole stream ``full`` (the kernel path)."""
+    S0 = tfm.batch_dims(prefill_batch)[1]
+    n = len(steps)
+    want = _static_expect(cfg, 1 + n)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lg, cache = tfm.prefill(cfg, params, prefill_batch, Runtime(),
+                                S0 + n)
+        outs = [lg.float()]
+        for tokens, pos, extra in steps:
+            lg, cache = tfm.decode_step(cfg, params, cache, tokens, pos,
+                                        Runtime(), extra=extra)
+            outs.append(lg.float())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ref = tfm.forward(cfg, params, full, Runtime()).float()
+    err_prefill = (outs[0] - ref[:, :S0]).abs().max().item()
+    err_decode = (torch.cat(outs[1:], 1) - ref[:, S0:]).abs().max().item()
+    del outs, ref, cache
+    print(f"[{tag}] prefill of {S0} positions + {n} decode steps (B"
+          f"{SS_BATCH}): max |logits - the whole stream's forward| "
+          f"{err_prefill:.3g} (prefill), {err_decode:.3g} (decode; tol "
+          f"{LOGIT_ATOL}); launches {counts}, expected {want}; on {card}")
+    check(counts == want, f"{tag} decode launches {counts} != {want}")
+    check(max(err_prefill, err_decode) <= LOGIT_ATOL,
+          f"{tag} decode logits differ by {err_prefill:.3g} / "
+          f"{err_decode:.3g}")
+    return dict(prefill_len=S0, decode_steps=n, launches=counts,
+                prefill_max_abs_err=err_prefill,
+                decode_max_abs_err=err_decode)
+
+
+def input_grads(dev, cfg, batch, tag):
+    """The loss and every gradient of the kernel path against the plain
+    path from the same initial weights on ``batch``: loss within
+    TRAIN_LOSS_ATOL, each leaf within TRAIN_GRAD_REL of its scale; a leaf
+    the inputs leave unused (the token table under frame embeddings) has
+    no gradient on either path."""
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    loss_k, grads_k = loss_and_grads(cfg, params, batch, Runtime())
+    loss_p, grads_p = loss_and_grads(cfg, params, batch, _plain_rt())
+    unused = sorted(n for n, g in grads_k.items() if g is None)
+    check(unused == sorted(n for n, g in grads_p.items() if g is None),
+          f"{tag}: kernel and plain paths leave other leaves unused")
+    rels = {n: grad_rel_err(n, grads_k, grads_p) for n in grads_k
+            if grads_k[n] is not None}
+    worst = max(rels, key=rels.get)
+    B, S = tfm.batch_dims(batch)
+    print(f"[{tag}] kernel vs plain path, {cfg.n_layers} layers, {B}x{S} "
+          f"({time.perf_counter() - t0:.1f}s): loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3g}, tol "
+          f"{TRAIN_LOSS_ATOL}); gradients rel err max {rels[worst]:.3g} "
+          f"({worst}), median {statistics.median(rels.values()):.3g} "
+          f"(tol {TRAIN_GRAD_REL}); no gradient: {unused}")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
+          f"{tag} loss differs by {abs(loss_k - loss_p):.3g}")
+    check(rels[worst] <= TRAIN_GRAD_REL,
+          f"{tag} gradient {worst} differs by {rels[worst]:.3g}")
+    del params, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(check_batch=B, loss_kernel=loss_k, loss_plain=loss_p,
+                grad_rel_err_max=rels[worst], grad_rel_err_worst_leaf=worst,
+                grad_rel_err_median=statistics.median(rels.values()),
+                unused_leaves=unused)
+
+
+def input_train(dev, card, cfg, batch, tag):
+    """IN_STEPS steps of ``make_train_step`` under IN_SPEC on the 1-rank
+    NCCL mesh on one fixed ``batch`` (TRAIN_BATCH x TRAIN_SEQ), the lr
+    warmed up over all of them to DENSE_LR: launches exact, losses finite
+    and falling, the peak; a leaf without a gradient (the token table
+    under frame embeddings) only decayed, by prod(1 - lr_t wd) as the
+    JAX package's AdamW moves a leaf whose gradient is zero."""
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tc = TrainConfig(steps=IN_STEPS, warmup=IN_STEPS,
+                     opt=AdamWConfig(lr=DENSE_LR))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        strat, _ = strategy.resolve(IN_SPEC, cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape)
+        rt = par.make_runtime(cfg, plan, shape)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        embeds = "embeds" in batch
+        tok0 = params.embed["tok"].to_local().detach().clone() if embeds \
+            else None
+        opt_state = init_opt_state(params)
+        step = make_train_step(cfg, rt, tc, plan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        losses, step_s, unused = [], [], None
+        for _ in range(IN_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            losses.append(m["loss"].item())
+            step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        tok = params.embed["tok"].to_local().detach()
+        if embeds:
+            decay = np.float32(1.0)
+            for i in range(IN_STEPS):
+                lr = np.float32(tc.opt.lr) * np.float32(linear_warmup_cosine(
+                    i, tc.warmup, tc.steps))
+                decay *= np.float32(1.0) - lr * np.float32(
+                    tc.opt.weight_decay)
+            unused = ((tok - float(decay) * tok0).abs().max()
+                      / tok0.abs().max()).item()
+        del params, opt_state, tok, tok0
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    want = {k: v * IN_STEPS for k, v in train_expect(cfg).items()}
+    p50 = statistics.median(step_s[1:])
+    print(f"[{tag}] {IN_STEPS} make_train_step steps under "
+          f"{strat.format()} (mesh {mesh_shape(plan.mesh)}), f32, "
+          f"B{TRAIN_BATCH} x S{TRAIN_SEQ}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({', '.join(f'{x:.4f}' for x in losses)}); "
+          f"step p50 {p50 * 1e3:.1f} ms after the first ("
+          f"{', '.join(f'{s * 1e3:.1f}' for s in step_s)} ms); peak "
+          f"{peak / 2**30:.2f} GiB; launches {counts}"
+          + ("" if unused is None else
+             f"; the unused token table's distance from its decay "
+             f"{unused:.3g} of scale")
+          + f"; on {card}")
+    check(counts == want, f"{tag} launches {counts} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{tag} losses {losses}")
+    if unused is not None:
+        check(unused <= 1e-6, f"{tag}: the token table moved {unused:.3g} "
+                              f"of scale from its weight decay")
+    return dict(spec=strat.format(), steps=IN_STEPS, losses=losses,
+                step_s=step_s, step_p50_s=p50,
+                tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, peak_mem_bytes=peak,
+                peak_mem_gib=peak / 2 ** 30, launches=counts,
+                unused_decay_err=unused)
+
+
+def _in_launches(*runs):
+    return add_launches(*(r["launches"] for r in runs))
+
+
+def au1_phase(dev, card):
+    """Cell AU1: musicgen-medium at full width and depth, f32 (see the
+    module docstring)."""
+    cfg = get_config("musicgen-medium")
+    check(cfg.head_dim_ == 64, f"musicgen head dim {cfg.head_dim_}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    res = dict(card=card, static=input_static(dev, card, cfg, params, "AU1"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n = SS_PROMPT + IN_DECODE
+    emb = torch.randn(SS_BATCH, n, cfg.d_model, generator=gen,
+                      device=dev) * 0.1
+    toks = torch.zeros(SS_BATCH, 1, dtype=torch.int32, device=dev)
+    res["decode"] = input_decode(
+        dev, card, cfg, params, {"embeds": emb},
+        {"embeds": emb[:, :SS_PROMPT]},
+        [(toks, t, {"embeds": emb[:, t:t + 1]})
+         for t in range(SS_PROMPT, n)], "AU1")
+    del params, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = specs_lib.concrete_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                           seed=SEED, device=dev)
+    res["train"] = input_train(dev, card, cfg, batch, "AU1")
+    res["train"].update(input_grads(dev, cfg, tfm.batch_rows(
+        batch, 0, DENSE_CHECK_BATCH), "AU1"))
+    res["launches"] = _in_launches(res["static"], res["decode"],
+                                   res["train"])
+    return res
+
+
+def _vl1_batch(cfg, dev, B, S, seed):
+    """B rows of S positions of VL1's layout: 256 patch embeddings over the
+    first positions (a VL1_GRID grid at t 0) and text after them, with
+    their 3-D position ids; tokens and labels uniform over the
+    vocabulary."""
+    batch = specs_lib.concrete_train_batch(cfg, B, S, seed=seed, device=dev)
+    batch["position_ids"] = specs_lib.grid_position_ids(B, S, *VL1_GRID,
+                                                        device=dev)
+    return batch
+
+
+def vl1_phase(dev, card):
+    """Cell VL1: qwen2-vl-2b at full width and depth, f32 (see the module
+    docstring)."""
+    cfg = get_config("qwen2-vl-2b")
+    check(cfg.vision_tokens == VL1_GRID[0] * VL1_GRID[1],
+          f"qwen2-vl-2b vision tokens {cfg.vision_tokens}")
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    res = dict(card=card, static=input_static(dev, card, cfg, params, "VL1"))
+    S0 = cfg.vision_tokens + VL1_TEXT
+    full = _vl1_batch(cfg, dev, SS_BATCH, S0 + IN_DECODE, SEED + 1)
+    full.pop("labels")
+    ids, toks = full["position_ids"], full["tokens"]
+    pre = dict(full, tokens=toks[:, :S0], position_ids=ids[:, :, :S0])
+    res["decode"] = input_decode(
+        dev, card, cfg, params, full, pre,
+        [(toks[:, t:t + 1], t, {"position_ids": ids[:, :, t:t + 1]})
+         for t in range(S0, S0 + IN_DECODE)], "VL1")
+    del params, full, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _vl1_batch(cfg, dev, TRAIN_BATCH, TRAIN_SEQ, SEED)
+    res["train"] = input_train(dev, card, cfg, batch, "VL1")
+    res["train"].update(input_grads(dev, cfg, tfm.batch_rows(
+        batch, 0, DENSE_CHECK_BATCH), "VL1"))
+    res["launches"] = _in_launches(res["static"], res["decode"],
+                                   res["train"])
+    return res
+
+
+def d7_traces(card, au1, vl1):
+    """D7: the dry run of AU1's and VL1's training plans (IN_SPEC, B
+    TRAIN_BATCH x S TRAIN_SEQ, one fake rank, the kernel path), each in a
+    process of its own, at once, against the steps' measured peaks,
+    within D7_MEM_REL (their pod points: :func:`d7_report`)."""
+    import concurrent.futures
+    import multiprocessing
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    topo = strategy.host_topology(n_devices=1)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as ex:
+        futs = {}
+        for tag, arch in zip(("AU1", "VL1"), D7_ARCHS):
+            cfg = get_config(arch)
+            strat, _ = strategy.resolve(IN_SPEC, cfg, topo, shape)
+            futs[tag] = ex.submit(dryrun.lower_one, cfg, shape, strat, topo,
+                                  device="cuda")
+        recs = {tag: f.result(timeout=POD_TIMEOUT_S)
+                for tag, f in futs.items()}
+    out = {}
+    for tag, res in (("AU1", au1), ("VL1", vl1)):
+        measured = res["train"]["peak_mem_bytes"]
+        tracked = recs[tag]["memory"]["peak_bytes_per_device"]
+        rel = abs(tracked - measured) / measured
+        print(f"[D7] {tag}'s {IN_SPEC} step, B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+              f"one fake rank (traced in {recs[tag]['trace_s']} s): tracked "
+              f"peak {tracked / 2**30:.3f} GiB vs max_memory_allocated "
+              f"{measured / 2**30:.3f} GiB: rel {rel:.3g} (tol "
+              f"{D7_MEM_REL}); on {card}")
+        check(rel <= D7_MEM_REL, f"D7 {tag} dry-run peak {tracked} B vs "
+                                 f"measured {measured} B")
+        out[tag] = dict(memory=recs[tag]["memory"],
+                        measured_peak_bytes=measured, rel=rel,
+                        trace_s=recs[tag]["trace_s"])
+    return out
+
+
+def d7_report(recs):
+    """D7's pod points, traced by :func:`pod_phase`: musicgen-medium and
+    qwen2-vl-2b x train_4k on the legacy layout (tp 16 resolves to context
+    attention for 24 and 12 heads: K/V gathered in every layer)."""
+    out = {}
+    for arch in D7_ARCHS:
+        rec = recs[arch, ""]
+        sites = rec["collective_sites"]
+        n_layers = get_config(arch).n_layers
+        check(rec["plan"]["attn"] == "context"
+              and sites["context_kv_gather"] == 2 * n_layers,
+              f"D7 {arch}: plan {rec['plan']}, sites {sites}")
+        peak = rec["memory"]["peak_bytes_per_device"] / 2**30
+        print(f"[D7] {arch} x train_4k ({n_layers} layers) on pod "
+              f"({rec['strategy']}, mesh {rec['plan']['mesh']}, attn "
+              f"{rec['plan']['attn']}) in {rec['wall_s']:.1f} s (trace "
+              f"{rec['trace_s']} s): peak/dev {peak:.2f} GiB; sites {sites};"
+              f" collective bytes {rec['collective_bytes_total']:.4g}")
+        out[arch] = rec
+    return out
+
+
+def pod_phase(card, au1, vl1):
+    """Cells D4, D5, D6 and D7: every full-depth dry run on the pod
+    topology (256 fake ranks), each in a process of its own, all at once
+    (the dry-run CLI), D7's one-rank traces beside them; then each cell's
+    checks."""
+    t0 = time.perf_counter()
+    running = pod_dryruns([("granite-20b", ""),
+                           ("deepseek-moe-16b", D5_SPEC), *d6_points(),
+                           *((arch, "") for arch in D7_ARCHS)])
+    try:
+        d7 = d7_traces(card, au1, vl1)
+    finally:
+        recs = pod_records(running, "pod dry runs")
+    out = dict(d4=d4_report(recs["granite-20b", ""]),
+               d5=d5_report(recs["deepseek-moe-16b", D5_SPEC]),
+               d6=d6_report(recs), d7=d7 | d7_report(recs))
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3641,6 +4103,15 @@ SOURCES = {
     "flash_attention_dkv_q0": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:134"),
+    # the three flash kernels at head dim 64 (K-D64, AU1)
+    "flash_attention_d64": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:60"),
+    "flash_attention_dq_d64": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:102"),
+    "flash_attention_dkv_d64": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:134"),
 }
 # the case each kernel's line reports, f32 throughout: the serving path's
 # decode shape (the RMSNorm forward's training rows are printed beside it),
@@ -3652,7 +4123,8 @@ REPORTED = {"rmsnorm": dict(shape="(8,1024)"),
             "flash_attention_dq": dict(shape=FLASH_REPORTED),
             "flash_attention_dkv": dict(shape=FLASH_REPORTED),
             "wkv6": dict(timed=True),
-            **{name: dict(shape=KCP_REPORTED) for name in Q0_KERNELS}}
+            **{name: dict(shape=KCP_REPORTED) for name in Q0_KERNELS},
+            **{name: dict(shape=FLASH_D64_REPORTED) for name in D64_KERNELS}}
 
 
 # the bf16 case of each kernel: the training rows for the RMSNorm forward
@@ -3789,13 +4261,19 @@ def main(argv=None):
     m1 = phase("M1", m1_phase, dev, card)
     m2 = phase("M2", m2_phase, dev, card)
     e1 = phase("E1", e1_phase, dev, card)
-    d5 = phase("D5", d5_phase, card)
 
     # MoE under tensor and pipeline parallelism; context parallelism
     mt1 = phase("MT1", mt1_phase, dev, card)
     mp1 = phase("MP1", mp1_phase, card)
     c1 = phase("C1", c1_phase, dev, card)
-    d6 = phase("D6", d6_phase, card)
+
+    # non-token inputs: musicgen-medium's frame embeddings, qwen2-vl-2b's
+    # vision embeddings and M-RoPE
+    au1 = phase("AU1", au1_phase, dev, card)
+    vl1 = phase("VL1", vl1_phase, dev, card)
+
+    # every pod dry run (D4, D5, D6, D7) at once
+    pods = phase("pod dry runs", pod_phase, card, au1, vl1)
 
     # each kernel's launches on the main paths: every run above, each
     # counted from 0
@@ -3805,7 +4283,7 @@ def main(argv=None):
         rwkv_trained["launches"], ss1["launches"], ss3["launches"],
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
         g1["launches"], m1["launches"], m2["launches"], e1["launches"],
-        mt1["launches"], c1["launches"])
+        mt1["launches"], c1["launches"], au1["launches"], vl1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3819,8 +4297,9 @@ def main(argv=None):
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
              "dryrun_d3": d3, "dense_q2": q2, "dense_h1": h1,
              "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
-             "dryrun_d5": d5, "moe_tp_mt1": mt1, "moe_pp_mp1": mp1,
-             "cp_c1": c1, "dryrun_d6": d6, "build_s": took,
+             "moe_tp_mt1": mt1, "moe_pp_mp1": mp1, "cp_c1": c1,
+             "inputs_au1": au1, "inputs_vl1": vl1, "dryrun_pod": pods,
+             "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))

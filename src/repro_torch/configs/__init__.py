@@ -6,10 +6,13 @@ and ``h2o-danube-1.8b`` with its sliding window), or with sinusoidal
 positions, layernorm and a GELU MLP (``granite-20b``, multi-query); the
 mixture-of-experts stacks of ``deepseek-moe-16b`` (64 routed experts top
 6, 2 shared, a dense first layer) and ``dbrx-132b`` (16 experts top 4);
-and the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from
-its recurrent state by the static engine).  The JAX package's other
-architectures need layers the port does not have yet; ``get_config``
-names the ROADMAP item that brings each of them.
+the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from
+its recurrent state by the static engine); and two stacks on non-token
+inputs: ``musicgen-medium`` (frame embeddings in place of tokens,
+sinusoidal positions, layernorm, GELU) and ``qwen2-vl-2b`` (vision
+embeddings over the first positions, M-RoPE).  The JAX package's other
+architecture needs layers the port does not have yet; ``get_config``
+names the ROADMAP item that brings it.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
@@ -18,19 +21,18 @@ from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.granite_20b import CONFIG as _granite
 from repro_torch.configs.h2o_danube_1p8b import CONFIG as _danube
 from repro_torch.configs.llama2 import CONFIGS as _llama2
+from repro_torch.configs.musicgen_medium import CONFIG as _musicgen
 from repro_torch.configs.qwen2_1p5b import CONFIG as _qwen2
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2vl
 from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
 REGISTRY = {c.name: c for c in (_qwen3, _rwkv6, _qwen2, _danube, _granite,
-                                 _deepseek, _dbrx)}
+                                 _deepseek, _dbrx, _musicgen, _qwen2vl)}
 REGISTRY.update(_llama2)
 
 # arch -> the later slice of the port (ROADMAP Queue 1) that brings it
 LATER = {
-    "musicgen-medium": "other mixers and inputs (frame embeddings, "
-                       "flash attention at head dim 64)",
-    "qwen2-vl-2b": "other mixers and inputs (M-RoPE, vision embeddings)",
     "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid)",
 }
 

@@ -660,8 +660,8 @@ def pipe_all_reduce(x: torch.Tensor, rt) -> torch.Tensor:
 
 def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
     """Run this pipe rank's row of ``rt.pipe_schedule``'s table over the
-    microbatches ``micros`` (this rank's rows of each, {'tokens',
-    'labels'}), forward and backward: gradients land in ``params``
+    microbatches ``micros`` (this rank's rows of each: {'tokens' or
+    'embeds', 'labels'}), forward and backward: gradients land in ``params``
     (FSDP2 reduces them over the data axes after each backward).  Every
     last-stage microbatch adds its masked nll sum over ``denom`` (the
     global count of labels over the data ranks) -> a ``ScheduleRun``."""
@@ -674,7 +674,7 @@ def run_schedule(cfg, params, micros, rt, denom) -> ScheduleRun:
     chunks = stage_layers(cfg.n_layers, P, v, r)
     device = params.device
     net = _Transport(rt, device)
-    B, S = micros[0]["tokens"].shape
+    B, S = micros[0]["labels"].shape
     S_loc = (S // rt.tp_size if sequence_parallel(rt, S)
              or context_parallel(rt, S) else S)
     act = ((B, S_loc, cfg.d_model), boundary_dtype(cfg, rt))

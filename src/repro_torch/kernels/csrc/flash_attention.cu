@@ -84,7 +84,10 @@
 // - Shared memory per CTA (D 128, f32): forward 96 KB (4 warps, 64 query
 //   rows, 32-row kv tiles; two CTAs per SM), dq 192 KB (8 warps, 128 query
 //   rows; one CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs
-//   per SM); at D 80 the tiles are 96 floats wide: 72, 144 and 76.5 KB.
+//   per SM); at D 80 the tiles are 96 floats wide: 72, 144 and 76.5 KB;
+//   at D 64 (two whole 32-column groups, so the swizzle reads the same
+//   banks as at D 128) 48, 96 and 52.5 KB, with the same warp counts and
+//   tile rows.
 //   The grid puts the block index on its slowest axis, heaviest
 //   first (the last q block for the forward and dq, kv block 0 for dk/dv),
 //   so the causal tail is short.
@@ -963,10 +966,12 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dims with a compiled kernel (those of the port's configs: 128, and
-// h2o-danube-1.8b's 2560 / 32 = 80); anything else is refused
+// head dims with a compiled kernel (those of the port's configs: 128,
+// h2o-danube-1.8b's 2560 / 32 = 80, and musicgen-medium's 1536 / 24 = 64,
+// also the reduced configs'); anything else is refused
 #define FLASH_DISPATCH_D(D, CALL)                                     \
   switch (D) {                                                        \
+    case 64: { constexpr int kD = 64; return CALL; }                  \
     case 80: { constexpr int kD = 80; return CALL; }                  \
     case 128: { constexpr int kD = 128; return CALL; }                \
     default: return static_cast<int>(cudaErrorInvalidValue);          \

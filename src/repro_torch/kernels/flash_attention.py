@@ -30,8 +30,9 @@ package's ``_cp_attend``), and the causal bound, the window and every
 kernel's tile-skip bounds read positions.  The
 kernels read rows with 16-byte copies, so their tensors must start on a
 16-byte boundary (fresh allocations do).  They are compiled for the head
-dims ``HEAD_DIMS``: 128, and h2o-danube-1.8b's 80, whose shared tiles are
-padded to 96 columns; any other head dim raises on the card.
+dims ``HEAD_DIMS``: 128; h2o-danube-1.8b's 80, whose shared tiles are
+padded to 96 columns; and musicgen-medium's 64 (that of every reduced
+config too); any other head dim raises on the card.
 
 The plain versions walk blocks of positions in a Python loop with the
 kernels' update: the forward ``FWD_BLOCK`` kv positions per online-softmax
@@ -53,18 +54,22 @@ NEG_INF = -1e30
 BLOCK = 64                  # rows per block of the plain backward
 FWD_BLOCK = 32              # kv rows per step of the plain forward (the
 #                             kernel's streamed tile, kFwdStream)
-HEAD_DIMS = (80, 128)       # head dims the CUDA kernels are compiled for
+HEAD_DIMS = (64, 80, 128)   # head dims the CUDA kernels are compiled for
 
 # launches of the CUDA kernels (plain-version calls do not count); a
-# launch with a query offset or fewer query rows than keys (a context
-# rank's) counts under its kernel's ``_q0`` name
-LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "flash_attention_q0": 0,
-            "flash_attention_dq_q0": 0, "flash_attention_dkv_q0": 0}
+# launch at head dim 64 counts under its kernel's ``_d64`` name, and one
+# with a query offset or fewer query rows than keys (a context rank's)
+# under its ``_q0`` name (``counter_name``)
+KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+LAUNCHES = {f"{k}{d}{q}": 0 for d in ("", "_d64") for q in ("", "_q0")
+            for k in KERNELS}
 
 
-def _counted(name, S, Sk, q0):
-    return name + ("_q0" if q0 or S != Sk else "")
+def counter_name(name, D, S=1, Sk=1, q0=0):
+    """The launch counter of kernel ``name`` (one of ``KERNELS``) at head
+    dim D, Sq = S query rows at offset q0 against Sk keys."""
+    return (name + ("_d64" if D == 64 else "")
+            + ("_q0" if q0 or S != Sk else ""))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -259,8 +264,8 @@ def forward_cuda(q, k, v, causal=True, window=0, q0=0):
         lse.data_ptr(), B, S, Sk, H, Kv, D, int(q0), int(bool(causal)),
         int(window), float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention forward launch")
-    build.count_launch(LAUNCHES, _counted("flash_attention", S, Sk, q0),
-                       q.dtype)
+    build.count_launch(LAUNCHES, counter_name("flash_attention", D, S, Sk,
+                                              q0), q.dtype)
     return o, lse
 
 
@@ -281,8 +286,8 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
         int(q0), int(bool(causal)), int(window), float(D ** -0.5),
         _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dq launch")
-    build.count_launch(LAUNCHES, _counted("flash_attention_dq", S, Sk, q0),
-                       q.dtype)
+    build.count_launch(LAUNCHES, counter_name("flash_attention_dq", D, S,
+                                              Sk, q0), q.dtype)
     return dq
 
 
@@ -303,8 +308,8 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
         B, S, Sk, H, Kv, D, int(q0), int(bool(causal)), int(window),
         float(D ** -0.5), _stream(q))
     build.check(lib, "flash_attention", code, "flash-attention dk/dv launch")
-    build.count_launch(LAUNCHES, _counted("flash_attention_dkv", S, Sk, q0),
-                       q.dtype)
+    build.count_launch(LAUNCHES, counter_name("flash_attention_dkv", D, S,
+                                              Sk, q0), q.dtype)
     return dk, dv
 
 

@@ -99,10 +99,11 @@ from repro_torch.train.trainer import TrainConfig, make_train_step
 
 IMPLS = {"cuda": "kernel", "torch": "torch"}
 SUBQUADRATIC = "requires sub-quadratic attention (the JAX package's reason)"
-# the JAX sweep's archs (its ASSIGNED set): the five the port runs and
+# the JAX sweep's archs (its ASSIGNED set): the nine the port runs and
 # those of LATER
 ARCHS = sorted(["qwen3-0.6b", "rwkv6-1.6b", "qwen2-1.5b", "h2o-danube-1.8b",
-                "granite-20b", *LATER])
+                "granite-20b", "deepseek-moe-16b", "dbrx-132b",
+                "musicgen-medium", "qwen2-vl-2b", *LATER])
 
 
 def resolve_strategy(cfg, shape, topo, strategy: str, dp_mode: str = "hsdp",

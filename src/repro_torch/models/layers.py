@@ -430,6 +430,22 @@ def rope_angles(positions, head_dim, theta):
     return positions.float()[..., None] * inv
 
 
+def mrope_angles(position_ids, head_dim, theta, sections):
+    """Qwen2-VL's M-RoPE: position_ids (3, B, S) of the (t, h, w) streams
+    -> angles (B, S, head_dim//2) f32, the frequency slots split into
+    three contiguous ``sections``, each slot rotated by the position of
+    the stream its section names."""
+    d2 = head_dim // 2
+    if sum(sections) != d2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {d2}")
+    dev = position_ids.device
+    stream = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=dev)      # (d2,)
+    pos = position_ids.float().index_select(0, stream)          # (d2, B, S)
+    return pos.permute(1, 2, 0) * rope_freqs(head_dim, theta, dev)
+
+
 def apply_rope(x, angles):
     """x: (B, S, H, D); angles: (B, S, D//2).  Rotates (x[i], x[i + D/2])
     pairs laid out as two halves; cos/sin are cast to x's type first."""

@@ -2,7 +2,9 @@
 serving: a KV cache per attention layer, the recurrent state per RWKV-6
 layer) or over a paged KV cache (continuous batching of attention-only
 stacks): the attention (dense and MoE) and the RWKV-6 parts of the JAX
-package's ``models/transformer.py``.
+package's ``models/transformer.py``, on its three input modes (tokens;
+frame ``embeds`` in place of tokens; tokens with ``vision_embeds`` over
+the first positions and M-RoPE over 3-D ``position_ids``).
 
 A model is a stack of layers; each layer = (norm -> mixer -> residual,
 norm -> FFN -> residual): attention and an MLP or a mixture of experts
@@ -38,8 +40,9 @@ from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
                                        embed_tokens, head_parallel,
                                        init_embed, init_mlp,
                                        init_norm, lm_logits, local_params,
-                                       rope_angles, sequence_parallel,
-                                       tp_exit, wire_round)
+                                       mrope_angles, rope_angles,
+                                       sequence_parallel, tp_exit,
+                                       wire_round)
 
 
 # ---------------------------------------------------------------------------
@@ -79,22 +82,26 @@ def _all_attention(cfg: ModelConfig) -> bool:
     return all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
 
 
+INPUT_MODES = ("tokens", "embeddings", "tokens+vision")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model covers token-input stacks that are attention-only
-    (each FFN dense or MoE) with RoPE, with sinusoidal positions added to
+    """The port's model covers stacks that are attention-only (each FFN
+    dense or MoE) with RoPE or M-RoPE, with sinusoidal positions added to
     the embedding (and no RoPE), or with no positions; or uniform RWKV-6
-    with layernorm and no positions."""
+    with layernorm and no positions; on any of the JAX package's input
+    modes (``INPUT_MODES``)."""
     rwkv = (all(_sig(cfg, i) == ("rwkv6", False)
                 for i in range(cfg.n_layers))
             and cfg.rope == "none" and cfg.norm == "layernorm"
             and cfg.pos_embed == "none")
     attn = _all_attention(cfg) and (
-        (cfg.rope in ("rope", "none") and cfg.pos_embed == "none")
+        (cfg.rope in ("rope", "mrope", "none") and cfg.pos_embed == "none")
         or (cfg.rope == "none" and cfg.pos_embed == "sinusoidal"))
-    if not (rwkv or attn) or cfg.input_mode != "tokens":
+    if not (rwkv or attn) or cfg.input_mode not in INPUT_MODES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs token-input stacks that are "
-            "attention-only (dense or MoE FFNs) with RoPE or sinusoidal "
+            f"{cfg.name}: the port runs stacks that are attention-only "
+            "(dense or MoE FFNs) with RoPE, M-RoPE or sinusoidal "
             "positions, or uniform "
             "RWKV-6; other layers come with later slices (ROADMAP Queue 1)")
 
@@ -111,19 +118,110 @@ def sinusoidal_from_positions(positions, d_model: int, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def _embed(cfg: ModelConfig, embed, tokens, positions, rt: Runtime,
-           sp: bool):
-    """The residual stream's start: the token embedding (this rank's
-    S-shard under sequence parallelism, ``sp``), plus the sinusoidal table
-    at the tokens' positions for a model with ``pos_embed ==
-    'sinusoidal'`` (the shard's rows of it)."""
-    h = embed_tokens(embed, tokens, rt, sp)
+def _lead(batch) -> torch.Tensor:
+    """The leaf that gives a model batch its (B, S): the frame ``embeds``
+    (B, S, d) where it has them (they stand in for the tokens, as in the
+    JAX forward), else the ``tokens`` (B, S), else the ``labels``."""
+    for k in ("embeds", "tokens", "labels"):
+        if k in batch:
+            return batch[k]
+    raise KeyError("a model batch holds 'embeds', 'tokens' or 'labels'")
+
+
+def batch_dims(batch) -> Tuple[int, int]:
+    """(B, S) of a model batch (:func:`_lead`)."""
+    return tuple(_lead(batch).shape[:2])
+
+
+def batch_rows(batch, lo: int, hi: int):
+    """Rows [lo, hi) of every leaf of a model batch, each along its own
+    batch dim: dim 1 of the M-RoPE ``position_ids`` (3, B, S), dim 0 of
+    every other leaf; a scalar (a decode step's ``pos``) stays whole.
+    (The JAX trainer's gradient accumulation slices ``position_ids``
+    along dim 0; its batch shardings put the rows on dim 1, as here.)"""
+    return {k: v if not torch.is_tensor(v) or v.dim() == 0
+            else v[:, lo:hi] if k == "position_ids" else v[lo:hi]
+            for k, v in batch.items()}
+
+
+def _merge_vision(h, vision, off: int, S: int):
+    """Vision patches over the first min(V, S) positions of the stream,
+    as the JAX package's fixed layout: ``h`` holds the stream's rows from
+    ``off`` (a sequence or context shard's), and its rows below min(V, S)
+    take the patches of the same index, cast to its type."""
+    hi = min(off + h.shape[1], vision.shape[1], S)
+    if hi <= off:
+        return h
+    return torch.cat([vision[:, off:hi].to(h.dtype), h[:, hi - off:]],
+                     dim=1)
+
+
+def _embed(cfg: ModelConfig, embed, batch, positions, rt: Runtime,
+           sp: bool, cp: bool):
+    """The residual stream's start (the JAX package's ``_embed_inputs``):
+    the frame ``embeds`` cast to the compute dtype, or the token
+    embedding with, for a ``tokens+vision`` model, the ``vision_embeds``
+    over its first positions; plus the sinusoidal table at the positions
+    for a model with ``pos_embed == 'sinusoidal'``.  Under sequence
+    parallelism (``sp``) or a context plan (``cp``) it is this rank's
+    S-shard: the frame embeds and the table are sliced to it, and the
+    patches overwrite only its rows below V.  ``positions`` are the
+    whole sequence's (the context shard's under ``cp``)."""
+    S = batch_dims(batch)[1]
+    n = S // rt.tp_size if sp or cp else S
+    off = rt.tp_rank * n if sp or cp else 0
+    if "embeds" in batch:
+        h = batch["embeds"][:, off:off + n].to(rt.compute_dtype)
+    else:
+        tokens = batch["tokens"]
+        h = embed_tokens(embed, _cp_shard(tokens, rt) if cp else tokens, rt,
+                         sp)
+        if cfg.input_mode == "tokens+vision" and "vision_embeds" in batch:
+            h = _merge_vision(h, batch["vision_embeds"], off, S)
     if cfg.pos_embed != "sinusoidal":
         return h
     if sp:
-        n = h.shape[1]
-        positions = positions[:, rt.tp_rank * n:(rt.tp_rank + 1) * n]
+        positions = positions[:, off:off + n]
     return h + sinusoidal_from_positions(positions, cfg.d_model, h.dtype)
+
+
+def _rope_for(cfg: ModelConfig, batch, positions, rt: Runtime, cp: bool):
+    """The rotary angles of the positions (the JAX package's
+    ``_rope_for``): RoPE; M-RoPE from the batch's ``position_ids`` (3, B,
+    S) (their context shard under ``cp``), or where it has none from the
+    positions on all three streams (t = h = w); None without rotary
+    positions."""
+    if cfg.rope == "rope":
+        return rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    if cfg.rope != "mrope":
+        return None
+    ids = batch.get("position_ids")
+    if ids is None:
+        ids = positions[None].expand(3, *positions.shape)
+    elif cp:
+        ids = _cp_shard(ids, rt, dim=2)
+    return mrope_angles(ids, cfg.head_dim_, cfg.rope_theta,
+                        cfg.mrope_sections)
+
+
+def _inputs(cfg: ModelConfig, embed, batch, rt: Runtime, offset=None,
+            stream: bool = True):
+    """-> (the residual stream's start, or None without ``stream``; the
+    rotary angles; sp; cp) of a forward over the batch's positions
+    (``offset`` + 0..S-1, or 0..S-1 without one), whether it runs
+    sequence-parallel (``sp``) or as a context rank (``cp``)."""
+    lead = _lead(batch)
+    B, S = lead.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=lead.device)[None]
+    if offset is not None:
+        positions = offset + positions
+    positions = positions.expand(B, S)
+    sp = sequence_parallel(rt, S)
+    cp = context_parallel(rt, S)
+    if cp:
+        positions = _cp_shard(positions, rt)
+    h = _embed(cfg, embed, batch, positions, rt, sp, cp) if stream else None
+    return h, _rope_for(cfg, batch, positions, rt, cp), sp, cp
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +320,7 @@ class Layer(nn.Module):
 class Stage:
     """One pipeline F op's part of the model (``core.pipeline``): the
     layers of a chunk; whether its virtual stage is the first (it embeds
-    the tokens) and the last (it computes the final norm, the head and the
+    the inputs) and the last (it computes the final norm, the head and the
     masked nll sum over ``denom``).  Its F returns the residual stream, or
     on the last stage the nll, beside the sum of its MoE layers' aux
     losses."""
@@ -275,23 +373,10 @@ class Params(nn.Module):
         load-balance losses go to ``aux``."""
         if stage is not None:
             return self._stage(cfg, batch, rt, h, stage)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None]
-        if cache is not None:
-            positions = batch.get("pos", 0) + positions
-        positions = positions.expand(B, S)
-        cp = context_parallel(rt, S)
-        if cp:
-            tokens, positions = _cp_shard(tokens, rt), _cp_shard(positions,
-                                                                 rt)
-
-        sp = sequence_parallel(rt, S)
         embed = local_params(self.embed)
-        h = _embed(cfg, embed, tokens, positions, rt, sp)
-        rope_ang = (rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-                    if cfg.rope == "rope" else None)
+        h, rope_ang, sp, cp = _inputs(
+            cfg, embed, batch, rt,
+            None if cache is None else batch.get("pos", 0))
         paged = cache.get("paged") if cache is not None else None
         layer_caches = (cache["layers"] if cache is not None
                         else [None] * len(self.layers))
@@ -345,21 +430,11 @@ class Params(nn.Module):
         return buf.to(h.device)
 
     def _stage(self, cfg, batch, rt, h, stage: Stage):
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        sp = sequence_parallel(rt, S)
-        cp = context_parallel(rt, S)
         embed = local_params(self.embed)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
-        if cp:
-            tokens, positions = _cp_shard(tokens, rt), _cp_shard(positions,
-                                                                 rt)
+        h0, rope_ang, sp, cp = _inputs(cfg, embed, batch, rt,
+                                       stream=stage.first)
         if stage.first:
-            h = _embed(cfg, embed, tokens, positions, rt, sp)
-        rope_ang = None
-        if cfg.rope == "rope":
-            rope_ang = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+            h = h0
         aux = AuxLoss()
         for i in stage.layers:
             h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt, None,
@@ -372,10 +447,11 @@ class Params(nn.Module):
                           stage.denom)[0], aux
 
 
-def _cp_shard(x, rt: Runtime):
-    """(B, S, ...) -> this context rank's contiguous (B, S / cp, ...)."""
-    n = x.shape[1] // rt.tp_size
-    return x[:, rt.tp_rank * n:(rt.tp_rank + 1) * n]
+def _cp_shard(x, rt: Runtime, dim: int = 1):
+    """(B, S, ...) -> this context rank's contiguous (B, S / cp, ...): its
+    positions along ``dim`` (2 for ``position_ids`` (3, B, S))."""
+    n = x.shape[dim] // rt.tp_size
+    return x.narrow(dim, rt.tp_rank * n, n)
 
 
 def _init_layer(cfg: ModelConfig, i: int, gen, device):
@@ -412,7 +488,11 @@ def forward(cfg: ModelConfig, params: Params, batch, rt: Runtime,
     """-> logits (B, S, vocab).
 
     Without a cache (training): batch {'tokens' (B, S)} at positions
-    0..S-1, every layer mixes causally over the sequence.
+    0..S-1, every layer mixes causally over the sequence.  In place of
+    the tokens a batch may hold frame ``embeds`` (B, S, d); a
+    ``tokens+vision`` model's batch may hold ``vision_embeds`` (B, V, d),
+    which take the first min(V, S) positions, and an M-RoPE model's
+    ``position_ids`` (3, B, S) (else t = h = w = the positions).
 
     With a dense cache (static serving, :func:`init_cache`): batch may
     hold pos, the absolute position of the first token (a scalar: 0 for a
@@ -517,29 +597,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def prefill(cfg: ModelConfig, params: Params, batch, rt: Runtime,
             max_len: int, plan=None):
-    """Run the prompts through the model, building dense caches for
+    """Run the prompts (tokens, or frame ``embeds``, with their other
+    inputs: :func:`forward`) through the model, building dense caches for
     ``max_len`` positions -> (logits, cache).  Under a ``plan`` the batch
-    holds every row and this rank runs its rows (``core.parallel.
-    serve_rows``): the logits are theirs (this rank's vocabulary columns
-    on a model axis) and the cache its shards."""
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
+    holds every row and this rank runs its rows of every leaf
+    (``core.parallel.serve_rows``, :func:`batch_rows`): the logits are
+    theirs (this rank's vocabulary columns on a model axis) and the cache
+    its shards."""
+    lead = _lead(batch)
+    B = lead.shape[0]
     if plan is not None:
         from repro_torch.core import parallel as par
-        lo, hi = par.serve_rows(plan, B)
-        batch = {**batch, "tokens": tokens[lo:hi]}
-    cache = init_cache(cfg, B, max_len, rt.compute_dtype, tokens.device,
+        batch = batch_rows(batch, *par.serve_rows(plan, B))
+    cache = init_cache(cfg, B, max_len, rt.compute_dtype, lead.device,
                        plan, params)
     return forward(cfg, params, batch, rt, cache), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache, tokens, pos,
-                rt: Runtime):
+                rt: Runtime, extra: Optional[dict] = None):
     """tokens (B, 1) (this rank's rows under a plan); pos: the scalar
-    absolute position. -> (logits (B, 1, vocab), cache), the cache
-    updated in place."""
-    return forward(cfg, params, {"tokens": tokens, "pos": pos}, rt,
-                   cache), cache
+    absolute position; ``extra``: more inputs of the step (frame
+    ``embeds`` (B, 1, d), which stand in for the tokens, or M-RoPE
+    ``position_ids`` (3, B, 1)), as the JAX package's ``decode_step``
+    takes them. -> (logits (B, 1, vocab), cache), the cache updated in
+    place."""
+    batch = {"tokens": tokens, "pos": pos, **(extra or {})}
+    return forward(cfg, params, batch, rt, cache), cache
 
 
 # ---------------------------------------------------------------------------

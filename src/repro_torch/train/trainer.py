@@ -90,7 +90,7 @@ class _DataParallel:
                     "needs each rank's own rows")
             return micro, denom
         r, b = self.rank, B // n
-        return {k: v[r * b:(r + 1) * b] for k, v in micro.items()}, denom / n
+        return tfm.batch_rows(micro, r * b, (r + 1) * b), denom / n
 
     def mean(self, values: torch.Tensor) -> torch.Tensor:
         """The mean over the data-parallel ranks of each rank's
@@ -221,7 +221,7 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
         loss_sum, msum = None, None
         grads: Dict[str, torch.Tensor] = {}
         for i in range(ga):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = tfm.batch_rows(batch, i * mb, (i + 1) * mb)
             denom, ntok = None, None
             if pipelined:
                 loss, metrics = _pipelined(params, micro, dp)
@@ -284,7 +284,7 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, tc: TrainConfig,
         n = micro["labels"].shape[0] // rt.pipe_microbatches
         micros, denom = [], ntok.clamp_min(1.0)
         for j in range(rt.pipe_microbatches):
-            pm = {k: v[j * n:(j + 1) * n] for k, v in micro.items()}
+            pm = tfm.batch_rows(micro, j * n, (j + 1) * n)
             if dp is not None:
                 pm, denom = dp.rows(pm, ntok)
             micros.append(pm)

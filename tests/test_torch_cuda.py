@@ -395,6 +395,13 @@ ATTN_CASES = [  # B, S, H, Kv, D, causal, window
     (2, 33, 4, 2, 80, True, 0),       # one row into the second tile
     (1, 130, 2, 2, 80, False, 0),     # not causal
     (2, 1, 4, 2, 80, True, 0),        # S = 1
+    # head dim 64 (musicgen-medium's MHA, the reduced qwen2-vl's G 2)
+    (2, 512, 24, 24, 64, True, 0),    # musicgen-medium's heads
+    (2, 256, 4, 2, 64, True, 0),      # GQA, G 2
+    (1, 300, 4, 2, 64, True, 128),    # ragged S, window
+    (2, 33, 4, 4, 64, True, 0),       # one row into the second tile
+    (1, 130, 2, 2, 64, False, 0),     # not causal
+    (2, 1, 4, 2, 64, True, 0),        # S = 1
 ]
 
 
@@ -442,6 +449,7 @@ ATTN_Q0_CASES = [
     (1, 100, 400, 4, 2, 128, 300, 0),   # rank 3 of 4, ragged tiles
     (1, 100, 400, 4, 2, 128, 200, 64),  # a window over the offset rows
     (2, 75, 300, 4, 1, 80, 150, 0),     # head dim 80, MQA
+    (2, 128, 256, 8, 8, 64, 128, 0),    # head dim 64, MHA
 ]
 
 
@@ -472,10 +480,9 @@ def test_cuda_flash_attention_with_query_offset_matches_plain(case, dtype):
     assert (lse - lse0).abs().max().item() < 1e-5
     for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
         assert _rel_err(a, b) < grad_tol
-    counts = ops.launch_counts()
-    for name in ("flash_attention", "flash_attention_dq",
-                 "flash_attention_dkv"):
-        assert (counts[name], counts[name + "_q0"]) == (0, 1), counts
+    want = {tfa.counter_name(name, D, S, Sk, q0): 1 for name in tfa.KERNELS}
+    assert all(name.endswith("_q0") for name in want)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == want
 
 
 @pytest.mark.cuda
@@ -510,14 +517,43 @@ def test_cuda_attention_autograd_matches_reference():
 
 @pytest.mark.cuda
 def test_cuda_attention_refuses_uncompiled_head_dim():
-    """A head dim with no compiled kernel raises on the card; the model's
-    kernel route never falls back to the plain attention there."""
+    """A head dim with no compiled kernel (32: every config's is 64, 80 or
+    128) raises on the card; the model's kernel route never falls back to
+    the plain attention there."""
     from repro_torch.models.attention import sdpa_causal
     from repro_torch.models.layers import Runtime
     dev = _card()
-    q, k, v, _ = _attn_case(dev, torch.float32, 1, 64, 4, 2, 64)
-    with pytest.raises(ValueError, match="head dim 64"):
+    q, k, v, _ = _attn_case(dev, torch.float32, 1, 64, 4, 2, 32)
+    with pytest.raises(ValueError, match="head dim 32"):
         sdpa_causal(q, k, v, 0, Runtime())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_at_head_dim_64_counts_its_own_launches():
+    """At head dim 64 the forward, dq and dk/dv launches count under their
+    ``_d64`` names, and the autograd route through the model's attention
+    gives the plain path's output and gradients (f32, within 1e-4 of
+    scale)."""
+    from repro_torch.models.attention import sdpa_causal
+    from repro_torch.models.layers import Runtime
+    dev = _card()
+    q, k, v, do = _attn_case(dev, torch.float32, 2, 512, 24, 24, 64, seed=3)
+    outs = []
+    for rt in (Runtime(), Runtime(attn_impl="torch")):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        out = sdpa_causal(*leaves, 0, rt)
+        out.backward(do)
+        torch.cuda.synchronize()
+        outs.append(([out] + [t.grad for t in leaves],
+                     ops.launch_counts()))
+    (kern, counts), (plain, plain_counts) = outs
+    assert {k: v for k, v in counts.items() if v} == {
+        "flash_attention_d64": 1, "flash_attention_dq_d64": 1,
+        "flash_attention_dkv_d64": 1}
+    assert not any(plain_counts.values())
+    for a, b in zip(kern, plain):
+        assert _rel_err(a, b) < 1e-4
 
 
 def _wkv_case(dev, dtype, B, T, H, N=64, seed=0):

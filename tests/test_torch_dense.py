@@ -6,7 +6,14 @@ shape its extension is about:
 
 - qwen2: 12 heads of 16 over Kv 2 (G 6), qkv bias;
 - danube: d 320, 4 heads of 80 over Kv 1, window 8 (prompts run past it);
-- granite: 48 heads of 16 over Kv 1 (G 48), layernorm, GELU, sinusoidal.
+- granite: 48 heads of 16 over Kv 1 (G 48), layernorm, GELU, sinusoidal;
+
+and, on token inputs at their reduced sizes, the two archs of non-token
+inputs (``tests/test_torch_inputs.py`` holds their embeddings, vision
+patches and M-RoPE ids): musicgen-medium's codec tokens through its
+table (untied head, layernorm, GELU, sinusoidal) and qwen2-vl-2b's text
+(M-RoPE's t = h = w fallback, qkv bias, tied), both serving from dense
+caches only.
 
 Weights come from the JAX initialiser through ``repro_torch.bridge``,
 tokens from numpy with a fixed seed.  JAX runs its single-device ``jnp``
@@ -58,6 +65,8 @@ NARROW = {
                             head_dim=80, d_ff=512, sliding_window=8),
     "granite-20b": dict(d_model=768, n_heads=48, n_kv_heads=1, head_dim=16,
                         d_ff=512),
+    "musicgen-medium": {},
+    "qwen2-vl-2b": {},
 }
 ARCHS = sorted(NARROW)
 RUNTIMES = {"kernel": Runtime(),
@@ -136,25 +145,29 @@ def _assert_trees_close(port_tree, jax_tree, rel):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_are_the_jax_packages(arch):
     """The registry returns each config with the JAX package's fields and
-    its source line; the three archs still to come stay in ``LATER``."""
+    its source line; the arch still to come stays in ``LATER``."""
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))
     assert get_config(arch).source
     assert arch not in LATER
-    assert sorted(LATER) == ["jamba-v0.1-52b", "musicgen-medium",
-                             "qwen2-vl-2b"]
+    assert sorted(LATER) == ["jamba-v0.1-52b"]
 
 
-def test_musicgen_stays_refused():
-    """musicgen-medium (sinusoidal positions, frame embeddings) is refused
-    by its slice and, at any config, by its input mode."""
+def test_jamba_stays_refused():
+    """jamba-v0.1-52b (Mamba layers) is refused by its slice and, at any
+    config, by its mixers; an input mode the JAX package does not have is
+    refused too."""
     with pytest.raises(NotImplementedError, match="other mixers"):
-        get_config("musicgen-medium")
-    cfg = jax_get_config("musicgen-medium")
+        get_config("jamba-v0.1-52b")
+    jamba = jax_get_config("jamba-v0.1-52b")
     port_cfg = dataclasses.replace(get_config("granite-20b"),
-                                   input_mode=cfg.input_mode)
-    with pytest.raises(NotImplementedError, match="token-input"):
+                                   mixer=jamba.mixer,
+                                   attn_every=jamba.attn_every)
+    with pytest.raises(NotImplementedError, match="attention-only"):
         ttfm.check_supported(port_cfg)
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        ttfm.check_supported(dataclasses.replace(get_config("granite-20b"),
+                                                 input_mode="audio"))
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +357,9 @@ def test_engines_greedy_match_jax(model, impl):
     """Greedy tokens of the paged engine (``generate``: chunked prefill,
     flash-decode's plain version at G 6 and G 48, danube's window mask)
     and of the static engine (``generate_static``: dense caches, danube's
-    ring) equal the JAX engine's, on prompts past danube's window."""
+    ring) equal the JAX engine's, on prompts past danube's window.  The
+    paged engine refuses non-token archs, as the JAX package's gate does:
+    their ``generate`` is the static one."""
     _, jc, tc, tree = model
     rng = np.random.default_rng(5)
     prompts = rng.integers(0, jc.vocab_size, (3, S0)).astype(np.int32)
@@ -354,9 +369,10 @@ def test_engines_greedy_match_jax(model, impl):
         np.asarray(jeng.generate(jnp.asarray(prompts), N_NEW)), want)
     eng = ServeEngine(tc, params_from_jax(tree), RUNTIMES[impl],
                       device="cpu", **ENGINE_KW)
-    assert eng.paged_ok
+    assert eng.paged_ok == jeng.paged_ok == (tc.input_mode == "tokens")
     np.testing.assert_array_equal(eng.generate(prompts, N_NEW), want)
-    assert eng.stats["forward_calls"] > N_NEW          # the queue ran
+    if eng.paged_ok:
+        assert eng.stats["forward_calls"] > N_NEW      # the queue ran
     np.testing.assert_array_equal(eng.generate_static(prompts, N_NEW), want)
 
 

@@ -187,6 +187,36 @@ def test_moe_under_the_legacy_tp_layout_is_refused(tmp_path):
     assert rec["collective_sites"]["moe_combine"] == n_moe
 
 
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-2b"])
+def test_input_points_trace_as_jax(arch, tmp_path):
+    """train_4k and prefill_32k of the non-token archs at full size on the
+    pod (the legacy layout: tp 16 resolves to context attention for 24
+    and 12 heads, K and V gathered in every layer's forward) trace; the train
+    record's analytic fields and resilience block are JAX's, and the
+    prefill point's inputs (frame embeds, or tokens with patch embeds and
+    position ids, as the JAX package's specs give them) are its
+    activations at the peak, byte for byte."""
+    from repro.launch import specs as jspecs
+    from test_torch_dryrun import _analytic_equal, _jax_point, _jax_resilience
+    cfg = get_config(arch)
+    for shape in ("train_4k", "prefill_32k"):
+        rec = dryrun.run_one(arch, shape, False, str(tmp_path),
+                             device="cpu")
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["plan"]["attn"] == "context"
+        assert rec["collective_sites"]["context_kv_gather"] == \
+            2 * cfg.n_layers
+    jcfg, jshape, s, topo = _jax_point(arch, "hsdp_tp16", "pod", "train_4k")
+    train = json.loads((tmp_path / f"{arch}_train_4k_pod16x16.json")
+                       .read_text())
+    _analytic_equal(train, jcfg, jshape)
+    assert train["resilience"] == _jax_resilience(jcfg, s, topo)
+    jshape = _jax_point(arch, "hsdp_tp16", "pod", "prefill_32k")[1]
+    inputs = sum(int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+                 for x in jspecs.prefill_batch_specs(jcfg, jshape).values())
+    assert rec["memory"]["activations_bytes"] == inputs
+
+
 @pytest.mark.parametrize("arch,shape", SKIPS)
 def test_unported_points_are_skipped_naming_their_slice(arch, shape,
                                                          tmp_path):
@@ -274,12 +304,13 @@ def test_kernel_fake_branch_only_on_fake_tensors(name):
 
 def test_fake_branch_refuses_what_the_card_refuses():
     """The shape-only branch keeps the kernels' compiled head dims: a
-    reduced config (head dim 64) on the kernel path fails as on the card,
-    and traces with the plain layers."""
-    cfg = reduced(get_config(QWEN))
+    config of head dim 32 (d 128 over 4 heads) on the kernel path fails as
+    on the card, and traces with the plain layers."""
+    cfg = reduced(get_config(QWEN), d_model=128)
+    assert cfg.head_dim_ == 32
     s = strategy.parse("fsdp")
     topo = strategy.host_topology(n_devices=1)
-    with pytest.raises(ValueError, match="head dim 64 has no kernel"):
+    with pytest.raises(ValueError, match="head dim 32 has no kernel"):
         dryrun.lower_one(cfg, SMALL, s, topo, kernels="cuda", device="cpu")
     assert not dist.is_initialized()
     assert dryrun.lower_one(cfg, SMALL, s, topo, kernels="torch",
@@ -294,6 +325,8 @@ def test_train_batch_specs():
     assert {k: (tuple(v.shape), v.dtype) for k, v in specs.items()} == {
         "tokens": ((256, 4096), torch.int32),
         "labels": ((256, 4096), torch.int32)}
-    with pytest.raises(NotImplementedError, match="other mixers"):
-        train_batch_specs(dataclasses.replace(cfg, input_mode="embeddings"),
-                          SHAPES["train_4k"])
+    specs = train_batch_specs(dataclasses.replace(
+        cfg, input_mode="embeddings"), SHAPES["train_4k"])
+    assert {k: (tuple(v.shape), v.dtype) for k, v in specs.items()} == {
+        "embeds": ((256, 4096, cfg.d_model), torch.bfloat16),
+        "labels": ((256, 4096), torch.int32)}
