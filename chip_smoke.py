@@ -111,14 +111,14 @@ order; any failure ends the run with a non-zero exit and no result line:
               plan beside them.  Needs 16 GB free in the temporary
               directory (a 2.6 GB checkpoint, two while keep 1 commits),
               which it removes.
-   dryrun   — cell D2: the port's dry run (``launch.dryrun.lower_fresh``,
-              a fresh process on a fake process group of one rank, fake
-              tensors on the card, the kernel path) of the strategy
-              phase's plan at its shape; its tracked peak must lie within
-              10 % of the strategy phase's ``max_memory_allocated``.
-              Then ``qwen3-0.6b x train_4k`` on the pod topology (256 fake
-              ranks) must trace and record a census and the resilience
-              block.
+   D2       — (in the pods phase) the port's dry run (``launch.dryrun.
+              lower_one`` in a fresh process on a fake process group of
+              one rank, fake tensors on the card, the kernel path) of the
+              strategy phase's plan at its shape; its tracked peak must
+              lie within 10 % of the strategy phase's
+              ``max_memory_allocated``; and ``qwen3-0.6b x train_4k`` on
+              the pod topology (256 fake ranks) must trace and record a
+              census and the resilience block.
 7. pipeline — qwen3-0.6b at full width cut to 8 of its 28 layers (the
               script's time), f32, in two spawned
               processes sharing the one card (pipe 2, 4 layers a rank, 2
@@ -174,9 +174,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               and ``--strategy fsdp`` (f32: tokens equal to SS1's), each
               with SS1's launches; under ``fsdp`` the peak of one decode
               step is measured for D3.
-11. D3      — the dry run (``launch.dryrun.lower_fresh``, fake tensors on
-              the card) of SS3's ``fsdp`` decode step: its tracked peak
-              within D3_MEM_REL of the measured one; then ``qwen3-0.6b x
+11. D3      — (in the pods phase) the dry run of SS3's ``fsdp`` decode
+              step (fake tensors on the card): its tracked peak within
+              D3_MEM_REL of the measured one; and ``qwen3-0.6b x
               decode_32k`` on the pod topology (256 fake ranks) must trace
               with its caches.
 12. SS4     — 4 layers of qwen3-0.6b at full width under ``fsdp_tp2`` in
@@ -217,9 +217,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               (flash-decode at G 48); 6 AdamW steps under ``fsdp`` on the
               1-rank NCCL mesh (lr warmed up to 1e-5: G1_LR), launches
               exact, losses finite and falling; kernel vs plain gradients
-              at 2 x 512; the dry run of that plan
-              against its ``max_memory_allocated`` within 10 % (its pod
-              dry run, D4, runs with the others at the end).
+              at 2 x 512; the dry run of that plan against its
+              ``max_memory_allocated`` within 10 % and its pod dry run,
+              D4, run with the others at the end.
 17. M1      — deepseek-moe-16b at full width (d 2048, 16 heads over Kv
               16, 64 experts top 6 with 2 shared, the dense first layer of
               d_ff 10944) cut to 4 layers (28 hold 262 GB of f32 training
@@ -228,7 +228,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               = 2**18), launches exact; kernel vs plain gradients; 4 steps
               under ``fsdp`` on the 1-rank NCCL mesh (the dropping
               dispatch); the dry run of that plan against its measured
-              peak within 10 %.
+              peak within 10 % (at the end, with the others).
 18. M2      — dbrx-132b at full width (d 6144, 48 heads over Kv 8, 16
               experts top 4) cut to 2 layers: Q2's serving (flash-decode
               at G 6) and static vs paged; kernel vs plain gradients of
@@ -259,7 +259,15 @@ order; any failure ends the run with a non-zero exit and no result line:
               (each rank its half of every sequence, the offset flash
               launches counted exactly) against one process's; then
               static serving of B 8 x 128 + 32 greedy tokens, every token
-              one process's.
+              one process's; then rwkv6-1.6b at full width and 4 layers
+              under ``fsdp_cp2`` (each rank's time mix scanning the whole
+              gathered sequence on its 16 heads through the WKV-6 kernel,
+              its channel mix shifting across the split): one
+              ``make_train_step`` at B 4 x S 512 against one process's at
+              the rwkv6 phase's rule (loss 1e-4; the gradient errors'
+              median and max within 1e-3 or 4x their move under a 1e-7
+              perturbation of one process's RWKV-6 products), its 4 WKV-6
+              launches and 8 sequence gathers a rank exact.
               The kernel phase (K-CP) holds the three flash kernels at a
               query offset (B 4, 512 rows at q0 0 and 512 against 1024
               keys) against their plain versions, each timed beside its
@@ -289,19 +297,41 @@ order; any failure ends the run with a non-zero exit and no result line:
               position ids, then 8 decode steps, against the forward over
               the whole stream; 4 ``make_train_step`` steps of B 8 x S
               512 in that layout, and kernel vs plain gradients.
-25. pods    — every full-depth dry run on the pod topology (256 fake
-              ranks), each through the dry-run CLI in a process of its own,
-              all at once, each of which must trace: D4 ``granite-20b x
+25. J1      — jamba-v0.1-52b at full width (d 4096, 32 heads over Kv 8,
+              d_ff 14336, 16 experts top 2, d_state 16, d_conv 4, expand
+              2, dt_rank 256, vocab 65536; f32).  Serving at 8 of its 32
+              layers (one period: Mamba on 0-6, attention on 7, MoE on 1,
+              3, 5, 7): ``generate_static`` of B 4 prompts of 128 + 32
+              greedy tokens (the paged engine refuses the hybrid), the
+              RMSNorm and flash-forward launches exact; its decode logits
+              against the teacher-forced forward on the kernel and the
+              plain path (LOGIT_ATOL, MIN_AGREEMENT); the prefill's and a
+              decode step's wall time with the selective scan's share
+              (CUDA events around every scan).  Training at 2 layers with
+              attention every 2nd (Mamba + dense SwiGLU, attention + the
+              16-expert MoE): 4 ``make_train_step`` steps under ``fsdp``
+              on the 1-rank NCCL mesh at B 4 x S 512 (lr warmed up to
+              DENSE_LR), launches exact, losses finite and falling, the
+              scan's share of a step; then kernel vs plain loss and
+              gradients at B 2 x 512 within 1e-4 of scale; its plan's dry
+              run (in the pods phase) within 10 % of the measured peak.
+26. pods    — every dry run, each in a process of its own, all at once:
+              the full-depth points on the pod topology (256 fake ranks,
+              each through the dry-run CLI), each of which must trace: D2's
+              and D3's (above); D4 ``granite-20b x
               train_4k`` (52 layers); D5 ``deepseek-moe-16b x train_4k``
               (28 layers) under ``fsdp_ep8``, its census holding the
               expert all-to-all; D6 ``qwen2-1.5b x train_4k`` under
               ``fsdp_tp8`` (context attention) and ``dbrx-132b x
               train_4k`` under what ``--strategy auto`` ranks first; D7
               ``musicgen-medium`` and ``qwen2-vl-2b x train_4k`` (both
-              resolve tp 16 to context attention).  Beside them D7 traces
-              AU1's and VL1's training plans at their shape, one fake
-              rank each, against the steps' measured peaks.
-26. report  — one JSON line listing every kernel (its f32 case, and a
+              resolve tp 16 to context attention); D8 ``jamba-v0.1-52b``
+              (32 layers) x train_4k under what ``--strategy auto`` ranks
+              first and x long_500k on the pod layout.  Beside them the
+              plans of D2, D3, G1, M1, AU1 and VL1 (D7) and J1 are traced
+              at their shapes, one fake rank each, against the steps'
+              measured peaks.
+27. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -350,6 +380,7 @@ from repro_torch.launch.mesh import init_distributed, shutdown  # noqa: E402
 from repro_torch.launch.train import drift_monitor  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import mamba as mamba_lib  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
@@ -1317,17 +1348,17 @@ def train_phase(dev, card, cfg, steps, lr, rt, plain_rt, expect,
 
 
 def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
-              expect_bf16=None, rec=None, drift=None):
+              expect_bf16=None, rec=None, drift=None, batch=TRAIN_BATCH):
     """Train ``params`` for ``tc.steps`` steps through ``train_loop`` (under
     ``plan`` when given, recording to ``rec`` and feeding ``drift`` when
-    given) on seeded synthetic batches; launch counts zeroed just before
-    and read just after, held to ``expect`` per step (and the bf16
-    launches to ``expect_bf16``); losses finite and falling.  -> the run's
-    measurements; frees the run's tensors."""
+    given) on seeded synthetic batches of ``batch`` x TRAIN_SEQ; launch
+    counts zeroed just before and read just after, held to ``expect`` per
+    step (and the bf16 launches to ``expect_bf16``); losses finite and
+    falling.  -> the run's measurements; frees the run's tensors."""
     steps = tc.steps
     n_params = sum(p.numel() for p in params.parameters())
     batches = Batcher(SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
-                      TRAIN_BATCH)
+                      batch)
     rec = rec or tel.Recorder()
     spans = rec.add_sink(_Events())
     torch.cuda.synchronize()
@@ -1363,15 +1394,15 @@ def run_steps(dev, card, cfg, rt, tc, params, expect, tag, plan=None,
     host = {name: statistics.mean(durs(f"train/{name}")[1:]) for name in
             ("dispatch", "data", "wait")}
     res = dict(arch=cfg.name, params=n_params, steps=steps, lr=tc.opt.lr,
-               batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, losses=losses,
+               batch=batch, seq_len=TRAIN_SEQ, losses=losses,
                step_s=steps_s, step_p50_s=p50, host_span_s=host,
-               tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, wall_s=wall,
+               tok_s=batch * TRAIN_SEQ / p50, wall_s=wall,
                peak_mem_gib=peak / 2 ** 30, peak_mem_bytes=peak,
                launches=counts,
                launches_bf16=bf16, compute_dtype=str(rt.compute_dtype))
     print(f"[{tag}] {cfg.name} ({n_params / 1e9:.3f} B parameters) "
           f"{str(rt.compute_dtype).split('.')[-1]} compute, "
-          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens/step: loss {losses[0]:.4f} -> "
+          f"{batch}x{TRAIN_SEQ} tokens/step: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; step p50 {p50 * 1e3:.1f} ms "
           f"({', '.join(f'{t * 1e3:.1f}' for t in steps_s)} ms), "
           f"{res['tok_s']:.0f} tokens/s at p50; host spans per step "
@@ -1769,46 +1800,29 @@ def drift_report(drift, rec, card):
                 if steady else None)
 
 
-def dryrun_phase(card, measured_peak):
-    """Cell D2: the port's dry run of the strategy phase's plan at its
-    shape (``fsdp_bf16``, B TRAIN_BATCH x S TRAIN_SEQ, the host topology
-    as one fake rank, the kernel path) -> its tracked peak against the
-    strategy phase's ``torch.cuda.max_memory_allocated``, within
-    DRYRUN_MEM_REL; then ``qwen3-0.6b x train_4k`` on the pod topology
-    (256 fake ranks), which must trace."""
-    cfg = get_config("qwen3-0.6b")
-    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
-    topo = strategy.host_topology(n_devices=1)
-    strat, _ = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
-    rec = dryrun.lower_fresh(cfg, shape, strat, topo, device="cuda")
-    mem = rec["memory"]
-    tracked = mem["peak_bytes_per_device"]
-    rel = abs(tracked - measured_peak) / measured_peak
-    print(f"[dryrun] {strat.format()} B{TRAIN_BATCH} x S{TRAIN_SEQ} on one "
-          f"fake rank (kernel path, traced in {rec['trace_s']} s): tracked "
-          f"peak {tracked / 2**30:.3f} GiB ("
-          + ", ".join(f"{k[:-6]} {v / 2**30:.3f}" for k, v in mem.items()
-                      if k != "peak_bytes_per_device")
-          + f" GiB) vs the strategy phase's max_memory_allocated "
-          f"{measured_peak / 2**30:.3f} GiB: rel {rel:.3g} (tol "
-          f"{DRYRUN_MEM_REL}); collectives {rec['collectives']}; on {card}")
-    check(rel <= DRYRUN_MEM_REL,
-          f"dry-run peak {tracked} B vs measured {measured_peak} B")
-    t0 = time.perf_counter()
-    pod = dryrun.run_one("qwen3-0.6b", "train_4k", False, DRYRUN_OUT,
-                         device="cuda")
-    check(pod["status"] == "ok" and pod["n_devices"] == 256
-          and pod["collectives"] and "resilience" in pod,
+def d2_case(strat_res):
+    """Cell D2: the strategy phase's plan at its shape (``fsdp_bf16``, B
+    TRAIN_BATCH x S TRAIN_SEQ, the host topology as one fake rank, the
+    kernel path) for :func:`plan_traces`, against the phase's
+    ``torch.cuda.max_memory_allocated`` within DRYRUN_MEM_REL (traced in
+    the pods phase, with ``qwen3-0.6b x train_4k`` on the pod:
+    :func:`d2_report`)."""
+    return (get_config("qwen3-0.6b"),
+            ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            STRATEGY_SPEC, strat_res["peak_mem_bytes"], None, DRYRUN_MEM_REL)
+
+
+def d2_report(trace, pod):
+    """D2's pod point: ``qwen3-0.6b x train_4k`` on the pod topology (256
+    fake ranks) must trace and record a census and the resilience
+    block."""
+    check(pod["collectives"] and "resilience" in pod,
           f"pod dry run: {pod.get('status')} {pod.get('error')}")
     print(f"[dryrun] qwen3-0.6b x train_4k on pod ({pod['strategy']}, "
-          f"{pod['n_devices']} fake ranks) in "
-          f"{time.perf_counter() - t0:.1f} s: peak/dev "
-          f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB, "
-          f"collective bytes {pod['collective_bytes_total']:.4g}")
-    return dict(d2=dict(memory=mem, measured_peak_bytes=measured_peak,
-                        rel=rel, trace_s=rec["trace_s"],
-                        collectives=rec["collectives"]),
-                pod=pod)
+          f"{pod['n_devices']} fake ranks) in {pod['wall_s']:.1f} s: "
+          f"peak/dev {pod['memory']['peak_bytes_per_device'] / 2**30:.2f} "
+          f"GiB, collective bytes {pod['collective_bytes_total']:.4g}")
+    return dict(d2=trace, pod=pod)
 
 
 def fp8_run(dev, card, cfg, shape, expect):
@@ -2156,6 +2170,28 @@ def wkv_output_noise(rel, dev):
         rwkv_lib.wkv_chunked = plain
 
 
+@contextlib.contextmanager
+def product_noise(rel, dev):
+    """Within the block, every product of an RWKV-6 layer (``rwkv6._mm``:
+    its projections, LoRAs and channel mix) is multiplied by (1 + rel *
+    N(0, 1)) (seeded): the rounding a plan changes where it splits those
+    products over the model axis and sums their parts."""
+    exact = rwkv_lib._mm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def noisy(a, w, dt):
+        y = exact(a, w, dt)
+        eps = torch.randn(y.shape, generator=gen, device=y.device,
+                          dtype=y.dtype)
+        return y * (1 + rel * eps)
+
+    rwkv_lib._mm = noisy
+    try:
+        yield
+    finally:
+        rwkv_lib._mm = exact
+
+
 def grad_rel_err(name, grads, ref):
     """The error of gradient ``name`` relative to its scale in ``ref``; but
     a key bias's (``...mixer.bk``) gradient is zero but for rounding
@@ -2275,16 +2311,23 @@ def _static_prompts(vocab, B, S):
         0, vocab, (B, S)).astype(np.int32)
 
 
+def attn_layers(cfg):
+    """The layers of ``cfg`` that mix by attention (all of an attention
+    stack's; jamba-v0.1-52b's every 8th)."""
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
 def _static_expect(cfg, n_new, kinds=("rmsnorm", "flash_attention")):
     """Launches of one ``generate_static`` (1 prefill + n_new - 1 decode
-    steps) of an attention stack on the kernel path: 2L + 1 RMSNorms per
-    forward (none for a layernorm stack), L flash forwards in the
-    prefill, nothing else."""
+    steps) on the kernel path: 2L + 1 RMSNorms per forward (none for a
+    layernorm stack), a flash forward per attention layer in the prefill,
+    nothing else."""
     out = {k: 0 for k in ops.launch_counts()}
     if "rmsnorm" in kinds and cfg.norm == "rmsnorm":
         out["rmsnorm"] = (2 * cfg.n_layers + 1) * n_new
     if "flash_attention" in kinds:
-        out[fa.counter_name("flash_attention", cfg.head_dim_)] = cfg.n_layers
+        out[fa.counter_name("flash_attention", cfg.head_dim_)] = \
+            attn_layers(cfg)
     return out
 
 
@@ -2486,44 +2529,30 @@ def _decode_step_peak(eng, prompts, dev, base):
     return peak
 
 
-def static_dryrun_phase(card, measured_peak):
-    """D3: the dry run of SS3's ``fsdp`` decode step (one fake rank, fake
-    tensors on the card, the kernel path) against its measured peak, then
-    ``qwen3-0.6b x decode_32k`` on the pod topology (256 fake ranks)."""
-    cfg = get_config("qwen3-0.6b")
-    shape = ShapeConfig("chip_smoke", SS_PROMPT + SS_NEW, SS_BATCH, "decode")
-    rec = dryrun.lower_fresh(cfg, shape, strategy.parse("fsdp"),
-                             strategy.host_topology(n_devices=1),
-                             device="cuda")
-    mem = rec["memory"]
-    tracked = mem["peak_bytes_per_device"]
-    rel = abs(tracked - measured_peak) / measured_peak
-    print(f"[D3] fsdp decode step B{SS_BATCH} x {SS_PROMPT + SS_NEW} slots "
-          f"on one fake rank (traced in {rec['trace_s']} s): tracked peak "
-          f"{tracked / 2**30:.4f} GiB ("
-          + ", ".join(f"{k[:-6]} {v / 2**30:.4f}" for k, v in mem.items()
-                      if k != "peak_bytes_per_device")
-          + f" GiB; cache {rec['cache_bytes_per_device']} B) vs the step's "
-          f"measured {measured_peak / 2**30:.4f} GiB: rel {rel:.3g} (tol "
-          f"{D3_MEM_REL}); on {card}")
-    check(rel <= D3_MEM_REL,
-          f"D3 dry-run peak {tracked} B vs measured {measured_peak} B")
-    t0 = time.perf_counter()
-    pod = dryrun.run_one("qwen3-0.6b", "decode_32k", False, DRYRUN_OUT,
-                         device="cuda")
-    check(pod["status"] == "ok" and pod["n_devices"] == 256
-          and pod.get("cache_bytes_per_device"),
+def d3_case(ss3):
+    """D3: SS3's ``fsdp`` decode step (B SS_BATCH, SS_PROMPT + SS_NEW
+    slots, one fake rank, the kernel path) for :func:`plan_traces`,
+    against its measured peak within D3_MEM_REL (traced in the pods
+    phase, with ``qwen3-0.6b x decode_32k`` on the pod:
+    :func:`d3_report`)."""
+    return (get_config("qwen3-0.6b"),
+            ShapeConfig("chip_smoke", SS_PROMPT + SS_NEW, SS_BATCH,
+                        "decode"),
+            "fsdp", ss3["fsdp"]["decode_step_peak_bytes"], None, D3_MEM_REL)
+
+
+def d3_report(trace, pod):
+    """D3's pod point: ``qwen3-0.6b x decode_32k`` on the pod topology
+    (256 fake ranks) must trace with its caches."""
+    check(pod.get("cache_bytes_per_device"),
           f"pod decode dry run: {pod.get('status')} {pod.get('error')}")
     print(f"[D3] qwen3-0.6b x decode_32k on pod ({pod['strategy']}, cache "
           f"axes {pod['plan']['decode_cache_axes']}) in "
-          f"{time.perf_counter() - t0:.1f} s: peak/dev "
+          f"{pod['wall_s']:.1f} s: peak/dev "
           f"{pod['memory']['peak_bytes_per_device'] / 2**30:.4f} GiB, cache "
           f"{pod['cache_bytes_per_device'] / 2**30:.4f} GiB, collective bytes "
           f"{pod['collective_bytes_total']:.4g}")
-    return dict(d3=dict(memory=mem, measured_peak_bytes=measured_peak,
-                        rel=rel, trace_s=rec["trace_s"],
-                        cache_bytes_per_device=rec["cache_bytes_per_device"],
-                        collectives=rec["collectives"]), pod=pod)
+    return dict(d3=trace, pod=pod)
 
 
 def _ss4_rank(rank, port, out_dir, device_type="cuda"):
@@ -2755,13 +2784,13 @@ G1_MEM_REL = 0.10
 
 def train_expect(cfg):
     """Launches of one f32 train step on the kernel path: 2L + 1 RMSNorm
-    forwards and backwards (none for a layernorm stack), L each of the
-    flash forward, dq and dk/dv."""
+    forwards and backwards (none for a layernorm stack), one each of the
+    flash forward, dq and dk/dv per attention layer."""
     out = {k: 0 for k in ops.launch_counts()}
     if cfg.norm == "rmsnorm":
         out["rmsnorm"] = out["rmsnorm_bwd"] = 2 * cfg.n_layers + 1
     for k in fa.KERNELS:
-        out[fa.counter_name(k, cfg.head_dim_)] = cfg.n_layers
+        out[fa.counter_name(k, cfg.head_dim_)] = attn_layers(cfg)
     return out
 
 
@@ -2906,10 +2935,9 @@ def g1_phase(dev, card):
     layers, f32: paged serving on flash-decode at G 48 (three head tiles),
     static vs paged; training under G1_SPEC on the 1-rank NCCL mesh
     (``resolve`` -> ``to_plan`` -> ``apply_plan`` -> ``train_loop``),
-    launches exact; kernel vs plain gradients; then the dry run of that
-    plan (a fresh process, fake tensors on the card) against its
-    measured ``max_memory_allocated``, within G1_MEM_REL (cell D4, its
-    pod dry run at full depth, is traced by :func:`pod_phase`)."""
+    launches exact; kernel vs plain gradients (the dry run of that plan,
+    :func:`g1_case`, and cell D4, its pod dry run at full depth, are
+    traced by :func:`pod_phase`)."""
     cfg = dataclasses.replace(get_config("granite-20b"), n_layers=G1_LAYERS)
     res = dense_serve(dev, card, cfg, "G1")
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -2940,21 +2968,17 @@ def g1_phase(dev, card):
     res["launches"] = add_launches(res["launches"],
                                    res["train"]["launches"])
 
-    measured = res["train"]["peak_mem_bytes"]
-    rec = dryrun.lower_fresh(cfg, shape, strat, strategy.host_topology(
-        n_devices=1), device="cuda")
-    tracked = rec["memory"]["peak_bytes_per_device"]
-    rel = abs(tracked - measured) / measured
-    print(f"[G1] dry run of {strat.format()} at {G1_LAYERS} layers, "
-          f"B{TRAIN_BATCH} x S{TRAIN_SEQ}, one fake rank (traced in "
-          f"{rec['trace_s']} s): tracked peak {tracked / 2**30:.3f} GiB vs "
-          f"max_memory_allocated {measured / 2**30:.3f} GiB: rel {rel:.3g} "
-          f"(tol {G1_MEM_REL}); on {card}")
-    check(rel <= G1_MEM_REL, f"G1 dry-run peak {tracked} B vs measured "
-                             f"{measured} B")
-    res["dryrun"] = dict(memory=rec["memory"], measured_peak_bytes=measured,
-                         rel=rel, trace_s=rec["trace_s"])
     return res
+
+
+def g1_case(g1):
+    """G1's training plan for :func:`plan_traces`: its dry run (a fresh
+    process, fake tensors on the card) against the measured
+    ``max_memory_allocated``, within G1_MEM_REL."""
+    return (dataclasses.replace(get_config("granite-20b"),
+                                n_layers=G1_LAYERS),
+            ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            G1_SPEC, g1["train"]["peak_mem_bytes"], None, G1_MEM_REL)
 
 
 def d4_report(pod):
@@ -2994,8 +3018,8 @@ def m1_phase(dev, card):
     flash-decode at G 1 and static vs paged; DENSE_STEPS unplanned AdamW
     steps (``auto``: the dense dispatch at B S E = 2**18) and kernel vs
     plain gradients; DENSE_STEPS steps under M1_SPEC on the 1-rank NCCL
-    mesh (the plan's dropping dispatch), launches exact; the dry run of
-    that plan against its measured peak within G1_MEM_REL."""
+    mesh (the plan's dropping dispatch), launches exact (the dry run of
+    that plan, :func:`m1_case`, runs in :func:`pod_phase`)."""
     cfg = _moe_cfg("deepseek-moe-16b", M1_LAYERS)
     res = dense_serve(dev, card, cfg, "M1")
     res["train"] = dense_train(dev, card, cfg, "M1")
@@ -3021,25 +3045,18 @@ def m1_phase(dev, card):
     finally:
         shutdown()
     res["plan_train"].update(spec=strat.format(), mesh=mesh_shape(plan.mesh))
-    measured = res["plan_train"]["peak_mem_bytes"]
-    rec = dryrun.lower_fresh(cfg, shape, strat, strategy.host_topology(
-        n_devices=1), device="cuda")
-    tracked = rec["memory"]["peak_bytes_per_device"]
-    rel = abs(tracked - measured) / measured
-    print(f"[M1] dry run of {strat.format()} at {M1_LAYERS} layers, "
-          f"B{TRAIN_BATCH} x S{TRAIN_SEQ}, one fake rank (traced in "
-          f"{rec['trace_s']} s): tracked peak {tracked / 2**30:.3f} GiB vs "
-          f"max_memory_allocated {measured / 2**30:.3f} GiB: rel {rel:.3g} "
-          f"(tol {G1_MEM_REL}); on {card}")
-    check(rel <= G1_MEM_REL, f"M1 dry-run peak {tracked} B vs measured "
-                             f"{measured} B")
-    res["dryrun"] = dict(memory=rec["memory"], measured_peak_bytes=measured,
-                         rel=rel, trace_s=rec["trace_s"],
-                         moe_dispatch=rec["moe_dispatch"])
     res["launches"] = add_launches(res["launches"],
                                    res["train"]["launches"],
                                    res["plan_train"]["launches"])
     return res
+
+
+def m1_case(m1):
+    """M1's planned training for :func:`plan_traces`, within G1_MEM_REL
+    of its measured peak."""
+    return (_moe_cfg("deepseek-moe-16b", M1_LAYERS),
+            ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            M1_SPEC, m1["plan_train"]["peak_mem_bytes"], None, G1_MEM_REL)
 
 
 def m2_phase(dev, card):
@@ -3185,6 +3202,19 @@ MP1_SPEC, MP1_LAYERS, MP1_BATCH = "fsdp_pp2_mb2_1f1b", 2, 2
 C1_SPEC, C1_LAYERS, C1_BATCH, C1_SEQ = "fsdp_cp2", 4, 4, 1024
 C1_SERVE_B, C1_PROMPT, C1_NEW = 8, 128, 32
 C1_LOSS_REL, C1_GRAD_REL = 1e-5, 1e-4
+# C1's recurrent case: rwkv6-1.6b at full width cut to 4 layers under
+# C1_SPEC, held to one process's step by the rwkv6 phase's rule: the loss
+# within TRAIN_LOSS_ATOL, the gradient errors' median and maximum within
+# TRAIN_GRAD_REL or FLOOR_FACTOR x their move under a WKV_NOISE_REL
+# perturbation, here of one process's RWKV-6 products (``product_noise``:
+# the rounding the plan changes, splitting them over the model axis).  Its
+# backward amplifies f32 rounding: on an H100 layer 0's wk came 4.52e-3 of
+# its scale from one process's step, where the WKV-output perturbation
+# moves the gradients by 3.1e-4; ``cp_rounding.py`` (the CPU, B 4 x S
+# 128) reads the two steps 4.69e-3 apart (median 2.36e-3) in f32 and
+# 9.51e-8 in f64 (the f32 moments' own rounding), and a 1e-7
+# perturbation of the products moving them by 5.87e-3 (2.86e-3)
+C1_RWKV_LAYERS, C1_RWKV_BATCH = 4, 4
 PAIR_TIMEOUT_S = 600
 D6_POINTS = (("qwen2-1.5b", "fsdp_tp8"), ("dbrx-132b", "auto"))
 
@@ -3465,7 +3495,8 @@ def mp1_phase(card):
     """MP1: dbrx-132b, the MoE config that pipelines (a uniform stack),
     under MP1_SPEC at full width and MP1_LAYERS layers, B MP1_BATCH x S
     TRAIN_SEQ, through the dry run on the card (a fake process group of
-    two pipe ranks), each pipe rank's train step in a fresh process: each
+    two pipe ranks), each pipe rank's train step in a fresh process, both
+    at once: each
     must trace, its MoE layer's dispatch recorded, and its peak is
     printed.  No pair of processes trains it here: one stage's step needs
     more than the card holds (the peak the dry run reads), so the
@@ -3476,9 +3507,16 @@ def mp1_phase(card):
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, MP1_BATCH, "train")
     card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
     out = {"card": card, "card_gib": card_gib, "ranks": []}
-    for rank in range(s.pp):
-        rec = dryrun.lower_fresh(cfg, shape, s, strategy.host_topology(
-            n_devices=s.pp), rank=rank, device="cuda")
+    import concurrent.futures
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            s.pp, mp_context=multiprocessing.get_context("spawn"),
+            max_tasks_per_child=1) as ex:
+        futs = [ex.submit(dryrun.lower_one, cfg, shape, s,
+                          strategy.host_topology(n_devices=s.pp), rank=rank,
+                          device="cuda") for rank in range(s.pp)]
+        recs = [f.result(timeout=POD_TIMEOUT_S) for f in futs]
+    for rank, rec in enumerate(recs):
         peaks = {k.replace("_bytes", ""): v / 2 ** 30
                  for k, v in rec["memory"].items()}
         check(peaks["peak_per_device"] > 0,
@@ -3544,11 +3582,38 @@ def _c1_rank(rank, port, out_dir, device_type="cuda"):
         ops.reset_launch_counts()
         out = eng.generate_static(prompts, C1_NEW)
         torch.cuda.synchronize()
+        serve_launches = ops.launch_counts()
+        serve_sites = dict(layers.COLLECTIVE_SITES)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rcfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                                   n_layers=C1_RWKV_LAYERS)
+        rbatch = batch_to_device(next(iter(Batcher(SyntheticSource(
+            rcfg.vocab_size, seed=SEED), TRAIN_SEQ, C1_RWKV_BATCH))), dev)
+        ref_loss, ref = _reference(rcfg, rbatch, dev, Runtime())
+        # the floor of its bars: how far one process's plain-path
+        # gradients move when its products move by WKV_NOISE_REL
+        plain = Runtime(attn_impl="torch", norm_impl="torch")
+        _, pgrads = _reference(rcfg, rbatch, dev, plain)
+        with product_noise(WKV_NOISE_REL, dev):
+            _, ngrads = _reference(rcfg, rbatch, dev, plain)
+        moved = [rel_err(ngrads[n], pgrads[n]) for n in pgrads]
+        del pgrads, ngrads
+        got = _first_step(rcfg, C1_SPEC, rbatch, dev)
+        errs = _grad_errs(got["moments"], ref)
+        worst = max(errs, key=errs.get)
+        rwkv = dict(loss=got["loss"], ref_loss=ref_loss,
+                    grad_rel_err_max=errs[worst], worst_leaf=worst,
+                    grad_rel_err_median=statistics.median(errs.values()),
+                    noise_grad_rel_err_max=max(moved),
+                    noise_grad_rel_err_median=statistics.median(moved),
+                    launches=got["launches"], sites=got["sites"],
+                    context=got["rt"].context, tp_size=got["rt"].tp_size)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
             train=train, tokens=out[:, C1_PROMPT:].tolist(),
-            serve_launches=ops.launch_counts(),
-            serve_sites=dict(layers.COLLECTIVE_SITES), k_local=k_local,
-            cache_shard=srt.cache_shard,
+            serve_launches=serve_launches, serve_sites=serve_sites,
+            k_local=k_local, cache_shard=srt.cache_shard, rwkv=rwkv,
             peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)))
     finally:
         dist.destroy_process_group()
@@ -3584,6 +3649,10 @@ def c1_phase(dev, card):
                                       flash=Q0_KERNELS))
     serve_want = _c1_expect(cfg, dict(norms=(2 * L + 1) * C1_NEW,
                                       flash=Q0_KERNELS[:1]))
+    # the WKV-6 forward of each layer on the gathered sequence, this
+    # rank's heads (its backward replays the plain chunked form)
+    rwkv_want = {k: 0 for k in ops.launch_counts()} | {
+        "wkv6": C1_RWKV_LAYERS}
     for r, got in enumerate(ranks):
         tr = got["train"]
         rel = abs(tr["loss"] - tr["ref_loss"]) / abs(tr["ref_loss"])
@@ -3604,8 +3673,26 @@ def c1_phase(dev, card):
               f"{serve_want}")
         check(got["k_local"][1] == (C1_PROMPT + C1_NEW) // 2,
               f"C1 rank {r}: cache shard {got['k_local']}")
+        rw = got["rwkv"]
+        check(abs(rw["loss"] - rw["ref_loss"]) <= TRAIN_LOSS_ATOL,
+              f"C1 rwkv6 rank {r}: loss {rw['loss']} vs {rw['ref_loss']}")
+        for stat in ("median", "max"):
+            err, own = (rw[f"{pre}grad_rel_err_{stat}"]
+                        for pre in ("", "noise_"))
+            bar = max(TRAIN_GRAD_REL, FLOOR_FACTOR * own)
+            check(err <= bar, f"C1 rwkv6 rank {r}: gradient error {stat} "
+                              f"{err:.3g} ({rw['worst_leaf']}) over {bar:.3g}"
+                              f" ({FLOOR_FACTOR} x one process's own "
+                              f"{own:.3g})")
+        check(rw["launches"] == rwkv_want,
+              f"C1 rwkv6 rank {r} launches {rw['launches']} != {rwkv_want}")
+        check(rw["context"] and rw["tp_size"] == 2
+              and rw["sites"]["context_seq_gather"] == 2 * C1_RWKV_LAYERS
+              and rw["sites"]["context_kv_gather"] == 0,
+              f"C1 rwkv6 rank {r}: sites {rw['sites']}")
     launches = add_launches(*(g["train"]["launches"] for g in ranks),
-                            *(g["serve_launches"] for g in ranks))
+                            *(g["serve_launches"] for g in ranks),
+                            *(g["rwkv"]["launches"] for g in ranks))
     tr = [g["train"] for g in ranks]
     print(f"[C1] {C1_SPEC} qwen3-0.6b at {L} layers in 2 processes (gloo) "
           f"in {time.perf_counter() - t0:.1f} s: train B{C1_BATCH} x "
@@ -3618,37 +3705,60 @@ def c1_phase(dev, card):
           f"{ranks[0]['k_local'][1]} of {C1_PROMPT + C1_NEW}; peak "
           + " / ".join(f"{g['peak_mem_gib']:.2f}" for g in ranks)
           + f" GiB; launches {launches}; on {card}")
+    rw = [g["rwkv"] for g in ranks]
+    print(f"[C1] {C1_SPEC} rwkv6-1.6b at {C1_RWKV_LAYERS} layers, B"
+          f"{C1_RWKV_BATCH} x S{TRAIN_SEQ} (each layer's time mix scanning "
+          f"the gathered sequence on its 16 heads, the WKV-6 kernel; its "
+          f"channel mix shifting across the split): loss {rw[0]['loss']:.6f}"
+          f" vs one process's {rw[0]['ref_loss']:.6f} (tol "
+          f"{TRAIN_LOSS_ATOL}); gradients rel err max, median "
+          + " / ".join(f"{g['grad_rel_err_max']:.3g} ({g['worst_leaf']}), "
+                       f"{g['grad_rel_err_median']:.3g}" for g in rw)
+          + f"; one process's plain path under a {WKV_NOISE_REL} "
+          f"perturbation of its products moves them by "
+          f"{rw[0]['noise_grad_rel_err_max']:.3g}"
+          f", {rw[0]['noise_grad_rel_err_median']:.3g} (bars max("
+          f"{TRAIN_GRAD_REL}, {FLOOR_FACTOR} x those)); sequence gathers a "
+          f"rank {rw[0]['sites']['context_seq_gather']}; on {card}")
     return dict(card=card, ranks=ranks, launches=launches)
 
 
 POD_TIMEOUT_S = 600
 
 
+def _point_shape(point):
+    """A pod point's input shape: (arch, spec) is train_4k, (arch, spec,
+    shape) names its own."""
+    return point[2] if len(point) > 2 else "train_4k"
+
+
 def pod_dryruns(points):
-    """Start the dry run of each (arch, spec) point x train_4k on the pod
-    topology (256 fake ranks; spec '' the legacy layout), each through the
-    dry-run CLI in a process of its own, all at once -> the running
-    points, for :func:`pod_records`."""
+    """Start the dry run of each (arch, spec[, shape]) point (train_4k
+    unless it names a shape) on the pod topology (256 fake ranks; spec ''
+    the legacy layout), each through the dry-run CLI in a process of its
+    own, all at once -> the running points, for :func:`pod_records`."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, ["src", os.environ.get("PYTHONPATH")])))
-    return {(arch, spec): (time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", "train_4k", "--out", DRYRUN_OUT]
-        + (["--strategy", spec] if spec else []),
+    return {point: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         point[0], "--shape", _point_shape(point), "--out", DRYRUN_OUT]
+        + (["--strategy", point[1]] if point[1] else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)) for arch, spec in points}
+        text=True)) for point in points}
 
 
 def pod_records(running, tag):
-    """Wait for the points :func:`pod_dryruns` started -> {(arch, spec):
+    """Wait for the points :func:`pod_dryruns` started -> {point:
     record, with the seconds from its start until its end was read as
     ``wall_s``}; each must have traced on 256 fake ranks.  Kills what is
     left on failure."""
     out = {}
     try:
-        for (arch, spec), (t0, proc) in running.items():
+        for point, (t0, proc) in running.items():
+            arch, spec = point[:2]
             log, _ = proc.communicate(timeout=POD_TIMEOUT_S)
-            _, label = dryrun.run_label(arch, "train_4k", False, spec)
+            _, label = dryrun.run_label(arch, _point_shape(point), False,
+                                        spec)
             path = Path(DRYRUN_OUT) / f"{label}.json"
             rec = json.loads(path.read_text()) if path.exists() else {}
             check(proc.returncode == 0 and rec.get("status") == "ok"
@@ -3657,7 +3767,7 @@ def pod_records(running, tag):
                   f"{proc.returncode}, {rec.get('status')} "
                   f"{rec.get('error')}; {log[-2000:]}")
             rec["wall_s"] = time.perf_counter() - t0
-            out[arch, spec] = rec
+            out[point] = rec
     finally:
         for _, proc in running.values():
             if proc.poll() is None:
@@ -4000,41 +4110,57 @@ def vl1_phase(dev, card):
     return res
 
 
-def d7_traces(card, au1, vl1):
-    """D7: the dry run of AU1's and VL1's training plans (IN_SPEC, B
-    TRAIN_BATCH x S TRAIN_SEQ, one fake rank, the kernel path), each in a
-    process of its own, at once, against the steps' measured peaks,
-    within D7_MEM_REL (their pod points: :func:`d7_report`)."""
+def plan_traces(card, cases):
+    """The dry run of each case's training plan (one fake rank, fake
+    tensors on the card, the kernel path), each in a process of its own,
+    at once, against the measured peak of the step it traces: {tag: (cfg,
+    shape, spec, measured bytes, runtime overrides, tolerance)} -> {tag:
+    the record's memory, the measured peak, their relative difference and
+    the trace's seconds}."""
     import concurrent.futures
     import multiprocessing
-    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     topo = strategy.host_topology(n_devices=1)
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as ex:
+    with concurrent.futures.ProcessPoolExecutor(
+            len(cases), mp_context=ctx, max_tasks_per_child=1) as ex:
         futs = {}
-        for tag, arch in zip(("AU1", "VL1"), D7_ARCHS):
-            cfg = get_config(arch)
-            strat, _ = strategy.resolve(IN_SPEC, cfg, topo, shape)
+        for tag, (cfg, shape, spec, _, over, _) in cases.items():
+            strat, _ = strategy.resolve(spec, cfg, topo, shape)
             futs[tag] = ex.submit(dryrun.lower_one, cfg, shape, strat, topo,
-                                  device="cuda")
+                                  rt_overrides=over, device="cuda")
         recs = {tag: f.result(timeout=POD_TIMEOUT_S)
                 for tag, f in futs.items()}
     out = {}
-    for tag, res in (("AU1", au1), ("VL1", vl1)):
-        measured = res["train"]["peak_mem_bytes"]
-        tracked = recs[tag]["memory"]["peak_bytes_per_device"]
+    for tag, (cfg, shape, spec, measured, _, tol) in cases.items():
+        rec = recs[tag]
+        tracked = rec["memory"]["peak_bytes_per_device"]
         rel = abs(tracked - measured) / measured
-        print(f"[D7] {tag}'s {IN_SPEC} step, B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
-              f"one fake rank (traced in {recs[tag]['trace_s']} s): tracked "
-              f"peak {tracked / 2**30:.3f} GiB vs max_memory_allocated "
-              f"{measured / 2**30:.3f} GiB: rel {rel:.3g} (tol "
-              f"{D7_MEM_REL}); on {card}")
-        check(rel <= D7_MEM_REL, f"D7 {tag} dry-run peak {tracked} B vs "
-                                 f"measured {measured} B")
-        out[tag] = dict(memory=recs[tag]["memory"],
-                        measured_peak_bytes=measured, rel=rel,
-                        trace_s=recs[tag]["trace_s"])
+        print(f"[{tag}] dry run of its {spec} {shape.mode} step, B"
+              f"{shape.global_batch} x S{shape.seq_len}, {cfg.n_layers} "
+              f"layers, one fake rank (traced in {rec['trace_s']} s): "
+              f"tracked peak {tracked / 2**30:.3f} GiB ("
+              + ", ".join(f"{k[:-6]} {v / 2**30:.3f}"
+                          for k, v in rec["memory"].items()
+                          if k != "peak_bytes_per_device")
+              + f" GiB) vs max_memory_allocated {measured / 2**30:.3f} GiB:"
+              f" rel {rel:.3g} (tol {tol}); on {card}")
+        check(rel <= tol, f"{tag} dry-run peak {tracked} B vs measured "
+                          f"{measured} B")
+        out[tag] = dict(measured_peak_bytes=measured, rel=rel,
+                        **{k: rec[k] for k in (
+                            "memory", "trace_s", "collectives",
+                            "moe_dispatch", "cache_bytes_per_device")
+                           if k in rec})
     return out
+
+
+def d7_cases(au1, vl1):
+    """D7: AU1's and VL1's training plans (IN_SPEC, B TRAIN_BATCH x S
+    TRAIN_SEQ) for :func:`plan_traces`, within D7_MEM_REL."""
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    return {tag: (get_config(arch), shape, IN_SPEC,
+                  res["train"]["peak_mem_bytes"], None, D7_MEM_REL)
+            for tag, arch, res in zip(("AU1", "VL1"), D7_ARCHS, (au1, vl1))}
 
 
 def d7_report(recs):
@@ -4059,22 +4185,302 @@ def d7_report(recs):
     return out
 
 
-def pod_phase(card, au1, vl1):
-    """Cells D4, D5, D6 and D7: every full-depth dry run on the pod
-    topology (256 fake ranks), each in a process of its own, all at once
-    (the dry-run CLI), D7's one-rank traces beside them; then each cell's
-    checks."""
-    t0 = time.perf_counter()
-    running = pod_dryruns([("granite-20b", ""),
-                           ("deepseek-moe-16b", D5_SPEC), *d6_points(),
-                           *((arch, "") for arch in D7_ARCHS)])
+# ---------------------------------------------------------------------------
+# phase 26: jamba-v0.1-52b (J1) — Mamba layers among attention and MoE
+# layers; its pod dry runs (D8)
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+# serving: one whole period of the 32 layers, Mamba on 0-6, attention on
+# 7, MoE on 1, 3, 5 and 7 (13.3 B parameters, 53.2 GB of f32)
+J1_SERVE_LAYERS = 8
+J1_SERVE_B, J1_PROMPT, J1_NEW = 4, 128, 32
+# training: 2 layers with attention every 2nd, Mamba with the dense SwiGLU
+# and attention with the 16-expert MoE (3.68 B parameters, 59 GB of f32
+# AdamW state; one period, 213 GB of it, is past one card); the dry run
+# of its plan tracks a 72.3 GiB peak at B 4 of the card's 79.2
+J1_TRAIN_LAYERS, J1_TRAIN_B, J1_CHECK_BATCH = 2, 4, 2
+J1_SPEC = "fsdp"                    # f32 on the 1-rank NCCL mesh
+J1_SERVE_CHUNK, J1_TRAIN_CHUNK = 32, 64   # the serve and train CLIs' scans
+J1_GRAD_REL = 1e-4                  # kernel vs plain gradients (f32 bar)
+D8_LONG = "long_500k"
+
+
+def j1_serve_cfg():
+    return dataclasses.replace(get_config(JAMBA), n_layers=J1_SERVE_LAYERS)
+
+
+def j1_train_cfg():
+    return dataclasses.replace(get_config(JAMBA), n_layers=J1_TRAIN_LAYERS,
+                               attn_every=2)
+
+
+class ScanTimer:
+    """CUDA events around every selective scan of the Mamba layers while
+    :meth:`active`: a layer's chunked scan (forward), each chunk's
+    backward and a decode step's one-step scan -> their device time."""
+
+    def __init__(self):
+        self.events, self._depth = [], 0
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def _timed(self, fn):
+        def run(*args, **kw):
+            if self._depth:             # a chunk inside a timed scan
+                return fn(*args, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            self._depth += 1
+            start.record()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self._depth -= 1
+            end.record()
+            self.events.append((start, end))
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def active(self):
+        fns = (mamba_lib.selective_scan, mamba_lib._selective_scan_chunk,
+               mamba_lib._ScanChunk.backward)
+        mamba_lib.selective_scan = self._timed(fns[0])
+        mamba_lib._selective_scan_chunk = self._timed(fns[1])
+        mamba_lib._ScanChunk.backward = staticmethod(self._timed(fns[2]))
+        try:
+            yield self
+        finally:
+            mamba_lib.selective_scan, mamba_lib._selective_scan_chunk = \
+                fns[:2]
+            mamba_lib._ScanChunk.backward = staticmethod(fns[2])
+
+
+def j1_serve(dev, card):
+    """J1's serving: ``generate_static`` of J1_SERVE_B prompts of J1_PROMPT
+    + J1_NEW greedy tokens on the kernel path (the paged engine refuses
+    the hybrid), launches exact; its decode logits (a prefill, then a
+    decode step a token) against the teacher-forced forward over the
+    whole stream, on the kernel path and on the plain path; the prefill's
+    and a decode step's wall time and the selective scan's share of
+    each."""
+    cfg = j1_serve_cfg()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    rt = Runtime(mamba_chunk=J1_SERVE_CHUNK)
+    plain = Runtime(attn_impl="torch", norm_impl="torch",
+                    mamba_chunk=J1_SERVE_CHUNK)
+    prompts = _static_prompts(cfg.vocab_size, J1_SERVE_B, J1_PROMPT)
+    eng = ServeEngine(cfg, params, rt, max_len=J1_PROMPT + J1_NEW,
+                      device=dev)
+    check(not eng.paged_ok, "J1: the paged engine took the hybrid")
+    out, wall, counts = _counted_static(eng, prompts, J1_NEW,
+                                        _static_expect(cfg, J1_NEW), "J1")
+    gens = out[:, J1_PROMPT:]
+    check(bool(((gens >= 0) & (gens < cfg.vocab_size)).all()),
+          "J1 static tokens out of range")
+    scan = ScanTimer()
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    with torch.no_grad(), scan.active():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = eng._prefill(eng.params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        scan_prefill_ms = scan.ms()
+        scan.events = []
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del lg
+        t0 = time.perf_counter()
+        for t in range(J1_NEW - 1):
+            lg, cache = eng._step(eng.params, cache, tok, J1_PROMPT + t)
+            tok = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (J1_NEW - 1)
+        scan_step_ms = scan.ms() / (J1_NEW - 1)
+    del cache, lg
+    stream = torch.as_tensor(np.concatenate([prompts, gens[:, :-1]], 1),
+                             device=dev)
+    paths = {}
+    for name, r in (("kernel", rt), ("plain", plain)):
+        dec = static_logits(cfg, params, r, prompts, gens, dev)
+        with torch.no_grad():
+            fwd = tfm.forward(cfg, params, {"tokens": stream}, r)[
+                :, J1_PROMPT - 1:].float()
+        paths[name] = dict(
+            max_abs_err=(dec - fwd).abs().max().item(),
+            scale=fwd.abs().max().item(),
+            agreement=(dec.argmax(-1) == fwd.argmax(-1)).float().mean()
+            .item())
+        del dec, fwd
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[J1] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.3f} B "
+          f"parameters, f32): static B{J1_SERVE_B} prompt {J1_PROMPT} "
+          f"+{J1_NEW} greedy in {wall:.3f} s; prefill {prefill_ms:.1f} ms "
+          f"(selective scan {scan_prefill_ms:.1f} ms of device time: "
+          f"{scan_prefill_ms / prefill_ms:.1%}), decode step {step_ms:.2f} "
+          f"ms (scan {scan_step_ms:.3f} ms: {scan_step_ms / step_ms:.1%}); "
+          f"decode logits vs the teacher-forced forward: "
+          + "; ".join(f"{k} path max |diff| {v['max_abs_err']:.3g} (logits "
+                      f"scale {v['scale']:.3g}, tol {LOGIT_ATOL}), greedy "
+                      f"agreement {v['agreement']:.4f}"
+                      for k, v in paths.items())
+          + f"; peak {peak / 2**30:.2f} GiB; on {card}")
+    for name, v in paths.items():
+        check(v["max_abs_err"] <= LOGIT_ATOL,
+              f"J1 {name} path: decode logits differ from the forward's by "
+              f"{v['max_abs_err']:.3g}")
+        check(v["agreement"] >= MIN_AGREEMENT,
+              f"J1 {name} path: greedy agreement {v['agreement']:.4f}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, batch=J1_SERVE_B,
+                prompt=J1_PROMPT, new=J1_NEW, wall_s=wall, launches=counts,
+                prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                scan_prefill_ms=scan_prefill_ms, scan_step_ms=scan_step_ms,
+                paths=paths, peak_mem_gib=peak / 2**30,
+                tokens=gens.tolist())
+
+
+def j1_train(dev, card):
+    """J1's training: DENSE_STEPS steps under J1_SPEC on the 1-rank NCCL
+    mesh at J1_TRAIN_B x TRAIN_SEQ (the plan's dropping dispatch),
+    launches exact, losses finite and falling, the selective scan's share
+    of a step; its training state freed, kernel vs plain loss and
+    gradients at J1_CHECK_BATCH x TRAIN_SEQ within J1_GRAD_REL."""
+    cfg = j1_train_cfg()
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, J1_TRAIN_B, "train")
+    scan = ScanTimer()
+    init_distributed(dev)
     try:
-        d7 = d7_traces(card, au1, vl1)
+        topo = strategy.host_topology()
+        strat, _ = strategy.resolve(J1_SPEC, cfg, topo, shape)
+        plan = strat.to_plan(cfg, topo, shape)
+        rt = par.make_runtime(cfg, plan, shape, mamba_chunk=J1_TRAIN_CHUNK)
+        check(rt.moe_impl == "dropping" and rt.compute_dtype == torch.float32,
+              f"J1 plan runtime {rt}")
+        tc = TrainConfig(steps=DENSE_STEPS, warmup=DENSE_STEPS, log_every=1,
+                         opt=AdamWConfig(lr=DENSE_LR))
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        # FSDP2 gathers the MoE layer's 10.66 GiB and frees it twice a
+        # step: in fixed segments that left 14.61 GiB reserved but
+        # unallocated and the third step out of memory at 72.27 GiB held
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        with scan.active():
+            res = run_steps(dev, card, cfg, rt, tc, params,
+                            train_expect(cfg), "J1", plan=plan,
+                            batch=J1_TRAIN_B)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+        shutdown()
+    scan_ms = scan.ms() / DENSE_STEPS
+    res.update(spec=strat.format(), mesh=mesh_shape(plan.mesh),
+               scan_ms_per_step=scan_ms,
+               scan_share=scan_ms / 1e3 / res["step_p50_s"])
+    print(f"[J1] train under {res['spec']}: the selective scan (forward "
+          f"and backward, 1 Mamba layer) {scan_ms:.1f} ms of device time a "
+          f"step, {res['scan_share']:.1%} of the step's p50 "
+          f"{res['step_p50_s'] * 1e3:.1f} ms; on {card}")
+    res.update(grad_check(
+        dev, cfg, Runtime(mamba_chunk=J1_TRAIN_CHUNK),
+        Runtime(attn_impl="torch", norm_impl="torch",
+                mamba_chunk=J1_TRAIN_CHUNK), J1_CHECK_BATCH, "J1",
+        grad_rel=J1_GRAD_REL))
+    return res
+
+
+def j1_phase(dev, card):
+    """Cell J1: jamba-v0.1-52b at full width (d 4096, 32 heads over Kv 8,
+    d_ff 14336, 16 experts top 2, d_state 16, d_conv 4, expand 2, dt_rank
+    256, vocab 65536), f32: :func:`j1_serve` at J1_SERVE_LAYERS layers,
+    then :func:`j1_train` at J1_TRAIN_LAYERS (its dry run runs with the
+    pod dry runs, :func:`pod_phase`)."""
+    res = dict(serve=j1_serve(dev, card), train=j1_train(dev, card))
+    res["launches"] = add_launches(res["serve"]["launches"],
+                                   res["train"]["launches"])
+    return res
+
+
+def j1_case(j1):
+    """J1's training plan for :func:`plan_traces`, within G1_MEM_REL."""
+    return (j1_train_cfg(), ShapeConfig("chip_smoke", TRAIN_SEQ, J1_TRAIN_B,
+                                        "train"),
+            J1_SPEC, j1["train"]["peak_mem_bytes"],
+            dict(mamba_chunk=J1_TRAIN_CHUNK), G1_MEM_REL)
+
+
+def d8_points():
+    """D8's points: jamba-v0.1-52b x train_4k under what ``--strategy
+    auto`` ranks first on the pod, and x long_500k on the pod layout."""
+    auto = strategy.resolve("auto", get_config(JAMBA),
+                            strategy.pod_topology(),
+                            SHAPES["train_4k"])[0].format()
+    return [(JAMBA, auto), (JAMBA, "", D8_LONG)]
+
+
+def d8_report(recs):
+    """D8: jamba-v0.1-52b at all 32 layers on the pod, traced by
+    :func:`pod_phase`."""
+    out = {}
+    cfg = get_config(JAMBA)
+    for point in d8_points():
+        rec = recs[point]
+        shape = _point_shape(point)
+        print(f"[D8] {JAMBA} x {shape} ({cfg.n_layers} layers) on pod under "
+              f"{rec['strategy']} (mesh {rec['plan']['mesh']}, attn "
+              f"{rec['plan']['attn']}, expert '{rec['plan']['expert']}') in "
+              f"{rec['wall_s']:.1f} s (trace {rec['trace_s']} s): peak/dev "
+              f"{rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB"
+              + (f", cache {rec['cache_bytes_per_device'] / 2**30:.3f} GiB"
+                 if "cache_bytes_per_device" in rec else "")
+              + f"; moe dispatch {rec.get('moe_dispatch')}; collective bytes "
+              f"{rec['collective_bytes_total']:.4g}")
+        out[shape] = rec
+    return out
+
+
+QWEN_PODS = (("qwen3-0.6b", "", "train_4k"),     # D2's
+             ("qwen3-0.6b", "", "decode_32k"))   # D3's
+
+
+def pod_phase(card, res):
+    """Every dry run, all at once, each in a process of its own: the
+    full-depth points on the pod topology (256 fake ranks, the dry-run
+    CLI) of D2, D3, D4, D5, D6, D7 and D8, and beside them the one-rank
+    traces of the plans whose steps ran above (D2's strategy phase, D3's
+    SS3 decode step, G1, M1, AU1 and VL1 (D7), J1) against their
+    measured peaks; then each cell's checks.  ``res``: the earlier
+    phases' results by name."""
+    t0 = time.perf_counter()
+    running = pod_dryruns([*QWEN_PODS, ("granite-20b", ""),
+                           ("deepseek-moe-16b", D5_SPEC), *d6_points(),
+                           *((arch, "") for arch in D7_ARCHS),
+                           *d8_points()])
+    try:
+        traces = plan_traces(card, {
+            "D2": d2_case(res["strategy"]), "D3": d3_case(res["SS3"]),
+            "G1": g1_case(res["G1"]), "M1": m1_case(res["M1"]),
+            **d7_cases(res["AU1"], res["VL1"]), "J1": j1_case(res["J1"])})
     finally:
         recs = pod_records(running, "pod dry runs")
-    out = dict(d4=d4_report(recs["granite-20b", ""]),
+    out = dict(d2=d2_report(traces["D2"], recs[QWEN_PODS[0]]),
+               d3=d3_report(traces["D3"], recs[QWEN_PODS[1]]),
+               g1_dryrun=traces["G1"], m1_dryrun=traces["M1"],
+               d4=d4_report(recs["granite-20b", ""]),
                d5=d5_report(recs["deepseek-moe-16b", D5_SPEC]),
-               d6=d6_report(recs), d7=d7 | d7_report(recs))
+               d6=d6_report(recs),
+               d7={k: traces[k] for k in ("AU1", "VL1")} | d7_report(recs),
+               d8=d8_report(recs), j1_dryrun=traces["J1"])
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -4222,7 +4628,6 @@ def main(argv=None):
           f"{strat['spec']} (FSDP2, bf16) vs "
           f"{trained['host_span_s']['dispatch'] * 1e3:.1f} ms unsharded f32")
     ck1 = phase("CK1", ck1_phase, dev, card, train_expect(ck_cfg()))
-    dry = phase("dryrun", dryrun_phase, card, strat["peak_mem_bytes"])
     piped = phase("pipeline", pipeline_phase, card)
 
     def rwkv6():
@@ -4247,8 +4652,6 @@ def main(argv=None):
     # static serving from dense caches, after the training phases' cells
     ss1 = phase("SS1", static_phase, dev, card)
     ss3 = phase("SS3", static_plan_phase, dev, card, ss1["tokens"])
-    d3 = phase("D3", static_dryrun_phase, card,
-               ss3["fsdp"]["decode_step_peak_bytes"])
     ss4 = phase("SS4", static_tp_phase, dev, card)
     ss2 = phase("SS2", static_rwkv_phase, dev, card)
 
@@ -4272,8 +4675,13 @@ def main(argv=None):
     au1 = phase("AU1", au1_phase, dev, card)
     vl1 = phase("VL1", vl1_phase, dev, card)
 
-    # every pod dry run (D4, D5, D6, D7) at once
-    pods = phase("pod dry runs", pod_phase, card, au1, vl1)
+    # jamba-v0.1-52b: Mamba layers among attention and MoE layers
+    j1 = phase("J1", j1_phase, dev, card)
+
+    # every dry run at once: the pod points of D2-D8 and the one-rank
+    # traces of the plans whose steps ran above
+    pods = phase("pod dry runs", pod_phase, card, dict(
+        strategy=strat, SS3=ss3, G1=g1, M1=m1, AU1=au1, VL1=vl1, J1=j1))
 
     # each kernel's launches on the main paths: every run above, each
     # counted from 0
@@ -4283,22 +4691,25 @@ def main(argv=None):
         rwkv_trained["launches"], ss1["launches"], ss3["launches"],
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
         g1["launches"], m1["launches"], m2["launches"], e1["launches"],
-        mt1["launches"], c1["launches"], au1["launches"], vl1["launches"])
+        mt1["launches"], c1["launches"], au1["launches"], vl1["launches"],
+        j1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "kernels_tp": tp_rows,
              "serve": served,
-             "train": trained, "train_strategy": strat, "dryrun": dry,
+             "train": trained, "train_strategy": strat,
+             "dryrun": pods["d2"],
              "checkpoint_ck1": ck1,
              "train_pipeline": piped,
              "train_rwkv6": rwkv_trained, "static_ss1": ss1,
              "static_ss2": ss2, "static_ss3": ss3, "static_ss4": ss4,
-             "dryrun_d3": d3, "dense_q2": q2, "dense_h1": h1,
+             "dryrun_d3": pods["d3"], "dense_q2": q2, "dense_h1": h1,
              "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
              "moe_tp_mt1": mt1, "moe_pp_mp1": mp1, "cp_c1": c1,
-             "inputs_au1": au1, "inputs_vl1": vl1, "dryrun_pod": pods,
+             "inputs_au1": au1, "inputs_vl1": vl1, "jamba_j1": j1,
+             "dryrun_pod": pods,
              "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -7,7 +7,9 @@ The JAX tree (``repro.models.transformer.init_params``) holds ``embed``,
 list of ``period`` dicts whose leaves are stacked on dim 0 over the scanned
 repeats): layer ``start + b * period + pos`` is ``blocks[pos][...][b]``.
 The port keeps one ParameterDict per layer, so the bridge unstacks; leaves
-may sit at any depth (the RWKV-6 mixer nests ``ln_x``).
+may sit at any depth (the RWKV-6 mixer nests ``ln_x``), and a hybrid's
+period (jamba-v0.1-52b's 8: Mamba layers, one attention layer, MoE on
+every second) stacks each position's leaves alike.
 
 Weights keep the JAX orientation, (in, out), and the port applies them as
 ``x @ W``: nothing is transposed either way, and a round trip is exact.
@@ -296,7 +298,8 @@ def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     prefill: ``prefix`` per-layer dicts and ``blocks`` stacked on a leading
     layer dim, leaves as numpy arrays) -> the port's ``{'layers': [...]}``
     (an attention layer's {'kv': {'k', 'v', 'kpos', 'idx'}}, an RWKV-6
-    layer's {'att': {'x_prev', 'wkv'}, 'ffn': {'x_prev'}})."""
+    layer's {'att': {'x_prev', 'wkv'}, 'ffn': {'x_prev'}}, a Mamba
+    layer's {'conv', 'ssm'})."""
     return {"layers": [_tensors(d, index, device)
                        for d, index in _jax_layers(tree)]}
 

@@ -10,9 +10,11 @@ the uniform RWKV-6 stack of ``rwkv6-1.6b`` (trained, and served from
 its recurrent state by the static engine); and two stacks on non-token
 inputs: ``musicgen-medium`` (frame embeddings in place of tokens,
 sinusoidal positions, layernorm, GELU) and ``qwen2-vl-2b`` (vision
-embeddings over the first positions, M-RoPE).  The JAX package's other
-architecture needs layers the port does not have yet; ``get_config``
-names the ROADMAP item that brings it.
+embeddings over the first positions, M-RoPE); and the hybrid
+``jamba-v0.1-52b`` (Mamba layers with one attention layer in eight, MoE
+on every second layer; served from its conv and SSM state by the static
+engine).  Every architecture of the JAX package is ported: ``LATER``,
+which named the slice bringing each one still to come, is empty.
 """
 from repro_torch.configs.base import (SHAPES, MambaConfig, ModelConfig,
                                       MoEConfig, ShapeConfig, reduced)
@@ -20,6 +22,7 @@ from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.granite_20b import CONFIG as _granite
 from repro_torch.configs.h2o_danube_1p8b import CONFIG as _danube
+from repro_torch.configs.jamba_v01_52b import CONFIG as _jamba
 from repro_torch.configs.llama2 import CONFIGS as _llama2
 from repro_torch.configs.musicgen_medium import CONFIG as _musicgen
 from repro_torch.configs.qwen2_1p5b import CONFIG as _qwen2
@@ -28,13 +31,13 @@ from repro_torch.configs.qwen3_0p6b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
 REGISTRY = {c.name: c for c in (_qwen3, _rwkv6, _qwen2, _danube, _granite,
-                                 _deepseek, _dbrx, _musicgen, _qwen2vl)}
+                                 _deepseek, _dbrx, _musicgen, _qwen2vl,
+                                 _jamba)}
 REGISTRY.update(_llama2)
 
-# arch -> the later slice of the port (ROADMAP Queue 1) that brings it
-LATER = {
-    "jamba-v0.1-52b": "other mixers and inputs (Mamba hybrid)",
-}
+# arch -> the later slice of the port (ROADMAP Queue 1) that brings it;
+# empty since jamba-v0.1-52b, the last of them, was ported
+LATER: dict = {}
 
 
 def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:

@@ -53,7 +53,8 @@ Serving under a plan keeps the dense caches where ``cache_shardings``
 places them (the JAX package's layout): the KV cache (B, Sc, Kv, D) is
 sharded along Sc over ``decode_cache_axes`` (the model axis, or data x
 model when the batch is smaller than the data axis, its rows then
-replicated), the WKV state by heads over the model axis, ``x_prev`` by
+replicated), the WKV state by heads and a Mamba layer's conv and SSM
+states by channels over the model axis, ``x_prev`` by
 rows over the data axes, ``kpos`` and ``idx`` replicated.  A rank serves
 the rows ``serve_rows`` gives it; ``make_runtime`` gives a serving shape's
 runtime this rank's shard of the KV slots and the groups over which a
@@ -62,9 +63,11 @@ decode step merges its attention (``models.attention``).
 A context plan (``attn`` 'context': ``cp<k>``, or a tp whose heads do not
 split) keeps every weight whole on the model axis but the MoE expert
 stacks (their E dim on it, as ``_param_spec`` places them in every plan
-without an expert axis); its runtime takes the axis as its sequence axis
-(``Runtime.cp_*``), and the train step sums every replicated leaf's
-gradient over it.  Under an expert axis a MoE FFN's leaves lie on the
+without an expert axis) and the recurrent mixers' (RWKV-6 time mix,
+Mamba), which ``_param_spec`` splits over it in every plan: those run on
+their shards over the gathered sequence (``models.transformer.Layer``);
+its runtime takes the axis as its sequence axis (``Runtime.context``),
+and the train step sums every replicated leaf's gradient over it.  Under an expert axis a MoE FFN's leaves lie on the
 (expert, model) submesh: the stacks' E dim on the expert axis and, where
 the model axis has more than one rank, their hidden dim on it
 (:func:`expert_placements`).
@@ -295,9 +298,20 @@ def _param_spec(cfg: ModelConfig, plan: ParallelPlan, path: Tuple[str, ...],
             if leaf == "w0":
                 return spec()
         elif kind == "mamba":
-            raise NotImplementedError(
-                f"{'.'.join(path)}: mamba layers come with the other "
-                "mixers' slice of the port (ROADMAP Queue 1)")
+            if leaf in ("w_x_in", "w_z_in"):
+                return spec(f, m)
+            if leaf == "conv_w":
+                return spec(None, m)
+            if leaf in ("conv_b", "b_dt", "D"):
+                return spec(m)
+            if leaf == "w_x":
+                return spec(m, None)
+            if leaf == "w_dt":
+                return spec(None, m)
+            if leaf == "A_log":
+                return spec(m, None)
+            if leaf == "w_out":
+                return spec(m, f)
     # dense / rwkv channel-mix FFN (2D)
     ffn_m = m if plan.attn == "head_tp" else None
     if leaf in ("w_up", "w_gate"):
@@ -427,6 +441,9 @@ def activation_specs(cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Tuple]:
         # rwkv
         "rwkv_heads": (dp, None, m, None),
         "rwkv_state": (dp, m, None, None),
+        # mamba
+        "mamba_inner": (dp, seq, m),
+        "mamba_state": (dp, m, None),
     }
 
 
@@ -445,6 +462,7 @@ def cache_specs(cfg: ModelConfig, plan: ParallelPlan, cache):
     init_cache``'s per-layer tree, or any tree of the same keys whose
     leaves have a ``shape``), by leaf name as the JAX package's
     ``cache_shardings`` reads it: k/v ``kv_cache``, wkv ``rwkv_state``,
+    ssm ``mamba_state``, conv (B, K-1, di) its di over the model axis,
     x_prev rows over the data axes, kpos and idx replicated."""
     specs = activation_specs(cfg, plan)
 
@@ -454,6 +472,10 @@ def cache_specs(cfg: ModelConfig, plan: ParallelPlan, cache):
             spec = specs["kv_cache"]
         elif name == "wkv":
             spec = specs["rwkv_state"] if nd == 4 else (plan.dp, plan.tp)
+        elif name == "ssm":
+            spec = specs["mamba_state"]
+        elif name == "conv":
+            spec = (plan.dp, None, plan.tp)
         elif name == "x_prev":
             spec = (plan.dp, None)
         else:                       # kpos, idx

@@ -47,8 +47,8 @@ where JAX has ``lower_s``.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
 ``generated_code_bytes`` and ``compile_s``.  A MoE arch's record also
 counts its MoE layer calls by dispatch entry (``moe_dispatch``), and its
-census the expert all-to-all.  The archs of
-``repro_torch.configs.LATER`` need their own slices, and ``long_500k``
+census the expert all-to-all.  An arch of ``repro_torch.configs.LATER``
+(none is left) would need its own slice, and ``long_500k``
 needs a sub-quadratic mixer (``configs.supports_shape``, the JAX
 package's reason): those points are recorded as ``status: "skipped"``
 with the reason.
@@ -99,11 +99,11 @@ from repro_torch.train.trainer import TrainConfig, make_train_step
 
 IMPLS = {"cuda": "kernel", "torch": "torch"}
 SUBQUADRATIC = "requires sub-quadratic attention (the JAX package's reason)"
-# the JAX sweep's archs (its ASSIGNED set): the nine the port runs and
-# those of LATER
-ARCHS = sorted(["qwen3-0.6b", "rwkv6-1.6b", "qwen2-1.5b", "h2o-danube-1.8b",
+# the JAX sweep's archs (its ASSIGNED set), all ten ported (and any of
+# LATER, which is empty)
+ARCHS = sorted({"qwen3-0.6b", "rwkv6-1.6b", "qwen2-1.5b", "h2o-danube-1.8b",
                 "granite-20b", "deepseek-moe-16b", "dbrx-132b",
-                "musicgen-medium", "qwen2-vl-2b", *LATER])
+                "musicgen-medium", "qwen2-vl-2b", "jamba-v0.1-52b", *LATER})
 
 
 def resolve_strategy(cfg, shape, topo, strategy: str, dp_mode: str = "hsdp",
@@ -511,6 +511,7 @@ def main(argv=None):
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip_existing", action="store_true")
     ap.add_argument("--rwkv_chunk", type=int, default=0)
+    ap.add_argument("--mamba_chunk", type=int, default=0)
     ap.add_argument("--no_sp", action="store_true",
                     help="disable sequence-parallel residual stream")
     ap.add_argument("--grad_accum", type=int, default=1)
@@ -525,9 +526,9 @@ def main(argv=None):
                          "lie; cuda needs a card")
     args = ap.parse_args(argv)
     resolve_device(args.device)          # no card: fail here, not later
-    rt_overrides = {}
-    if args.rwkv_chunk:
-        rt_overrides["rwkv_chunk"] = args.rwkv_chunk
+    rt_overrides = {k: getattr(args, k) for k in ("rwkv_chunk",
+                                                  "mamba_chunk")
+                    if getattr(args, k)}
     archs = ARCHS if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     if args.topology:

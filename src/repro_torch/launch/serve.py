@@ -17,8 +17,8 @@ parameters are placed by ``core.parallel.apply_plan`` and the engine
 serves statically from caches placed by ``cache_shardings``; rank 0
 prints.  ``--engine auto`` pages where it can (one device, an
 attention-only stack), ``static`` forces the dense-cache loop, and
-``paged`` refuses a plan or a recurrent stack (``rwkv6-1.6b`` serves
-statically).
+``paged`` refuses a plan or a recurrent stack (``rwkv6-1.6b`` and the
+hybrid ``jamba-v0.1-52b`` serve statically).
 
 Runs on CUDA (``--device cuda``, the default) with the hand-written
 kernels (``--kernels cuda``) or the plain PyTorch layers
@@ -153,13 +153,14 @@ def make_engine(cfg, device, *, strategy: str = "", topology: str = "host",
             print(f"[strategy] {strat.format()} on {topo.name} (mesh "
                   f"{mesh_shape(plan.mesh)}, attn={plan.attn}, cache axes "
                   f"{plan.decode_cache_axes})")
-        # dtypes from the strategy's precision policy; WKV-6 chunk 16, as
-        # the JAX serve CLI sets it
+        # dtypes from the strategy's precision policy; WKV-6 chunk 16 and
+        # selective-scan chunk 32, as the JAX serve CLI sets them
         rt = par.make_runtime(cfg, plan, shape, attn_impl=impl,
-                              norm_impl=impl, rwkv_chunk=16)
+                              norm_impl=impl, rwkv_chunk=16, mamba_chunk=32)
         params = par.apply_plan(init_params(cfg, seed, device), plan, cfg)
     else:
-        rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=16)
+        rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=16,
+                     mamba_chunk=32)
         params = init_params(cfg, seed, device)
     return ServeEngine(cfg, params, rt, max_len=max_len, plan=plan,
                        seed=seed, n_slots=n_slots, telemetry=telemetry,

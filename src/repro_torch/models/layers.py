@@ -43,6 +43,8 @@ class Runtime:
     in (q, kv) chunks with an online softmax.  ``rwkv_chunk`` is the
     chunk length of the WKV-6 recurrence, on the kernel and the plain path
     alike (it is part of the result: it sets the order of rounding).
+    ``mamba_chunk`` is the chunk length of the selective scan, each chunk
+    recomputed in the backward (the JAX package's default, 256).
 
     The dtypes are a precision policy's (``core.parallel.make_runtime``):
     parameters are stored in ``param_dtype`` (the master copy, f32 in
@@ -89,6 +91,7 @@ class Runtime:
     attn_kv_chunk: int = 1024           # kv chunk for blocked attention
     attn_min_chunked_len: int = 2048    # below this, plain masked attention
     rwkv_chunk: int = 64                # WKV-6 chunk length
+    mamba_chunk: int = 256              # selective-scan chunk length
     tp_size: int = 1                    # ranks on the model axis
     tp_rank: int = 0                    # this rank's model coordinate
     tp_group: Any = None                # the model axis' process group
@@ -162,9 +165,12 @@ def wire_round_grad(g: torch.Tensor, rt: Runtime) -> torch.Tensor:
 COLLECTIVES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
                                "all_reduce": 0, "all_to_all": 0}
 # some of the same calls at the sites the dry run's record names: a
-# context rank's K/V all-gathers and a MoE FFN's combine over the model
-# axis (its exit collective), forward
+# context rank's K/V all-gathers, a recurrent layer's gathers of the
+# sequence under a context plan (its mixer's input, and an RWKV-6 channel
+# mix's) and a MoE FFN's combine over the model axis (its exit
+# collective), forward
 COLLECTIVE_SITES: Dict[str, int] = {"context_kv_gather": 0,
+                                    "context_seq_gather": 0,
                                     "moe_combine": 0}
 
 
@@ -295,13 +301,15 @@ class _ScatterSeq(torch.autograd.Function):
         return _gather_seq(g, ctx.rt), None
 
 
-def cp_gather(x, rt: "Runtime", kv: bool = True):
+def cp_gather(x, rt: "Runtime", site: Optional[str] = "context_kv_gather"):
     """(B, S / cp, ...) of this context rank -> (B, S, ...) of every
     rank's, in rank order; the backward sums the cotangents over the
     group and keeps this rank's rows (the JAX ``_cp_attend``'s tiled
-    all-gather and its transpose).  ``kv``: K or V of an attention layer
-    (counted at their site)."""
-    COLLECTIVE_SITES["context_kv_gather"] += int(kv)
+    all-gather and its transpose).  Counted at ``site`` of
+    ``COLLECTIVE_SITES`` (K or V of an attention layer by default), or
+    nowhere (None)."""
+    if site is not None:
+        COLLECTIVE_SITES[site] += 1
     return _GatherSeq.apply(x, rt)
 
 
@@ -320,6 +328,35 @@ class _SumOverModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """All-reduce (sum) over each group in turn; the backward all-reduces
+    the cotangent the same way (the adjoint of a sum every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        x = x.clone()
+        for g in groups:
+            COLLECTIVES["all_reduce"] += 1
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for grp in ctx.groups:
+            COLLECTIVES["all_reduce"] += 1
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
+def sum_over_groups(x, groups):
+    """``x`` summed over each process group of ``groups`` in turn, with
+    the same sums in the backward: every rank holds the sum and uses it
+    in a part of its own, so each rank's cotangent is a part too."""
+    return _SumOverGroups.apply(x, tuple(groups))
 
 
 def cp_sum(x, rt: "Runtime"):

@@ -54,7 +54,7 @@ from torch import nn
 from repro_torch.models.layers import (COLLECTIVE_SITES, COLLECTIVES,
                                        Runtime, _act, _randn, local_params,
                                        model_enter, model_exit, scale_grad,
-                                       wire_round)
+                                       sum_over_groups, wire_round)
 
 
 def init_moe(cfg, gen, device):
@@ -103,28 +103,6 @@ class MoEFFN(nn.ParameterDict):
 # router
 # ---------------------------------------------------------------------------
 
-class _SumOverGroups(torch.autograd.Function):
-    """All-reduce (sum) over each group in turn; the backward all-reduces
-    the cotangent the same way (the adjoint of a sum every rank holds)."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        x = x.clone()
-        for g in groups:
-            COLLECTIVES["all_reduce"] += 1
-            dist.all_reduce(x, group=g)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        for grp in ctx.groups:
-            COLLECTIVES["all_reduce"] += 1
-            dist.all_reduce(g, group=grp)
-        return g, None
-
-
 def mean_over_groups(x: torch.Tensor, groups) -> torch.Tensor:
     """The mean of ``x`` over the ranks of ``groups`` (each rank holding a
     shard of the same token count), differentiable."""
@@ -133,7 +111,7 @@ def mean_over_groups(x: torch.Tensor, groups) -> torch.Tensor:
     n = 1
     for g in groups:
         n *= dist.get_world_size(g)
-    return _SumOverGroups.apply(x, tuple(groups)) / n
+    return sum_over_groups(x, groups) / n
 
 
 def _router(cfg, p, xf, rt: Runtime = None, stat_groups=None):

@@ -18,7 +18,9 @@ takes its heads: ``wr``/``wk``/``wv``/``wg`` are column-parallel and
 norm are sliced to the local channels.  The channel mix's ``wk`` is
 column-parallel, ``wv`` row-parallel and ``wr`` replicated.  Each block
 enters through Megatron's f (all-reduce backward) and leaves through its
-g (all-reduce forward).
+g (all-reduce forward).  Under a context plan the time mix enters and
+leaves along S instead (``sp``): it scans the whole gathered sequence on
+its heads, and each rank keeps its rows of the sum.
 
 WKV routes: with no carried state and ``Runtime.attn_impl == "kernel"``,
 the WKV-6 kernel (``kernels.ops.wkv6``; its plain version on CPU tensors)
@@ -136,16 +138,19 @@ def _shift(x, last):
     return torch.cat([last[:, None], x[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None):
+def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None, sp: bool = False):
     """-> (out (B, T, d), new state).  state: None (training: zeros, returns
     None) or {'x_prev' (B, d), 'wkv' (B, H, N, N)} for decode/prefill
-    carry."""
+    carry.  ``sp``: x and out are this rank's shard of the sequence on the
+    model axis, gathered at the entry and reduce-scattered at the exit (a
+    context plan's recurrent layer: the recurrence runs on the whole
+    sequence)."""
+    x = tp_enter(x, rt, sp)
     B, T, d = x.shape
     N = cfg.rwkv_head_dim
     last = (state["x_prev"] if state is not None
             else torch.zeros(B, d, dtype=x.dtype, device=x.device))
 
-    x = tp_enter(x, rt, False)
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, last))
     dt = x.dtype
     # this rank's channels: heads [c0 / N, (c0 + dl) / N) of H
@@ -178,7 +183,7 @@ def rwkv_time_mix(cfg, p, x, rt: Runtime, state=None):
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
     yf = (yf.reshape(B, T, dl) * p["ln_x"]["scale"][c0:c0 + dl]
           + p["ln_x"]["bias"][c0:c0 + dl])
-    out = tp_exit(_mm(yf.to(dt) * g, p["wo"], dt), rt, False)
+    out = tp_exit(_mm(yf.to(dt) * g, p["wo"], dt), rt, sp)
 
     new_state = None
     if state is not None:

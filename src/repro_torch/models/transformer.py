@@ -1,15 +1,21 @@
 """Decoder-only model, cache-less (training), over dense caches (static
 serving: a KV cache per attention layer, the recurrent state per RWKV-6
-layer) or over a paged KV cache (continuous batching of attention-only
-stacks): the attention (dense and MoE) and the RWKV-6 parts of the JAX
-package's ``models/transformer.py``, on its three input modes (tokens;
-frame ``embeds`` in place of tokens; tokens with ``vision_embeds`` over
-the first positions and M-RoPE over 3-D ``position_ids``).
+or Mamba layer) or over a paged KV cache (continuous batching of
+attention-only stacks): the JAX package's ``models/transformer.py``, on
+its three input modes (tokens; frame ``embeds`` in place of tokens;
+tokens with ``vision_embeds`` over the first positions and M-RoPE over
+3-D ``position_ids``).
 
 A model is a stack of layers; each layer = (norm -> mixer -> residual,
-norm -> FFN -> residual): attention and an MLP or a mixture of experts
-(``models.moe``, whose load-balance losses the forward collects in an
-:class:`AuxLoss`), or RWKV-6 time mix and channel mix.  Parameters live
+norm -> FFN -> residual): attention or Mamba (``models.mamba``; a hybrid
+interleaves them, as jamba-v0.1-52b does) and an MLP or a mixture of
+experts (``models.moe``, whose load-balance losses the forward collects
+in an :class:`AuxLoss`), or RWKV-6 time mix and channel mix.  Under a
+context plan a recurrent layer (RWKV-6, Mamba) scans the whole sequence:
+its mixer, whose weights the model axis splits in every plan, gathers
+the sequence at its entry and reduce-scatters its output at its exit, and
+an RWKV-6 channel mix, whose token shift crosses the shard boundary, runs
+on the gathered sequence and keeps its rows.  Parameters live
 in an :class:`Params` module whose ``layers`` is an ``nn.ModuleList`` of
 :class:`Layer` modules, one per layer; a Python loop calls them in
 turn, in place of the JAX package's ``lax.scan`` over stacked blocks
@@ -32,9 +38,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.models.layers import (CacheLeaf, Runtime, all_reduce,
+from repro_torch.models.layers import (COLLECTIVE_SITES, CacheLeaf,
+                                       Runtime, all_reduce,
                                        apply_mlp, apply_norm,
                                        context_parallel, cp_gather, cp_sum,
                                        embed_tokens, head_parallel,
@@ -77,6 +85,10 @@ def wired_layers(cfg: ModelConfig) -> range:
     return range(layer_plan(cfg)[1], cfg.n_layers)
 
 
+# mixers that scan the sequence, carrying a state
+RECURRENT = ("rwkv6", "mamba")
+
+
 def _all_attention(cfg: ModelConfig) -> bool:
     """Every layer mixes by attention (its FFN dense or MoE)."""
     return all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
@@ -88,9 +100,11 @@ INPUT_MODES = ("tokens", "embeddings", "tokens+vision")
 def check_supported(cfg: ModelConfig) -> None:
     """The port's model covers stacks that are attention-only (each FFN
     dense or MoE) with RoPE or M-RoPE, with sinusoidal positions added to
-    the embedding (and no RoPE), or with no positions; or uniform RWKV-6
-    with layernorm and no positions; on any of the JAX package's input
-    modes (``INPUT_MODES``)."""
+    the embedding (and no RoPE), or with no positions; uniform RWKV-6
+    with layernorm and no positions; or Mamba layers among attention
+    layers (each FFN dense or MoE) with no positions, on tokens; on any
+    of the JAX package's input modes (``INPUT_MODES``)."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     rwkv = (all(_sig(cfg, i) == ("rwkv6", False)
                 for i in range(cfg.n_layers))
             and cfg.rope == "none" and cfg.norm == "layernorm"
@@ -98,12 +112,15 @@ def check_supported(cfg: ModelConfig) -> None:
     attn = _all_attention(cfg) and (
         (cfg.rope in ("rope", "mrope", "none") and cfg.pos_embed == "none")
         or (cfg.rope == "none" and cfg.pos_embed == "sinusoidal"))
-    if not (rwkv or attn) or cfg.input_mode not in INPUT_MODES:
+    mamba = ("mamba" in kinds and kinds <= {"mamba", "attn"}
+             and cfg.rope == "none" and cfg.pos_embed == "none"
+             and cfg.input_mode == "tokens")
+    if not (rwkv or attn or mamba) or cfg.input_mode not in INPUT_MODES:
         raise NotImplementedError(
             f"{cfg.name}: the port runs stacks that are attention-only "
             "(dense or MoE FFNs) with RoPE, M-RoPE or sinusoidal "
-            "positions, or uniform "
-            "RWKV-6; other layers come with later slices (ROADMAP Queue 1)")
+            "positions, uniform RWKV-6, or Mamba among attention layers "
+            "with no positions on tokens")
 
 
 def sinusoidal_from_positions(positions, d_model: int, dtype):
@@ -280,33 +297,52 @@ class Layer(nn.Module):
         under sequence parallelism (``sp``) or a context plan (``cp``).  The layer computes from its
         parameters' local shards (``to_local`` views of the ``DTensor``s
         FSDP2 has gathered).  ``cache``: the layer's paged pools (with
-        ``paged``) or its dense cache ({'kv'}, or an RWKV-6 layer's
-        {'att', 'ffn'} state), updated in place.  A MoE FFN is called as
-        its own module; its load-balance loss goes to ``aux``."""
+        ``paged``) or its dense cache ({'kv'}, an RWKV-6 layer's {'att',
+        'ffn'} state or a Mamba layer's {'conv', 'ssm'}), updated in
+        place.  A MoE FFN is called as its own module; its load-balance
+        loss goes to ``aux``.  Under a context plan (``cp``) a recurrent
+        layer scans the whole sequence (see the module's docstring), its
+        gathers counted at ``COLLECTIVE_SITES['context_seq_gather']``."""
         moe = isinstance(self._modules["ffn"], moe_lib.MoEFFN)
         lp = local_params({k: v for k, v in self.items()
                            if not (moe and k == "ffn")})
         if rt.gather_dtype is not None and not rt.fsdp_wire:
             lp = wire_round(lp, rt.gather_dtype, rt.compute_dtype)
         x = apply_norm(lp["norm1"], h, cfg.norm_eps, rt)
+        if kind in RECURRENT:
+            # a recurrent mixer's weights lie on the model axis in every
+            # plan; under a context plan it scans the whole sequence,
+            # gathered at its entry and reduce-scattered at its exit
+            mrt = dataclasses.replace(rt, context=False) if rt.context \
+                else rt
+            COLLECTIVE_SITES["context_seq_gather"] += int(cp)
         if kind == "rwkv6":
             att = None if cache is None else cache["att"]
-            mix, new_att = rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, rt,
-                                                  state=att)
+            mix, new_att = rwkv_lib.rwkv_time_mix(cfg, lp["mixer"], x, mrt,
+                                                  state=att, sp=cp)
             h = h + mix
             x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
+            if cp:   # the token shift crosses the shard boundary
+                x = cp_gather(x, rt, "context_seq_gather")
             ffn, new_ffn = rwkv_lib.rwkv_channel_mix(
                 cfg, lp["ffn"], x, rt,
                 state=None if cache is None else cache["ffn"])
             if cache is not None:
                 _carry(cache["att"], new_att)
                 _carry(cache["ffn"], new_ffn)
-            return h + ffn
-        if cache is not None and paged is None:
-            cache = cache["kv"]
-        h = h + attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
-                                         cache=cache, paged=paged, sp=sp,
-                                         cp=cp)
+            return h + (_cp_shard(ffn, rt) if cp else ffn)
+        if kind == "mamba":
+            mix, new_state = mamba_lib.mamba_block(cfg, lp["mixer"], x, mrt,
+                                                   state=cache, sp=cp)
+            if cache is not None:
+                _carry(cache, new_state)
+        else:
+            if cache is not None and paged is None:
+                cache = cache["kv"]
+            mix = attn_lib.attention_block(cfg, lp["mixer"], x, rope_ang, rt,
+                                           cache=cache, paged=paged, sp=sp,
+                                           cp=cp)
+        h = h + mix
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
         if moe:
             y, a = self._modules["ffn"](cfg, x, rt, sp or cp)
@@ -394,7 +430,7 @@ class Params(nn.Module):
                           rt if i in wired else plain, lc, paged, sp, aux, cp)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         if cp and cache is not None:
-            h = cp_gather(h, rt, kv=False)
+            h = cp_gather(h, rt, None)
         return lm_logits(embed, h, rt, sp)
 
     def _through_pipe(self, cfg, h, rope_ang, rt, layer_caches, cp=False):
@@ -460,7 +496,9 @@ def _init_layer(cfg: ModelConfig, i: int, gen, device):
         p["mixer"] = rwkv_lib.init_rwkv_time_mix(cfg, gen, device)
         p["ffn"] = rwkv_lib.init_rwkv_channel_mix(cfg, gen, device)
     else:
-        p["mixer"] = attn_lib.init_attention(cfg, gen, device)
+        p["mixer"] = (mamba_lib.init_mamba(cfg, gen, device)
+                      if cfg.layer_kind(i) == "mamba"
+                      else attn_lib.init_attention(cfg, gen, device))
         p["ffn"] = (moe_lib.init_moe(cfg, gen, device) if cfg.is_moe_layer(i)
                     else init_mlp(cfg, gen, device))
     return p
@@ -542,9 +580,10 @@ def _layer_cache_shapes(cfg: ModelConfig, i: int, batch: int, max_len: int,
         return {"att": {"x_prev": CacheLeaf((batch, d), dtype),
                         "wkv": CacheLeaf((batch, H, N, N), torch.float32)},
                 "ffn": {"x_prev": CacheLeaf((batch, d), dtype)}}
-    raise NotImplementedError(
-        f"{cfg.name}: {kind} layers serve with the 'other mixers and "
-        "inputs' slice of the port (ROADMAP Queue 1)")
+    mc = cfg.mamba
+    di = mamba_lib.d_inner(cfg)
+    return {"conv": CacheLeaf((batch, mc.d_conv - 1, di), dtype),
+            "ssm": CacheLeaf((batch, di, mc.d_state), torch.float32)}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype):
@@ -572,7 +611,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     {'k', 'v' (B, Sc, Kv, D), 'kpos' (Sc,) all -1, 'idx' 0-d}} (a
     sliding-window model's Sc is its ring, ``attention.cache_slots``), an
     RWKV-6 layer's {'att': {'x_prev' (B, d), 'wkv' (B, H, N, N) f32},
-    'ffn': {'x_prev'}}.  Under a ``plan`` each leaf is this rank's shard
+    'ffn': {'x_prev'}}, a Mamba layer's {'conv' (B, K-1, di), 'ssm' (B,
+    di, d_state) f32}.  Under a ``plan`` each leaf is this rank's shard
     of it (``core.parallel.cache_shardings``); a pipe rank holds the
     caches of the layers ``params`` keeps (an empty dict for the
     others)."""

@@ -5,8 +5,9 @@
     enter through ``submit`` and are drained by ``run_until_drained``;
   * **static batch** (``generate_static``): the whole batch prefilled
     together into dense caches, then one forward per token; for sharded
-    plans and recurrent (RWKV-6) stacks, which keep dense caches, and the
-    numerical baseline the paged path's greedy tokens must equal.
+    plans and recurrent stacks (RWKV-6, Mamba hybrids), which keep dense
+    caches, and the numerical baseline the paged path's greedy tokens
+    must equal.
 
 ``generate`` routes through the request queue where the paged path applies
 and through ``generate_static`` otherwise.

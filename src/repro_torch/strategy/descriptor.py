@@ -245,7 +245,7 @@ class Strategy:
             raise StrategyError(
                 f"ep={self.ep} does not divide the island-local data "
                 f"group {self.dp_degree(topology) // pods}")
-        if cfg is not None and self.tp > 1:
+        if cfg is not None and self.model_axis > 1:
             self._check_tensor(cfg)
         if cfg is not None and self.ep > 1:
             self._check_expert(cfg)
@@ -253,20 +253,30 @@ class Strategy:
             self._check_pipeline(cfg)
 
     def _check_tensor(self, cfg: ModelConfig) -> None:
-        """The port's head-TP constraints: the heads, FFN hidden units and
-        vocabulary split evenly over the model axis (the Megatron pairs of
-        column- and row-parallel products shard together; the KV heads
-        may replicate).  A tp that resolves to context attention shards
-        the sequence and keeps every weight whole: nothing to split."""
+        """The port's head-TP constraints: the heads, FFN hidden units,
+        vocabulary and, on a stack with Mamba layers, ``d_inner`` split
+        evenly over the model axis (the Megatron pairs of column- and
+        row-parallel products shard together; the KV heads may
+        replicate).  A model axis that resolves to context attention
+        shards the sequence and keeps every weight whole but the
+        recurrent mixers' (RWKV-6 heads, Mamba's d_inner), which split
+        over it in every plan."""
+        kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+        recurrent = {}
+        if "rwkv6" in kinds:
+            recurrent["heads"] = cfg.rwkv_heads
+        if "mamba" in kinds:
+            recurrent["d_inner"] = cfg.mamba.expand * cfg.d_model
         if self.resolved_attn(cfg) == "context":
-            return
-        heads = (cfg.rwkv_heads if cfg.mixer == "rwkv6" else cfg.n_heads)
-        dims = {"heads": heads, "d_ff": cfg.dense_d_ff or cfg.d_ff,
-                "vocab_size": cfg.vocab_size}
-        for name, size in dims.items():
-            if size % self.tp:
+            name, dims = f"model axis {self.model_axis}", recurrent
+        else:
+            name = f"tp={self.tp}"
+            dims = {"heads": cfg.n_heads, "d_ff": cfg.dense_d_ff or cfg.d_ff,
+                    "vocab_size": cfg.vocab_size, **recurrent}
+        for what, size in dims.items():
+            if size % self.model_axis:
                 raise StrategyError(
-                    f"tp={self.tp} does not divide {name}={size} of "
+                    f"{name} does not divide {what}={size} of "
                     f"{cfg.name}: the port's tensor parallelism splits it "
                     "evenly over the model axis")
 

@@ -28,9 +28,11 @@ from test_torch_moe_tp import (DEEPSEEK, _cfg, _ids_of, _inputs, _jax_step,
                                check_step, spawn_worlds)
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2))
+RWKV = ("rwkv6-1.6b", {})
 S0, N_NEW, SERVE_B = 12, 6, 2           # the prompt splits over 2 ranks
 WORLDS = {2: [("fsdp_cp2", *QWEN), ("fsdp_tp2_ctx", *QWEN),
-              ("fsdp_cp2", *DEEPSEEK), ("serve-fsdp_cp2", *QWEN)],
+              ("fsdp_cp2", *DEEPSEEK), ("serve-fsdp_cp2", *QWEN),
+              ("fsdp_cp2", *RWKV), ("serve-fsdp_cp2", *RWKV)],
           4: [("fsdp_cp2", *QWEN), ("fsdp_pp2_cp2_mb2", *QWEN)]}
 OUT_REL, GRAD_REL = 1e-5, 1e-4
 
@@ -160,37 +162,55 @@ CASES = [(n, i) for n, cases in WORLDS.items()
          for i, c in enumerate(cases) if not c[0].startswith("serve-")]
 
 
+def gathers(cfg):
+    """(K/V gathers, sequence gathers) of one forward over the context
+    split: K and V in each attention layer; the mixer's input in each
+    recurrent layer, and an RWKV-6 layer's channel-mix input besides."""
+    kinds = [cfg.layer_kind(j) for j in range(cfg.n_layers)]
+    return 2 * kinds.count("attn"), 2 * kinds.count("rwkv6") + \
+        kinds.count("mamba")
+
+
 @pytest.mark.parametrize("world_case", CASES, ids=_ids_of(WORLDS))
 def test_context_parallel_steps_match_the_jax_step(worlds, world_case):
     """One step's loss, nll, grad_norm and gradients at the f32 bars
     (and a MoE model's aux within 1e-6); the model axis runs as the
     sequence axis (``context``, 2 ranks, no head split), every attention
-    layer gathering K and V over it."""
+    layer gathering K and V over it, every recurrent layer the sequence
+    (rwkv6-1.6b: its time mix scans the whole sequence on its heads and
+    its channel mix shifts across the shard boundary; before that repair
+    each rank started both from zero at its first row, and this case's
+    first loss was off by 4e-2 relative)."""
     n, i = world_case
     case, got, ref = worlds[n][i]
     check_step((n,) + case, got, ref)
     assert (got["attn"], got["context"], got["tp"]) == ("context", True, 2)
     cfg = _cfg(case[1], case[2])
+    kv, seq = gathers(cfg)
     # K and V of each of the rank's layers, once a pipeline microbatch
-    per_rank = 2 * cfg.n_layers // 2 * 2 if "pp2" in case[0] \
-        else 2 * cfg.n_layers
+    per_rank = kv // 2 * 2 if "pp2" in case[0] else kv
     for r in got["ranks"]:
         assert r["calls"]["sites"]["context_kv_gather"] == per_rank
+        assert r["calls"]["sites"]["context_seq_gather"] == seq
         n_moe = sum(cfg.is_moe_layer(j) for j in range(cfg.n_layers))
         assert r["calls"]["sites"]["moe_combine"] == n_moe
         assert r["bad"] == []
 
 
-def test_static_serving_under_fsdp_cp2_matches_jax(worlds):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_static_serving_under_fsdp_cp2_matches_jax(worlds, arch):
     """Every rank's greedy tokens equal JAX's single-device
     ``generate_static``; each prefilled its half of the prompt (K and V
-    gathered in every layer) into its own half of the cache's slots."""
-    i = [c[0] for c in WORLDS[2]].index("serve-fsdp_cp2")
+    gathered in every attention layer, the sequence in every recurrent
+    one) into its own half of the cache's slots, or its heads of the
+    recurrent state."""
+    i = [c[:2] for c in WORLDS[2]].index(("serve-fsdp_cp2", arch))
     case, parts, toks = worlds[2][i]
     cfg = _cfg(case[1], case[2])
+    kv, seq = gathers(cfg)
     assert {p["shard"] for p in parts} == {0, 1}
     for p in parts:
         np.testing.assert_array_equal(p["tokens"], toks)
         assert p["context"] and p["tp"] == 2
-        assert p["sites"]["context_kv_gather"] == 2 * cfg.n_layers
-
+        assert p["sites"]["context_kv_gather"] == kv
+        assert p["sites"]["context_seq_gather"] == seq

@@ -145,20 +145,19 @@ def _assert_trees_close(port_tree, jax_tree, rel):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_are_the_jax_packages(arch):
     """The registry returns each config with the JAX package's fields and
-    its source line; the arch still to come stays in ``LATER``."""
+    its source line; no arch is still to come (``LATER`` is empty since
+    jamba-v0.1-52b was ported: ``tests/test_torch_mamba.py``)."""
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))
     assert get_config(arch).source
     assert arch not in LATER
-    assert sorted(LATER) == ["jamba-v0.1-52b"]
+    assert LATER == {}
 
 
-def test_jamba_stays_refused():
-    """jamba-v0.1-52b (Mamba layers) is refused by its slice and, at any
-    config, by its mixers; an input mode the JAX package does not have is
-    refused too."""
-    with pytest.raises(NotImplementedError, match="other mixers"):
-        get_config("jamba-v0.1-52b")
+def test_other_stacks_stay_refused():
+    """Mamba layers on a stack with positions (granite-20b's sinusoidal
+    table with jamba's mixer layout) are refused by the model, and so is
+    an input mode the JAX package does not have."""
     jamba = jax_get_config("jamba-v0.1-52b")
     port_cfg = dataclasses.replace(get_config("granite-20b"),
                                    mixer=jamba.mixer,

@@ -251,7 +251,7 @@ NODES = (strategy.Topology("nodes", 64, island=8, hardware="H100",
 
 
 @pytest.mark.parametrize("topo", ["nodes", "pod"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["jamba-v0.1-52b"])
 def test_planner_ranks_moe_strategies_as_jax(arch, topo):
     """The port's ranking equals the JAX package's over every candidate:
     it keeps the ep strategies and those of tp, pp and cp on a MoE

@@ -51,7 +51,7 @@ from repro_torch.train.trainer import prng_key_data
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B = 16, 4
-ARCHS = ("qwen3-0.6b", "rwkv6-1.6b", "granite-20b")
+ARCHS = ("qwen3-0.6b", "rwkv6-1.6b", "granite-20b", "jamba-v0.1-52b")
 # weight decay off in the runs held against JAX: the JAX tree stacks
 # qk-norm's 1-d scales, which then take decay there and not in the port
 # (the STACKED_1D caveat of tests/test_torch_train.py)

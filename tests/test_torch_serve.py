@@ -268,8 +268,6 @@ def test_cli_without_card_raises():
 
 
 def test_unported_archs_name_their_slice():
-    with pytest.raises(NotImplementedError, match="Mamba hybrid"):
-        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -287,7 +285,8 @@ def test_port_imports_no_jax():
             "repro_torch.perf.comms, repro_torch.perf.memory, "
             "repro_torch.launch.specs, repro_torch.models.attention, "
             "repro_torch.models.transformer, repro_torch.models.layers, "
-            "repro_torch.models.moe, repro_torch.core.expert, "
+            "repro_torch.models.moe, repro_torch.models.mamba, "
+            "repro_torch.core.expert, "
             "repro_torch.bridge, repro_torch.configs, "
             "repro_torch.strategy.topology, "
             "repro_torch.strategy.descriptor, repro_torch.checkpointing, "

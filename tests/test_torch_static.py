@@ -300,7 +300,8 @@ PLACEMENTS = [("fsdp_tp2", "decode", 8, 4096), ("fsdp_tp4", "decode", 2, 4096),
 @pytest.mark.parametrize("spec,mode,B,S", PLACEMENTS)
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama2-1b", "rwkv6-1.6b",
                                   "qwen3-0.6b-swa", "qwen2-1.5b",
-                                  "h2o-danube-1.8b", "granite-20b"])
+                                  "h2o-danube-1.8b", "granite-20b",
+                                  "jamba-v0.1-52b"])
 def test_cache_shardings_match_jax(arch, spec, mode, B, S):
     """Every leaf of the full-size dense cache: the port's fitted spec is
     the JAX ``cache_shardings`` spec (JAX's stacked layer dim dropped),
