@@ -331,7 +331,30 @@ order; any failure ends the run with a non-zero exit and no result line:
               plans of D2, D3, G1, M1, AU1 and VL1 (D7) and J1 are traced
               at their shapes, one fake rank each, against the steps'
               measured peaks.
-27. report  — one JSON line listing every kernel (its f32 case, and a
+27. R1      — the roofline against the card: the schema check
+              (``python -m repro_torch.telemetry``) over the JSONL
+              streams and Chrome traces that the serve phases (S1, Q2,
+              H1, G1, M1, M2) and the strategy phase wrote under
+              ``results/telemetry_torch``, exit 0; the three-term
+              roofline (``perf/roofline.py`` on the cost model's H100
+              profile) of every pod point above, each term finite and
+              positive; for each measured step with a one-rank trace (D2
+              = the strategy phase's T5, G1, M1, AU1, VL1, J1) the terms
+              at its own shape and precision on one H100, its p50, the
+              share of its roofline it reaches (roofline step / p50; over
+              1.0 fails) and its measured MFU (6ND / p50 / 990e12); the
+              report (``python -m repro_torch.perf.report``) over this
+              run's records, exit 0, into ``results/EXPERIMENTS_torch.md``.
+28. X1      — the four examples' ``main`` in this process on the card:
+              ``torch_quickstart`` (reduced qwen3 trained 60 steps under
+              ``fsdp``, then served by the paged engine),
+              ``torch_train_100m --steps 60 --ckpt_every 30``,
+              ``torch_serve_batched`` (reduced jamba from dense caches)
+              and ``torch_parallelism_explorer``; each one's launches
+              exact (RMSNorm forward and backward and the flash kernels
+              at head dim 64 a layer a step, flash-decode a layer a
+              decode step, the static prefill's flash forward).
+29. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -364,7 +387,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import checkpointing as ckpt_lib  # noqa: E402
 from repro_torch import strategy  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.configs import SHAPES, ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs import (SHAPES, ShapeConfig, get_config,  # noqa: E402
+                                 reduced)
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import parallel as par  # noqa: E402
 from repro_torch.data import Batcher, SyntheticSource  # noqa: E402
@@ -386,6 +410,9 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.schedule import linear_warmup_cosine  # noqa: E402
+from repro_torch.perf import flops as flops_lib  # noqa: E402
+from repro_torch.perf import roofline  # noqa: E402
+from repro_torch.perf.comms import total_bytes  # noqa: E402
 from repro_torch.resilience import (FaultPlan, SupervisorConfig,  # noqa: E402
                                     supervise_training)
 from repro_torch.serve import ServeEngine, init_paged_pools  # noqa: E402
@@ -478,6 +505,9 @@ CK_MIN_FREE = 16e9                  # two checkpoints while keep 1
 #                                     commits the next
 DRYRUN_MEM_REL = 0.10
 DRYRUN_OUT = "results/dryrun_torch"   # the pod dry run's record
+TELEMETRY_OUT = "results/telemetry_torch"   # the serve and strategy
+#                                             phases' JSONL and traces
+REPORT_OUT = "results/EXPERIMENTS_torch.md"
 # pipeline phase: qwen3-0.6b at full width and PIPE_LAYERS, f32, in two
 # processes on the one card (pipe 2; data and model groups of one rank on
 # NCCL, the pipe group on gloo through host memory), each schedule from
@@ -1230,6 +1260,16 @@ def serve_expect(cfg, forward_calls, decode_steps):
     return out
 
 
+def telemetry_recorder(tag):
+    """A recorder streaming its events as JSONL and writing a Chrome trace
+    under TELEMETRY_OUT (``<tag>.jsonl``, ``<tag>_trace.json`` on close),
+    for R1's schema check."""
+    return tel.Recorder(sinks=[
+        tel.JsonlSink(os.path.join(TELEMETRY_OUT, f"{tag}.jsonl")),
+        tel.ChromeTraceSink(os.path.join(TELEMETRY_OUT, f"{tag}_trace.json"),
+                            process_name=f"chip_smoke {tag}")])
+
+
 def serve_phase(dev, cfg=None, tag="serve", params=None):
     """``cfg`` (qwen3-0.6b by default) serves 12 requests over 8 slots
     through the paged engine on the kernels, launches exact; then teacher
@@ -1257,7 +1297,7 @@ def serve_phase(dev, cfg=None, tag="serve", params=None):
     warm.generate(np.stack([prompts[0][:17]] * 2), 8)
     del warm
 
-    rec = tel.Recorder()
+    rec = telemetry_recorder(tag)
     eng = ServeEngine(cfg, params, rt, telemetry=rec, **kw)
     rids = [eng.submit(p, n_new) for p in prompts]
     torch.cuda.synchronize()
@@ -1266,6 +1306,7 @@ def serve_phase(dev, cfg=None, tag="serve", params=None):
     done = eng.run_until_drained(seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rec.close()
     counts = ops.launch_counts()
     fwd, steps = eng.stats["forward_calls"], eng.stats["decode_steps"]
     expect = serve_expect(cfg, fwd, steps)
@@ -1481,11 +1522,12 @@ def strategy_phase(dev, card, expect):
         placed = check_placements(cfg, plan, params)
         views_ms = local_views_ms(params)
         layers.reset_collective_counts()
-        rec = tel.Recorder()
+        rec = telemetry_recorder("strategy")
         drift = drift_monitor(cfg, strat, planned, topo, shape, rec)
         res = run_steps(dev, card, cfg, rt, tc, params, expect,
                         "strategy", plan=plan, expect_bf16=expect, rec=rec,
                         drift=drift)
+        rec.close()
         res["drift"] = drift_report(drift, rec, card)
         # FSDP2's modules hold reference cycles: collect them, or the
         # parameters outlive the phase
@@ -4480,8 +4522,233 @@ def pod_phase(card, res):
                d5=d5_report(recs["deepseek-moe-16b", D5_SPEC]),
                d6=d6_report(recs),
                d7={k: traces[k] for k in ("AU1", "VL1")} | d7_report(recs),
-               d8=d8_report(recs), j1_dryrun=traces["J1"])
+               d8=d8_report(recs), j1_dryrun=traces["J1"], records=recs)
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 27-28: the roofline against the card (R1), the examples (X1)
+# ---------------------------------------------------------------------------
+
+SUBPROCESS_TIMEOUT_S = 300
+
+
+def _module(args):
+    """Start ``python -m <args>`` from the repository root (stdout piped)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, ["src", os.environ.get("PYTHONPATH")])))
+    return subprocess.Popen([sys.executable, "-m", *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, what):
+    """Wait for a :func:`_module` process -> its stdout; fails the run on a
+    non-zero exit (the caller kills it if this raises)."""
+    out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+    check(proc.returncode == 0, f"{what}: rc {proc.returncode}; {err[-2000:]}")
+    return out
+
+
+def measured_steps(res, pods):
+    """The measured training steps that have a one-rank trace: {tag:
+    (cfg, shape, spec, step p50 s, the trace)} (D2 = the strategy phase's
+    T5 step)."""
+    d7 = d7_cases(res["AU1"], res["VL1"])
+    cases = {"D2": (d2_case(res["strategy"]), res["strategy"],
+                    pods["d2"]["d2"]),
+             "G1": (g1_case(res["G1"]), res["G1"]["train"],
+                    pods["g1_dryrun"]),
+             "M1": (m1_case(res["M1"]), res["M1"]["plan_train"],
+                    pods["m1_dryrun"]),
+             "AU1": (d7["AU1"], res["AU1"]["train"], pods["d7"]["AU1"]),
+             "VL1": (d7["VL1"], res["VL1"]["train"], pods["d7"]["VL1"]),
+             "J1": (j1_case(res["J1"]), res["J1"]["train"],
+                    pods["j1_dryrun"])}
+    return {tag: (case[0], case[1], case[2], run["step_p50_s"], trace)
+            for tag, (case, run, trace) in cases.items()}
+
+
+def r1_phase(card, pods, res):
+    """R1: the schema check over the serve and strategy phases' telemetry
+    (``python -m repro_torch.telemetry``) and the report over this run's
+    records (``python -m repro_torch.perf.report`` -> REPORT_OUT), both
+    in processes of their own, exit 0; the roofline on the cost model's
+    H100 profile of every pod point of this run (each term finite and
+    positive); and each measured step's roofline at its own shape and
+    precision on one H100 against its p50: the share of its roofline it
+    reaches (roofline step / measured step) must not pass 1.0."""
+    check_proc = _module(["repro_torch.telemetry", TELEMETRY_OUT])
+    report_proc = _module(["repro_torch.perf.report"])
+    out = {}
+    try:
+        meshes = {}
+        for rec in pods["records"].values():
+            meshes.setdefault(rec["mesh"], set()).add(
+                (rec["arch"], rec["shape"]))
+        rows = []
+        for mesh, points in sorted(meshes.items()):
+            got = [r for r in roofline.table(DRYRUN_OUT, mesh, hw=cm.H100)
+                   if (r["arch"], r["shape"]) in points]
+            check(len(got) == len(points),
+                  f"R1 roofline on {mesh}: rows {got}, points {points}")
+            rows += got
+        for r in rows:
+            terms = [r[k] for k in ("t_compute_s", "t_memory_s",
+                                    "t_collective_s")]
+            check(all(np.isfinite(terms)) and min(terms) > 0,
+                  f"R1 roofline row {r['arch']} {r['shape']} {r['mesh']}: "
+                  f"terms {terms}")
+        print(f"[R1] roofline of this run's {len(rows)} pod records on the "
+              f"cost model's H100 profile ({cm.H100.flops_bf16 / 1e12:.0f} "
+              f"TFLOP/s bf16, {cm.H100.hbm_bw / 1e12:.2f} TB/s HBM):\n"
+              + roofline.markdown(rows))
+        out["pods"] = rows
+        steps = {}
+        for tag, (cfg, shape, spec, p50, trace) in \
+                measured_steps(res, pods).items():
+            precision = strategy.parse(spec).precision
+            t = roofline.roofline_terms(
+                cfg, shape, 1, total_bytes(trace["collectives"]),
+                remat=False, hw=cm.H100, precision=precision)
+            model = flops_lib.model_flops(cfg, shape)
+            share = t["roofline_step_s"] / p50
+            mfu = model / p50 / cm.H100.flops_bf16
+            print(f"[R1] {tag} ({cfg.name}, {cfg.n_layers} layers, "
+                  f"{spec}, B{shape.global_batch} x S{shape.seq_len}): "
+                  f"compute {t['t_compute_s'] * 1e3:.3f} ms "
+                  f"({t['compiled_flops']:.4g} FLOP at "
+                  f"{t['peak_flops'] / 1e12:.0f} TFLOP/s {precision}), "
+                  f"memory {t['t_memory_s'] * 1e3:.3f} ms "
+                  f"({t['hbm_bytes_per_device']:.4g} B), collective "
+                  f"{t['t_collective_s'] * 1e3:.3f} ms: {t['dominant']}-"
+                  f"bound, roofline step {t['roofline_step_s'] * 1e3:.3f} "
+                  f"ms; measured p50 {p50 * 1e3:.1f} ms: roofline / "
+                  f"measured {share:.4f}; measured MFU {mfu:.4f} (6ND "
+                  f"{model:.4g} / p50 / {cm.H100.flops_bf16:.3g}); on {card}")
+            check(all(np.isfinite([t["t_compute_s"], t["t_memory_s"],
+                                   t["t_collective_s"]]))
+                  and t["roofline_step_s"] > 0,
+                  f"R1 {tag} roofline terms {t}")
+            check(share <= 1.0, f"R1 {tag}: the measured step ({p50} s) is "
+                                f"shorter than its roofline ({t})")
+            steps[tag] = dict(t, arch=cfg.name, n_layers=cfg.n_layers,
+                              spec=spec, batch=shape.global_batch,
+                              seq_len=shape.seq_len, precision=precision,
+                              step_p50_s=p50, roofline_share=share,
+                              measured_mfu=mfu, model_flops=model)
+        out["steps"] = steps
+        print(_finish(check_proc, "R1 telemetry schema check").strip())
+        report = _finish(report_proc, "R1 report")
+    finally:
+        for proc in (check_proc, report_proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    Path(REPORT_OUT).write_text(report)
+    print(f"[R1] report: {len(report.splitlines())} lines -> {REPORT_OUT}")
+    return out
+
+
+X1_100M_STEPS = 60                 # torch_train_100m --steps
+X1_CKPT_EVERY = 30                 # two checkpoints of its ~1.3 GB state
+X1_CKPT_DIR = "results/ckpt/llama-100m"   # the example's
+
+
+def _example(name):
+    """An example's module, loaded from ``examples/`` beside this script."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def x1_phase(dev, card):
+    """X1: the four examples' ``main`` in this process on the card, each
+    with the launch counts zeroed just before and read just after, held
+    exactly to what it runs: the training examples the RMSNorm forward and
+    backward and the flash forward, dq and dk/dv at head dim 64 a layer a
+    step, the quickstart's paged serving the RMSNorms of every forward
+    and a flash-decode a layer a decode step, the batched server the
+    RMSNorms of every forward and the flash forward in each prefill's
+    attention layer; the explorer none."""
+    out, launches = {}, []
+
+    def run(name, argv, expect):
+        mod = _example(name)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = expect(mod, res)
+        print(f"[X1] {' '.join([name, *argv])}: {wall:.1f} s; launches "
+              f"{counts}, expected {want}; on {card}")
+        check(counts == want, f"X1 {name}: launches {counts} != {want}")
+        launches.append(counts)
+        return res, wall
+
+    def trained(cfg, steps):
+        return {k: v * steps for k, v in train_expect(cfg).items()}
+
+    def quick(mod, res):
+        cfg = reduced(get_config("qwen3-0.6b"))
+        st = res["serve_stats"]
+        check(cfg.head_dim_ == 64, f"quickstart head dim {cfg.head_dim_}")
+        return add_launches(trained(cfg, res["steps"]),
+                            serve_expect(cfg, st["forward_calls"],
+                                         st["decode_steps"]))
+
+    res, wall = run("torch_quickstart", [], quick)
+    print(f"[X1] torch_quickstart: loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f} over {res['steps']} "
+          f"steps; served {res['serve_stats']['decode_steps']} decode "
+          f"steps, first sequence tail {res['tokens'][0, -16:].tolist()}")
+    out["quickstart"] = dict(losses=res["losses"], wall_s=wall,
+                             serve_stats=res["serve_stats"])
+
+    shutil.rmtree(X1_CKPT_DIR, ignore_errors=True)
+    argv = ["--steps", str(X1_100M_STEPS), "--ckpt_every",
+            str(X1_CKPT_EVERY)]
+    res, wall = run("torch_train_100m", argv,
+                    lambda mod, res: trained(mod.M100, X1_100M_STEPS))
+    saved = ckpt_lib.list_steps(X1_CKPT_DIR)
+    shutil.rmtree(X1_CKPT_DIR, ignore_errors=True)
+    print(f"[X1] torch_train_100m: loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f} ({len(res['losses'])} logged steps), "
+          f"checkpoints at steps {saved}; {X1_100M_STEPS / wall:.2f} "
+          f"steps/s over the whole run")
+    check(saved == list(range(X1_CKPT_EVERY, X1_100M_STEPS + 1,
+                              X1_CKPT_EVERY)), f"X1 checkpoints {saved}")
+    out["train_100m"] = dict(losses=res["losses"], wall_s=wall,
+                             checkpoints=saved)
+
+    def served(mod, res):
+        cfg = reduced(get_config("jamba-v0.1-52b"))
+        return {k: 3 * v for k, v in _static_expect(cfg, 24).items()}
+
+    res, wall = run("torch_serve_batched", [], served)
+    print(f"[X1] torch_serve_batched: 3 x {res['tokens']} tokens "
+          f"(greedy {res['greedy_s']:.2f} s, sampled {res['sampled_s']:.2f} "
+          f"s); greedy tail {res['greedy'][0, -8:].tolist()}")
+    out["serve_batched"] = dict(tokens=res["tokens"], wall_s=wall,
+                                greedy_s=res["greedy_s"],
+                                sampled_s=res["sampled_s"])
+
+    res, wall = run("torch_parallelism_explorer", [],
+                    lambda mod, res: {k: 0 for k in ops.launch_counts()})
+    best = res["ranked"][0]
+    print(f"[X1] torch_parallelism_explorer: {len(res['ranked'])} ranked, "
+          f"best {best.spec} (predicted MFU {best.report.mfu:.3f}), Pareto "
+          f"front {sorted(res['front'])}")
+    out["explorer"] = dict(n_ranked=len(res["ranked"]), best=best.spec,
+                           wall_s=wall)
+    out["launches"] = add_launches(*launches)
     return out
 
 
@@ -4577,6 +4844,7 @@ def main(argv=None):
         return 1
     dev = resolve_device("cuda")
     check(torch.cuda.device_count() >= 1, "no CUDA device")
+    shutil.rmtree(TELEMETRY_OUT, ignore_errors=True)   # R1 checks this run's
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4680,8 +4948,14 @@ def main(argv=None):
 
     # every dry run at once: the pod points of D2-D8 and the one-rank
     # traces of the plans whose steps ran above
-    pods = phase("pod dry runs", pod_phase, card, dict(
-        strategy=strat, SS3=ss3, G1=g1, M1=m1, AU1=au1, VL1=vl1, J1=j1))
+    res = dict(strategy=strat, SS3=ss3, G1=g1, M1=m1, AU1=au1, VL1=vl1,
+               J1=j1)
+    pods = phase("pod dry runs", pod_phase, card, res)
+
+    # the roofline of the pod points and of the measured steps, the
+    # telemetry schema check and the report; then the examples
+    r1 = phase("R1", r1_phase, card, pods, res)
+    x1 = phase("X1", x1_phase, dev, card)
 
     # each kernel's launches on the main paths: every run above, each
     # counted from 0
@@ -4692,7 +4966,7 @@ def main(argv=None):
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
         g1["launches"], m1["launches"], m2["launches"], e1["launches"],
         mt1["launches"], c1["launches"], au1["launches"], vl1["launches"],
-        j1["launches"])
+        j1["launches"], x1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4709,7 +4983,9 @@ def main(argv=None):
              "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
              "moe_tp_mt1": mt1, "moe_pp_mp1": mp1, "cp_c1": c1,
              "inputs_au1": au1, "inputs_vl1": vl1, "jamba_j1": j1,
-             "dryrun_pod": pods,
+             "dryrun_pod": {k: v for k, v in pods.items()
+                            if k != "records"},
+             "roofline_r1": r1, "examples_x1": x1,
              "build_s": took,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

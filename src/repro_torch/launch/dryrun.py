@@ -43,7 +43,9 @@ fresh process (:func:`lower_fresh`).  ``--measure_bubble`` (pp > 1,
 The record keeps JAX's keys where the meaning is the same.  ``memory`` is
 the peak bytes per device, split into parameters, gradients, optimizer
 state, activations and temporaries (``perf.memory``); ``trace_s`` stands
-where JAX has ``lower_s``.  The XLA-only fields are left out:
+where JAX has ``lower_s``; ``remat`` (false: the step is traced
+without remat, as the train CLIs run it) tells the roofline
+(``perf.roofline``) how to price it.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
 ``generated_code_bytes`` and ``compile_s``.  A MoE arch's record also
 counts its MoE layer calls by dispatch entry (``moe_dispatch``), and its
@@ -412,6 +414,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "kernels": kernels,
             "trace_s": round(sum(t["trace_s"] for t in traced.values()), 1),
             "n_devices": topo.n_devices,
+            # the step traced without remat, as both train CLIs run it:
+            # the roofline prices its FLOPs and bytes so
+            "remat": False,
             "flops_compiled_analytic": flops_lib.compiled_flops(
                 cfg, shape, remat=False),
             "flops_forward_analytic": flops_lib.forward_flops(cfg, shape),

@@ -1,0 +1,323 @@
+"""Assemble the port's EXPERIMENTS report from its dry-run records, the
+roofline analysis on the H100, the cost model's paper claims and its
+telemetry — the port of the JAX package's ``perf/report.py``.
+
+    PYTHONPATH=src python -m repro_torch.perf.report > results/EXPERIMENTS_torch.md
+
+It keeps the JAX report's sections, each fed by the port's own artifacts:
+the dry-run tables and the collective mix read ``results/dryrun_torch``
+(``trace_s`` where JAX has ``compile_s``, the traced peak per device where
+JAX has argument + temp bytes); the roofline is priced on the cost
+model's ``H100`` profile; the schedule frontier reads the ``pipeline``
+blocks of the pp > 1 records (their predicted bubble, and the measured
+one where ``--measure_bubble`` ran); §Benchmarks reads
+``results/benchmarks_torch/*.csv``; §Paper-claims computes each value at
+build time from the port's ``core/costmodel.py``.  All ``results/...``
+inputs resolve against the repo root (perf/paths.py); a build that finds
+**zero** ok dry-run records exits non-zero instead of emitting empty
+tables.
+"""
+from __future__ import annotations
+
+import csv
+import glob
+import json
+import os
+import sys
+from typing import Dict, List, Tuple
+
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.llama2 import LLAMA2_7B
+from repro_torch.core import costmodel as cm
+from repro_torch.perf import roofline
+from repro_torch.perf.paths import results_path
+from repro_torch.strategy import Topology, search
+
+DRYRUN = "dryrun_torch"
+MESHES = ("pod16x16", "pod2x16x16")
+
+
+def _records(pattern: str) -> List[Dict]:
+    out = []
+    for path in sorted(glob.glob(results_path(DRYRUN, pattern))):
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _dryrun_table(mesh: str) -> Tuple[str, int]:
+    """-> (the table of every record on ``mesh``, the number of ok ones)."""
+    rows, n_ok = [], 0
+    for r in _records(f"*_{mesh}.json"):
+        if r["status"] == "skipped":
+            rows.append(f"| {r['arch']} | {r['shape']} | — | — | — | — | "
+                        f"skipped: {r['reason']} |")
+            continue
+        if r["status"] != "ok":
+            rows.append(f"| {r['arch']} | {r['shape']} | — | — | — | — | "
+                        f"**ERROR** {r.get('error','')[:80]} |")
+            continue
+        n_ok += 1
+        per_dev_gib = r["memory"]["peak_bytes_per_device"] / 2**30
+        coll = r.get("collective_bytes_total", 0)
+        plan = r.get("plan", {})
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {plan.get('attn','?')} "
+            f"| {r['trace_s']:.0f}s | {per_dev_gib:.1f} "
+            f"| {coll:.2e} | ok |")
+    hdr = ("| arch | shape | attn plan | trace | peak GiB/dev | "
+           "collective B | status |\n|---|---|---|---|---|---|---|\n")
+    return hdr + "\n".join(rows) + "\n", n_ok
+
+
+def _collective_detail(mesh: str) -> str:
+    out = ["| arch | shape | all-gather | all-reduce | reduce-scatter | "
+           "all-to-all | collective-permute |",
+           "|---|---|---|---|---|---|---|"]
+    for r in _records(f"*_{mesh}.json"):
+        if r.get("status") != "ok":
+            continue
+        c = r.get("collectives", {})
+
+        def b(k):
+            v = c.get(k, {}).get("bytes", 0)
+            return f"{v:.2e}" if v else "0"
+        out.append(f"| {r['arch']} | {r['shape']} | {b('all-gather')} | "
+                   f"{b('all-reduce')} | {b('reduce-scatter')} | "
+                   f"{b('all-to-all')} | {b('collective-permute')} |")
+    return "\n".join(out) + "\n"
+
+
+def _benchmark_summaries() -> str:
+    out = []
+    for path in sorted(glob.glob(results_path("benchmarks_torch", "*.csv"))):
+        name = os.path.basename(path)[:-4]
+        with open(path) as f:
+            rows = list(csv.reader(f))
+        out.append(f"### {name}\n")
+        out.append("| " + " | ".join(rows[0]) + " |")
+        out.append("|" + "---|" * len(rows[0]))
+        for row in rows[1:]:
+            out.append("| " + " | ".join(row) + " |")
+        out.append("")
+    if not out:
+        return ("_(no CSVs under results/benchmarks_torch yet: the port's "
+                "sweeps write them)_\n")
+    return "\n".join(out) + "\n"
+
+
+def _pipeline_frontier() -> str:
+    """§Schedule-frontier from the ``pipeline`` blocks of the pp > 1
+    dry-run records: per schedule the predicted bubble, the measured one
+    where the probe ran, and the traced peak of the worst stage."""
+    recs = [r for r in _records("*.json")
+            if r.get("status") == "ok" and "pipeline" in r]
+    if not recs:
+        return ("_(no pp > 1 dry-run records yet: run `python -m "
+                "repro_torch.launch.dryrun --strategy <spec with pp>` "
+                "first)_\n")
+
+    def _frac(v):
+        return f"{v:.3f}" if v is not None else "—"
+
+    out = ["The bubble fraction is hardware-free; the measured one is the "
+           "probe's two-point fit on the ranks of the run that traced it "
+           "(`--measure_bubble`).\n",
+           "| arch | shape | spec | sched | v | ovl | bubble pred | "
+           "bubble meas | peak MiB/dev |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        p = r["pipeline"]
+        flag = "!" if p.get("fit_unreliable") else ""
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['strategy']} "
+            f"| {p.get('sched', '—')} | {p.get('virtual_stages', 1)} "
+            f"| {'on' if p.get('overlap') else 'off'} "
+            f"| {_frac(p.get('bubble_predicted'))} "
+            f"| {_frac(p.get('bubble_measured'))}{flag} "
+            f"| {r['memory']['peak_bytes_per_device'] / 2**20:.0f} |")
+    out.append("\n`!` marks a `fit_unreliable` bubble fit (non-increasing "
+               "two-point measurement on a noisy host).\n")
+    return "\n".join(out) + "\n"
+
+
+def _best_report(hw: cm.Hardware) -> cm.StepReport:
+    """The planner's best (wps) llama2-7b strategy on 256 chips of ``hw``
+    (``tests/test_costmodel.py::_best_report``)."""
+    topo = Topology(hw.name, 256, island=hw.island, hardware=hw.name,
+                    hbm=80e9, hw_obj=hw)
+    shape = ShapeConfig("s", 4096, 512, "train")
+    ranked = search(LLAMA2_7B, topo, shape, dp_modes=("fsdp",),
+                    zero_stages=(2,), pps=(1, 2, 4, 8, 16), cps=(1,),
+                    require_fits=False, require_lowerable=False)
+    return ranked[0].report
+
+
+def paper_claims() -> Dict[str, float]:
+    """The paper's headline numbers as the port's cost model gives them,
+    through the calls of ``tests/test_costmodel.py::test_claim_*``."""
+    def fsdp(n, batch, seq=4096, tp=1):
+        return cm.step_time(LLAMA2_7B, cm.H100,
+                            cm.Strategy(n, tp=tp, zero_stage=2), batch, seq)
+
+    r128, r2048 = fsdp(128, 256), fsdp(2048, 4096)
+    gains = {tp: fsdp(2048, 4096, tp=tp).wps / r2048.wps - 1
+             for tp in (2, 4)}
+    best_tp = max(gains, key=gains.get)
+    short, long = fsdp(512, 1024, 2048), fsdp(512, 1024, 8192)
+    out = {
+        "weak_scaling_drop": 1 - r2048.tflops_per_device
+        / r128.tflops_per_device,
+        "power_drop": 1 - r2048.power_per_device / r128.power_per_device,
+        "tp_gain_2048": gains[best_tp], "tp_gain_2048_tp": best_tp,
+        "best_mfu_h100_256": _best_report(cm.H100).mfu,
+        "best_mfu_a100_256": _best_report(cm.A100).mfu,
+        "exposed_share_short": short.t_comm_exposed / short.t_step,
+        "exposed_share_long": long.t_comm_exposed / long.t_step,
+        "mfu_short": short.mfu, "mfu_long": long.mfu,
+    }
+    for n in (8, 128, 1024, 2048):
+        out[f"exposed_s_{n}"] = fsdp(n, 2 * n).t_comm_exposed
+    return out
+
+
+def _claims_section() -> str:
+    c = paper_claims()
+    ok = "✅"
+    exposure = ", ".join(f"{n}: {c[f'exposed_s_{n}']:.3g} s"
+                         for n in (8, 128, 1024, 2048))
+    grows = c["exposed_s_2048"] > c["exposed_s_1024"] > 0 \
+        and c["exposed_s_8"] < 1e-3
+    return f"""## §Paper-claims — cost-model reproduction of the paper's findings
+
+The port's analytical cost model (`repro_torch/core/costmodel.py`, a copy
+of the JAX package's calibrated one) evaluated against the paper's
+headline numbers; every value below is computed when this report is
+built, by the calls of `tests/test_costmodel.py::test_claim_*`:
+
+| claim (paper §) | paper | the port's cost model |
+|---|---|---|
+| Weak scaling: TFLOPS/WPS drop, 128->2048 H100s (§4.1) | −37.22% | −{c['weak_scaling_drop']:.1%} |
+| Per-GPU power nearly flat over the same sweep (§4.1) | −5.87% (658→620 W) | −{c['power_drop']:.1%} |
+| TP 2–4 beats pure FSDP at 2048 GPUs, WPS gain (§5) | +52.6% | +{c['tp_gain_2048']:.1%} (tp={c['tp_gain_2048_tp']}) |
+| Optimal-strategy MFU, H100 256 GPUs (§4.4) | 40.77% | {c['best_mfu_h100_256']:.1%} |
+| Optimal-strategy MFU, A100 256 GPUs (§4.4) | 59.67% | {c['best_mfu_a100_256']:.1%} |
+| FSDP comm-bound beyond ~128 GPUs (§5): exposed comm per step at 8/128/1024/2048 GPUs | qualitative | {exposure} {ok if grows else '✗'} |
+| Longer context -> better overlap, higher MFU (§4.6): exposed share and MFU at S 2048 -> 8192 on 512 GPUs | qualitative | {c['exposed_share_short']:.1%} -> {c['exposed_share_long']:.1%}; MFU {c['mfu_short']:.1%} -> {c['mfu_long']:.1%} |
+
+"""
+
+
+def _header() -> str:
+    hw = roofline.DEFAULT_HW
+    return f"""# EXPERIMENTS — the PyTorch/H100 port
+
+Reproduction of **Hardware Scaling Trends and Diminishing Returns in
+Large-Scale Distributed Training** (Fernandez et al., 2024) by the port
+(`src/repro_torch`): its dry runs on the production meshes (fake process
+groups of 256 / 512 ranks), the three-term roofline of each, and the cost
+model's reading of the paper.  Measured times of the port on the card are
+in PERF.md; nothing below is a measurement of a device.
+
+Peaks for every derived number: the cost model's `{hw.name}` profile
+(`core/costmodel.py`): {hw.flops_bf16 / 1e12:.0f} TFLOP/s bf16,
+{hw.hbm_bw / 1e12:.2f} TB/s HBM, {hw.intra_bw / 1e9:.0f} GB/s intra-node
+link bandwidth per GPU over {hw.rings} ring(s), {hw.island} GPUs a node.
+
+"""
+
+
+SECTION_NOTES = """
+Notes on conventions:
+* *collective B* is the census of the traced step's collectives
+  (`perf/comms.py`): each c10d op's result bytes as it is dispatched on
+  the fake process group, under XLA's HLO kind names.
+* FLOPs are analytic (`perf/flops.py`), the einsums the step executes
+  (no remat: the port's dry run traces the step as the train CLIs run
+  it; MoE capacity slop, causal triangularity).
+* *peak GiB/dev* is the traced peak of live bytes on one rank
+  (`perf/memory.py`, rounded as the caching allocator rounds), against
+  the card's memory.
+"""
+
+
+def _reading(rows: List[Dict]) -> str:
+    """Which term bounds each shape, counted from the table."""
+    by_shape: Dict[str, Dict[str, int]] = {}
+    for r in rows:
+        d = by_shape.setdefault(r["shape"], {})
+        d[r["dominant"]] = d.get(r["dominant"], 0) + 1
+    parts = [f"{shape}: " + ", ".join(f"{n} {term}-bound"
+                                       for term, n in sorted(d.items()))
+             for shape, d in sorted(by_shape.items())]
+    return ("\nReading the table (on the cost model's peaks, one row per "
+            "record): " + "; ".join(parts) + ".  `6ND/compiled` < 1 "
+            "quantifies MoE capacity slop, attention's quadratic terms "
+            "and dense-layer overheads per arch.\n")
+
+
+def main():
+    parts = [_header(), _claims_section()]
+    n_ok = 0
+    parts.append("## §Dry-run — the archs x shapes on the production "
+                 "meshes\n")
+    parts.append("Each point traces one step on a fake process group "
+                 "(`python -m repro_torch.launch.dryrun`); `long_500k` is "
+                 "skipped for pure full-attention archs (the JAX "
+                 "package's reason).\n")
+    parts.append("### Single pod: 256 ranks, axes (data, model)\n")
+    table, n = _dryrun_table(MESHES[0])
+    n_ok += n
+    parts.append(table)
+    parts.append(SECTION_NOTES)
+    parts.append("\n### Multi-pod: 512 ranks, axes (pod, data, model), "
+                 "HSDP across pods\n")
+    table, n = _dryrun_table(MESHES[1])
+    n_ok += n
+    parts.append(table)
+    parts.append("\n### Collective mix per pair (single pod, bytes)\n")
+    parts.append(_collective_detail(MESHES[0]))
+
+    parts.append(f"\n## §Roofline — three-term analysis per pair "
+                 f"(single pod, {roofline.DEFAULT_HW.name})\n")
+    rows = roofline.table(out_dir=os.path.join("results", DRYRUN),
+                          mesh=MESHES[0])
+    parts.append(roofline.markdown(rows))
+    if rows:
+        parts.append(_reading(rows))
+    opt_rows = roofline.table(out_dir=os.path.join("results", DRYRUN),
+                              mesh=MESHES[0], tag="opt")
+    if opt_rows:
+        parts.append("\n### Optimized configurations (tagged `opt`)\n")
+        parts.append(roofline.markdown(opt_rows))
+
+    parts.append("\n## §Perf — measurements on the card\n")
+    parts.append("The port's measured steps, requests and kernels, with "
+                 "the card's name and power limit beside each, are in "
+                 "PERF.md; `chip_smoke.py` prints each measured step's "
+                 "share of its roofline.\n")
+    parts.append("\n## §Benchmarks — per-figure outputs (cost model)\n")
+    parts.append(_benchmark_summaries())
+    parts.append("\n## §Schedule-frontier — pipeline schedules of the dry "
+                 "runs\n")
+    parts.append(_pipeline_frontier())
+    parts.append("\n## §Telemetry — measured-run artifacts\n")
+    parts.append(
+        "Instrumented runs (`--trace`, `--metrics_jsonl`, "
+        "`--drift_report` of `python -m repro_torch.launch.train` and "
+        "`launch.serve`) write Chrome-trace/Perfetto JSONs of host spans, "
+        "JSONL event streams (schema-checked by `python -m "
+        "repro_torch.telemetry <dir>`), and drift reports comparing the "
+        "cost model's per-term step-time decomposition against measured "
+        "windows (`predicted_over_measured` per term).\n")
+    if n_ok == 0:
+        print("ERROR: no ok dryrun records matched under "
+              f"{results_path(DRYRUN)} — run "
+              "`python -m repro_torch.launch.dryrun` first (the report "
+              "would be built entirely from empty tables)", file=sys.stderr)
+        raise SystemExit(1)
+    print("\n".join(parts))
+
+
+if __name__ == "__main__":
+    main()

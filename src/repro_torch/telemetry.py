@@ -9,12 +9,16 @@ measured :class:`DriftMonitor` behind the train CLI's ``--drift_report``
 and ``summarize_events`` behind its ``--event_log``.  Spans enter
 ``torch.profiler.record_function`` so host spans line up with the device
 kernels in a ``torch.profiler`` trace; ``device_time_in_spans`` reads a
-profile that way.
+profile that way.  ``validate_jsonl``, ``validate_chrome_trace`` and
+``check_paths`` are the schema check over emitted files, and
+``python -m repro_torch.telemetry PATH...`` its CLI (the JAX package's
+``python -m repro.telemetry``).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import glob
 import json
 import math
 import numbers
@@ -84,6 +88,94 @@ def summarize_events(events: Iterable[Dict]) -> Dict:
                                 for e in failures),
         "events": events,
     }
+
+
+def validate_jsonl(path: str) -> Tuple[int, List[str]]:
+    """Validate every line of a JSONL event file.
+
+    Returns ``(n_events, errors)`` where each error names its line.
+    """
+    n, errs = 0, []
+    try:
+        f = open(path)
+    except OSError as e:
+        return 0, [f"{path}: unreadable ({e})"]
+    with f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            n += 1
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError as e:
+                errs.append(f"{path}:{i}: not JSON ({e})")
+                continue
+            for msg in validate_event(ev):
+                errs.append(f"{path}:{i}: {msg}")
+    return n, errs
+
+
+def validate_chrome_trace(path: str) -> Tuple[int, List[str]]:
+    """Validate a Chrome-trace/Perfetto JSON file's structure.
+
+    Checks exactly what Perfetto's JSON importer needs: a top-level
+    ``traceEvents`` list whose entries have ``ph``/``name``, with complete
+    ('X') events carrying numeric ``ts``/``dur`` and a ``pid``/``tid``.
+    """
+    errs: List[str] = []
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return 0, [f"{path}: unreadable ({e})"]
+    evs = doc.get("traceEvents")
+    if not isinstance(evs, list):
+        return 0, [f"{path}: no 'traceEvents' list"]
+    for i, ev in enumerate(evs):
+        where = f"{path}: traceEvents[{i}]"
+        if not isinstance(ev, dict) or "ph" not in ev:
+            errs.append(f"{where}: missing 'ph'")
+            continue
+        if not isinstance(ev.get("name"), str):
+            errs.append(f"{where}: missing 'name'")
+        if ev["ph"] == "X":
+            for field in ("ts", "dur"):
+                if not isinstance(ev.get(field), numbers.Real):
+                    errs.append(f"{where}: 'X' event needs numeric {field!r}")
+            if isinstance(ev.get("dur"), numbers.Real) and ev["dur"] < 0:
+                errs.append(f"{where}: negative dur")
+            for field in ("pid", "tid"):
+                if field not in ev:
+                    errs.append(f"{where}: missing {field!r}")
+    return len(evs), errs
+
+
+def check_paths(paths: Iterable[str]) -> Tuple[int, int, List[str]]:
+    """Validate every telemetry artifact under ``paths``.
+
+    Directories are scanned for ``*.jsonl`` (event streams) and
+    ``*trace*.json`` (Chrome traces).  Returns
+    ``(n_files, n_events, errors)``.
+    """
+    files: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            files += sorted(glob.glob(os.path.join(p, "**", "*.jsonl"),
+                                      recursive=True))
+            files += sorted(glob.glob(os.path.join(p, "**", "*trace*.json"),
+                                      recursive=True))
+        else:
+            files.append(p)
+    n_events, errs = 0, []
+    for path in files:
+        if path.endswith(".jsonl"):
+            n, e = validate_jsonl(path)
+        else:
+            n, e = validate_chrome_trace(path)
+        n_events += n
+        errs += e
+    return len(files), n_events, errs
 
 
 # ---------------------------------------------------------------------------
@@ -555,3 +647,34 @@ def write_op_table(prof, path: str, device_times: bool) -> None:
             f.write(f"sorted by {sort}\n")
             f.write(averages.table(sort_by=sort, row_limit=40))
             f.write("\n\n")
+
+
+# ---------------------------------------------------------------------------
+# the schema check's CLI
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    """``python -m repro_torch.telemetry PATH...``: validate the JSONL event
+    streams and Chrome traces under each path (directories are scanned
+    recursively); 1 on any schema violation or when no file is found."""
+    import argparse
+    import sys
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.telemetry",
+        description="Validate telemetry JSONL / Chrome-trace artifacts.")
+    ap.add_argument("paths", nargs="+",
+                    help="files or directories to validate")
+    args = ap.parse_args(argv)
+    n_files, n_events, errs = check_paths(args.paths)
+    for e in errs:
+        print(f"SCHEMA ERROR: {e}", file=sys.stderr)
+    print(f"telemetry schema check: {n_files} files, {n_events} events, "
+          f"{len(errs)} errors")
+    if n_files == 0:
+        print("no telemetry artifacts found", file=sys.stderr)
+        return 1
+    return 1 if errs else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -291,7 +291,14 @@ def test_port_imports_no_jax():
             "repro_torch.strategy.topology, "
             "repro_torch.strategy.descriptor, repro_torch.checkpointing, "
             "repro_torch.resilience, repro_torch.resilience.supervisor, "
-            "chip_smoke\n"
+            "repro_torch.perf.paths, repro_torch.perf.bytes, "
+            "repro_torch.perf.roofline, repro_torch.perf.report, "
+            "repro_torch.telemetry, chip_smoke\n"
+            "import importlib.util, pathlib\n"
+            "for f in sorted(pathlib.Path('examples').glob('torch_*.py')):\n"
+            "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -305,6 +312,7 @@ def test_port_sources_never_import_jax():
                      r"|from\s+repro(\.|\s))", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 15
     for f in files:
         hits = pat.findall(f.read_text())
