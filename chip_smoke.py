@@ -250,8 +250,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               and every gradient (AdamW's first moment) within 1e-4 of
               scale of one process's dropping step.
 21. MP1     — ``fsdp_pp2_mb2_1f1b`` on dbrx-132b at full width and 2 layers:
-              the dry run of each pipe rank's train step on the card, its
-              peak printed.  A stage's step needs more than the card
+              the dry run of each pipe rank's train step on the card
+              (with remat: each stage's layers checkpointed), its peak
+              printed.  A stage's step needs more than the card
               holds, so no pair trains it here; the pipelined aux is held
               against the JAX package on the CPU.
 22. C1      — ``fsdp_cp2`` on qwen3-0.6b at full width and 4 layers in two
@@ -315,7 +316,25 @@ order; any failure ends the run with a non-zero exit and no result line:
               scan's share of a step; then kernel vs plain loss and
               gradients at B 2 x 512 within 1e-4 of scale; its plan's dry
               run (in the pods phase) within 10 % of the measured peak.
-26. pods    — every dry run, each in a process of its own, all at once:
+26. RM1     — block remat (``Runtime.remat``; every measured step above
+              runs without it, as the train CLIs do).  (a) qwen3-0.6b at
+              full width and depth under ``fsdp`` on the 1-rank NCCL mesh,
+              f32, at B 8 x S 512 and at B 2 x S 4096 (the largest B
+              whose step fits the card without remat): from the same
+              weights and batch a forward and backward and then 4 AdamW
+              steps with remat off and on, each on weights of its own:
+              launches exact (remat adds each layer's two RMSNorm
+              forwards and its flash forward, rerun in the backward),
+              losses equal within 1e-4, every gradient within 1e-4 of
+              its scale of the step without remat; each run's
+              ``max_memory_allocated`` and step p50 printed, and at S 4096
+              the remat peak must lie below the one without.  Both remat
+              steps' dry runs (in the pods phase, with remat) within 10 %
+              of their measured peaks.  (b) J1's training config (one
+              block of 2 layers) under ``fsdp``: a forward and backward
+              with remat and with remat + ``remat_inner`` against one
+              without, launches exact, gradients at the same bar.
+27. pods    — every dry run, each in a process of its own, all at once:
               the full-depth points on the pod topology (256 fake ranks,
               each through the dry-run CLI), each of which must trace: D2's
               and D3's (above); D4 ``granite-20b x
@@ -327,11 +346,18 @@ order; any failure ends the run with a non-zero exit and no result line:
               ``musicgen-medium`` and ``qwen2-vl-2b x train_4k`` (both
               resolve tp 16 to context attention); D8 ``jamba-v0.1-52b``
               (32 layers) x train_4k under what ``--strategy auto`` ranks
-              first and x long_500k on the pod layout.  Beside them the
-              plans of D2, D3, G1, M1, AU1 and VL1 (D7) and J1 are traced
-              at their shapes, one fake rank each, against the steps'
-              measured peaks.
-27. R1      — the roofline against the card: the schema check
+              first and x long_500k on the pod layout.  The pod points
+              are traced as the JAX dry run lowers them: a train shape
+              with remat, whose recompute gathers K and V (D6, D7) and
+              dispatches every MoE layer (D5) again; D6's dbrx-132b and
+              D8's jamba x train_4k under ``auto`` print their peak,
+              parameter and optimizer bytes beside the planner's
+              ``memory_per_device``.  MP1's two stages are traced with
+              remat too.  Beside them the plans of D2, D3, G1, M1, AU1
+              and VL1 (D7), J1 and RM1 are traced at their shapes, one
+              fake rank each, against the steps' measured peaks (RM1's
+              with remat, the others without).
+28. R1      — the roofline against the card: the schema check
               (``python -m repro_torch.telemetry``) over the JSONL
               streams and Chrome traces that the serve phases (S1, Q2,
               H1, G1, M1, M2) and the strategy phase wrote under
@@ -345,7 +371,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               1.0 fails) and its measured MFU (6ND / p50 / 990e12); the
               report (``python -m repro_torch.perf.report``) over this
               run's records, exit 0, into ``results/EXPERIMENTS_torch.md``.
-28. X1      — the four examples' ``main`` in this process on the card:
+29. X1      — the four examples' ``main`` in this process on the card:
               ``torch_quickstart`` (reduced qwen3 trained 60 steps under
               ``fsdp``, then served by the paged engine),
               ``torch_train_100m --steps 60 --ckpt_every 30``,
@@ -354,7 +380,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               exact (RMSNorm forward and backward and the flash kernels
               at head dim 64 a layer a step, flash-decode a layer a
               decode step, the static prefill's flash forward).
-29. report  — one JSON line listing every kernel (its f32 case, and a
+30. report  — one JSON line listing every kernel (its f32 case, and a
               ``bf16`` entry with the strategy phase's bf16 launches; the
               launches count every main-path run above), then the device
               line ``{"ok": true, "device": {...}}`` as the last line.
@@ -1507,7 +1533,7 @@ def strategy_phase(dev, card, expect):
         topo = strategy.host_topology()
         strat, planned = strategy.resolve(STRATEGY_SPEC, cfg, topo, shape)
         plan = strat.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         check(rt.compute_dtype == torch.bfloat16
               and rt.param_dtype == torch.float32,
               f"{STRATEGY_SPEC}: runtime dtypes {rt}")
@@ -1659,7 +1685,7 @@ def ck1_phase(dev, card, expect):
         topo = strategy.host_topology()
         strat = strategy.parse(CK_SPEC)
         plan = strat.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         check(rt.param_dtype == rt.compute_dtype == torch.float32,
               f"CK1 runtime dtypes {rt}")
 
@@ -1692,7 +1718,8 @@ def ck1_phase(dev, card, expect):
         def supervised():
             t0 = time.perf_counter()
             params, opt, hist, sup = supervise_training(
-                cfg, strat, topo, shape, tc_b, batches, seed=SEED,
+                cfg, strat, topo, shape, tc_b, batches,
+                rt_overrides=dict(remat=False), seed=SEED,
                 device=dev, fault_plan=FaultPlan.crashes_at(CK_CRASH),
                 sup_cfg=SupervisorConfig(backoff_base_s=0.0,
                                          event_log_path=str(log)),
@@ -1879,7 +1906,7 @@ def fp8_run(dev, card, cfg, shape, expect):
     topo = strategy.host_topology()
     strat, _ = strategy.resolve(FP8_SPEC, cfg, topo, shape)
     plan = strat.to_plan(cfg, topo, shape)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     check(rt.gather_dtype == torch.float8_e4m3fn and rt.fsdp_wire
           and rt.compute_dtype == torch.bfloat16,
           f"{FP8_SPEC}: runtime {rt}")
@@ -2002,7 +2029,8 @@ def _pipe_rank(rank, port, out_dir):
             s = strategy.parse(spec)
             topo = strategy.host_topology()
             plan = s.to_plan(cfg, topo, shape)
-            rt = par.make_runtime(cfg, plan, shape, pipe_via_host=True)
+            rt = par.make_runtime(cfg, plan, shape, remat=False,
+                                  pipe_via_host=True)
             params = par.apply_plan(
                 tfm.init_params(cfg, seed=SEED, device=dev), plan, cfg)
             step = make_train_step(cfg, rt, TrainConfig(
@@ -2988,7 +3016,7 @@ def g1_phase(dev, card):
         topo = strategy.host_topology()
         strat, _ = strategy.resolve(G1_SPEC, cfg, topo, shape)
         plan = strat.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         check(rt.param_dtype == rt.compute_dtype == torch.float32,
               f"G1 runtime dtypes {rt}")
         tc = TrainConfig(steps=G1_STEPS, warmup=DENSE_STEPS, log_every=1,
@@ -3071,7 +3099,7 @@ def m1_phase(dev, card):
         strat, _ = strategy.resolve(M1_SPEC, cfg, strategy.host_topology(),
                                     shape)
         plan = strat.to_plan(cfg, strategy.host_topology(), shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         check(rt.moe_impl == "dropping" and rt.moe_groups == 1,
               f"M1 plan runtime: moe_impl {rt.moe_impl}, groups "
               f"{rt.moe_groups}")
@@ -3207,13 +3235,17 @@ def d5_report(pod):
     cfg = get_config("deepseek-moe-16b")
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     a2a = pod.get("collectives", {}).get("all-to-all", {})
-    check(pod["plan"]["expert"] == "expert"
-          and pod["moe_dispatch"]["ep_calls"] == n_moe
-          and a2a.get("count") == 4 * n_moe,
+    # under remat the backward's recompute dispatches every MoE layer
+    # again: its dispatch and combine exchanges a third time
+    remat = pod["remat"]
+    check(pod["plan"]["expert"] == "expert" and remat
+          and pod["moe_dispatch"]["ep_calls"] == n_moe * (1 + remat)
+          and a2a.get("count") == (4 + 2 * remat) * n_moe,
           f"D5 deepseek-moe-16b pod dry run: {pod.get('moe_dispatch')} "
           f"{a2a}")
     print(f"[D5] deepseek-moe-16b x train_4k ({cfg.n_layers} layers) on pod "
-          f"({pod['strategy']}, mesh {pod['plan']['mesh']}) in "
+          f"({pod['strategy']}, mesh {pod['plan']['mesh']}, remat "
+          f"{remat}) in "
           f"{pod['wall_s']:.1f} s: peak/dev "
           f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB; "
           f"all-to-all {a2a['count']} x, {a2a['bytes']:.4g} B of "
@@ -3419,7 +3451,7 @@ def _first_step(cfg, spec, batch, dev):
     shape = ShapeConfig("chip_smoke", S, B, "train")
     plan = strategy.parse(spec).to_plan(cfg, strategy.host_topology(),
                                         shape, device_type=dev.type)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
                             plan, cfg)
     step = make_train_step(cfg, rt, TrainConfig(
@@ -3563,9 +3595,11 @@ def mp1_phase(card):
                  for k, v in rec["memory"].items()}
         check(peaks["peak_per_device"] > 0,
               f"MP1 pipe rank {rank}: memory record {peaks}")
-        out["ranks"].append(dict(peaks_gib=peaks, trace_s=rec["trace_s"]))
+        out["ranks"].append(dict(peaks_gib=peaks, trace_s=rec["trace_s"],
+                                 remat=rec["remat"]))
         print(f"[MP1] dry run of {MP1_SPEC} on dbrx-132b at full width, "
-              f"{MP1_LAYERS} layers, B{MP1_BATCH} x S{TRAIN_SEQ}, pipe rank "
+              f"{MP1_LAYERS} layers, B{MP1_BATCH} x S{TRAIN_SEQ}, remat "
+              f"{rec['remat']} (each stage's layers), pipe rank "
               f"{rank} of {s.pp} (fake) on the card in {rec['trace_s']} s, "
               "GiB: " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
               + f" (the card holds {card_gib:.2f}); on {card}")
@@ -3826,6 +3860,24 @@ def d6_points():
              if spec == "auto" else spec) for arch, spec in D6_POINTS]
 
 
+def auto_memory(tag, arch, rec):
+    """An ``auto`` train_4k pod point of ``arch`` (traced with remat, as the
+    JAX dry run lowers it) beside the planner's ``memory_per_device`` for
+    the plan it ranked first -> both, in GiB."""
+    planned = strategy.resolve("auto", get_config(arch),
+                               strategy.pod_topology(),
+                               SHAPES["train_4k"])[1]
+    gib = {k.replace("_bytes", "").replace("_per_device", ""): v / 2 ** 30
+           for k, v in rec["memory"].items()}
+    out = dict(gib, planner=planned.report.memory_per_device / 2 ** 30,
+               remat=rec["remat"], strategy=rec["strategy"])
+    print(f"[{tag}] {arch} x train_4k under auto ({rec['strategy']}, remat "
+          f"{rec['remat']}): traced peak/dev {gib['peak']:.2f} GiB ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in gib.items() if k != "peak")
+          + f") vs the planner's memory_per_device {out['planner']:.2f} GiB")
+    return out
+
+
 def d6_report(recs):
     """D6: full-depth dry runs on the pod topology (256 fake ranks) of the
     new compositions, traced by :func:`pod_phase`: qwen2-1.5b x train_4k
@@ -3838,8 +3890,9 @@ def d6_report(recs):
         cfg = get_config(arch)
         sites = rec["collective_sites"]
         if arch == "qwen2-1.5b":
-            check(rec["plan"]["attn"] == "context"
-                  and sites["context_kv_gather"] == 2 * cfg.n_layers,
+            # K and V gathered in each layer's forward and its recompute
+            check(rec["plan"]["attn"] == "context" and rec["remat"]
+                  and sites["context_kv_gather"] == 4 * cfg.n_layers,
                   f"D6 qwen2-1.5b: plan {rec['plan']}, sites {sites}")
         print(f"[D6] {arch} x train_4k ({cfg.n_layers} layers) on pod under "
               f"{spec} (mesh {rec['plan']['mesh']}, attn "
@@ -3849,6 +3902,8 @@ def d6_report(recs):
               f"sites {sites}; moe dispatch {rec.get('moe_dispatch')}; "
               f"collectives {rec['collectives']}")
         out[arch] = rec
+        if arch == "dbrx-132b":
+            out["dbrx_auto_memory"] = auto_memory("D6", arch, rec)
     return out
 
 
@@ -4016,7 +4071,7 @@ def input_train(dev, card, cfg, batch, tag):
         topo = strategy.host_topology()
         strat, _ = strategy.resolve(IN_SPEC, cfg, topo, shape)
         plan = strat.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
                                 plan, cfg)
         embeds = "embeds" in batch
@@ -4158,7 +4213,8 @@ def plan_traces(card, cases):
     at once, against the measured peak of the step it traces: {tag: (cfg,
     shape, spec, measured bytes, runtime overrides, tolerance)} -> {tag:
     the record's memory, the measured peak, their relative difference and
-    the trace's seconds}."""
+    the trace's seconds}.  A step is traced without remat, as the measured
+    steps ran, unless its overrides say otherwise."""
     import concurrent.futures
     import multiprocessing
     topo = strategy.host_topology(n_devices=1)
@@ -4169,7 +4225,9 @@ def plan_traces(card, cases):
         for tag, (cfg, shape, spec, _, over, _) in cases.items():
             strat, _ = strategy.resolve(spec, cfg, topo, shape)
             futs[tag] = ex.submit(dryrun.lower_one, cfg, shape, strat, topo,
-                                  rt_overrides=over, device="cuda")
+                                  rt_overrides={"remat": False,
+                                                **(over or {})},
+                                  device="cuda")
         recs = {tag: f.result(timeout=POD_TIMEOUT_S)
                 for tag, f in futs.items()}
     out = {}
@@ -4177,7 +4235,8 @@ def plan_traces(card, cases):
         rec = recs[tag]
         tracked = rec["memory"]["peak_bytes_per_device"]
         rel = abs(tracked - measured) / measured
-        print(f"[{tag}] dry run of its {spec} {shape.mode} step, B"
+        print(f"[{tag}] dry run of its {spec} {shape.mode} step "
+              f"(remat {rec['remat']}), B"
               f"{shape.global_batch} x S{shape.seq_len}, {cfg.n_layers} "
               f"layers, one fake rank (traced in {rec['trace_s']} s): "
               f"tracked peak {tracked / 2**30:.3f} GiB ("
@@ -4214,8 +4273,9 @@ def d7_report(recs):
         rec = recs[arch, ""]
         sites = rec["collective_sites"]
         n_layers = get_config(arch).n_layers
-        check(rec["plan"]["attn"] == "context"
-              and sites["context_kv_gather"] == 2 * n_layers,
+        # K and V gathered in each layer's forward and its recompute
+        check(rec["plan"]["attn"] == "context" and rec["remat"]
+              and sites["context_kv_gather"] == 4 * n_layers,
               f"D7 {arch}: plan {rec['plan']}, sites {sites}")
         peak = rec["memory"]["peak_bytes_per_device"] / 2**30
         print(f"[D7] {arch} x train_4k ({n_layers} layers) on pod "
@@ -4403,7 +4463,8 @@ def j1_train(dev, card):
         topo = strategy.host_topology()
         strat, _ = strategy.resolve(J1_SPEC, cfg, topo, shape)
         plan = strat.to_plan(cfg, topo, shape)
-        rt = par.make_runtime(cfg, plan, shape, mamba_chunk=J1_TRAIN_CHUNK)
+        rt = par.make_runtime(cfg, plan, shape, remat=False,
+                              mamba_chunk=J1_TRAIN_CHUNK)
         check(rt.moe_impl == "dropping" and rt.compute_dtype == torch.float32,
               f"J1 plan runtime {rt}")
         tc = TrainConfig(steps=DENSE_STEPS, warmup=DENSE_STEPS, log_every=1,
@@ -4461,6 +4522,255 @@ def j1_case(j1):
             dict(mamba_chunk=J1_TRAIN_CHUNK), G1_MEM_REL)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: block remat (RM1) — qwen3-0.6b's step with and without remat at
+# two shapes, and J1's block of two layers
+# ---------------------------------------------------------------------------
+
+RM1_SPEC = "fsdp"                   # f32 on the 1-rank NCCL mesh
+RM1_LONG_SEQ = 4096
+# the largest B whose step at S 4096 fits the card without remat (at B 3
+# its backward asks for 6.96 GiB more with 73.99 of 79.18 GiB allocated)
+RM1_LONG_BATCH = 2
+RM1_STEPS = 4                       # AdamW steps a run; p50 of the last 3
+RM1_GRAD_REL = GRAD_REL_TOL[torch.float32]   # 1e-4 of each leaf's scale
+# (RMSNorm, flash) forwards the recompute adds to J1's step (a block of a
+# Mamba and an attention + MoE layer): the block's rerun runs layer 0 and
+# layer 1 up to its MoE FFN; under remat_inner it stops at layer 1's
+# checkpointed input, and each layer's own rerun follows
+RM1_J1_EXTRA = {"remat": (4, 1), "remat_inner": (6, 1)}
+
+
+def rm1_expect(cfg, extra_norms=0, extra_flash=0):
+    """Launches of one f32 train step (:func:`train_expect`), plus the
+    RMSNorm and flash forwards the backward's recompute reruns."""
+    out = train_expect(cfg)
+    out["rmsnorm"] += extra_norms
+    out[fa.counter_name(fa.KERNELS[0], cfg.head_dim_)] += extra_flash
+    return out
+
+
+def _rm1_grads(cfg, params, batch, rt, expect, dev, tag):
+    """One forward and backward of ``batch`` (launches held to ``expect``)
+    -> (loss, {leaf: gradient, whole, on the card}, launches, peak
+    bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    loss, grads = loss_and_grads(cfg, params, batch, rt)
+    torch.cuda.synchronize()
+    counts, peak = ops.launch_counts(), torch.cuda.max_memory_allocated(dev)
+    check(counts == expect, f"{tag} gradient pass launches {counts} != "
+                            f"expected {expect}")
+    grads = {n: g.full_tensor() if isinstance(g, DTensor) else g
+             for n, g in grads.items()}
+    return loss, grads, counts, peak
+
+
+def _rm1_compare(tag, base, got, dev):
+    """The loss and every gradient of ``got`` (on the card) against
+    ``base`` (on the host), each (loss, grads, ...): the loss within
+    TRAIN_LOSS_ATOL, each leaf within RM1_GRAD_REL of its scale -> (loss
+    diff, worst error, its leaf)."""
+    rels = {}
+    for n, g in got[1].items():
+        ref = {k: base[1][k].to(dev) for k in (n, n[:-2] + "bq")
+               if k in base[1]}
+        rels[n] = grad_rel_err(n, {n: g}, ref)
+    worst = max(rels, key=rels.get)
+    diff = abs(got[0] - base[0])
+    check(diff <= TRAIN_LOSS_ATOL, f"{tag}: loss {got[0]} vs {base[0]}")
+    check(rels[worst] <= RM1_GRAD_REL,
+          f"{tag}: gradient {worst} off by {rels[worst]:.3g} of its scale")
+    return diff, rels[worst], worst
+
+
+def _on_host(run):
+    """A gradient pass's result with its gradients moved to the host."""
+    return (run[0], {n: g.cpu() for n, g in run[1].items()}, *run[2:])
+
+
+def rm1_qwen3(dev, card, strat, topo, B, S):
+    """RM1 (a) at B x S: from the same seeded weights and batch, under
+    RM1_SPEC, a forward and backward and then RM1_STEPS AdamW steps with
+    remat off and on (each run on weights of its own, freed after it):
+    launches exact, the gradients against each other, each run's
+    ``max_memory_allocated`` over its steps and its step p50."""
+    cfg = get_config("qwen3-0.6b")
+    shape = ShapeConfig("chip_smoke", S, B, "train")
+    plan = strat.to_plan(cfg, topo, shape)
+    batch = batch_to_device(next(iter(Batcher(
+        SyntheticSource(cfg.vocab_size, seed=SEED), S, B))), dev)
+    runs = {}
+    for remat in (False, True):
+        tag = f"RM1 B{B} S{S} remat {remat}"
+        rt = par.make_runtime(cfg, plan, shape, remat=remat)
+        check(rt.remat is remat and not rt.remat_inner, f"{tag}: {rt}")
+        expect = rm1_expect(cfg, 2 * cfg.n_layers * remat,
+                            attn_layers(cfg) * remat)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        grad_run = _rm1_grads(cfg, params, batch, rt, expect, dev, tag)
+        loss, grad_counts, grad_peak = grad_run[0], grad_run[2], grad_run[3]
+        if remat:
+            diff, worst, leaf = _rm1_compare(f"RM1 B{B} S{S}", base,
+                                             grad_run, dev)
+        else:
+            base = _on_host(grad_run)
+        del grad_run
+        state = init_opt_state(params)
+        step = make_train_step(cfg, rt, TrainConfig(
+            steps=RM1_STEPS, warmup=1, opt=AdamWConfig(lr=DENSE_LR)), plan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        times, losses = [], []
+        for _ in range(RM1_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(params, state, batch)[1:]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {k: v * RM1_STEPS for k, v in expect.items()}
+        check(counts == want, f"{tag}: launches {counts} != {want}")
+        check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        p50 = statistics.median(times[1:])
+        runs[remat] = dict(
+            remat=remat, batch=B, seq_len=S, loss=loss, losses=losses,
+            step_s=times, step_p50_s=p50, tok_s=B * S / p50,
+            peak_mem_bytes=peak, peak_mem_gib=peak / 2 ** 30,
+            grad_pass_peak_gib=grad_peak / 2 ** 30,
+            launches=add_launches(counts, grad_counts),
+            launches_per_step=expect)
+        print(f"[{tag}] {RM1_SPEC}, {cfg.n_layers} layers: loss {loss:.6f}; "
+              f"{RM1_STEPS} steps p50 {p50 * 1e3:.1f} ms ("
+              + ", ".join(f"{t * 1e3:.1f}" for t in times)
+              + f" ms), {B * S / p50:.0f} tokens/s; max_memory_allocated "
+              f"{peak / 2 ** 30:.3f} GiB over the steps (the gradient pass "
+              f"{grad_peak / 2 ** 30:.3f}); launches a step {expect}; on "
+              f"{card}")
+    del base
+    off, on = runs[False], runs[True]
+    print(f"[RM1 B{B} S{S}] remat vs none: loss |diff| {diff:.3g}, "
+          f"gradients rel err max {worst:.3g} ({leaf}); peak "
+          f"{on['peak_mem_gib']:.3f} vs {off['peak_mem_gib']:.3f} GiB "
+          f"({on['peak_mem_bytes'] / off['peak_mem_bytes']:.4f}x); step "
+          f"p50 {on['step_p50_s'] * 1e3:.1f} vs "
+          f"{off['step_p50_s'] * 1e3:.1f} ms "
+          f"({on['step_p50_s'] / off['step_p50_s']:.4f}x); on {card}")
+    return dict(off=off, on=on, loss_diff=diff, grad_rel_err_max=worst,
+                grad_rel_err_worst_leaf=leaf,
+                launches=add_launches(off["launches"], on["launches"]))
+
+
+def rm1_jamba(dev, card):
+    """RM1 (b): J1's training config (a block of period 2) under J1_SPEC
+    at J1_TRAIN_B x TRAIN_SEQ: a forward and backward without remat, with
+    remat and with remat + remat_inner from the same weights and batch,
+    each's launches exact and gradients against no remat's."""
+    cfg = j1_train_cfg()
+    check(tfm.layer_plan(cfg)[1:3] == (0, 2),
+          f"RM1 jamba layer plan {tfm.layer_plan(cfg)}")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, J1_TRAIN_B, "train")
+    batch = batch_to_device(next(iter(Batcher(
+        SyntheticSource(cfg.vocab_size, seed=SEED), TRAIN_SEQ,
+        J1_TRAIN_B))), dev)
+    out = {}
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        plan = strategy.resolve(J1_SPEC, cfg, topo, shape)[0].to_plan(
+            cfg, topo, shape)
+        params = par.apply_plan(tfm.init_params(cfg, seed=SEED, device=dev),
+                                plan, cfg)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        for name, over in (("none", dict(remat=False)),
+                           ("remat", dict(remat=True)),
+                           ("remat_inner", dict(remat=True,
+                                                remat_inner=True))):
+            rt = par.make_runtime(cfg, plan, shape,
+                                  mamba_chunk=J1_TRAIN_CHUNK, **over)
+            extra = RM1_J1_EXTRA.get(name, (0, 0))
+            run = _rm1_grads(cfg, params, batch, rt, rm1_expect(cfg, *extra),
+                             dev, f"RM1 jamba {name}")
+            res = dict(loss=run[0], launches=run[2],
+                       peak_mem_gib=run[3] / 2 ** 30)
+            if name == "none":
+                base = _on_host(run)
+            else:
+                res.update(zip(("loss_diff", "grad_rel_err_max",
+                                "grad_rel_err_worst_leaf"),
+                               _rm1_compare(f"RM1 jamba {name}", base, run,
+                                            dev)))
+            del run
+            out[name] = res
+            print(f"[RM1 jamba {name}] {cfg.n_layers} layers (one block of "
+                  f"2) under {J1_SPEC}, B{J1_TRAIN_B} x S{TRAIN_SEQ}: loss "
+                  f"{res['loss']:.6f}; launches {res['launches']}; gradient "
+                  f"pass peak {res['peak_mem_gib']:.3f} GiB"
+                  + (f"; vs none: loss |diff| {res['loss_diff']:.3g}, "
+                     f"gradients rel err max {res['grad_rel_err_max']:.3g}"
+                     f" ({res['grad_rel_err_worst_leaf']})"
+                     if name != "none" else "") + f"; on {card}")
+        del params, base
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+        shutdown()
+    out["launches"] = add_launches(*(out[k]["launches"] for k in
+                                     ("none", "remat", "remat_inner")))
+    return out
+
+
+def rm1_phase(dev, card):
+    """Cell RM1: block remat on the card.  (a) qwen3-0.6b at full width
+    and depth under RM1_SPEC, at B TRAIN_BATCH x S TRAIN_SEQ and at B
+    RM1_LONG_BATCH x S RM1_LONG_SEQ (:func:`rm1_qwen3`; at S 4096 the
+    remat step's peak must lie below the one without); (b) J1's block of
+    two layers (:func:`rm1_jamba`).  The remat steps' dry runs run in the
+    pods phase (:func:`rm1_cases`)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_distributed(dev)
+    try:
+        topo = strategy.host_topology()
+        cfg = get_config("qwen3-0.6b")
+        strat = strategy.resolve(RM1_SPEC, cfg, topo, ShapeConfig(
+            "chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"))[0]
+        res = {"short": rm1_qwen3(dev, card, strat, topo, TRAIN_BATCH,
+                                  TRAIN_SEQ),
+               "long": rm1_qwen3(dev, card, strat, topo, RM1_LONG_BATCH,
+                                 RM1_LONG_SEQ)}
+    finally:
+        shutdown()
+    long = res["long"]
+    check(long["on"]["peak_mem_bytes"] < long["off"]["peak_mem_bytes"],
+          f"RM1 at S {RM1_LONG_SEQ}: remat peak {long['on']} not below "
+          f"{long['off']}")
+    res["jamba"] = rm1_jamba(dev, card)
+    res["launches"] = add_launches(res["short"]["launches"],
+                                   long["launches"],
+                                   res["jamba"]["launches"])
+    return res
+
+
+def rm1_cases(rm1):
+    """RM1's remat steps (a) for :func:`plan_traces`, within
+    DRYRUN_MEM_REL of their measured peaks."""
+    cfg = get_config("qwen3-0.6b")
+    return {f"RM1 S{run['on']['seq_len']}": (
+        cfg, ShapeConfig("chip_smoke", run["on"]["seq_len"],
+                         run["on"]["batch"], "train"),
+        RM1_SPEC, run["on"]["peak_mem_bytes"], dict(remat=True),
+        DRYRUN_MEM_REL) for run in (rm1["short"], rm1["long"])}
+
+
 def d8_points():
     """D8's points: jamba-v0.1-52b x train_4k under what ``--strategy
     auto`` ranks first on the pod, and x long_500k on the pod layout."""
@@ -4488,6 +4798,7 @@ def d8_report(recs):
               + f"; moe dispatch {rec.get('moe_dispatch')}; collective bytes "
               f"{rec['collective_bytes_total']:.4g}")
         out[shape] = rec
+    out["auto_memory"] = auto_memory("D8", JAMBA, out["train_4k"])
     return out
 
 
@@ -4512,7 +4823,8 @@ def pod_phase(card, res):
         traces = plan_traces(card, {
             "D2": d2_case(res["strategy"]), "D3": d3_case(res["SS3"]),
             "G1": g1_case(res["G1"]), "M1": m1_case(res["M1"]),
-            **d7_cases(res["AU1"], res["VL1"]), "J1": j1_case(res["J1"])})
+            **d7_cases(res["AU1"], res["VL1"]), "J1": j1_case(res["J1"]),
+            **rm1_cases(res["RM1"])})
     finally:
         recs = pod_records(running, "pod dry runs")
     out = dict(d2=d2_report(traces["D2"], recs[QWEN_PODS[0]]),
@@ -4522,13 +4834,15 @@ def pod_phase(card, res):
                d5=d5_report(recs["deepseek-moe-16b", D5_SPEC]),
                d6=d6_report(recs),
                d7={k: traces[k] for k in ("AU1", "VL1")} | d7_report(recs),
-               d8=d8_report(recs), j1_dryrun=traces["J1"], records=recs)
+               d8=d8_report(recs), j1_dryrun=traces["J1"],
+               rm1_dryrun={k: v for k, v in traces.items()
+                           if k.startswith("RM1")}, records=recs)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
 
 # ---------------------------------------------------------------------------
-# phases 27-28: the roofline against the card (R1), the examples (X1)
+# phases 28-29: the roofline against the card (R1), the examples (X1)
 # ---------------------------------------------------------------------------
 
 SUBPROCESS_TIMEOUT_S = 300
@@ -4946,10 +5260,13 @@ def main(argv=None):
     # jamba-v0.1-52b: Mamba layers among attention and MoE layers
     j1 = phase("J1", j1_phase, dev, card)
 
+    # block remat: qwen3-0.6b with and without it, J1's block of two
+    rm1 = phase("RM1", rm1_phase, dev, card)
+
     # every dry run at once: the pod points of D2-D8 and the one-rank
     # traces of the plans whose steps ran above
     res = dict(strategy=strat, SS3=ss3, G1=g1, M1=m1, AU1=au1, VL1=vl1,
-               J1=j1)
+               J1=j1, RM1=rm1)
     pods = phase("pod dry runs", pod_phase, card, res)
 
     # the roofline of the pod points and of the measured steps, the
@@ -4966,7 +5283,7 @@ def main(argv=None):
         ss4["launches"], ss2["launches"], q2["launches"], h1["launches"],
         g1["launches"], m1["launches"], m2["launches"], e1["launches"],
         mt1["launches"], c1["launches"], au1["launches"], vl1["launches"],
-        j1["launches"], x1["launches"])
+        j1["launches"], rm1["launches"], x1["launches"])
     line = kernels_line(rows, launches, strat["launches_bf16"], card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4983,6 +5300,7 @@ def main(argv=None):
              "dense_g1": g1, "moe_m1": m1, "moe_m2": m2, "ep_e1": e1,
              "moe_tp_mt1": mt1, "moe_pp_mp1": mp1, "cp_c1": c1,
              "inputs_au1": au1, "inputs_vl1": vl1, "jamba_j1": j1,
+             "remat_rm1": rm1,
              "dryrun_pod": {k: v for k, v in pods.items()
                             if k != "records"},
              "roofline_r1": r1, "examples_x1": x1,

@@ -63,7 +63,7 @@ def main(argv=None):
         topo = strategy_lib.host_topology()
         plan = strategy_lib.Strategy(dp_mode="fsdp").to_plan(cfg, topo,
                                                              shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
         params = par.apply_plan(init_params(cfg, 0, device), plan, cfg)
         params, opt_state, history = train_loop(cfg, rt, tc, batches,
                                                 params, plan=plan)

@@ -333,9 +333,11 @@ def param_placements(cfg: ModelConfig, plan: ParallelPlan, params):
     """{name: placement on the model axis} for every parameter of
     ``params`` (a module, or (name, tensor) pairs): ``Shard(d)`` where the
     fitted ``_param_spec`` puts the model axis on dim d, else
-    ``Replicate()``.  The data axes' placements are FSDP2's (dim 0).
-    Under an expert axis a MoE FFN's leaves are placed on that axis
-    instead (:func:`on_expert_axis`): the expert stacks ``Shard(0)``
+    ``Replicate()``.  The data axes' placements are FSDP2's: on dim 0,
+    but a MoE expert stack's on the dim where the fitted ``_param_spec``
+    puts them (:func:`data_shard_dim`).  Under an expert axis a MoE FFN's
+    leaves are placed on that axis instead (:func:`on_expert_axis`): the
+    expert stacks ``Shard(0)``
     (``_param_spec``'s E dim), the router and shared experts
     ``Replicate()``; their model-axis placement is
     :func:`model_placement`'s, on the (expert, model) mesh
@@ -363,6 +365,25 @@ def model_placement(cfg: ModelConfig, plan: ParallelPlan, name: str, p):
     dims = [d for d, e in enumerate(spec)
             if plan.tp in (e if isinstance(e, tuple) else (e,))]
     return Shard(dims[0]) if dims else Replicate()
+
+
+def data_shard_dim(cfg: ModelConfig, plan: ParallelPlan, name: str, p):
+    """The dim FSDP2 shards parameter ``name`` (shaped as ``p``, whole)
+    over the data axes: a MoE expert stack's (E, d, f) / (E, f, d) where
+    the fitted ``_param_spec`` puts them (their d: dim 1 of ``w_up`` and
+    ``w_gate``, dim 2 of ``w_down``; under an expert axis the data axes
+    without it), else None, FSDP2's default (dim 0): every other leaf, or
+    a stack whose fit drops the axes.  On dim 0 a stack of fewer experts
+    than data ranks would be padded to a whole expert a rank."""
+    parts = name.split(".")
+    if p.ndim != 3 or parts[-1] not in ("w_up", "w_gate", "w_down"):
+        return None
+    data = set(plan.fsdp_no_expert if plan.expert else plan.fsdp)
+    spec = fitted(plan, _param_spec(cfg, plan, tuple(parts), p.ndim),
+                  p.shape)
+    dims = [d for d, e in enumerate(spec)
+            if data & set(e if isinstance(e, tuple) else (e,))]
+    return dims[0] if dims else None
 
 
 def expert_placements(cfg: ModelConfig, plan: ParallelPlan, name: str, p):
@@ -600,7 +621,8 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     coordinate (a serving plan runs its stages in order,
     ``transformer.Params._through_pipe``).  A serving shape's runtime
     also gets its shard of the KV cache's slots (``cache_shard``,
-    ``cache_groups``)."""
+    ``cache_groups``).  A train shape's runtime checkpoints each block
+    (``remat``, as the JAX one); ``overrides`` win over everything."""
     from repro_torch.models.layers import Runtime
     pol = plan.policy
     mesh = not isinstance(plan.mesh, dict)
@@ -608,6 +630,7 @@ def make_runtime(cfg: ModelConfig, plan: ParallelPlan, shape: ShapeConfig,
     kw = dict(param_dtype=_DTYPES[pol.param_dtype],
               compute_dtype=_DTYPES[pol.compute_dtype],
               grad_dtype=_DTYPES[pol.grad_dtype],
+              remat=shape.mode == "train",
               tp_size=plan.tp_size, context=context,
               seq_parallel=not context and activation_specs(
                   cfg, plan)["act_btd"][1] == plan.tp)
@@ -680,7 +703,8 @@ class Fp8Wire(torch.Tensor):
     runs on the shard and gives a plain tensor.
 
     ``fsdp_pre_all_gather`` casts the f32 shard straight to the wire dtype,
-    with no scale, padded to the rows FSDP2 gathers; ``fsdp_post_all_gather``
+    with no scale, padded to the rows FSDP2 gathers (a shard on dim 0; a
+    MoE expert stack's, on d, splits evenly); ``fsdp_post_all_gather``
     casts the gathered bytes to the dtype FSDP2 asks for (the policy's
     ``compute_dtype``, the unit's ``MixedPrecisionPolicy.param_dtype``) —
     the values of ``models.layers.wire_round``.  NCCL gathers the wire
@@ -735,7 +759,10 @@ class Fp8Wire(torch.Tensor):
                             mp_policy):
         x = self._tensor.to(self.WIRE)
         rows = -(-outer_size[0] // mesh.size())
-        if x.shape[0] != rows:
+        # a shard on dim 0 is padded to the rows FSDP2 gathers; one on
+        # another dim (a MoE expert stack's) splits evenly
+        if tuple(x.shape[1:]) == tuple(outer_size[1:]) and \
+                x.shape[0] != rows:
             pad = x.new_zeros((rows,) + tuple(x.shape[1:]))
             pad[:x.shape[0]] = x
             x = pad
@@ -842,10 +869,12 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
     are :class:`Fp8Wire` shards, gathered into ``compute_dtype``.  Under
     a ``pipe`` axis a rank keeps only its stages' layers
     (``core.pipeline.keep_stage_layers``) and shards them over the (data,
-    model) submesh of its pipe coordinate."""
+    model) submesh of its pipe coordinate.  FSDP2 shards each parameter
+    on dim 0 over the data axes, a MoE expert stack on the dim
+    :func:`data_shard_dim` gives."""
     from torch import nn
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Shard
     pol = plan.policy
     if plan.pipe:
         from repro_torch.core.pipeline import keep_stage_layers
@@ -858,6 +887,7 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
             else root[plan.expert]
     from repro_torch.models.transformer import wired_layers
     wired = wired_layers(cfg) if wires(plan) else ()
+    data_dims = {}
     for name, place in param_placements(cfg, plan, params).items():
         owner, leaf = name.rsplit(".", 1)
         sub = params.get_submodule(owner)
@@ -876,6 +906,12 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
             local = Fp8Wire(local)
         sub[leaf] = nn.Parameter(DTensor.from_local(
             local, mesh, places, run_check=False))
+        dim = data_shard_dim(cfg, plan, name, full)
+        if dim is not None:
+            data_dims[id(sub[leaf])] = Shard(dim)
+
+    def placement(p):
+        return data_dims.get(id(p))
     # inputs keep their dtype: the model casts where the JAX package casts
     mp = MixedPrecisionPolicy(param_dtype=_DTYPES[pol.param_dtype],
                               reduce_dtype=_DTYPES[pol.grad_dtype],
@@ -898,11 +934,12 @@ def apply_plan(params, plan: ParallelPlan, cfg: ModelConfig):
             # step, so they divide by the whole data degree
             ffn = layer["ffn"]
             fully_shard(ffn, mesh=expert_dp_mesh,
-                        reshard_after_forward=reshard, mp_policy=layer_mp)
+                        reshard_after_forward=reshard,
+                        shard_placement_fn=placement, mp_policy=layer_mp)
             _set_divide_factor(ffn, plan.axis_size(plan.dp),
                                expert_dp_mesh.shape[-1])
         fully_shard(layer, mesh=dp_mesh, reshard_after_forward=reshard,
-                    mp_policy=layer_mp)
+                    shard_placement_fn=placement, mp_policy=layer_mp)
     fully_shard(params, mesh=dp_mesh, reshard_after_forward=reshard,
                 mp_policy=mp)
     if plan.zero_overlap:

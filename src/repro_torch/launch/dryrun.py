@@ -42,10 +42,19 @@ fresh process (:func:`lower_fresh`).  ``--measure_bubble`` (pp > 1,
 
 The record keeps JAX's keys where the meaning is the same.  ``memory`` is
 the peak bytes per device, split into parameters, gradients, optimizer
-state, activations and temporaries (``perf.memory``); ``trace_s`` stands
-where JAX has ``lower_s``; ``remat`` (false: the step is traced
-without remat, as the train CLIs run it) tells the roofline
-(``perf.roofline``) how to price it.  The XLA-only fields are left out:
+state, activations and temporaries (``perf.memory``; what a backward
+reruns under remat is a temporary); ``trace_s`` stands
+where JAX has ``lower_s``; ``remat`` (the runtime's: true on a train
+shape, as ``make_runtime`` sets it and the JAX dry run lowers it, each
+block checkpointed) tells the roofline (``perf.roofline``) how to price
+it, and ``flops_compiled_analytic`` counts the recompute.  A recompute
+reruns a block as far as its backward needs (``torch.utils.checkpoint``
+stops there, before a block's last collective): the kernels, collectives
+and MoE dispatches it reruns are work done, which the census,
+``collective_sites`` and ``moe_dispatch`` count (under ``ep<k>`` a MoE
+layer dispatches twice a train step and exchanges six times).
+``--remat_inner``, ``--attn_q_chunk`` and ``--attn_kv_chunk`` override
+the runtime as in JAX.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
 ``generated_code_bytes`` and ``compile_s``.  A MoE arch's record also
 counts its MoE layer calls by dispatch entry (``moe_dispatch``), and its
@@ -186,8 +195,8 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
               rt_overrides=None, device="cuda") -> Dict:
     """Trace one step of ``strat`` on ``topo`` for ``shape`` as global rank
     ``rank`` of a fake process group, the fake tensors on ``device`` ->
-    {'plan', 'memory', 'collectives', 'trace_s', 'moe_dispatch'}, and for
-    a serving shape 'cache_bytes_per_device'.  ``grad_accum`` > 1
+    {'plan', 'memory', 'collectives', 'trace_s', 'remat', 'moe_dispatch'},
+    and for a serving shape 'cache_bytes_per_device'.  ``grad_accum`` > 1
     overrides the spec's ``ga<k>``.  ``moe_dispatch`` counts the MoE
     layer calls by the expert-parallel entry each took
     (``core.expert.DISPATCH_STATS``' deltas over the step)."""
@@ -232,7 +241,7 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig, strat, topo,
                     "decode_cache_axes": list(plan.decode_cache_axes)}
         del params
     stats1 = expert_lib.dispatch_stats_snapshot()
-    return {"plan": plan_rec, "trace_s": round(took, 1),
+    return {"plan": plan_rec, "trace_s": round(took, 1), "remat": rt.remat,
             "moe_dispatch": {k: stats1[k] - stats0[k] for k in stats1},
             "collective_sites": {
                 k: v - sites0[k]
@@ -414,11 +423,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "kernels": kernels,
             "trace_s": round(sum(t["trace_s"] for t in traced.values()), 1),
             "n_devices": topo.n_devices,
-            # the step traced without remat, as both train CLIs run it:
-            # the roofline prices its FLOPs and bytes so
-            "remat": False,
+            # the runtime's remat (make_runtime's: on for a train shape);
+            # the roofline prices the FLOPs and bytes so
+            "remat": first["remat"],
             "flops_compiled_analytic": flops_lib.compiled_flops(
-                cfg, shape, remat=False),
+                cfg, shape, remat=first["remat"]),
             "flops_forward_analytic": flops_lib.forward_flops(cfg, shape),
             "flops_model_6nd": flops_lib.model_flops(cfg, shape),
             "memory": traced[worst]["memory"],
@@ -515,8 +524,13 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip_existing", action="store_true")
+    # perf-iteration knobs: each maps to a Runtime override
+    ap.add_argument("--remat_inner", action="store_true",
+                    help="checkpoint each layer inside a block too")
     ap.add_argument("--rwkv_chunk", type=int, default=0)
     ap.add_argument("--mamba_chunk", type=int, default=0)
+    ap.add_argument("--attn_kv_chunk", type=int, default=0)
+    ap.add_argument("--attn_q_chunk", type=int, default=0)
     ap.add_argument("--no_sp", action="store_true",
                     help="disable sequence-parallel residual stream")
     ap.add_argument("--grad_accum", type=int, default=1)
@@ -531,9 +545,9 @@ def main(argv=None):
                          "lie; cuda needs a card")
     args = ap.parse_args(argv)
     resolve_device(args.device)          # no card: fail here, not later
-    rt_overrides = {k: getattr(args, k) for k in ("rwkv_chunk",
-                                                  "mamba_chunk")
-                    if getattr(args, k)}
+    rt_overrides = {k: getattr(args, k) for k in (
+        "remat_inner", "rwkv_chunk", "mamba_chunk", "attn_kv_chunk",
+        "attn_q_chunk") if getattr(args, k)}
     archs = ARCHS if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     if args.topology:

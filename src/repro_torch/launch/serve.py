@@ -153,10 +153,12 @@ def make_engine(cfg, device, *, strategy: str = "", topology: str = "host",
             print(f"[strategy] {strat.format()} on {topo.name} (mesh "
                   f"{mesh_shape(plan.mesh)}, attn={plan.attn}, cache axes "
                   f"{plan.decode_cache_axes})")
-        # dtypes from the strategy's precision policy; WKV-6 chunk 16 and
-        # selective-scan chunk 32, as the JAX serve CLI sets them
+        # dtypes from the strategy's precision policy; no remat, WKV-6
+        # chunk 16 and selective-scan chunk 32, as the JAX serve CLI sets
+        # them
         rt = par.make_runtime(cfg, plan, shape, attn_impl=impl,
-                              norm_impl=impl, rwkv_chunk=16, mamba_chunk=32)
+                              norm_impl=impl, remat=False, rwkv_chunk=16,
+                              mamba_chunk=32)
         params = par.apply_plan(init_params(cfg, seed, device), plan, cfg)
     else:
         rt = Runtime(attn_impl=impl, norm_impl=impl, rwkv_chunk=16,

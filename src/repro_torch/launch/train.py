@@ -188,10 +188,10 @@ def _train(args, cfg, device):
         print(f"[strategy] {strat.format()} on {topo.name} "
               f"(mesh {mesh_shape(plan.mesh)})")
     impl = IMPLS[args.kernels]
-    # dtypes from the strategy's precision policy; WKV-6 chunk 32 and
-    # selective-scan chunk 64, as the JAX train CLI sets them
-    rt_overrides = dict(attn_impl=impl, norm_impl=impl, rwkv_chunk=32,
-                        mamba_chunk=64,
+    # dtypes from the strategy's precision policy; no remat, WKV-6 chunk
+    # 32 and selective-scan chunk 64, as the JAX train CLI sets them
+    rt_overrides = dict(attn_impl=impl, norm_impl=impl, remat=False,
+                        rwkv_chunk=32, mamba_chunk=64,
                         attn_min_chunked_len=max(2048, args.seq_len + 1)
                         if args.seq_len <= 2048 else 2048)
     rt = par.make_runtime(cfg, plan, shape, **rt_overrides)

@@ -80,11 +80,20 @@ class Runtime:
     gives this rank's shard index (``cache_shard``, row-major over the
     cache axes) and the process groups of those axes (``cache_groups``),
     over which a decode step merges its attention.
+
+    ``remat`` and ``remat_inner`` are the JAX package's block remat
+    (``transformer.Params.forward``): a cache-less forward checkpoints
+    each block of ``transformer.layer_plan``'s period (not the prefix
+    layers), and with ``remat_inner`` each layer of a block too; a
+    pipeline stage checkpoints each of its layers under ``remat``.  Their
+    backward reruns what they checkpointed (:func:`recomputing`).
     """
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     grad_dtype: torch.dtype = torch.float32
     gather_dtype: Optional[torch.dtype] = None
+    remat: bool = False                 # checkpoint each layer-block
+    remat_inner: bool = False           # also each layer inside a block
     attn_impl: str = "kernel"           # 'kernel' | 'torch'
     norm_impl: str = "kernel"           # 'kernel' | 'torch'
     attn_q_chunk: int = 1024            # query chunk for blocked attention
@@ -172,6 +181,14 @@ COLLECTIVES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
 COLLECTIVE_SITES: Dict[str, int] = {"context_kv_gather": 0,
                                     "context_seq_gather": 0,
                                     "moe_combine": 0}
+
+
+def recomputing() -> bool:
+    """Whether this forward runs inside a backward: a checkpointed
+    region's rerun (``Runtime.remat``).  Its kernels and collectives are
+    work done and counted as such; what it adds to a step's results (a
+    MoE layer's aux loss) it adds once, in the first forward."""
+    return torch._C._current_graph_task_id() != -1
 
 
 def reset_collective_counts() -> None:

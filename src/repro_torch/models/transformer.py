@@ -48,8 +48,9 @@ from repro_torch.models.layers import (COLLECTIVE_SITES, CacheLeaf,
                                        embed_tokens, head_parallel,
                                        init_embed, init_mlp,
                                        init_norm, lm_logits, local_params,
-                                       mrope_angles, rope_angles,
-                                       sequence_parallel, tp_exit,
+                                       mrope_angles, recomputing,
+                                       rope_angles, sequence_parallel,
+                                       tp_exit,
                                        wire_round)
 
 
@@ -346,7 +347,7 @@ class Layer(nn.Module):
         x = apply_norm(lp["norm2"], h, cfg.norm_eps, rt)
         if moe:
             y, a = self._modules["ffn"](cfg, x, rt, sp or cp)
-            if aux is not None:
+            if aux is not None and not recomputing():
                 aux.terms.append(a)
             return h + y
         return h + apply_mlp(cfg, lp["ffn"], x, rt, sp)
@@ -424,10 +425,18 @@ class Params(nn.Module):
                 wired = wired_layers(cfg)
                 plain = dataclasses.replace(rt, gather_dtype=None,
                                             fsdp_wire=False)
-            for i, (layer, lc) in enumerate(zip(self.layers, layer_caches,
-                                                strict=True)):
-                h = layer(cfg, cfg.layer_kind(i), h, rope_ang,
-                          rt if i in wired else plain, lc, paged, sp, aux, cp)
+            if len(layer_caches) != len(self.layers):
+                raise ValueError(f"{len(layer_caches)} layer caches for "
+                                 f"{len(self.layers)} layers")
+
+            def layer(i, h):
+                return self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang,
+                                      rt if i in wired else plain,
+                                      layer_caches[i], paged, sp, aux, cp)
+
+            for ids, block in _blocks(cfg, cache is None):
+                h = _run_block(layer, ids, h, block and rt.remat,
+                               block and rt.remat_inner)
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         if cp and cache is not None:
             h = cp_gather(h, rt, None)
@@ -472,15 +481,63 @@ class Params(nn.Module):
         if stage.first:
             h = h0
         aux = AuxLoss()
+
+        def layer(i, h):
+            return self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt,
+                                  None, None, sp, aux, cp)
+
+        # under remat each layer of the stage is checkpointed (the JAX
+        # package's make_pipelined_block_fn; its stacks are uniform)
         for i in stage.layers:
-            h = self.layers[i](cfg, cfg.layer_kind(i), h, rope_ang, rt, None,
-                               None, sp, aux, cp)
+            h = _run_block(layer, (i,), h, rt.remat, False)
         aux = aux.total(h.device)
         if not stage.last:
             return h, aux
         h = apply_norm(local_params(self.final_norm), h, cfg.norm_eps, rt)
         return masked_nll(lm_logits(embed, h, rt, sp), batch["labels"], rt,
                           stage.denom)[0], aux
+
+
+def _blocks(cfg: ModelConfig, train: bool):
+    """-> [(layer ids, whether remat may checkpoint them)] in order:
+    :func:`layer_plan`'s prefix layers one at a time, never checkpointed
+    (the JAX package scans only the blocks), then each block of ``period``
+    layers, which ``Runtime.remat`` and ``remat_inner`` checkpoint on a
+    cache-less forward (``train``); a cached forward (prefill, decode)
+    checkpoints nothing."""
+    _, start, period, _ = layer_plan(cfg)
+    return ([((i,), False) for i in range(start)]
+            + [(tuple(range(b, b + period)), train)
+               for b in range(start, cfg.n_layers, period)])
+
+
+def _run_block(layer, ids, h, remat: bool, inner: bool):
+    """The layers ``ids`` in turn (``layer(i, h)`` -> h), the whole block in
+    one ``torch.utils.checkpoint`` where ``remat`` (its backward reruns
+    the block from its input, which alone it keeps) and each layer in one
+    of its own where ``inner``: the JAX package's ``jax.checkpoint`` of a
+    scanned block and, under ``remat_inner``, of each layer in it.  The
+    rerun stops once it has made what the backward saved.  A block that
+    spans several FSDP2 units is rerun as one: the units whose backward
+    has not begun gather their parameters again in their pre-forward
+    hooks."""
+    from torch.utils.checkpoint import checkpoint
+
+    def one(i, x):
+        if inner:
+            return checkpoint(layer, i, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layer(i, x)
+
+    def block(x):
+        for i in ids:
+            x = one(i, x)
+        return x
+
+    if not remat:
+        return block(h)
+    return checkpoint(block, h, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _cp_shard(x, rt: Runtime, dim: int = 1):

@@ -64,8 +64,8 @@ def measure_bubble(cfg: ModelConfig, strat, topology, device,
                         "train")
     plan = strat.to_plan(cfg, topology, shape)
     rt = par.make_runtime(cfg, plan, shape, param_dtype=torch.float32,
-                          compute_dtype=torch.float32, attn_impl="torch",
-                          norm_impl="torch",
+                          compute_dtype=torch.float32, remat=False,
+                          attn_impl="torch", norm_impl="torch",
                           attn_min_chunked_len=max(2048, seq_len + 1),
                           **rt_overrides)
     params = par.apply_plan(init_params(cfg, 0, device), plan, cfg)

@@ -233,8 +233,8 @@ Notes on conventions:
   (`perf/comms.py`): each c10d op's result bytes as it is dispatched on
   the fake process group, under XLA's HLO kind names.
 * FLOPs are analytic (`perf/flops.py`), the einsums the step executes
-  (no remat: the port's dry run traces the step as the train CLIs run
-  it; MoE capacity slop, causal triangularity).
+  (with remat on train shapes, as the port's dry run traces them and the
+  JAX package lowers them; MoE capacity slop, causal triangularity).
 * *peak GiB/dev* is the traced peak of live bytes on one rank
   (`perf/memory.py`, rounded as the caching allocator rounds), against
   the card's memory.

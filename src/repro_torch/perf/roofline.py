@@ -21,10 +21,11 @@ so the roofline cannot drift from the model the planner prices with.
 no dry-run record (a measured step at its own shape); :func:`roofline_row`
 prices a record with it.
 
-Remat: the port's dry run traces without remat, as both train CLIs run,
-and writes ``"remat": false`` into its record; a record without the key
-takes the JAX package's rule (remat on train shapes), for its FLOP
-fallback and its bytes alike.
+Remat: the port's dry run traces a train shape with remat, as the JAX
+one lowers it, and writes the runtime's ``"remat"`` into its record (a
+measured step, run as the train CLIs run it, without); a record without
+the key takes the JAX package's rule (remat on train shapes), for its
+FLOP fallback and its bytes alike.
 """
 from __future__ import annotations
 

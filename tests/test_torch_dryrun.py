@@ -4,9 +4,10 @@ against the JAX package's, on the CPU (``--device cpu``: the dry run
 refuses to run without a card otherwise): the CLI's records on the pod,
 the full-depth granite point and the pipelined points.  The serving
 points of the other archs are in ``tests/test_torch_dryrun_serving.py``;
-the memory tracker, the census, the MoE points, the skips and the
-kernels' fake branches in ``tests/test_torch_dryrun_memory.py`` (three
-files, so that ``--dist loadfile`` spreads them over workers).
+the memory tracker, the census and the kernels' fake branches in
+``tests/test_torch_dryrun_memory.py``; the MoE and non-token points and
+the skips in ``tests/test_torch_dryrun_points.py`` (four files, so that
+``--dist loadfile`` spreads them over workers).
 
 Its analytic fields and its ``resilience`` and ``pipeline`` blocks equal
 what the JAX package's functions give for the same point; its tracked
@@ -215,9 +216,14 @@ def _jax_resilience(jcfg, s, topo):
 
 
 def _analytic_equal(rec, jcfg, shape):
+    """The record's analytic fields are JAX's: a train point is traced
+    with remat, as the JAX dry run lowers it (``make_runtime``'s rule),
+    and its compiled FLOPs are JAX's ``remat=True``."""
     from repro.perf import flops as jflops
+    train = shape.mode == "train"
+    assert rec["remat"] is train
     assert rec["flops_compiled_analytic"] == jflops.compiled_flops(
-        jcfg, shape, remat=False)
+        jcfg, shape, remat=train)
     assert rec["flops_forward_analytic"] == jflops.forward_flops(jcfg,
                                                                  shape)
     assert rec["flops_model_6nd"] == jflops.model_flops(jcfg, shape)
@@ -227,8 +233,8 @@ def _analytic_equal(rec, jcfg, shape):
 
 def test_record_matches_the_jax_functions(pod_records):
     """The analytic FLOP fields, parameter counts and resilience block of
-    the pod record are JAX's for the same point (the port runs no
-    rematerialisation, so the compiled FLOPs are JAX's ``remat=False``)."""
+    the pod record are JAX's for the same point (a train point runs with
+    remat, so the compiled FLOPs are JAX's ``remat=True``)."""
     rec = pod_records["train_4k"]
     jcfg, shape, s, topo = _jax_point(QWEN, "hsdp_tp16", "pod", "train_4k")
     _analytic_equal(rec, jcfg, shape)

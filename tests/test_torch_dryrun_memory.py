@@ -1,11 +1,11 @@
 """The dry run's memory tracker against a real step on the CPU, its
-collective census against the plan (the MoE points' expert all-to-all
-among it), the points it skips or refuses, and the kernels' shape-only
-branches on fake tensors (the rest of the dry run's tests:
-``tests/test_torch_dryrun.py``).
+collective census against the plan, and the kernels' shape-only branches
+on fake tensors (the rest of the dry run's tests:
+``tests/test_torch_dryrun.py``; the full-size MoE and non-token points,
+the points it skips and those it refuses as another layout:
+``tests/test_torch_dryrun_points.py``).
 """
 import dataclasses
-import json
 
 import numpy as np
 import pytest
@@ -13,8 +13,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import strategy
-from repro_torch.configs import (LATER, SHAPES, ShapeConfig, get_config,
-                                 reduced)
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, reduced
 from repro_torch.launch import dryrun
 from repro_torch.models import layers
 from test_torch_dryrun import QWEN, SMALL
@@ -131,117 +130,8 @@ def test_census_fp8_wire_moves_a_quarter_of_the_layer_bytes():
 
 
 # ---------------------------------------------------------------------------
-# skips, refusals and the kernels' fake branches
+# the kernels' fake branches
 # ---------------------------------------------------------------------------
-
-# long_500k on full attention, for the JAX package's reason
-SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b",
-                                          "qwen2-1.5b", "granite-20b")] \
-    + [(arch, "train_4k") for arch in sorted(LATER)]
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
-def test_moe_points_trace_under_ep(arch, tmp_path):
-    """train_4k of each MoE arch at full size under ``fsdp_ep8`` on the
-    pod (256 fake ranks: data 32 x expert 8) traces: every MoE layer took
-    the all-to-all (``moe_dispatch``), and the census counts its four
-    exchanges a layer (dispatch and combine, forward and backward), each
-    moving the (E, C, d) buffer JAX's HLO counts, C the capacity of a
-    rank's 4096 tokens; its analytic fields and resilience block are
-    JAX's."""
-    from test_torch_dryrun import _analytic_equal, _jax_point, _jax_resilience
-    rec = dryrun.run_one(arch, "train_4k", False, str(tmp_path),
-                         strategy="fsdp_ep8", device="cpu")
-    assert rec["status"] == "ok", rec.get("traceback")
-    cfg = get_config(arch)
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert rec["plan"]["mesh"] == {"data": 32, "expert": 8, "model": 1}
-    assert rec["plan"]["dp"] == rec["plan"]["fsdp"] == ["data", "expert"]
-    assert rec["moe_dispatch"] == {"ep_calls": n_moe, "ep_padded_calls": 0,
-                                   "ep_fallback_calls": 0}
-    m = cfg.moe
-    tokens = SHAPES["train_4k"].global_batch * SHAPES["train_4k"].seq_len \
-        // 256
-    cap = -(-tokens * m.top_k * m.capacity_factor // m.n_experts)
-    cap = max(8, -(-int(cap) // 8) * 8)
-    assert rec["collectives"]["all-to-all"] == {
-        "count": 4 * n_moe, "bytes": 4 * n_moe * m.n_experts * cap
-        * cfg.d_model * 4}
-    jcfg, shape, s, topo = _jax_point(arch, "fsdp_ep8", "pod", "train_4k")
-    _analytic_equal(rec, jcfg, shape)
-    assert rec["resilience"] == _jax_resilience(jcfg, s, topo)
-
-
-def test_moe_under_the_legacy_tp_layout_is_refused(tmp_path):
-    """The legacy pod layout (hsdp_tp16) on a MoE arch traces: every MoE
-    layer splits its experts over the model axis (4 of deepseek's 64 a
-    rank) and leaves through its combine's reduce-scatter (one a layer
-    in the forward), which the record names (``collective_sites``)."""
-    rec = dryrun.run_one("deepseek-moe-16b", "train_4k", False,
-                         str(tmp_path), device="cpu")
-    assert rec["status"] == "ok", rec.get("traceback")
-    cfg = get_config("deepseek-moe-16b")
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert rec["plan"]["mesh"]["model"] == 16 and rec["plan"]["attn"] == \
-        "head_tp"
-    assert rec["collective_sites"]["moe_combine"] == n_moe
-
-
-@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-2b"])
-def test_input_points_trace_as_jax(arch, tmp_path):
-    """train_4k and prefill_32k of the non-token archs at full size on the
-    pod (the legacy layout: tp 16 resolves to context attention for 24
-    and 12 heads, K and V gathered in every layer's forward) trace; the train
-    record's analytic fields and resilience block are JAX's, and the
-    prefill point's inputs (frame embeds, or tokens with patch embeds and
-    position ids, as the JAX package's specs give them) are its
-    activations at the peak, byte for byte."""
-    from repro.launch import specs as jspecs
-    from test_torch_dryrun import _analytic_equal, _jax_point, _jax_resilience
-    cfg = get_config(arch)
-    for shape in ("train_4k", "prefill_32k"):
-        rec = dryrun.run_one(arch, shape, False, str(tmp_path),
-                             device="cpu")
-        assert rec["status"] == "ok", rec.get("traceback")
-        assert rec["plan"]["attn"] == "context"
-        assert rec["collective_sites"]["context_kv_gather"] == \
-            2 * cfg.n_layers
-    jcfg, jshape, s, topo = _jax_point(arch, "hsdp_tp16", "pod", "train_4k")
-    train = json.loads((tmp_path / f"{arch}_train_4k_pod16x16.json")
-                       .read_text())
-    _analytic_equal(train, jcfg, jshape)
-    assert train["resilience"] == _jax_resilience(jcfg, s, topo)
-    jshape = _jax_point(arch, "hsdp_tp16", "pod", "prefill_32k")[1]
-    inputs = sum(int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
-                 for x in jspecs.prefill_batch_specs(jcfg, jshape).values())
-    assert rec["memory"]["activations_bytes"] == inputs
-
-
-@pytest.mark.parametrize("arch,shape", SKIPS)
-def test_unported_points_are_skipped_naming_their_slice(arch, shape,
-                                                         tmp_path):
-    rec = dryrun.run_one(arch, shape, False, str(tmp_path), device="cpu")
-    assert json.loads(next(tmp_path.glob("*.json")).read_text()) == rec
-    assert rec["status"] == "skipped"
-    want = (f"'{LATER[arch]}' slice" if arch in LATER
-            else dryrun.SUBQUADRATIC)
-    assert want in rec["reason"]
-
-
-def test_context_attention_is_refused_as_cp(tmp_path):
-    """``--attn context`` on the pod layout resolves tp 16 to context
-    attention, which traces: every layer gathers K and V over the model
-    axis, named in the record (``collective_sites``), and the census
-    holds their backward's reduce-scatters beside FSDP2's."""
-    rec = dryrun.run_one(QWEN, "train_4k", False, str(tmp_path),
-                         attn_override="context", device="cpu")
-    assert rec["status"] == "ok", rec.get("traceback")
-    L = get_config(QWEN).n_layers
-    assert rec["plan"]["attn"] == "context"
-    assert rec["collective_sites"]["context_kv_gather"] == 2 * L
-    assert rec["collective_sites"]["moe_combine"] == 0
-    assert rec["collectives"]["reduce-scatter"]["count"] >= 2 * L
-
 
 def _kernel_calls():
     from repro_torch.kernels import ops

@@ -33,9 +33,10 @@ and runs all its cases:
   dropping dispatch in the plan's 2 groups and its router's statistics
   its own, as JAX's GSPMD step does.
 
-The other data-parallel compositions (ZeRO-2 and ZeRO-0, HSDP, bf16 and
-fp8) run the same cases in ``tests/test_torch_ep_dp.py``, a file of its
-own so that the two spread over test workers.
+The other data-parallel compositions run the same cases in files of
+their own, so that they spread over test workers: ZeRO-2, bf16 and fp8
+in ``tests/test_torch_ep_dp.py``, HSDP and ZeRO-0 in
+``tests/test_torch_ep_hsdp.py``.
 
 Spawned workers import only torch and the port; JAX runs in the test
 process.
@@ -51,7 +52,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, _errors,
-                             _join, _stop)
+                             _join, _stop, moe_passes)
 
 S = 16
 ARCH = "deepseek-moe-16b"
@@ -562,14 +563,20 @@ def check_training(case, got, ref):
     ep = mesh["expert"]
     assert expert == "expert" and dp[-2:] == ("data", "expert")
     assert fsdp == (("data", "expert") if zero else ())
-    assert got["stats"]["ep_calls"] == N_LAYERS - 1
+    # the gradient pass under make_runtime's remat: each MoE layer's
+    # dispatch in the forward and again in its block's recompute
+    assert got["stats"]["ep_calls"] == moe_passes(_cfg())[0] == \
+        2 * (N_LAYERS - 1)
     E = _cfg().moe.n_experts
     shards = mesh["data"] if zero else 1
     for name, (local, whole) in got["local"].items():
         if name.endswith("ffn.w_up") and len(whole) == 3:
-            # E/ep experts, FSDP2's 1/data of their rows
+            # E/ep experts, FSDP2's 1/data of their d (where JAX's spec
+            # puts the data axes: core.parallel.data_shard_dim)
             assert whole[0] == E, name
-            assert local[0] == -(-(E // ep) // shards), name
+            assert local[0] == E // ep, name
+            assert local[1] * shards == whole[1] and local[2] == whole[2], \
+                name
 
 
 def check_first_step_gradients(case, got, ref):

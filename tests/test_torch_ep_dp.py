@@ -1,5 +1,5 @@
 """A MoE model under the data-parallel compositions beside the expert
-axis, on gloo worlds of 2 and 4 processes on the CPU, against the JAX
+axis, on gloo worlds of 2 processes on the CPU, against the JAX
 package's single-device dropping step: the cases and checks of
 ``tests/test_torch_ep.py`` (three AdamW steps of a reduced
 deepseek-moe-16b, the first step's gradients against the port's
@@ -7,31 +7,19 @@ unsharded step, the state restored under plain ``fsdp``) under
 
 - ``fsdp_z2_ep2``: ZeRO-2 (each unit stays gathered until its backward);
 - ``fsdp_bf16`` (no expert axis) and ``fsdp_ep2_fp8`` (the expert units'
-  parameters on an fp8 wire);
-- ``hsdp_ep2`` on a topology of two islands of 2 (pod 2 x data 1 x
-  expert 2): HSDP's replicate axis beside the flattened (data, expert)
-  dim, the MoE units over (pod, data), at an aux coefficient whose
-  gradient dominates the router's;
-- ``ddp_ep2`` on 4 ranks (data 2 x expert 2): ZeRO-0 under an expert
-  axis;
-- ``hsdp`` (pod 2 x data 2) and ``ddp`` on 4 ranks without an expert
-  axis: the dropping dispatch, one group a rank, the router's statistics
-  averaged over two axes' groups or one.
+  parameters on an fp8 wire).
 
-Under the last two a MoE unit shards over one rank and replicates over
-two, where FSDP2 divides before its all-reduce.
+HSDP and ZeRO-0 on worlds of 4 are in ``tests/test_torch_ep_hsdp.py``
+(split so that ``--dist loadfile`` spreads the two).
 """
 import pytest
 
-from test_torch_ep import (STRONG_AUX, _case, cases_of,
+from test_torch_ep import (_case, cases_of,
                            check_first_step_gradients, check_restore,
                            check_training, spawn_worlds)
 
 WORLDS = {2: [_case("train", "fsdp_z2_ep2"), _case("train", "fsdp_bf16"),
-              _case("train", "fsdp_ep2_fp8")],
-          4: [_case("train", "hsdp_ep2", STRONG_AUX, (4, 2)),
-              _case("train", "ddp_ep2"), _case("train", "hsdp", None, (4, 2)),
-              _case("train", "ddp")]}
+              _case("train", "fsdp_ep2_fp8")]}
 
 
 def _ids():

@@ -1,0 +1,33 @@
+"""Where FSDP2 shards a MoE expert stack over the data axes, seen in the
+pod dry run: under ``fsdp_bf16`` on ``pod`` (256 fake ranks, data 256)
+dbrx-132b's and jamba-v0.1-52b's 16 experts are fewer than the data
+ranks, and the stacks lie on d, where the JAX package's spec puts the
+data axis (``core.parallel.data_shard_dim``).  On E, FSDP2 would pad
+every stack to a whole expert a rank (29.60 / 10.60 GiB of parameters a
+device where an even share is 1.92 / 0.75 GiB).  Each point's parameter
+bytes are within 2 % of an even 1/256 of the f32 parameters, its AdamW
+moments' within 2 % of twice that.  (The gloo world with a data degree
+above E is in ``tests/test_torch_remat_worlds.py``.)
+"""
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+
+EVEN_REL = 0.02
+RANKS = 256
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "jamba-v0.1-52b"])
+def test_pod_expert_stacks_shard_evenly(arch, tmp_path):
+    rec = dryrun.run_one(arch, "train_4k", False, str(tmp_path),
+                         strategy="fsdp_bf16", device="cpu")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["plan"]["mesh"] == {"data": RANKS, "model": 1}
+    n = get_config(arch).param_count()
+    assert rec["params_total"] == n
+    mem = rec["memory"]
+    assert abs(mem["parameters_bytes"] - 4 * n / RANKS) <= \
+        EVEN_REL * 4 * n / RANKS, mem
+    assert abs(mem["optimizer_bytes"] - 8 * n / RANKS) <= \
+        EVEN_REL * 8 * n / RANKS, mem

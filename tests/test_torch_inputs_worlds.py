@@ -23,6 +23,7 @@ import only torch and the port.
 import numpy as np
 import pytest
 import torch
+from test_torch_fsdp import remat_passes
 from test_torch_moe_tp import _cfg, _jax_step, check_step, spawn_worlds
 
 MUSICGEN, QWEN2VL = ("musicgen-medium", {}), ("qwen2-vl-2b", {})
@@ -138,14 +139,16 @@ def test_input_steps_under_a_plan_match_one_process_and_jax(worlds, i):
     single-process step and JAX's single-device step; every rank ran the
     plan's layout of the stream (its S-shard under fsdp_tp2's sequence
     parallelism and fsdp_cp2's context split, K/V gathered in every layer
-    under the latter)."""
+    under the latter, in the forward and in the recompute)."""
     case, got, ref = worlds[2][i]
     for name in ("port", "jax"):
         check_step((2,) + case, got, ref[name])
     spec, arch, over = case
-    n_layers = _cfg(arch, over).n_layers
+    kv = sum(2 * f for f, _ in remat_passes(_cfg(arch, over)))
     for r in got["ranks"]:
         assert (r["sp"], r["cp"]) == (spec == "fsdp_tp2", spec == "fsdp_cp2")
+        # K and V of each layer in its forward and in the backward's
+        # recompute of it (make_runtime's remat)
         assert r["sites"]["context_kv_gather"] == (
-            2 * n_layers if spec == "fsdp_cp2" else 0)
+            kv if spec == "fsdp_cp2" else 0)
     assert got["attn"] == ("context" if spec == "fsdp_cp2" else "head_tp")

@@ -101,20 +101,35 @@ def test_roofline_row_matches_jax(hw):
             assert got[f"{c}_gib"] == mem[f"{c}_bytes"] / 2**30
 
 
-@pytest.mark.parametrize("hw", HARDWARE)
-def test_roofline_row_prices_a_record_without_remat(hw):
-    """``"remat": false`` (what the port's dry run writes) reaches the
-    bytes and the FLOP fallback: JAX's functions at remat=False."""
+def _priced_as(hw, remat):
+    """Every record carrying ``"remat": remat`` is priced by JAX's bytes
+    and FLOP fallback at that remat, whatever its shape."""
     jhw = jcm.HARDWARE[hw]
-    for rec in _records(1, remat=False):
+    for rec in _records(1, remat=remat):
         got = roofline.roofline_row(rec, hw=cm.HARDWARE[hw])
         jcfg, jshape = jax_get_config(rec["arch"]), JSHAPES[rec["shape"]]
         n = rec["n_devices"]
-        hbm = jbytes.hbm_bytes_per_device(jcfg, jshape, n, remat=False)
+        hbm = jbytes.hbm_bytes_per_device(jcfg, jshape, n, remat=remat)
         assert _close(got["t_memory_s"], hbm / jhw.hbm_bw)
         flops = rec.get("flops_compiled_analytic") or \
-            jflops.compiled_flops(jcfg, jshape, remat=False)
+            jflops.compiled_flops(jcfg, jshape, remat=remat)
         assert _close(got["t_compute_s"], flops / (n * jhw.flops_bf16))
+
+
+@pytest.mark.parametrize("hw", HARDWARE)
+def test_roofline_row_prices_a_record_without_remat(hw):
+    """``"remat": false`` (what a measured step's trace writes, run as the
+    train CLIs run it) reaches the bytes and the FLOP fallback: JAX's
+    functions at remat=False."""
+    _priced_as(hw, False)
+
+
+@pytest.mark.parametrize("hw", HARDWARE)
+def test_roofline_row_prices_a_record_with_remat(hw):
+    """``"remat": true`` (what the port's dry run writes for a train
+    shape) reaches them too: JAX's functions at remat=True, on a serving
+    shape as well."""
+    _priced_as(hw, True)
 
 
 def test_roofline_terms_scale_with_precision():
