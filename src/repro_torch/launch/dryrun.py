@@ -54,7 +54,9 @@ and MoE dispatches it reruns are work done, which the census,
 ``collective_sites`` and ``moe_dispatch`` count (under ``ep<k>`` a MoE
 layer dispatches twice a train step and exchanges six times).
 ``--remat_inner``, ``--attn_q_chunk`` and ``--attn_kv_chunk`` override
-the runtime as in JAX.  The XLA-only fields are left out:
+the runtime as in JAX; the two chunks size the plain blocked attention
+(``--kernels torch`` at S > 2048) and are refused under ``--kernels
+cuda``, whose flash kernels tile their own.  The XLA-only fields are left out:
 ``flops_hlo_per_device_raw``, ``bytes_accessed_per_device_raw``,
 ``generated_code_bytes`` and ``compile_s``.  A MoE arch's record also
 counts its MoE layer calls by dispatch entry (``moe_dispatch``), and its
@@ -529,8 +531,11 @@ def main(argv=None):
                     help="checkpoint each layer inside a block too")
     ap.add_argument("--rwkv_chunk", type=int, default=0)
     ap.add_argument("--mamba_chunk", type=int, default=0)
-    ap.add_argument("--attn_kv_chunk", type=int, default=0)
-    ap.add_argument("--attn_q_chunk", type=int, default=0)
+    ap.add_argument("--attn_kv_chunk", type=int, default=0,
+                    help="kv chunk of the plain blocked attention (--kernels "
+                         "torch, S > 2048); the flash kernels tile their own")
+    ap.add_argument("--attn_q_chunk", type=int, default=0,
+                    help="query chunk of the same, as --attn_kv_chunk")
     ap.add_argument("--no_sp", action="store_true",
                     help="disable sequence-parallel residual stream")
     ap.add_argument("--grad_accum", type=int, default=1)
@@ -544,6 +549,10 @@ def main(argv=None):
                     help="where the fake tensors (and the bubble probe) "
                          "lie; cuda needs a card")
     args = ap.parse_args(argv)
+    if args.kernels == "cuda" and (args.attn_q_chunk or args.attn_kv_chunk):
+        # the flash kernels never read the chunks: refuse, not ignore
+        ap.error("--attn_q_chunk/--attn_kv_chunk act only on the plain "
+                 "attention (--kernels torch)")
     resolve_device(args.device)          # no card: fail here, not later
     rt_overrides = {k: getattr(args, k) for k in (
         "remat_inner", "rwkv_chunk", "mamba_chunk", "attn_kv_chunk",

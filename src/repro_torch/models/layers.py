@@ -18,6 +18,7 @@ collective runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -183,12 +184,28 @@ COLLECTIVE_SITES: Dict[str, int] = {"context_kv_gather": 0,
                                     "moe_combine": 0}
 
 
+# how many checkpointed regions are being rerun (:func:`recompute_context`)
+_RECOMPUTES = [0]
+
+
+@contextlib.contextmanager
+def recompute_context():
+    """The context a checkpointed region's rerun runs in
+    (``transformer._run_block`` passes it to ``torch.utils.checkpoint`` as
+    the recompute half of its ``context_fn``)."""
+    _RECOMPUTES[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTES[0] -= 1
+
+
 def recomputing() -> bool:
-    """Whether this forward runs inside a backward: a checkpointed
-    region's rerun (``Runtime.remat``).  Its kernels and collectives are
-    work done and counted as such; what it adds to a step's results (a
-    MoE layer's aux loss) it adds once, in the first forward."""
-    return torch._C._current_graph_task_id() != -1
+    """Whether this forward is a checkpointed region's rerun in a backward
+    (``Runtime.remat``).  Its kernels and collectives are work done and
+    counted as such; what it adds to a step's results (a MoE layer's aux
+    loss) it adds once, in the first forward."""
+    return _RECOMPUTES[0] > 0
 
 
 def reset_collective_counts() -> None:

@@ -28,6 +28,7 @@ the serving path alike.  Caches are per-layer lists (``{'layers':
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -48,9 +49,9 @@ from repro_torch.models.layers import (COLLECTIVE_SITES, CacheLeaf,
                                        embed_tokens, head_parallel,
                                        init_embed, init_mlp,
                                        init_norm, lm_logits, local_params,
-                                       mrope_angles, recomputing,
-                                       rope_angles, sequence_parallel,
-                                       tp_exit,
+                                       mrope_angles, recompute_context,
+                                       recomputing, rope_angles,
+                                       sequence_parallel, tp_exit,
                                        wire_round)
 
 
@@ -523,10 +524,13 @@ def _run_block(layer, ids, h, remat: bool, inner: bool):
     hooks."""
     from torch.utils.checkpoint import checkpoint
 
+    def contexts():
+        return contextlib.nullcontext(), recompute_context()
+
     def one(i, x):
         if inner:
             return checkpoint(layer, i, x, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, context_fn=contexts)
         return layer(i, x)
 
     def block(x):
@@ -537,7 +541,7 @@ def _run_block(layer, ids, h, remat: bool, inner: bool):
     if not remat:
         return block(h)
     return checkpoint(block, h, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, context_fn=contexts)
 
 
 def _cp_shard(x, rt: Runtime, dim: int = 1):

@@ -24,7 +24,6 @@
 import numpy as np
 import pytest
 import torch
-from test_torch_fsdp import moe_passes, remat_passes
 from test_torch_moe_tp import (DEEPSEEK, _cfg, _ids_of, _inputs, _jax_step,
                                check_step, spawn_worlds)
 
@@ -163,22 +162,13 @@ CASES = [(n, i) for n, cases in WORLDS.items()
          for i, c in enumerate(cases) if not c[0].startswith("serve-")]
 
 
-def gathers(cfg, passes=None):
+def gathers(cfg):
     """(K/V gathers, sequence gathers) of one forward over the context
     split: K and V in each attention layer; the mixer's input in each
-    recurrent layer, and an RWKV-6 layer's channel-mix input besides;
-    each layer's ``passes`` times (its forward passes of a train step
-    under remat, ``remat_passes``; once without)."""
-    per = {"attn": 2, "rwkv6": 2, "mamba": 1}
-    kv = seq = 0
-    for j in range(cfg.n_layers):
-        kind = cfg.layer_kind(j)
-        n = per[kind] * (passes[j][0] if passes else 1)
-        if kind == "attn":
-            kv += n
-        else:
-            seq += n
-    return kv, seq
+    recurrent layer, and an RWKV-6 layer's channel-mix input besides."""
+    kinds = [cfg.layer_kind(j) for j in range(cfg.n_layers)]
+    return 2 * kinds.count("attn"), 2 * kinds.count("rwkv6") + \
+        kinds.count("mamba")
 
 
 @pytest.mark.parametrize("world_case", CASES, ids=_ids_of(WORLDS))
@@ -196,18 +186,14 @@ def test_context_parallel_steps_match_the_jax_step(worlds, world_case):
     check_step((n,) + case, got, ref)
     assert (got["attn"], got["context"], got["tp"]) == ("context", True, 2)
     cfg = _cfg(case[1], case[2])
-    pipelined = "pp2" in case[0]
-    # each layer's forward and, under make_runtime's remat, its rerun in
-    # the backward's recompute of its block
-    kv, seq = gathers(cfg, remat_passes(cfg, pipelined))
+    kv, seq = gathers(cfg)
     # K and V of each of the rank's layers, once a pipeline microbatch
-    per_rank = kv // 2 * 2 if pipelined else kv
+    per_rank = kv // 2 * 2 if "pp2" in case[0] else kv
     for r in got["ranks"]:
         assert r["calls"]["sites"]["context_kv_gather"] == per_rank
         assert r["calls"]["sites"]["context_seq_gather"] == seq
-        # each MoE exit once a forward: a block's rerun stops before it
-        assert r["calls"]["sites"]["moe_combine"] == \
-            moe_passes(cfg, pipelined)[1]
+        n_moe = sum(cfg.is_moe_layer(j) for j in range(cfg.n_layers))
+        assert r["calls"]["sites"]["moe_combine"] == n_moe
         assert r["bad"] == []
 
 

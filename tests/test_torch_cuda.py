@@ -717,7 +717,8 @@ def test_cuda_fsdp_on_one_rank_matches_the_unsharded_step():
         assert all(isinstance(p, DTensor) and p.device_mesh.mesh_dim_names
                    == ("data", "model") for p in params.parameters())
         loss1, grads1 = loss_and_grads(params,
-                                       par.make_runtime(cfg, plan, shape))
+                                       par.make_runtime(cfg, plan, shape,
+                                                        remat=False))
     finally:
         shutdown()
     assert abs(loss1.item() - loss0.item()) <= 1e-6 * abs(loss0.item())
@@ -791,7 +792,7 @@ def test_cuda_checkpoint_of_a_dtensor_state_restores_bit_equal(tmp_path):
     try:
         plan = strategy.parse("fsdp").to_plan(cfg, strategy.host_topology(),
                                               shape)
-        rt = par.make_runtime(cfg, plan, shape)
+        rt = par.make_runtime(cfg, plan, shape, remat=False)
 
         def run(seed, tc):
             params = par.apply_plan(tfm.init_params(cfg, seed, dev), plan,

@@ -185,6 +185,73 @@ def test_cli_without_a_card_exits_naming_the_device_flag(tmp_path):
                          kernels="torch")
 
 
+def test_attention_chunks_reach_the_plain_blocked_attention():
+    """``--attn_q_chunk`` / ``--attn_kv_chunk`` are the runtime's chunks
+    of the plain blocked attention (``--kernels torch`` at S > 2048): at
+    512 x 512 the traced step's temporaries (the score blocks its
+    backward reruns) are fewer than at the default 1024 x 1024, and the
+    rest of the record is the same."""
+    cfg = reduced(get_config(QWEN), n_layers=1)
+    shape = ShapeConfig("t", 4096, 1, "train")
+    args = (cfg, shape, strategy.parse("fsdp"),
+            strategy.host_topology(n_devices=1))
+    base = dryrun.lower_one(*args, kernels="torch", device="cpu")
+    small = dryrun.lower_one(*args, kernels="torch", device="cpu",
+                             rt_overrides={"attn_q_chunk": 512,
+                                           "attn_kv_chunk": 512})
+    assert base["remat"] and small["remat"]
+    assert small["memory"]["temporaries_bytes"] < \
+        base["memory"]["temporaries_bytes"]
+    for k in ("parameters_bytes", "optimizer_bytes", "activations_bytes"):
+        assert small["memory"][k] == base["memory"][k], k
+
+
+def test_cli_knobs_reach_the_runtime(monkeypatch, tmp_path):
+    """``--remat_inner``, ``--attn_q_chunk`` and ``--attn_kv_chunk`` go to
+    the traced rank as ``Runtime`` overrides (``lower_one`` hands them to
+    ``make_runtime``, where they win), and the train point's record says
+    it traced with remat, as JAX lowers it."""
+    seen = []
+    lower_fresh = dryrun.lower_fresh
+
+    def spy(*a, **kw):
+        seen.append(a[7])
+        return lower_fresh(*a, **kw)
+
+    monkeypatch.setattr(dryrun, "lower_fresh", spy)
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", QWEN, "--shape", "train_4k", "--reduced",
+                     "--kernels", "torch", "--remat_inner", "--attn_q_chunk",
+                     "512", "--attn_kv_chunk", "256", "--device", "cpu",
+                     "--out", str(tmp_path)])
+    assert e.value.code == 0
+    assert seen == [{"remat_inner": True, "attn_q_chunk": 512,
+                     "attn_kv_chunk": 256}]
+    cfg = reduced(get_config(QWEN))
+    shape = ShapeConfig("t", 4096, 1, "train")
+    plan = strategy.parse("fsdp").to_plan(
+        cfg, strategy.host_topology(n_devices=1), shape, abstract=True)
+    rt = dryrun.par.make_runtime(cfg, plan, shape, **seen[0])
+    assert (rt.remat, rt.remat_inner, rt.attn_q_chunk, rt.attn_kv_chunk) \
+        == (True, True, 512, 256)
+    rec, = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
+    assert rec["status"] == "ok" and rec["remat"] is True
+
+
+@pytest.mark.parametrize("flag", ["--attn_q_chunk", "--attn_kv_chunk"])
+def test_cli_refuses_attention_chunks_under_the_kernels(flag, tmp_path,
+                                                        capsys):
+    """Under ``--kernels cuda`` the flash kernels never read the chunks:
+    the dry run refuses the flags before it traces, and writes nothing."""
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", QWEN, "--shape", "train_4k", "--reduced",
+                     flag, "512", "--device", "cpu", "--out",
+                     str(tmp_path)])
+    assert e.value.code == 2
+    assert "--kernels torch" in capsys.readouterr().err
+    assert not list(tmp_path.glob("*.json"))
+
+
 def _jax_point(arch, spec, topo_name, shape_name, use_reduced=False):
     from repro import strategy as jstrategy
     from repro.configs import SHAPES as JSHAPES

@@ -64,31 +64,6 @@ WORLDS = {
 SPAWN_TIMEOUT = 240
 
 
-def remat_passes(cfg, pipelined=False):
-    """[(forward passes, exit passes)] of each layer of ``cfg`` in a train
-    step under ``make_runtime``'s remat: a layer of a checkpointed block
-    (``transformer._blocks``; a pipeline stage checkpoints each of its
-    layers) runs again in the backward's recompute, which stops once it
-    has what the backward saved, before the exit collective of the
-    block's last layer (a MoE combine over the model axis); a prefix
-    layer runs once."""
-    from repro_torch.models.transformer import layer_plan
-    _, start, period, _ = layer_plan(cfg)
-    if pipelined:
-        start, period = 0, 1
-    return [(1, 1) if i < start else
-            (2, 1 if (i - start) % period == period - 1 else 2)
-            for i in range(cfg.n_layers)]
-
-
-def moe_passes(cfg, pipelined=False):
-    """(MoE dispatches, MoE exits) of a train step under remat: the
-    layers' :func:`remat_passes` summed over the MoE layers."""
-    passes = [p for i, p in enumerate(remat_passes(cfg, pipelined))
-              if cfg.is_moe_layer(i)]
-    return sum(f for f, _ in passes), sum(e for _, e in passes)
-
-
 def _batches(vocab, B, n, ga, seed):
     """Three global batches; in each microbatch, 3/4 of the labels of the
     rows rank 1 takes are masked."""
@@ -128,7 +103,7 @@ def _run_case(case, rank):
     B = case["batches"][0]["labels"].shape[0]
     shape = ShapeConfig("test", S, B, "train")
     plan = s.to_plan(cfg, topo, shape)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     params = par.apply_plan(params_from_jax(case["tree"]), plan, cfg)
     state = init_opt_state(params)
     step = make_train_step(cfg, rt, TrainConfig(

@@ -23,7 +23,6 @@ import only torch and the port.
 import numpy as np
 import pytest
 import torch
-from test_torch_fsdp import remat_passes
 from test_torch_moe_tp import _cfg, _jax_step, check_step, spawn_worlds
 
 MUSICGEN, QWEN2VL = ("musicgen-medium", {}), ("qwen2-vl-2b", {})
@@ -51,7 +50,7 @@ def _step_case(case, rank):
     B = batch["labels"].shape[0]
     shape = ShapeConfig("test", S, B, "train")
     plan = strategy.parse(spec).to_plan(cfg, strategy.host_topology(), shape)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     params = par.apply_plan(bridge.params_from_jax(case["tree"]), plan, cfg)
     state = init_opt_state(params)
     step = make_train_step(cfg, rt, TrainConfig(
@@ -139,16 +138,14 @@ def test_input_steps_under_a_plan_match_one_process_and_jax(worlds, i):
     single-process step and JAX's single-device step; every rank ran the
     plan's layout of the stream (its S-shard under fsdp_tp2's sequence
     parallelism and fsdp_cp2's context split, K/V gathered in every layer
-    under the latter, in the forward and in the recompute)."""
+    under the latter)."""
     case, got, ref = worlds[2][i]
     for name in ("port", "jax"):
         check_step((2,) + case, got, ref[name])
     spec, arch, over = case
-    kv = sum(2 * f for f, _ in remat_passes(_cfg(arch, over)))
+    n_layers = _cfg(arch, over).n_layers
     for r in got["ranks"]:
         assert (r["sp"], r["cp"]) == (spec == "fsdp_tp2", spec == "fsdp_cp2")
-        # K and V of each layer in its forward and in the backward's
-        # recompute of it (make_runtime's remat)
         assert r["sites"]["context_kv_gather"] == (
-            kv if spec == "fsdp_cp2" else 0)
+            2 * n_layers if spec == "fsdp_cp2" else 0)
     assert got["attn"] == ("context" if spec == "fsdp_cp2" else "head_tp")

@@ -29,7 +29,6 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 from test_torch_cp import N_NEW, S0, _case_inputs, gathers
-from test_torch_fsdp import moe_passes, remat_passes
 from test_torch_moe_tp import _cfg, _jax_step, check_step, spawn_worlds
 from test_torch_tp import _jax_leaves, _norm_entry
 
@@ -59,7 +58,7 @@ def _ckpt_case(case, rank):
     shape = ShapeConfig("test", CKPT_S, CKPT_B, "train")
     plan = strategy.parse(spec.split("-", 1)[1]).to_plan(
         cfg, strategy.host_topology(), shape)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     tc = TrainConfig(steps=1, warmup=1, log_every=100, ckpt_every=1,
                      ckpt_dir=case["dir"],
                      opt=AdamWConfig(weight_decay=0.0))
@@ -118,19 +117,15 @@ def worlds(tmp_path_factory):
 def test_jamba_steps_under_a_plan_match_the_jax_step(worlds, i):
     """The step against JAX's; every rank holds its parameters where
     ``_param_spec`` puts them (the Mamba leaves on the model axis under
-    tp and cp alike), every MoE layer combined over the model axis, and
-    under fsdp_cp2 every attention layer gathered K and V and every
-    Mamba layer the sequence, in the forward and in the backward's
-    recompute of the block (remat)."""
+    tp and cp alike), every MoE layer combined over the model axis once,
+    and under fsdp_cp2 every attention layer gathered K and V and every
+    Mamba layer the sequence."""
     case, got, ref = worlds[2][i]
     spec = case[0]
     check_step((2,) + case, got, ref)
     cfg = _cfg(case[1], case[2])
-    # each layer's forward and its rerun in the backward's recompute of
-    # the block (make_runtime's remat): all four layers are one block, so
-    # the rerun stops before the last MoE layer's combine
-    kv, seq = gathers(cfg, remat_passes(cfg))
-    dispatches, exits = moe_passes(cfg)
+    kv, seq = gathers(cfg)
+    n_moe = sum(cfg.is_moe_layer(j) for j in range(cfg.n_layers))
     for r in got["ranks"]:
         assert r["bad"] == [], r["bad"]
         sites = r["calls"]["sites"]
@@ -138,9 +133,9 @@ def test_jamba_steps_under_a_plan_match_the_jax_step(worlds, i):
                                               else 0)
         assert sites["context_seq_gather"] == (seq if spec == "fsdp_cp2"
                                                else 0)
-        assert sites["moe_combine"] == (0 if spec == "fsdp_ep2" else exits)
+        assert sites["moe_combine"] == (0 if spec == "fsdp_ep2" else n_moe)
         assert r["calls"]["dispatch"]["ep_calls"] == \
-            (dispatches if spec == "fsdp_ep2" else 0)
+            (n_moe if spec == "fsdp_ep2" else 0)
     assert got["attn"] == ("context" if spec == "fsdp_cp2" else "head_tp")
     assert got["tp"] == (1 if spec == "fsdp_ep2" else 2)
 

@@ -168,7 +168,7 @@ def test_bf16_step_tracks_f32_and_keeps_f32_masters(arch, over):
     out = {}
     for spec in ("fsdp", "fsdp_bf16"):
         plan = strategy.parse(spec).to_plan(tc, topo, shape, abstract=True)
-        rt = par.make_runtime(tc, plan, shape)
+        rt = par.make_runtime(tc, plan, shape, remat=False)
         params = params_from_jax(tree)
         state = init_opt_state(params)
         step = make_train_step(tc, rt, TrainConfig(steps=1, warmup=1))
@@ -231,7 +231,7 @@ def test_fp8_step_on_a_one_rank_group_matches_jax(tmp_path):
         shape = ShapeConfig("fp8", 32, 4, "train")
         plan = strategy.parse("fsdp_fp8").to_plan(
             tc, strategy.host_topology(), shape)
-        rt = par.make_runtime(tc, plan, shape)
+        rt = par.make_runtime(tc, plan, shape, remat=False)
         assert rt.gather_dtype == torch.float8_e4m3fn
         params = par.apply_plan(params_from_jax(tree), plan, tc)
         state = init_opt_state(params)

@@ -186,6 +186,37 @@ def test_recompute_adds_no_aux_term():
     assert len(aux.terms) == n_moe
 
 
+def test_a_forward_inside_a_backward_adds_its_aux_terms():
+    """Only a checkpoint's rerun skips the aux append
+    (``layers.recompute_context``): a plain forward that runs inside a
+    backward graph task (from a gradient hook here) appends one term a
+    MoE layer."""
+    from repro_torch.models.layers import recompute_context, recomputing
+    tc = _cfgs(*JAMBA)[1]
+    params = ttfm.init_params(tc, 0, "cpu")
+    tok = torch.randint(0, tc.vocab_size, (B, S))
+    aux = ttfm.AuxLoss()
+
+    def hook(g):
+        with torch.no_grad():
+            ttfm.forward(tc, params, {"tokens": tok}, ttfm.Runtime(),
+                         aux=aux)
+        return g
+
+    x = torch.ones(2, requires_grad=True)
+    y = x * 2
+    y.register_hook(hook)
+    y.sum().backward()
+    assert len(aux.terms) == sum(tc.is_moe_layer(i)
+                                 for i in range(tc.n_layers))
+    assert not recomputing()
+    with recompute_context():
+        with recompute_context():
+            assert recomputing()
+        assert recomputing()
+    assert not recomputing()
+
+
 def test_a_cached_forward_checkpoints_nothing():
     """Prefill and decode (a cache) never checkpoint: ``_blocks`` gives
     every block unchecked without ``train``."""

@@ -85,7 +85,8 @@ def _setup(cfg, spec="fsdp", topo=None):
     strat = strategy.parse(spec)
     topo = topo or strategy.host_topology()
     plan = strat.to_plan(cfg, topo, shape)
-    return shape, strat, topo, plan, par.make_runtime(cfg, plan, shape)
+    return shape, strat, topo, plan, par.make_runtime(cfg, plan, shape,
+                                                      remat=False)
 
 
 def _plain_rt():

@@ -131,7 +131,7 @@ def _run_case(case, rank):
     B = case["batches"][0]["labels"].shape[0]
     shape = ShapeConfig("test", S, B, "train")
     plan = s.to_plan(cfg, strategy.host_topology(), shape)
-    rt = par.make_runtime(cfg, plan, shape)
+    rt = par.make_runtime(cfg, plan, shape, remat=False)
     params = par.apply_plan(params_from_jax(case["tree"]), plan, cfg)
     want = par.param_placements(cfg, plan, params)
     state = init_opt_state(params)
