@@ -312,16 +312,38 @@ def _serve_step(cfg, shape, rt, plan, params, device, mem, census):
     return time.time() - t0, cache
 
 
-def lower_fresh(*args, **kwargs) -> Dict:
-    """:func:`lower_one` in a fresh process of its own.  DTensor caches
-    what it propagates by mesh layout, not by process group, so a second
-    fake world of the same layout in one process (pipe rank P-1 after
-    pipe rank 0, or a dry run after a live group) would be handed meshes
-    of the first world's groups."""
-    import concurrent.futures
+# what a traced rank runs through, imported once by the fork server; not
+# this module, which a child of ``python -m repro_torch.launch.dryrun``
+# runs again as its ``__mp_main__``
+FORKSERVER_PRELOAD = ["torch._subclasses.fake_tensor",
+                      "torch.testing._internal.distributed.fake_pg",
+                      "repro_torch.core.expert", "repro_torch.launch.specs",
+                      "repro_torch.perf.comms", "repro_torch.perf.memory",
+                      "repro_torch.serve.engine", "repro_torch.train.trainer"]
+
+
+def fresh_context():
+    """The ``forkserver`` context of :func:`lower_fresh`: its server has
+    imported torch and the port (``FORKSERVER_PRELOAD``) and done nothing
+    else (no tensor op, no process group, no CUDA), so a process forked
+    from it starts with DTensor's caches empty and imports neither again;
+    a card is initialised in the child."""
     import multiprocessing
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as ex:
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
+    return ctx
+
+
+def lower_fresh(*args, **kwargs) -> Dict:
+    """:func:`lower_one` in a fresh process of its own
+    (:func:`fresh_context`).  DTensor caches what it propagates by mesh
+    layout, not by process group, so a second fake world of the same
+    layout in one process (pipe rank P-1 after pipe rank 0, or a dry run
+    after a live group) would be handed meshes of the first world's
+    groups."""
+    import concurrent.futures
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=fresh_context()) as ex:
         return ex.submit(lower_one, *args, **kwargs).result()
 
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 from test_torch_moe_tp import (DEEPSEEK, _cfg, _ids_of, _inputs, _jax_step,
                                check_step, spawn_worlds)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2))
 RWKV = ("rwkv6-1.6b", {})

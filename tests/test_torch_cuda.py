@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels import wkv6 as twkv
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
          "float": ctypes.c_float}

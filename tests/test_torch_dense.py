@@ -56,6 +56,7 @@ from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.serve import ServeEngine
 from repro_torch.train import TrainConfig, make_train_step
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 # arch -> the overrides of its narrow variant (on top of ``reduced``)
 NARROW = {
@@ -78,14 +79,6 @@ REF_ATOL = 1e-5
 S0, N_NEW = 11, 9           # prompts past danube's window of 8
 ENGINE_KW = dict(max_len=32, n_slots=2, block_size=4, prefill_chunk=8,
                  steps_per_tick=3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch):

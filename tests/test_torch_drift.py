@@ -28,6 +28,7 @@ from repro_torch import telemetry as tel
 from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.core import pipeline as pipe
 from test_torch_strategy import _run
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 
 class _Events(tel.Sink):

@@ -27,7 +27,6 @@ down; only rank 0 is traced, so no two worlds of one layout differ in
 their groups); ``run_one`` traces each rank in a fresh process.
 """
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -39,15 +38,34 @@ import torch
 from repro_torch import strategy
 from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.launch import dryrun
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN = "qwen3-0.6b"
 # a reduced qwen3 on 8 fake ranks: 16 rows of 32 tokens, 2 layers
 SMALL = ShapeConfig("t", 32, 16, "train")
+# run_one points a module traces at once (:func:`trace_points`): each is
+# one Python thread of tracing, and ``--dist loadfile`` hands out these
+# files, which hold few tests, last, when most workers are done
+POINT_WORKERS = 4
+
+
+def trace_points(points, out):
+    """{key: ``run_one``'s record} of ``points`` ({key: (arch, shape,
+    run_one's keyword arguments)}) on the CPU, POINT_WORKERS at once (each
+    traced rank a process of its own), each record written under
+    ``out / key``."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(POINT_WORKERS) as ex:
+        futs = {k: ex.submit(dryrun.run_one, arch, shape, False,
+                             str(out / str(k)), device="cpu", **kw)
+                for k, (arch, shape, kw) in points.items()}
+        return {k: f.result() for k, f in futs.items()}
 
 
 def _cli(args, out, timeout=600):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
                         *args, "--out", str(out), "--device", "cpu"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
@@ -149,12 +167,24 @@ def test_cli_records_serving_shapes_as_skipped(pod_records, shape):
     assert rec["plan"]["decode_cache_axes"] == want[0]
     assert want[1] <= set(rec["collectives"])
 
-def test_granite_20b_trains_at_full_depth_on_a_pod(tmp_path):
+PP_SPECS = ["fsdp_pp2_mb4", "fsdp_pp2_mb4_zb"]
+
+
+@pytest.fixture(scope="module")
+def points(tmp_path_factory):
+    """The granite point and the pipelined points, traced at once."""
+    return trace_points(
+        {"granite": ("granite-20b", "train_4k", {}),
+         **{spec: (QWEN, "train_4k", dict(strategy=spec, use_reduced=True,
+                                           kernels="torch"))
+            for spec in PP_SPECS}}, tmp_path_factory.mktemp("points"))
+
+
+def test_granite_20b_trains_at_full_depth_on_a_pod(points):
     """granite-20b x train_4k at full size (52 layers, 20.3 B parameters,
     more than one card holds in f32) traces on 256 fake ranks, with the
     kernel path's head dim 128 and the census of its plan."""
-    rec = dryrun.run_one("granite-20b", "train_4k", False, str(tmp_path),
-                         device="cpu")
+    rec = points["granite"]
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["n_devices"] == 256 and rec["kernels"] == "cuda"
     assert get_config("granite-20b").n_layers == 52
@@ -169,7 +199,7 @@ def test_cli_without_a_card_exits_naming_the_device_flag(tmp_path):
     host)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
                         "--arch", QWEN, "--shape", "train_4k", "--reduced",
                         "--kernels", "torch", "--out", str(tmp_path)],
@@ -204,6 +234,29 @@ def test_attention_chunks_reach_the_plain_blocked_attention():
         base["memory"]["temporaries_bytes"]
     for k in ("parameters_bytes", "optimizer_bytes", "activations_bytes"):
         assert small["memory"][k] == base["memory"][k], k
+
+
+def test_fresh_traces_keep_their_isolation():
+    """``lower_fresh`` traces each rank in a process of its own, forked
+    from a server that holds no state of an earlier trace: after pipe
+    rank 0 of a pp point is traced here (this process's DTensor caches
+    now hold its layout), each pipe rank traced afresh gives the plan,
+    memory and collectives it gave before, and rank 0 those of the trace
+    made here."""
+    s = strategy.parse("fsdp_pp2_mb4")
+    topo = strategy.host_topology(n_devices=8)
+    args = (reduced(get_config(QWEN)), SMALL, s, topo, "torch")
+    last = dryrun.traced_ranks(s, topo)["pipe1"]
+
+    def trace(lower, rank):
+        rec = lower(*args, rank=rank, device="cpu")
+        return {k: rec[k] for k in ("plan", "memory", "collectives")}
+
+    alone = trace(dryrun.lower_fresh, last)
+    here = trace(dryrun.lower_one, 0)
+    assert trace(dryrun.lower_fresh, 0) == here
+    assert trace(dryrun.lower_fresh, last) == alone
+    assert alone["memory"] != here["memory"]
 
 
 def test_cli_knobs_reach_the_runtime(monkeypatch, tmp_path):
@@ -308,15 +361,13 @@ def test_record_matches_the_jax_functions(pod_records):
     assert rec["resilience"] == _jax_resilience(jcfg, s, topo)
 
 
-@pytest.mark.parametrize("spec", ["fsdp_pp2_mb4", "fsdp_pp2_mb4_zb"])
-def test_pipeline_records_match_the_jax_functions(spec, tmp_path):
+@pytest.mark.parametrize("spec", PP_SPECS)
+def test_pipeline_records_match_the_jax_functions(spec, points):
     """A pipelined point traces pipe rank 0 and the last pipe rank (whose
     programs differ): the record keeps both peaks and the larger, and its
     pipeline block, analytic fields and resilience block are JAX's."""
     from repro.core import pipeline as jpipe
-    rec = dryrun.run_one(QWEN, "train_4k", False, str(tmp_path),
-                         strategy=spec, use_reduced=True, kernels="torch",
-                         device="cpu")
+    rec = points[spec]
     assert rec["status"] == "ok", rec.get("traceback")
     jcfg, shape, s, topo = _jax_point(QWEN, spec, "pod", "train_4k",
                                       use_reduced=True)

@@ -17,6 +17,7 @@ from repro_torch.configs import SHAPES, ShapeConfig, get_config, reduced
 from repro_torch.launch import dryrun
 from repro_torch.models import layers
 from test_torch_dryrun import QWEN, SMALL
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # memory: fake mode against a real step on the CPU

@@ -15,7 +15,8 @@ import pytest
 
 from repro_torch.configs import LATER, SHAPES, get_config
 from repro_torch.launch import dryrun
-from test_torch_dryrun import QWEN
+from test_torch_dryrun import QWEN, trace_points
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 # long_500k on full attention, for the JAX package's reason
 SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b",
@@ -23,8 +24,27 @@ SKIPS = [(arch, "long_500k") for arch in (QWEN, "llama2-1b", "llama2-7b",
     + [(arch, "train_4k") for arch in sorted(LATER)]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
-def test_moe_points_trace_under_ep(arch, tmp_path):
+MOE = ["deepseek-moe-16b", "dbrx-132b"]
+INPUTS = ["musicgen-medium", "qwen2-vl-2b"]
+
+
+@pytest.fixture(scope="module")
+def points(tmp_path_factory):
+    """(their directory, {key: record}) of the points below, traced at
+    once, each record written under its key's directory."""
+    pts = {f"ep-{arch}": (arch, "train_4k", dict(strategy="fsdp_ep8"))
+           for arch in MOE}
+    pts["legacy"] = ("deepseek-moe-16b", "train_4k", {})
+    pts["context"] = (QWEN, "train_4k", dict(attn_override="context"))
+    for arch in INPUTS:
+        for shape in ("train_4k", "prefill_32k"):
+            pts[f"{arch}-{shape}"] = (arch, shape, {})
+    out = tmp_path_factory.mktemp("points")
+    return out, trace_points(pts, out)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_points_trace_under_ep(arch, points):
     """train_4k of each MoE arch at full size under ``fsdp_ep8`` on the
     pod (256 fake ranks: data 32 x expert 8) traces with remat: every MoE
     layer took the all-to-all (``moe_dispatch``) in its forward and again
@@ -34,8 +54,7 @@ def test_moe_points_trace_under_ep(arch, tmp_path):
     JAX's HLO counts, C the capacity of a rank's 4096 tokens; its
     analytic fields and resilience block are JAX's."""
     from test_torch_dryrun import _analytic_equal, _jax_point, _jax_resilience
-    rec = dryrun.run_one(arch, "train_4k", False, str(tmp_path),
-                         strategy="fsdp_ep8", device="cpu")
+    rec = points[1][f"ep-{arch}"]
     assert rec["status"] == "ok", rec.get("traceback")
     cfg = get_config(arch)
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
@@ -58,15 +77,14 @@ def test_moe_points_trace_under_ep(arch, tmp_path):
     assert rec["resilience"] == _jax_resilience(jcfg, s, topo)
 
 
-def test_moe_under_the_legacy_tp_layout_is_refused(tmp_path):
+def test_moe_under_the_legacy_tp_layout_is_refused(points):
     """The legacy pod layout (hsdp_tp16) on a MoE arch traces: every MoE
     layer splits its experts over the model axis (4 of deepseek's 64 a
     rank) and leaves through its combine's reduce-scatter (one a layer,
     in the forward: the backward's recompute of a block stops once it has
     what the backward saves, before the block's last collective), which
     the record names (``collective_sites``)."""
-    rec = dryrun.run_one("deepseek-moe-16b", "train_4k", False,
-                         str(tmp_path), device="cpu")
+    rec = points[1]["legacy"]
     assert rec["status"] == "ok", rec.get("traceback")
     cfg = get_config("deepseek-moe-16b")
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
@@ -76,8 +94,8 @@ def test_moe_under_the_legacy_tp_layout_is_refused(tmp_path):
     assert rec["collective_sites"]["moe_combine"] == n_moe
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-2b"])
-def test_input_points_trace_as_jax(arch, tmp_path):
+@pytest.mark.parametrize("arch", INPUTS)
+def test_input_points_trace_as_jax(arch, points):
     """train_4k and prefill_32k of the non-token archs at full size on the
     pod (the legacy layout: tp 16 resolves to context attention for 24
     and 12 heads, K and V gathered in every layer's forward, and again in
@@ -89,17 +107,17 @@ def test_input_points_trace_as_jax(arch, tmp_path):
     from repro.launch import specs as jspecs
     from test_torch_dryrun import _analytic_equal, _jax_point, _jax_resilience
     cfg = get_config(arch)
+    out, recs = points
     for shape in ("train_4k", "prefill_32k"):
-        rec = dryrun.run_one(arch, shape, False, str(tmp_path),
-                             device="cpu")
+        rec = recs[f"{arch}-{shape}"]
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["plan"]["attn"] == "context"
         assert rec["collective_sites"]["context_kv_gather"] == \
             2 * cfg.n_layers * (2 if rec["remat"] else 1)
         assert rec["remat"] is (shape == "train_4k")
     jcfg, jshape, s, topo = _jax_point(arch, "hsdp_tp16", "pod", "train_4k")
-    train = json.loads((tmp_path / f"{arch}_train_4k_pod16x16.json")
-                       .read_text())
+    train = json.loads((out / f"{arch}-train_4k" /
+                        f"{arch}_train_4k_pod16x16.json").read_text())
     _analytic_equal(train, jcfg, jshape)
     assert train["resilience"] == _jax_resilience(jcfg, s, topo)
     jshape = _jax_point(arch, "hsdp_tp16", "pod", "prefill_32k")[1]
@@ -119,14 +137,13 @@ def test_unported_points_are_skipped_naming_their_slice(arch, shape,
     assert want in rec["reason"]
 
 
-def test_context_attention_is_refused_as_cp(tmp_path):
+def test_context_attention_is_refused_as_cp(points):
     """``--attn context`` on the pod layout resolves tp 16 to context
     attention, which traces: every layer gathers K and V over the model
     axis in its forward and in the backward's recompute, named in the
     record (``collective_sites``), and the census holds their backward's
     reduce-scatters beside FSDP2's."""
-    rec = dryrun.run_one(QWEN, "train_4k", False, str(tmp_path),
-                         attn_override="context", device="cpu")
+    rec = points[1]["context"]
     assert rec["status"] == "ok", rec.get("traceback")
     L = get_config(QWEN).n_layers
     assert rec["plan"]["attn"] == "context"

@@ -6,8 +6,8 @@ shards JAX's ``cache_shardings`` gives them (the rest of the dry run's
 tests: ``tests/test_torch_dryrun.py``)."""
 import pytest
 
-from repro_torch.launch import dryrun
-from test_torch_dryrun import _jax_cache_bytes
+from test_torch_dryrun import _jax_cache_bytes, trace_points
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 # the serving points of the other archs the port serves, on the pod:
 # RWKV-6's three (long_500k too: a recurrent state, batch 1 < data 16
@@ -27,15 +27,21 @@ SERVING = [("rwkv6-1.6b", "prefill_32k", ""),
      ("qwen2-1.5b", "decode_32k", "hsdp_tp4")]   # 12 heads: tp 16 is cp
 
 
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    return trace_points({i: (arch, shape, dict(strategy=spec))
+                         for i, (arch, shape, spec) in enumerate(SERVING)},
+                        tmp_path_factory.mktemp("serving"))
+
+
 @pytest.mark.parametrize("arch,shape,spec", SERVING)
 def test_serving_points_trace_with_jax_cache_shards(arch, shape, spec,
-                                                    tmp_path):
+                                                    records):
     """Each point traces on 256 fake ranks (the legacy pod layout unless a
     spec is given); its caches take exactly the bytes per device of JAX's
     shards on the same plan, and the decode cache axes are JAX's
     choice."""
-    rec = dryrun.run_one(arch, shape, False, str(tmp_path), strategy=spec,
-                         device="cpu")
+    rec = records[SERVING.index((arch, shape, spec))]
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["cache_bytes_per_device"] == _jax_cache_bytes(
         arch, shape, rec["plan"])

@@ -42,17 +42,19 @@ Spawned workers import only torch and the port; JAX runs in the test
 process.
 """
 import dataclasses
+import os
 import pickle
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-
 import torch.multiprocessing as mp
-
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, _errors,
-                             _join, _stop)
+                             _join, _stop, fp8_gather, jax_run,
+                             jax_train_step, start_ranks)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 S = 16
 ARCH = "deepseek-moe-16b"
@@ -80,6 +82,14 @@ STRONG_AUX = 1.0
 # worst of CHAOS_SEEDS perturbations); its first step, before any
 # update, holds to LOW_GRAD_REL.
 CHAOS, CHAOS_EPS, CHAOS_SEEDS = 2.0, 1e-6, 2
+# torch's threads for those references (the port's single-device
+# trajectory and its chaos), whose bits depend on the count: at 1 or 2
+# (bit-identical) the 2-rank fsdp_bf16 world is 0.0885 lr (mean) from the
+# reference against a bar of 0.0836, at 8 0.032 against 0.149.  8 is the
+# count they were computed at on the 8-CPU hosts that held these bars;
+# they are computed in a process of their own (:func:`_low_references`)
+# beside this one's JAX references.
+CHAOS_THREADS = 8
 
 
 def _case(kind, arg, coef=None, topo=None):
@@ -244,8 +254,7 @@ def _world(rank, n, payload, out):
 
 
 def _start(n, payload, out):
-    return mp.start_processes(_world, args=(n, str(payload), str(out)),
-                              nprocs=n, join=False, start_method="spawn")
+    return start_ranks(_world, (n, str(payload), str(out)), n)
 
 
 # ---------------------------------------------------------------------------
@@ -322,36 +331,17 @@ def _jax_train(inp, n, s, coef):
     in n groups), its ``ga`` and its precision (bf16 compute; under fp8
     with sharded parameters, the per-layer gatherer's fp8 rounding, as in
     ``tests/test_torch_fsdp.py``)."""
-    import jax
     import jax.numpy as jnp
 
     from repro.models.layers import Runtime as JRuntime
-    from repro.optim import AdamWConfig as JAdamWConfig
-    from repro.optim import init_opt_state as jax_init_opt_state
-    from repro.train.trainer import TrainConfig as JTrainConfig
-    from repro.train.trainer import make_train_step as jax_make_train_step
-    jc = _jax_cfg(coef=coef)
-    ga = s.grad_accum
     kw = {}
     if s.precision != "f32":
         kw["compute_dtype"] = jnp.bfloat16
     if s.precision == "fp8" and s.zero:
-        def gather_params(lp):
-            return jax.tree.map(
-                lambda x: x.astype(jnp.float8_e4m3fn).astype(jnp.bfloat16)
-                if jnp.issubdtype(x.dtype, jnp.floating) else x, lp)
-        kw["gather_params"] = gather_params
+        kw["gather_params"] = fp8_gather
     rt = JRuntime(moe_impl="dropping", moe_groups=n, **kw)
-    jstep = jax.jit(jax_make_train_step(jc, rt, JTrainConfig(
-        steps=STEPS, warmup=1, grad_accum=ga,
-        opt=JAdamWConfig(lr=LR, weight_decay=0.0))))
-    tree, state, metrics = inp["tree"], jax_init_opt_state(inp["tree"]), []
-    for b in inp["batches"]:
-        tree, state, m = jstep(tree, state, {k: jnp.asarray(v)
-                                             for k, v in b.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
-    return dict(metrics=metrics, params=jax.tree.map(np.asarray, tree),
-                m=jax.tree.map(np.asarray, state["m"]))
+    return jax_run(jax_train_step(_jax_cfg(coef=coef), rt, s.grad_accum,
+                                  0.0), inp["tree"], inp["batches"])
 
 
 def _port_runtime(n, s):
@@ -424,11 +414,39 @@ def _port_train(inp, n, s, coef):
                 m=bridge.opt_state_to_jax(state, cfg)["m"])
 
 
+def _numerics(case, n):
+    """The key of a train case's numerics: cases of one key share their
+    references."""
+    from repro_torch import strategy
+    s = strategy.parse(case[1])
+    return (n, case[2], s.grad_accum, s.precision,
+            s.precision == "fp8" and s.zero > 0)
+
+
+def _low_references(_index, payload, out):
+    """In a process of its own, at CHAOS_THREADS: {numerics key: (the
+    port's single-device trajectory, its chaos)} of every low-precision
+    train item of the payload ({key: (case, n, inputs)})."""
+    from repro_torch import strategy
+    torch.set_num_threads(CHAOS_THREADS)
+    with open(payload, "rb") as f:
+        items = pickle.load(f)
+    refs = {}
+    for key, (c, n, inp) in items.items():
+        s = strategy.parse(c[1])
+        train = _port_train(inp, n, s, c[2])
+        refs[key] = (train, _chaos(inp, n, s, c[2], train))
+    with open(out, "wb") as f:
+        pickle.dump(refs, f)
+
+
 def spawn_worlds(spec, tmp_path_factory):
     """{n: [(case, port result, references)]} of the worlds ``spec`` ({n:
-    cases}): every world spawned at once, each running all its cases,
-    while this process computes the references."""
-    started, refs, inputs = {}, {}, {}
+    cases}): every world started at once, each running all its cases,
+    beside a process computing the low-precision cases' port references
+    (:func:`_low_references`), while this process computes the rest."""
+    from repro_torch import strategy
+    started, refs, inputs, low = {}, {}, {}, {}
     try:
         for n, cases in spec.items():
             d = tmp_path_factory.mktemp(f"world{n}")
@@ -438,23 +456,31 @@ def spawn_worlds(spec, tmp_path_factory):
                              zip(cases, inputs[n])], f)
             started[n] = (d / "out.pkl", _start(n, d / "payload.pkl",
                                                 d / "out.pkl"))
+            for c, inp in zip(cases, inputs[n]):
+                if c[0] == "train" and _precision(c[1]) != "f32":
+                    low.setdefault(_numerics(c, n), (c, n, inp))
+        d = tmp_path_factory.mktemp("low")
+        with open(d / "payload.pkl", "wb") as f:
+            pickle.dump(low, f)
+        # a fresh interpreter whose OpenMP threads sleep while they wait:
+        # CHAOS_THREADS spinning threads would take the cores the other
+        # test processes need (the policy does not change how work splits)
+        with mock.patch.dict(os.environ, OMP_WAIT_POLICY="PASSIVE"):
+            started["low"] = (d / "out.pkl", mp.start_processes(
+                _low_references,
+                args=(str(d / "payload.pkl"), str(d / "out.pkl")),
+                nprocs=1, join=False, start_method="spawn"))
         shared = {}         # cases of the same numerics share references
         for n, cases in spec.items():
             refs[n] = []
             for c, inp in zip(cases, inputs[n]):
                 if c[0] == "train":
-                    from repro_torch import strategy
                     s = strategy.parse(c[1])
-                    key = (n, c[2], s.grad_accum, s.precision,
-                           s.precision == "fp8" and s.zero > 0)
+                    key = _numerics(c, n)
                     if key not in shared:
-                        ref = dict(jax=_jax_train(inp, n, s, c[2]),
-                                   port=_port_grads0(inp, n, s, c[2]))
-                        if s.precision != "f32":
-                            ref["port_train"] = _port_train(inp, n, s, c[2])
-                            ref["chaos"] = _chaos(inp, n, s, c[2],
-                                                  ref["port_train"])
-                        shared[key] = ref
+                        shared[key] = dict(jax=_jax_train(inp, n, s, c[2]),
+                                           port=_port_grads0(inp, n, s,
+                                                             c[2]))
                     refs[n].append(shared[key])
                 else:
                     refs[n].append(_jax_layer(c, inp, n))
@@ -464,7 +490,12 @@ def spawn_worlds(spec, tmp_path_factory):
         for n, (path, ctx) in started.items():
             _join(n, ctx, deadline)
             with open(path, "rb") as f:
-                out[n] = list(zip(spec[n], pickle.load(f), refs[n]))
+                got = pickle.load(f)
+            if n == "low":
+                for key, (train, chaos) in got.items():
+                    shared[key].update(port_train=train, chaos=chaos)
+            else:
+                out[n] = list(zip(spec[n], got, refs[n]))
         return out
     finally:
         for _, ctx in started.values():

@@ -17,6 +17,7 @@ import pytest
 from test_torch_ep import (_case, cases_of,
                            check_first_step_gradients, check_restore,
                            check_training, spawn_worlds)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 WORLDS = {2: [_case("train", "fsdp_z2_ep2"), _case("train", "fsdp_bf16"),
               _case("train", "fsdp_ep2_fp8")]}

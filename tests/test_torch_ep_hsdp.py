@@ -22,6 +22,7 @@ import pytest
 from test_torch_ep import (STRONG_AUX, _case, cases_of,
                            check_first_step_gradients, check_restore,
                            check_training, spawn_worlds)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 WORLDS = {4: [_case("train", "hsdp_ep2", STRONG_AUX, (4, 2)),
               _case("train", "ddp_ep2"), _case("train", "hsdp", None, (4, 2)),

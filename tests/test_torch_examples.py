@@ -9,22 +9,13 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 
 from repro_torch import checkpointing as ckpt_lib
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 REPORT_KEYS = ("wps", "mfu", "t_comm_exposed", "t_step", "power_per_device",
                "tokens_per_joule", "memory_per_device")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _example(name):

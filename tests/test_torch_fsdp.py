@@ -13,9 +13,13 @@ single-device step is the oracle: the port's shards answer to the same
 math.  Spawned workers import only torch and the port; JAX runs in the
 test process (imports inside the oracle).
 """
+import ast
 import dataclasses
+import functools
+import os
 import pickle
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -62,6 +66,43 @@ WORLDS = {
     4: [("hsdp", (4, 2), *QWEN), ("hsdp_z0", (4, 2), *QWEN)],
 }
 SPAWN_TIMEOUT = 240
+# torch's intra-op threads in every test process that runs the port (the
+# gloo ranks run at 1).  Six xdist workers, the ranks they start and
+# XLA's pools share the host's cores; torch's default, a thread a core,
+# multiplied their contention.  2, not 1: the whole suite ran faster at 2
+# on an 8-CPU host, and the bars of the modules that pinned 2 before were
+# measured there (at 1, test_torch_moe_model's deepseek gradients miss
+# their 1e-4 by 7 %).  CPU threads only: a card's kernels do not use them.
+TEST_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Every ``tests/test_torch_*.py`` module imports this fixture
+    (``test_every_port_test_module_pins_the_threads``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    yield
+    torch.set_num_threads(n)
+
+
+def cli_env():
+    """The environment of a port CLI that a test runs as a subprocess:
+    the port on the path, torch at ``TEST_THREADS`` (``OMP_NUM_THREADS``,
+    which torchrun hands each rank)."""
+    return {**os.environ, "OMP_NUM_THREADS": str(TEST_THREADS),
+            "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+
+
+def start_ranks(fn, args, n):
+    """``mp.start_processes`` of ``n`` ranks running ``fn(rank, *args)``,
+    not joined: each a fresh process forked from the dry run's preloaded
+    server (``launch.dryrun.fresh_context``), so no rank imports torch and
+    the port again."""
+    from repro_torch.launch import dryrun
+    dryrun.fresh_context()
+    return mp.start_processes(fn, args=args, nprocs=n, join=False,
+                              start_method="forkserver")
 
 
 def _batches(vocab, B, n, ga, seed):
@@ -145,8 +186,7 @@ def _world(rank, n, payload, out):
 
 
 def _start(n, payload, out):
-    return mp.start_processes(_world, args=(n, str(payload), str(out)),
-                              nprocs=n, join=False, start_method="spawn")
+    return start_ranks(_world, (n, str(payload), str(out)), n)
 
 
 def _join(n, ctx, deadline):
@@ -167,13 +207,17 @@ def _stop(ctx):
 # the JAX single-device oracle (test process)
 # ---------------------------------------------------------------------------
 
+def _jax_config(arch, over):
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import reduced as jax_reduced
+    return dataclasses.replace(jax_reduced(jax_get_config(arch)), **over)
+
+
 def _jax_tree(arch, over):
     import jax
 
-    from repro.configs import get_config as jax_get_config
-    from repro.configs import reduced as jax_reduced
     from repro.models import transformer as jtfm
-    jc = dataclasses.replace(jax_reduced(jax_get_config(arch)), **over)
+    jc = _jax_config(arch, over)
     return jc, jax.tree.map(np.asarray, jtfm.init_params(
         jc, jax.random.PRNGKey(7)))
 
@@ -188,34 +232,40 @@ def _inputs(case, n):
                                             seed=n))
 
 
-def _jax_trajectory(case, s, tree, batches):
-    """The JAX single-device trajectory: per-step metrics, final
-    parameters and first moments."""
+def fp8_gather(lp):
+    """The JAX package's per-layer gatherer (core/parallel.py
+    make_param_gatherer) on one device: the fp8 wire's rounding."""
+    import jax
+    import jax.numpy as jnp
+    return jax.tree.map(
+        lambda x: x.astype(jnp.float8_e4m3fn).astype(jnp.bfloat16)
+        if jnp.issubdtype(x.dtype, jnp.floating) else x, lp)
+
+
+def _make_jax_step(jc, jrt, grad_accum=1, wd=0.0):
+    """JAX's ``make_train_step`` of a config and a runtime, jitted."""
+    import jax
+
+    from repro.optim import AdamWConfig as JAdamWConfig
+    from repro.train.trainer import TrainConfig as JTrainConfig
+    from repro.train.trainer import make_train_step as jax_make_train_step
+    return jax.jit(jax_make_train_step(jc, jrt, JTrainConfig(
+        steps=STEPS, warmup=1, grad_accum=grad_accum,
+        opt=JAdamWConfig(lr=LR, weight_decay=wd))))
+
+
+# one jitted step for each (config, runtime, grad_accum, weight decay) a
+# process: every reference of that key reuses its compiled programs
+jax_train_step = functools.cache(_make_jax_step)
+
+
+def jax_run(jstep, tree, batches):
+    """Per-step metrics, final parameters and first moments of ``jstep``
+    from ``tree`` over ``batches``."""
     import jax
     import jax.numpy as jnp
 
-    from repro.models.layers import Runtime as JRuntime
-    from repro.optim import AdamWConfig as JAdamWConfig
     from repro.optim import init_opt_state as jax_init_opt_state
-    from repro.train.trainer import TrainConfig as JTrainConfig
-    from repro.train.trainer import make_train_step as jax_make_train_step
-
-    _, _, arch, over, wd = case
-    jc, _ = _jax_tree(arch, over)
-    kw = {}
-    if s.precision != "f32":
-        kw["compute_dtype"] = jnp.bfloat16
-    if s.precision == "fp8" and s.zero:
-        # the JAX package's per-layer gatherer (core/parallel.py
-        # make_param_gatherer) on one device: the fp8 wire's rounding
-        def gather_params(lp):
-            return jax.tree.map(
-                lambda x: x.astype(jnp.float8_e4m3fn).astype(jnp.bfloat16)
-                if jnp.issubdtype(x.dtype, jnp.floating) else x, lp)
-        kw["gather_params"] = gather_params
-    jstep = jax.jit(jax_make_train_step(jc, JRuntime(**kw), JTrainConfig(
-        steps=STEPS, warmup=1, grad_accum=s.grad_accum,
-        opt=JAdamWConfig(lr=LR, weight_decay=wd))))
     jtree, jstate, metrics = tree, jax_init_opt_state(tree), []
     for b in batches:
         jtree, jstate, m = jstep(jtree, jstate, {k: jnp.asarray(v)
@@ -223,6 +273,26 @@ def _jax_trajectory(case, s, tree, batches):
         metrics.append({k: float(v) for k, v in m.items()})
     return dict(metrics=metrics, params=jax.tree.map(np.asarray, jtree),
                 m=jax.tree.map(np.asarray, jstate["m"]))
+
+
+def _jax_step_args(case, s):
+    """A case's (JAX config, JAX runtime, grad_accum, weight decay)."""
+    import jax.numpy as jnp
+
+    from repro.models.layers import Runtime as JRuntime
+    _, _, arch, over, wd = case
+    kw = {}
+    if s.precision != "f32":
+        kw["compute_dtype"] = jnp.bfloat16
+    if s.precision == "fp8" and s.zero:
+        kw["gather_params"] = fp8_gather
+    return _jax_config(arch, over), JRuntime(**kw), s.grad_accum, wd
+
+
+def _jax_trajectory(case, s, tree, batches):
+    """The JAX single-device trajectory: per-step metrics, final
+    parameters and first moments."""
+    return jax_run(jax_train_step(*_jax_step_args(case, s)), tree, batches)
 
 
 def _port_trajectory(case, s, tree, batches):
@@ -415,3 +485,66 @@ def test_ranks_hold_their_share_of_parameters_and_moments(worlds, n):
                     (case[0], name, local, share)
             assert sum(r[0] for r in per_rank) == total * (n // k), \
                 (case[0], name)
+
+
+def _jax_modules(rank, out):
+    """A rank's modules of JAX and of the JAX package, into ``out``."""
+    import sys
+    with open(f"{out}.{rank}", "w") as f:
+        f.write(" ".join(m for m in sys.modules if m in ("jax", "repro")
+                         or m.startswith(("jax.", "jaxlib", "repro."))))
+
+
+def test_ranks_import_no_jax(tmp_path):
+    """Ranks forked from the fork server (``start_ranks``) hold no module
+    of JAX or of the JAX package, though this process has imported
+    both."""
+    import jax  # noqa: F401
+    ctx = start_ranks(_jax_modules, (str(tmp_path / "mods"),), 2)
+    try:
+        _join(2, ctx, time.time() + SPAWN_TIMEOUT)
+    finally:
+        _stop(ctx)
+    assert [(tmp_path / f"mods.{r}").read_text() for r in range(2)] == \
+        ["", ""]
+
+
+def test_a_cached_jax_step_gives_the_bits_of_a_fresh_one():
+    """``jax_train_step`` compiles one JAX step a key in a process, which
+    every reference of that key reuses: its trajectory is bit for bit
+    that of the same step jitted afresh."""
+    from repro_torch import strategy
+    case = WORLDS[2][0]
+    s = strategy.parse(case[0])
+    inp = _inputs(case, 2)
+    _jax_trajectory(case, s, **inp)
+    hits = jax_train_step.cache_info().hits
+    cached = _jax_trajectory(case, s, **inp)
+    assert jax_train_step.cache_info().hits == hits + 1
+    fresh = jax_run(_make_jax_step(*_jax_step_args(case, s)), **inp)
+    assert cached["metrics"] == fresh["metrics"]
+    for key in ("params", "m"):
+        for (path, x), (_, y) in zip(_leaves(cached[key]),
+                                     _leaves(fresh[key]), strict=True):
+            assert np.array_equal(x, y), (key, path)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(Path(__file__).parent.glob("test_torch_*.py")),
+    ids=lambda p: p.stem)
+def test_every_port_test_module_pins_the_threads(path):
+    """Each ``tests/test_torch_*.py`` takes :func:`_few_threads` from this
+    module (a module-level ``from test_torch_fsdp import _few_threads``)
+    and defines no fixture of that name itself, so no test process runs
+    the port at torch's default thread count."""
+    body = ast.parse(path.read_text()).body
+    defined = [n for n in body if isinstance(n, ast.FunctionDef)
+               and n.name == "_few_threads"]
+    imported = [n for n in body if isinstance(n, ast.ImportFrom)
+                and n.module == "test_torch_fsdp"
+                and any(a.name == "_few_threads" and a.asname is None
+                        for a in n.names)]
+    if path.name == Path(__file__).name:
+        assert len(defined) == 1 and not imported
+    else:
+        assert imported and not defined, path.name

@@ -12,16 +12,25 @@ above E is in ``tests/test_torch_remat_worlds.py``.)
 import pytest
 
 from repro_torch.configs import get_config
-from repro_torch.launch import dryrun
+from test_torch_dryrun import trace_points
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 EVEN_REL = 0.02
 RANKS = 256
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "jamba-v0.1-52b"])
-def test_pod_expert_stacks_shard_evenly(arch, tmp_path):
-    rec = dryrun.run_one(arch, "train_4k", False, str(tmp_path),
-                         strategy="fsdp_bf16", device="cpu")
+ARCHS = ["dbrx-132b", "jamba-v0.1-52b"]
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    return trace_points({arch: (arch, "train_4k", dict(strategy="fsdp_bf16"))
+                         for arch in ARCHS}, tmp_path_factory.mktemp("pod"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pod_expert_stacks_shard_evenly(arch, records):
+    rec = records[arch]
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["plan"]["mesh"] == {"data": RANKS, "model": 1}
     n = get_config(arch).param_count()

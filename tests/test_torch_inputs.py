@@ -17,7 +17,6 @@ M-RoPE's angles and the embedding within 1e-6 of their scale.  The gloo
 worlds are in ``tests/test_torch_inputs_worlds.py``.
 """
 import dataclasses
-import os
 import subprocess
 import sys
 
@@ -50,6 +49,8 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train import TrainConfig, make_train_step
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 MUSICGEN, QWEN2VL = "musicgen-medium", "qwen2-vl-2b"
 ARCHS = [MUSICGEN, QWEN2VL]
@@ -59,14 +60,6 @@ LOGIT_REL, LOSS_ATOL, GRAD_REL, EXACT_REL = 1e-4, 1e-5, 1e-4, 1e-6
 GRID = (4, 4)                   # the reduced V 16 as a patch grid
 B, S = 2, 24                    # S > V: text after the patches
 LR, WD = 1e-3, 0.1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch):
@@ -469,7 +462,7 @@ def test_planner_ranks_on_nodes_as_jax(arch):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH="src")
+    env = cli_env()
     return subprocess.run([sys.executable, "-m", *args], capture_output=True,
                           text=True, env=env, timeout=300)
 

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_moe_tp import _cfg, _jax_step, check_step, spawn_worlds
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 MUSICGEN, QWEN2VL = ("musicgen-medium", {}), ("qwen2-vl-2b", {})
 S, GRID = 24, (4, 4)            # rank 1 of 2 holds patches 12..15 of 16

@@ -28,18 +28,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels import wkv6 as twkv
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

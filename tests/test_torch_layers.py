@@ -18,19 +18,12 @@ from repro.models import layers as jl
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import attention as ta
 from repro_torch.models import layers as tl
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ATOL = 1e-5
 JRT = jl.Runtime()
 TRT = {"torch": tl.Runtime(attn_impl="torch", norm_impl="torch"),
        "kernel": tl.Runtime()}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch="qwen3-0.6b", **over):

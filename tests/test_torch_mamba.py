@@ -19,7 +19,6 @@ takes decay there and not in the port (the stacked-1-d caveat, ROADMAP
 Queue 3).  The gloo worlds are in ``tests/test_torch_mamba_worlds.py``.
 """
 import dataclasses
-import os
 import subprocess
 import sys
 
@@ -46,6 +45,8 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train import TrainConfig, make_train_step
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ARCH = "jamba-v0.1-52b"
 CHUNK = 8
@@ -55,14 +56,6 @@ RUNTIMES = {"kernel": Runtime(mamba_chunk=CHUNK),
                              mamba_chunk=CHUNK)}
 JRT = JRuntime(mamba_chunk=CHUNK)
 B, S, LR = 2, 24, 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(n_layers=4):
@@ -456,7 +449,7 @@ def test_bridge_round_trips_the_period_8_stack():
 # ---------------------------------------------------------------------------
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH="src")
+    env = cli_env()
     return subprocess.run([sys.executable, "-m", *args], capture_output=True,
                           text=True, env=env, timeout=300)
 

@@ -31,6 +31,7 @@ import pytest
 from test_torch_cp import N_NEW, S0, _case_inputs, gathers
 from test_torch_moe_tp import _cfg, _jax_step, check_step, spawn_worlds
 from test_torch_tp import _jax_leaves, _norm_entry
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ARCH = "jamba-v0.1-52b"
 JAMBA = (ARCH, dict(n_layers=4, n_kv_heads=2))
@@ -297,9 +298,21 @@ def test_strategy_checks_are_jaxs():
 # the dry run at full depth (fake process group of the pod, 256 ranks)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
-                                   "long_500k"])
-def test_dry_run_points_trace_at_full_depth(shape, tmp_path):
+DRY_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+@pytest.fixture(scope="module")
+def dry_records(tmp_path_factory):
+    """The four points below, traced at once."""
+    from test_torch_dryrun import trace_points
+    return trace_points(
+        {shape: (ARCH, shape, dict(strategy="auto" if shape == "train_4k"
+                                   else "")) for shape in DRY_SHAPES},
+        tmp_path_factory.mktemp("dry"))
+
+
+@pytest.mark.parametrize("shape", DRY_SHAPES)
+def test_dry_run_points_trace_at_full_depth(shape, dry_records):
     """Every point of the 32-layer jamba traces on the pod (train_4k under
     what ``--strategy auto`` ranks first, the serving points on the pod
     layout); its analytic FLOP fields, parameter counts and resilience
@@ -309,10 +322,8 @@ def test_dry_run_points_trace_at_full_depth(shape, tmp_path):
     from repro.configs import SHAPES as JSHAPES
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
     from test_torch_dryrun import _analytic_equal, _jax_resilience
-    rec = dryrun.run_one(ARCH, shape, False, str(tmp_path), device="cpu",
-                         strategy="auto" if shape == "train_4k" else "")
+    rec = dry_records[shape]
     assert rec["status"] == "ok", rec.get("traceback")
     jcfg = jax_get_config(ARCH)
     _analytic_equal(rec, jcfg, JSHAPES[shape])

@@ -31,6 +31,7 @@ from repro_torch.configs import LATER, ShapeConfig, get_config, reduced
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ARCHS = ["deepseek-moe-16b", "dbrx-132b"]
 N_LAYERS = 3                # deepseek: dense layer 0, two MoE layers
@@ -43,14 +44,6 @@ RUNTIMES = {"kernel": Runtime(),
 S0, N_NEW = 11, 9
 ENGINE_KW = dict(max_len=32, n_slots=2, block_size=4, prefill_chunk=8,
                  steps_per_tick=3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, **over):

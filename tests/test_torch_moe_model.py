@@ -39,14 +39,7 @@ from repro_torch.train import TrainConfig, make_train_step
 from test_torch_moe import (ARCHS, ENGINE_KW, GRAD_REL, LOGIT_REL, LOSS_ATOL,
                             N_NEW, RUNTIMES, S0, _assert_trees_close, _batch,
                             _cfgs, _leaves, _rel)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 
 

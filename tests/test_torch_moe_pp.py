@@ -15,6 +15,7 @@ whose worlds' machinery this file shares).
 """
 import pytest
 from test_torch_moe_tp import DBRX, _ids_of, check_step, spawn_worlds
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 WORLDS = {2: [("fsdp_pp2_mb2", *DBRX), ("fsdp_pp2_mb2_1f1b", *DBRX)],
           # pipe 2 x expert 2: each stage's experts split over the expert

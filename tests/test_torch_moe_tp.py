@@ -30,9 +30,10 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from test_torch_fsdp import (F32_BARS, LR, STEPS, S, _batches, _compare,
-                             _jax_tree, _join, _stop)
+                             _jax_config, _jax_tree, _join, _stop, jax_run,
+                             jax_train_step, start_ranks)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 DEEPSEEK = ("deepseek-moe-16b", {})
 DBRX = ("dbrx-132b", {})
@@ -166,29 +167,14 @@ def _jax_step(case, n, tree, batches):
     groups a microbatch) and, for a pipeline, its M microbatches as
     gradient accumulation (the same per-microbatch aux and, with every
     microbatch masked alike, the same loss)."""
-    import jax
-    import jax.numpy as jnp
-
     from repro.models.layers import Runtime as JRuntime
-    from repro.optim import AdamWConfig as JAdamWConfig
-    from repro.optim import init_opt_state as jax_init_opt_state
-    from repro.train.trainer import TrainConfig as JTrainConfig
-    from repro.train.trainer import make_train_step as jax_make_train_step
     spec, arch, over = case
-    jc, _ = _jax_tree(arch, over)
+    jc = _jax_config(arch, over)
     dp, M = _degrees(spec, n)
     kw = dict(moe_impl="dropping", moe_groups=dp) if jc.moe.n_experts \
         else {}
-    jstep = jax.jit(jax_make_train_step(jc, JRuntime(**kw), JTrainConfig(
-        steps=STEPS, warmup=1, grad_accum=M,
-        opt=JAdamWConfig(lr=LR, weight_decay=0.0))))
-    jtree, jstate, metrics = tree, jax_init_opt_state(tree), []
-    for b in batches:
-        jtree, jstate, m = jstep(jtree, jstate, {k: jnp.asarray(v)
-                                                 for k, v in b.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
-    return dict(metrics=metrics, params=jax.tree.map(np.asarray, jtree),
-                m=jax.tree.map(np.asarray, jstate["m"]))
+    return jax_run(jax_train_step(jc, JRuntime(**kw), M, 0.0), tree,
+                   batches)
 
 
 def spawn_worlds(worlds, tmp_path_factory, tag, inputs=_inputs,
@@ -204,9 +190,8 @@ def spawn_worlds(worlds, tmp_path_factory, tag, inputs=_inputs,
             payload = [dict(case=c, **inputs(c, n)) for c in cases]
             with open(d / "payload.pkl", "wb") as f:
                 pickle.dump(payload, f)
-            started[n] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
+            started[n] = (d / "out.pkl", start_ranks(
+                _world, (n, str(d / "payload.pkl"), str(d / "out.pkl")), n))
         for n, cases in worlds.items():
             refs[n] = [reference(c, n, **inputs(c, n)) for c in cases]
         out = {}

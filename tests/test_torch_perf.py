@@ -27,6 +27,7 @@ from repro_torch.perf import paths
 from repro_torch.perf import report
 from repro_torch.perf import roofline
 from repro_torch.perf.memory import CATEGORIES
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ARCHS = sorted(set(REGISTRY) | set(JAX_REGISTRY))
 HARDWARE = ("H100", "A100", "TPUv5e")

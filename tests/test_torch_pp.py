@@ -29,12 +29,12 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, S, _batches,
                              _compare, _errors, _jax_trajectory, _jax_tree,
                              _join, _leaves, _port_trajectory, _scales,
-                             _stop)
+                             _stop, start_ranks)
 from test_torch_tp import _floored
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2, n_layers=4), 0.0)
 LLAMA = ("llama2-1b", {}, 0.1)
@@ -342,10 +342,8 @@ def _jax_rows(spec):
 
 
 def _start_port_references(d):
-    return mp.start_processes(
-        _port_references, args=(str(d / "payload.pkl"),
-                                 str(d / "port_refs.pkl")),
-        nprocs=1, join=False, start_method="spawn")
+    return start_ranks(_port_references, (str(d / "payload.pkl"),
+                                          str(d / "port_refs.pkl")), 1)
 
 
 @pytest.fixture(scope="module")
@@ -366,9 +364,8 @@ def worlds(tmp_path_factory):
             runs = payload + ([payload[REPEAT]] if n == 2 else [])
             with open(d / "runs.pkl", "wb") as f:
                 pickle.dump(runs, f)
-            started[n] = (d, mp.start_processes(
-                _world, args=(n, str(d / "runs.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"),
+            started[n] = (d, start_ranks(
+                _world, (n, str(d / "runs.pkl"), str(d / "out.pkl")), n),
                 _start_port_references(d))
             refs[n] = [_jax_reference(item) for item in payload]
         deadline = time.time() + SPAWN_TIMEOUT

@@ -44,6 +44,7 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train import TrainConfig, make_train_step
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 BF16 = Runtime(compute_dtype=torch.bfloat16, rwkv_chunk=16)
 F32 = Runtime(rwkv_chunk=16)
@@ -56,14 +57,6 @@ BF16_GRAD_REL = 5e-2       # each leaf's max error over its scale
 # the JAX package's own bar for a bf16 step's loss against f32
 # (tests/test_precision.py::test_bf16_train_step_numerics_match_f32)
 BF16_VS_F32_REL = 2e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, **over):

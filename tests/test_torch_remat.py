@@ -35,6 +35,7 @@ from repro_torch import bridge, strategy
 from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.core import parallel as par
 from repro_torch.models import transformer as ttfm
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 LOSS_ATOL = 1e-5
 GRAD_REL = 1e-4
@@ -42,14 +43,6 @@ B, S = 2, 32
 # (arch, layers, config overrides)
 QWEN = ("qwen3-0.6b", 2, dict(n_kv_heads=2))
 JAMBA = ("jamba-v0.1-52b", 8, dict(n_kv_heads=2))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, n_layers, over):

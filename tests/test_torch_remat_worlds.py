@@ -30,10 +30,10 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from test_torch_fsdp import F32_BARS, LR, S, STEPS, _batches, _errors, \
-    _join, _stop
+    _join, _stop, jax_run, jax_train_step, start_ranks
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 JAMBA = ("jamba-v0.1-52b", 2, {})
 QWEN = ("qwen3-0.6b", 4, dict(n_kv_heads=2))
@@ -180,25 +180,11 @@ def _inputs(model, n):
 def _jax_trajectory(jc, inp, n, over):
     """JAX's single-device trajectory under remat, a MoE model's dropping
     dispatch in the ``n`` groups of the plan's data ranks."""
-    import jax
-    import jax.numpy as jnp
-
     from repro.models.layers import Runtime as JRuntime
-    from repro.optim import AdamWConfig as JAdamWConfig
-    from repro.optim import init_opt_state as jax_init_opt_state
-    from repro.train.trainer import TrainConfig as JTrainConfig
-    from repro.train.trainer import make_train_step as jax_make_train_step
     kw = dict(moe_impl="dropping", moe_groups=n) if jc.moe.n_experts else {}
     rt = JRuntime(remat=True, **kw, **over)
-    jstep = jax.jit(jax_make_train_step(jc, rt, JTrainConfig(
-        steps=STEPS, warmup=1, opt=JAdamWConfig(lr=LR, weight_decay=0.0))))
-    tree, state, metrics = inp["tree"], jax_init_opt_state(inp["tree"]), []
-    for b in inp["batches"]:
-        tree, state, m = jstep(tree, state, {k: jnp.asarray(v)
-                                             for k, v in b.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
-    return dict(metrics=metrics, params=jax.tree.map(np.asarray, tree),
-                m=jax.tree.map(np.asarray, state["m"]))
+    return jax_run(jax_train_step(jc, rt, 1, 0.0), inp["tree"],
+                   inp["batches"])
 
 
 @pytest.fixture(scope="module")
@@ -220,9 +206,8 @@ def worlds(tmp_path_factory):
                                     tree=_inputs(WIRE[1], n)[1]["tree"]))
             with open(d / "payload.pkl", "wb") as f:
                 pickle.dump(payload, f)
-            started[n] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
+            started[n] = (d / "out.pkl", start_ranks(
+                _world, (n, str(d / "payload.pkl"), str(d / "out.pkl")), n))
             shared = {}
             refs[n] = []
             for (spec, model, over), p, jc in zip(cases, payload, jcs):

@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch import bridge
 from repro_torch import checkpointing as ckpt_lib
@@ -48,6 +47,8 @@ from repro_torch.resilience import (FaultEvent, FaultPlan,
                                     load_fault_plan, supervise_training)
 from repro_torch.train import TrainConfig, train_loop
 from repro_torch.train.trainer import prng_key_data
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import start_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B = 16, 4
@@ -62,14 +63,6 @@ OPT = AdamWConfig(weight_decay=0.0)
 # < 0.5, mean < 1e-3)
 F32_BARS = dict(metric=1e-5, moment=1e-4, lr_max=0.5, lr_mean=1e-3)
 SPAWN_TIMEOUT = 240
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(arch="qwen3-0.6b"):
@@ -304,9 +297,8 @@ def _started(tmp_path_factory):
     try:
         for task, (n, _) in TASKS.items():
             d = tmp_path_factory.mktemp(task)
-            started[task] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, task, str(d), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
+            started[task] = (d / "out.pkl", start_ranks(
+                _world, (n, task, str(d), str(d / "out.pkl")), n))
         yield started
     finally:
         for _, ctx in started.values():

@@ -7,7 +7,6 @@ and gradients (JAX ``value_and_grad`` under the ``pallas`` Runtime, whose
 WKV-6 kernel runs in interpret mode, and under ``jnp``), the bridge, the
 weight-decay mask, and the CLIs.  All f32.
 """
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +34,8 @@ from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "rwkv6-1.6b"
@@ -52,14 +53,6 @@ RUNTIMES = {"kernel": (Runtime(rwkv_chunk=CHUNK),
 OUT_REL = 1e-5
 LOSS_ATOL = 1e-5
 GRAD_REL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs():
@@ -325,7 +318,7 @@ def test_init_matches_jax_shapes_and_distributions():
 # ---------------------------------------------------------------------------
 
 def _run(args):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
 

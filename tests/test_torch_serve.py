@@ -7,7 +7,6 @@ kernels in interpret mode; the port's kernel path runs each kernel's plain
 version on these CPU tensors.
 """
 import dataclasses
-import os
 import re
 import subprocess
 import sys
@@ -31,20 +30,14 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.layers import Runtime
 from repro_torch.serve import ServeEngine, init_paged_pools
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_RT = {"torch": Runtime(attn_impl="torch", norm_impl="torch"),
            "kernel": Runtime()}
 JAX_RT = {"torch": JRuntime(),
           "kernel": JRuntime(attn_impl="pallas", norm_impl="pallas")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, **over):
@@ -247,7 +240,7 @@ def test_engine_needs_params_on_its_device(qwen_gqa):
 # ---------------------------------------------------------------------------
 
 def _run(args, **kw):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300, **kw)
 

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 S0, N_NEW = 11, 9       # prompt length, new tokens: 20 slots split 4 ways
@@ -66,14 +67,6 @@ def _rts(impl):
 def _prompts(vocab, B, seed=0):
     return np.random.default_rng(seed).integers(
         0, vocab, (B, S0)).astype(np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

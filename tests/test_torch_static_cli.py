@@ -1,13 +1,14 @@
 """The serve CLI's ``--strategy``/``--engine`` on the CPU: static serving
 under a plan on one rank and on 2 gloo ranks prints the single-device
 static run's tokens; the paged engine refuses a plan."""
-import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -17,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # ---------------------------------------------------------------------------
 
 def _run(args, nproc=0):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     pre = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc)] if nproc else [sys.executable])
     return subprocess.run([*pre, "-m", "repro_torch.launch.serve",

@@ -16,12 +16,12 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from test_torch_static import (GRANITE, LOGIT_ATOL, N_NEW, QWEN, QWEN2,
                                QWEN_KV1, RWKV, S0, _cfgs, _jax_run, _jax_tree,
                                _prompts, _rts)
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import start_ranks
 # the reference's few threads in this process, as in test_torch_static
-from test_torch_static import _few_threads  # noqa: F401
 
 # (spec, arch, config overrides, global batch) per world size
 WORLDS = {
@@ -133,16 +133,21 @@ def _world(rank, n, payload, out):
         dist.destroy_process_group()
 
 
-def _reference(case):
+def _inputs(case):
+    """A case's weights (JAX's init, as numpy) and prompts."""
+    _, arch, over, B = case
+    jc, _ = _cfgs(arch, over)
+    return _jax_tree(jc, seed=7), _prompts(jc.vocab_size, B, seed=B)
+
+
+def _reference(case, tree, prompts):
     """JAX single-device greedy tokens of the case's prompts, and the
     logits of its prefill and decode steps along them."""
     import jax.numpy as jnp
 
     from repro.serve import ServeEngine as JServeEngine
-    spec, arch, over, B = case
+    _, arch, over, _ = case
     jc, _ = _cfgs(arch, over)
-    tree = _jax_tree(jc, seed=7)
-    prompts = _prompts(jc.vocab_size, B, seed=B)
     jrt = _rts("torch")[0]
     toks = np.asarray(JServeEngine(jc, tree, jrt, max_len=S0 + N_NEW)
                       .generate_static(jnp.asarray(prompts), N_NEW))
@@ -167,21 +172,22 @@ def _stop(ctx):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """{n: [(case, [each rank's result], JAX reference)]}; each world is
-    spawned once and runs all its cases."""
-    refs = {n: [_reference(c) for c in cases] for n, cases in WORLDS.items()}
-    started = {}
+    spawned once and runs all its cases, while this process computes the
+    references."""
+    started, payloads = {}, {}
     try:
         for n, cases in WORLDS.items():
             d = tmp_path_factory.mktemp(f"serveworld{n}")
-            payload = [dict(case=c, tree=r[0], prompts=r[1])
-                       for c, r in zip(cases, refs[n])]
+            payloads[n] = [dict(case=c, tree=t, prompts=p)
+                           for c, (t, p) in zip(cases, map(_inputs, cases))]
             with open(d / "payload.pkl", "wb") as f:
-                pickle.dump(payload, f)
-            started[n] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
-        out = {}
+                pickle.dump(payloads[n], f)
+            started[n] = (d / "out.pkl", start_ranks(
+                _world, (n, str(d / "payload.pkl"), str(d / "out.pkl")), n))
         deadline = time.time() + SPAWN_TIMEOUT
+        refs = {n: [_reference(c["case"], c["tree"], c["prompts"])
+                    for c in payload] for n, payload in payloads.items()}
+        out = {}
         for n, (path, ctx) in started.items():
             _join(n, ctx, deadline)
             with open(path, "rb") as f:

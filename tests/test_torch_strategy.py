@@ -24,6 +24,7 @@ from repro.core import parallel as jpar
 from repro_torch import strategy
 from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.core import parallel as par
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -21,6 +21,7 @@ from repro_torch.data import Batcher, SyntheticSource
 from repro_torch.models import Runtime, init_params
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig, train_loop
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 GOOD_EVENTS = [
     tel.make_event("span", "train/step", 1.0, dur=0.5, tid=1, depth=0,
@@ -44,14 +45,6 @@ TRACE_FAULTS = {
     "x_without_pid": {"traceEvents": [
         {"ph": "X", "name": "s", "ts": 1.0, "dur": 2.0, "tid": 0}]},
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _write_jsonl(path, lines):

@@ -22,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from test_torch_fsdp import (F32_BARS, LOW_BARS, LR, STEPS, S, _batches,
                              _compare, _errors, _jax_trajectory, _jax_tree,
-                             _join, _port_trajectory, _stop, _wire_bytes)
+                             _join, _port_trajectory, _stop, _wire_bytes,
+                             start_ranks)
+from test_torch_fsdp import _few_threads  # noqa: F401
 
 QWEN = ("qwen3-0.6b", dict(n_kv_heads=2), 0.0)   # kv_tp at tp 2, not at 4
 RWKV = ("rwkv6-1.6b", {}, 0.1)
@@ -222,9 +223,8 @@ def worlds(tmp_path_factory):
             payload = [dict(case=c, **_inputs(c, n)) for c in cases]
             with open(d / "payload.pkl", "wb") as f:
                 pickle.dump(payload, f)
-            started[n] = (d / "out.pkl", mp.start_processes(
-                _world, args=(n, str(d / "payload.pkl"), str(d / "out.pkl")),
-                nprocs=n, join=False, start_method="spawn"))
+            started[n] = (d / "out.pkl", start_ranks(
+                _world, (n, str(d / "payload.pkl"), str(d / "out.pkl")), n))
         for n, cases in WORLDS.items():
             refs[n] = [_references(c, n) for c in cases]
         out = {}

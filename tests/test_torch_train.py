@@ -8,7 +8,6 @@ port's kernel path — plain versions here — and plain path), and a 3-step
 trajectory of the JAX ``make_train_step``.  All f32.
 """
 import dataclasses
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +42,8 @@ from repro_torch.models.layers import Runtime
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.train import TrainConfig, make_train_step
+from test_torch_fsdp import _few_threads  # noqa: F401
+from test_torch_fsdp import cli_env
 
 ROOT = Path(__file__).resolve().parents[1]
 # port runtime -> the JAX runtime it is held against
@@ -62,14 +63,6 @@ GRAD_REL = 1e-4
 # (optim/adamw.py:64).  The port keeps per-layer leaves and, as the mask
 # intends, does not decay them.
 STACKED_1D = ("q_norm", "k_norm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, **over):
@@ -315,7 +308,7 @@ def test_train_step_trajectory_matches_jax(arch, over, wd, ga):
 # ---------------------------------------------------------------------------
 
 def _run(args):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = cli_env()
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
 
