@@ -452,10 +452,11 @@ from repro_torch.train.trainer import (batch_to_device,  # noqa: E402
 # cores, bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# dense TF32 tensor cores.  The flash kernels multiply there: f32
+# dense TF32 tensor cores.  The f32 flash kernels multiply there, f32
 # operands as 3xTF32 (three MMAs per product, so 495 / 3 = 165 TFLOP/s of
-# f32 products); bf16 operands are exact in TF32, so a product of two
-# inputs takes one MMA and a product with the f32 p or ds two
+# f32 products); the bf16 flash kernels multiply on the bf16 tensor cores
+# (PEAK_OPS_S), one MMA per product of two inputs and of the forward's p,
+# two per product with the backward's p or ds (a hi/lo pair of bf16)
 TF32_OPS_S = 495e12
 F32_3XTF32_OPS_S = TF32_OPS_S / 3
 # |kernel - plain| <= atol + rtol * |plain|: f32 differs only by summation
@@ -955,17 +956,18 @@ def flash_bounds(dtype, B, S, H, Kv, D, window, Sk=None, q0=0):
     # all three kernels multiply on the tensor cores.  f32: bound at the
     # 3xTF32 rate they use, the f32 SIMT bound (PEAK_OPS_S) kept beside it
     # in bound_peak_ms.  bf16: bound at the card's bf16 rate; the kernels
-    # run it on TF32 MMAs (one per product of two inputs, two with p or
-    # ds), whose bound is noted in bound_arith
+    # issue one bf16 MMA per product of two inputs and of the forward's p,
+    # two per product with the backward's p or ds (hi/lo), and the time
+    # of the operations they issue is noted in bound_arith
     fwd_bytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
     dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
     dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
-    work = {"flash_attention": (fwd_bytes, 4 * D * pairs, 6 * D * pairs),
+    work = {"flash_attention": (fwd_bytes, 4 * D * pairs, 4 * D * pairs),
             "flash_attention_dq": (dq_bytes, 6 * D * pairs, 8 * D * pairs),
             "flash_attention_dkv": (dkv_bytes, 8 * D * pairs,
                                     12 * D * pairs)}
     bounds, notes = {}, {}
-    for name, (n_bytes, n_ops, tf32_mmas) in work.items():
+    for name, (n_bytes, n_ops, issued) in work.items():
         if dtype == torch.float32:
             bounds[name] = bound_ms(n_bytes, n_ops, dtype, F32_3XTF32_OPS_S)
             notes[name] = dict(
@@ -973,10 +975,11 @@ def flash_bounds(dtype, B, S, H, Kv, D, window, Sk=None, q0=0):
                 bound_peak_ms=bound_ms(n_bytes, n_ops, dtype)[0])
         else:
             bounds[name] = bound_ms(n_bytes, n_ops, dtype)
-            tf32 = bound_ms(n_bytes, tf32_mmas, dtype, TF32_OPS_S)[0]
+            t_issued = bound_ms(n_bytes, issued, dtype)[0]
             notes[name] = dict(bound_arith=(
-                f"bf16 tensor cores; on the TF32 MMAs the kernel runs "
-                f"{tf32:.5f} ms"))
+                f"bf16 tensor cores; with the bf16 MMAs the kernel issues "
+                f"(hi/lo pairs of p and ds counted twice) "
+                f"{t_issued:.5f} ms"))
     return bounds, notes
 
 
@@ -5100,6 +5103,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:134"),
 }
+# the bf16 cases of the flash kernels have a source of their own
+BF16_SOURCES = {
+    name: "src/repro_torch/kernels/csrc/flash_attention_bf16.cu"
+    for name in SOURCES if name.startswith("flash_attention")}
 # the case each kernel's line reports, f32 throughout: the serving path's
 # decode shape (the RMSNorm forward's training rows are printed beside it),
 # the training paths' norm rows, attention shape and WKV-6 shape
@@ -5139,7 +5146,8 @@ def kernels_line(rows, launches, launches_bf16, card):
                                if r["dtype"] == "float32"),
             **{k: rep[k] for k in keys}, "dtype": "float32",
             "shape": rep["shape"], "card": card,
-            "bf16": {"launches": launches_bf16[name],
+            "bf16": {"source": BF16_SOURCES.get(name, src),
+                     "launches": launches_bf16[name],
                      "max_abs_err": max(r["max_abs_err"] for r in mine
                                         if r["dtype"] == "bfloat16"),
                      **{k: b16[k] for k in keys}, "shape": b16["shape"]}})

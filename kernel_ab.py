@@ -5,16 +5,20 @@ unpacked with ``git archive``).
 
     python3 kernel_ab.py --parent DIR [--out results.json]
 
-Builds ``flash_attention.cu``, ``wkv6.cu``, ``rmsnorm.cu`` and
+Builds ``flash_attention.cu`` (and ``flash_attention_bf16.cu`` where the
+other checkout has it: before it, the bf16 entry points lived in
+``flash_attention.cu``), ``wkv6.cu``, ``rmsnorm.cu`` and
 ``flash_decode.cu`` from ``DIR/src/repro_torch/kernels/csrc`` with the
 same ``nvcc`` flags as this tree's (into ``DIR/build/kernels``), then, on
 ``chip_smoke.py``'s cases:
 
-- holds each side's flash forward (o, lse) against ``forward_plain``,
-  and this tree's flash forward, dq and dk/dv to the other side's bits
-  (``torch.equal``: self-attention is q0 = 0 with as many rows as keys,
-  whatever either side's entry points take; a side whose entry points
-  predate the query offset runs through :class:`_NoOffset`);
+- holds each side's flash forward (o, lse), dq and dk/dv against
+  ``forward_plain``, ``dq_plain`` and ``dkv_plain`` at ``chip_smoke.py``'s
+  bars, at every ``FLASH_CASES`` shape and K-CP's offset rows, and this
+  tree's flash forward, dq and dk/dv to the other side's bits
+  (``torch.equal``; required in f32, printed in bf16, whose design
+  differs).  A side whose entry points predate the query offset runs
+  through :class:`_NoOffset` and skips the offset case;
 - holds this tree's WKV-6 outputs (y and the final state) against the
   other side's with ``torch.equal``, and both against ``wkv6_plain``;
 - holds each side's RMSNorm forward (y, rstd) against ``rmsnorm_plain`` at
@@ -29,8 +33,11 @@ same ``nvcc`` flags as this tree's (into ``DIR/build/kernels``), then, on
 - requires a second launch of this tree's kernels to give the same bits;
 - times both sides at the main paths' shapes (f32 and bf16; L2 flushed
   before every launch, as ``chip_smoke.time_ms`` does) in the order
-  other, this, this, other, and prints the medians of each side's two
-  readings, beside the timing's own floor (a one-element fill).
+  other, this, this, other, and prints the means of each side's two
+  readings, beside the timing's own floor (a one-element fill); the
+  flash rows time the forward, dq and dk/dv at each timed shape, and the
+  training shape's rows add ``attention_delta`` (plain PyTorch, the same
+  on both sides) to dq + dk/dv.
 
 Needs CUDA; prints the card's name and power limit first.
 """
@@ -58,6 +65,9 @@ from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 
 MODULES = {"flash_attention": fa, "wkv6": wkv, "rmsnorm": rms,
            "flash_decode": fd}
+# each library's entry points (the flash kernels have one library a dtype)
+SIGNATURES = {**{name: mod._SIGNATURES for name, mod in MODULES.items()},
+              **fa._SIGNATURES_OF}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the two-launch flash-decode's entry points: the split kernel writes each
 # split's f32 partial (acc, m, l), the combine kernel merges them
@@ -109,26 +119,44 @@ class _NoOffset:
         return call
 
 
+class _Renamed:
+    """A library under another library's name: the other checkout's
+    ``flash_attention.cu``, whose bf16 entry points this tree keeps in
+    ``flash_attention_bf16.cu``."""
+
+    def __init__(self, lib, name, as_name):
+        self.lib = lib
+        setattr(self, f"{as_name}_error_string",
+                getattr(lib, f"{name}_error_string"))
+
+    def __getattr__(self, attr):
+        return getattr(self.lib, attr)
+
+
 def build_other(root: Path):
     """The other checkout's sources, built with this tree's flags ->
-    {name: loaded library}."""
+    {name: loaded library}, one under each name of ``SIGNATURES``."""
     out = root / "build" / "kernels"
     out.mkdir(parents=True, exist_ok=True)
+    csrc = root / "src/repro_torch/kernels/csrc"
     procs = {}
-    for name in MODULES:
+    for name in SIGNATURES:
         so = out / f"lib{name}.so"
-        src = root / "src/repro_torch/kernels/csrc" / f"{name}.cu"
+        src = csrc / f"{name}.cu"
+        if not src.exists():
+            continue
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
+        src = csrc / f"{name}.cu"
         log, _ = proc.communicate()
         print(f"[build other] {name}.cu:\n{log.rstrip()}")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the other {name}.cu")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in {**MODULES[name]._SIGNATURES,
+        for fn, argtypes in {**SIGNATURES[name], **fa._BF16_SIGNATURES,
                              **TWO_LAUNCH_DECODE}.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = list(argtypes)
@@ -138,13 +166,16 @@ def build_other(root: Path):
         if name == "flash_attention" and "int q0" not in src.read_text():
             lib = _NoOffset(lib)
         libs[name] = lib
+    if "flash_attention_bf16" not in libs:
+        libs["flash_attention_bf16"] = _Renamed(
+            libs["flash_attention"], "flash_attention", "flash_attention_bf16")
     return libs
 
 
 @contextlib.contextmanager
 def using(name, lib):
     """Within the block the module's wrapper launches ``lib``'s kernel."""
-    build.load(name, MODULES[name]._SIGNATURES)
+    build.load(name, SIGNATURES[name])
     mine = build._LOADED[name]
     build._LOADED[name] = lib
     try:
@@ -167,7 +198,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    print(build.build_all(list(MODULES), verbose=True))
+    print(build.build_all(list(SIGNATURES), verbose=True))
     other = build_other(args.parent)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -198,51 +229,7 @@ def main(argv=None):
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[-1]
-            # the head-dim-128 cases: a parent before the head-dim-80
-            # instantiation has no kernel for the others
-            cases = [c[:6] for c in cs.FLASH_CASES if c[4] == 128]
-            for ci, (B, S, H, Kv, D, window) in enumerate(cases):
-                q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev
-                                       ).to(dtype) for h in (H, Kv, Kv))
-                o0, lse0 = fa.forward_plain(q, k, v, True, window)
-                row = dict(dtype=dt, shape=f"B{B} S{S} H{H} Kv{Kv} D{D} "
-                                           f"window{window}")
-                for side in ("this", "other"):
-                    def ctx():
-                        return (using("flash_attention",
-                                      other["flash_attention"])
-                                if side == "other"
-                                else contextlib.nullcontext())
-                    with ctx():
-                        o, lse = fa.forward_cuda(q, k, v, True, window)
-                        o2, lse2 = fa.forward_cuda(q, k, v, True, window)
-                    torch.cuda.synchronize()
-                    row[f"{side}_o_rel_err"] = cs.rel_err(o, o0)
-                    row[f"{side}_o_err_max_abs"] = cs.max_err(o, o0, dtype)[0]
-                    row[f"{side}_o_within_tol"] = cs.max_err(o, o0, dtype)[1]
-                    row[f"{side}_lse_err"] = (lse - lse0).abs().max().item()
-                    row[f"{side}_repeat_equal"] = bool(
-                        torch.equal(o, o2) and torch.equal(lse, lse2))
-                    do = torch.randn(q.shape, generator=torch.Generator(
-                        device=dev).manual_seed(ci), device=dev).to(dtype)
-                    bwd = (q, k, v, do, lse0, fa.attention_delta(o0, do),
-                           True, window)
-                    with ctx():
-                        outs = (o, lse, fa.dq_cuda(*bwd),
-                                *fa.dkv_cuda(*bwd))
-                    torch.cuda.synchronize()
-                    if side == "this":
-                        mine = outs
-                    else:
-                        row["bits_equal_other"] = [
-                            bool(torch.equal(a, b))
-                            for a, b in zip(mine, outs)]
-                if ci == 0:
-                    row["other_ms"], row["this_ms"], row["readings_ms"] = ab(
-                        "flash_attention",
-                        lambda: fa.forward_cuda(q, k, v, True, window))
-                res["flash"].append(row)
-                print(f"[flash fwd] {json.dumps(row)}")
+            res["flash"] += flash_ab(dev, dtype, gen, flush, ab, other)
             for ci, (B, T, H, chunk) in enumerate(cs.WKV_CASES):
                 N = 64
                 r, k, v = ((0.5 * torch.randn(B, T, H, N, generator=gen,
@@ -280,20 +267,102 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
-    ok = all(r["this_o_within_tol"] and r["this_lse_err"] <= 1e-5
-             and r["this_repeat_equal"] for r in res["flash"])
+    ok = all(r["this_ok"] and r["other_ok"] and r["this_repeat_equal"]
+             for r in res["flash"])
     same = all(r["y_equal"] and r["state_equal"] for r in res["wkv6"])
-    flash_same = all(all(r["bits_equal_other"]) for r in res["flash"])
+    flash_same = all(all(r["bits_equal_other"]) for r in res["flash"]
+                     if r["dtype"] == "float32")
     ok_new = all(r["this_ok"] and r["other_ok"] and r["this_repeat_equal"]
                  for r in res["rmsnorm"] + res["rmsnorm_bwd"]
                  + res["flash_decode"])
-    print(f"[ab] flash forward within tolerance and repeatable: {ok}; "
-          f"flash o, lse, dq, dk, dv bits equal to the other side's: "
-          f"{flash_same}; "
+    print(f"[ab] flash forward, dq and dk/dv within tolerance on both "
+          f"sides and repeatable here: {ok}; f32 flash o, lse, dq, dk, dv "
+          f"bits equal to the other side's: {flash_same}; "
           f"wkv6 bits equal to the other side's: {same}; RMSNorm forward "
           f"and backward and flash-decode within tolerance on both sides "
           f"and repeatable here: {ok_new}")
-    return 0 if ok and ok_new else 1
+    return 0 if ok and ok_new and flash_same else 1
+
+
+# B, Sq, Sk, H, Kv, D, window, q0, timed: chip_smoke.py's flash cases
+# (self-attention), then K-CP's rows at their offset
+FLASH_AB_CASES = (
+    [(B, S, S, H, Kv, D, w, 0, t) for B, S, H, Kv, D, w, t in cs.FLASH_CASES]
+    + [(B, S, Sk, H, Kv, D, 0, cs.KCP_OFFSETS[-1], True)
+       for B, S, Sk, H, Kv, D in (cs.KCP_SHAPE,)])
+
+
+def flash_ab(dev, dtype, gen, flush, ab, other):
+    """Both sides' flash forward, dq and dk/dv at ``FLASH_AB_CASES``: each
+    against its plain version at ``chip_smoke.py``'s bars, this side's
+    bits against the other side's and against a second launch; each timed
+    case's three kernels timed on both sides (and at the training shape
+    dq + dk/dv + ``attention_delta``)."""
+    name = fa._LIBRARIES[dtype]
+    dt = str(dtype).split(".")[-1]
+    rows = []
+    for ci, (B, S, Sk, H, Kv, D, window, q0, timed) in enumerate(
+            FLASH_AB_CASES):
+        if q0 and isinstance(other["flash_attention"], _NoOffset):
+            continue
+        q, do = (torch.randn(B, S, H, D, generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, Sk, Kv, D, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        o0, lse0 = fa.forward_plain(q, k, v, True, window, q0)
+        bwd = (q, k, v, do, lse0, fa.attention_delta(o0, do), True, window,
+               q0)
+        dq0, (dk0, dv0) = fa.dq_plain(*bwd), fa.dkv_plain(*bwd)
+        row = dict(dtype=dt, shape=f"B{B} S{S} Sk{Sk} H{H} Kv{Kv} D{D} "
+                                   f"window{window} q0 {q0}")
+        for side in ("this", "other"):
+            with (using(name, other[name]) if side == "other"
+                  else contextlib.nullcontext()):
+                o, lse = fa.forward_cuda(q, k, v, True, window, q0)
+                o2, lse2 = fa.forward_cuda(q, k, v, True, window, q0)
+                dq, (dk, dv) = fa.dq_cuda(*bwd), fa.dkv_cuda(*bwd)
+                dq2, (dk2, dv2) = fa.dq_cuda(*bwd), fa.dkv_cuda(*bwd)
+            torch.cuda.synchronize()
+            e_o, o_ok = cs.max_err(o, o0, dtype)
+            rels = {"dq": cs.rel_err(dq, dq0), "dk": cs.rel_err(dk, dk0),
+                    "dv": cs.rel_err(dv, dv0)}
+            row.update({
+                f"{side}_o_err_max_abs": e_o,
+                f"{side}_lse_err": (lse - lse0).abs().max().item(),
+                f"{side}_grad_rel": rels,
+                f"{side}_repeat_equal": all(torch.equal(a, b) for a, b in (
+                    (o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
+                    (dv, dv2)))})
+            row[f"{side}_ok"] = bool(
+                o_ok and row[f"{side}_lse_err"] <= 1e-5
+                and max(rels.values()) <= cs.GRAD_REL_TOL[dtype])
+            outs = (o, lse, dq, dk, dv)
+            if side == "this":
+                mine = outs
+            else:
+                row["bits_equal_other"] = [bool(torch.equal(a, b))
+                                           for a, b in zip(mine, outs)]
+                row["max_abs_diff_other"] = [
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(mine, outs)]
+        if timed:
+            for kern, fn in (
+                    ("fwd", lambda: fa.forward_cuda(q, k, v, True, window,
+                                                    q0)),
+                    ("dq", lambda: fa.dq_cuda(*bwd)),
+                    ("dkv", lambda: fa.dkv_cuda(*bwd))):
+                (row[f"other_{kern}_ms"], row[f"this_{kern}_ms"],
+                 row[f"readings_{kern}_ms"]) = ab(name, fn)
+            if ci == 0:
+                row["delta_ms"] = cs.time_ms(
+                    lambda: fa.attention_delta(o0, do), flush, 20)
+                for side in ("other", "this"):
+                    row[f"{side}_dq_dkv_delta_ms"] = (
+                        row[f"{side}_dq_ms"] + row[f"{side}_dkv_ms"]
+                        + row["delta_ms"])
+        rows.append(row)
+        print(f"[flash] {json.dumps(row)}")
+    return rows
 
 
 def rmsnorm_bwd_ab(dev, dtype, gen, flush, ab, other):

@@ -1,5 +1,7 @@
-// Flash attention for training on Hopper (sm_90a): the forward (o and the
-// logsumexp residual) and the FlashAttention-2 backward as two kernels.
+// Flash attention for training on Hopper (sm_90a), f32 inputs: the forward
+// (o and the logsumexp residual) and the FlashAttention-2 backward as two
+// kernels.  bf16 inputs have a design of their own, in
+// flash_attention_bf16.cu.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
 //
@@ -49,9 +51,7 @@
 // hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest (cvt.rna's
 // rounding), and a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi in f32
 // ("3xTF32", CUTLASS's OpMultiplyAddFastF32): three mma.sync.m16n8k8 TF32
-// per product, so the bound is 495 / 3 = 165 TFLOP/s.  bf16 inputs are
-// exact in TF32: their lo parts are zero and skipped, so q k^T and do v^T
-// take one MMA and the products with p or ds two.  The kernels run at
+// per product, so the bound is 495 / 3 = 165 TFLOP/s.  The kernels run at
 // ~20 % of that bound: every f32 fragment value costs a shared load and
 // five ALU instructions of splitting for the 3 MMAs it feeds.  The design:
 // - Tiles: a warp owns 16 rows of the CTA's own rows (query rows for the
@@ -59,8 +59,7 @@
 //   rows for the forward and dq; q rows of the G query heads for dk/dv).
 //   All tiles are f32 in shared memory, [rows][D] with an XOR swizzle (swz)
 //   that keeps the fragment reads of both orientations conflict-free, so
-//   no transposed copy is needed; bf16 tiles arrive in a bf16 staging
-//   buffer and are widened once per tile.  The swizzle moves columns
+//   no transposed copy is needed.  The swizzle moves columns
 //   within 32-column groups, so a tile's rows are D rounded up to 32
 //   floats apart (kPitch: 96 at D 80, whose last 16 columns would
 //   otherwise spill into the next row).
@@ -81,7 +80,7 @@
 // - The next streamed tile is copied with cp.async (16 bytes per copy,
 //   zero-filled past S) into a second buffer while the current one is
 //   multiplied.
-// - Shared memory per CTA (D 128, f32): forward 96 KB (4 warps, 64 query
+// - Shared memory per CTA (D 128): forward 96 KB (4 warps, 64 query
 //   rows, 32-row kv tiles; two CTAs per SM), dq 192 KB (8 warps, 128 query
 //   rows; one CTA per SM), dk/dv 100.5 KB (4 warps, 32 kv rows; two CTAs
 //   per SM); at D 80 the tiles are 96 floats wide: 72, 144 and 76.5 KB;
@@ -93,11 +92,8 @@
 //   so the causal tail is short.
 // wgmma (TF32 only K-major from shared memory), TMA and producer warps are
 // later work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -159,8 +155,8 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 
 // N operand registers of one mma.sync.  With kSplit each value x is held as
 // hi = tf32(x) and lo = tf32(x - hi) (3xTF32: a*b ~ a_hi*b_hi + a_hi*b_lo +
-// a_lo*b_hi, f32 accuracy); without, x is exact in TF32 (a bf16 input) and
-// only hi is kept.
+// a_lo*b_hi, f32 accuracy); without, x is exact in TF32 and only hi is
+// kept.
 template <int N, bool kSplit>
 struct Frag {
   uint32_t hi[N], lo[N];
@@ -328,90 +324,49 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // R rows from row0 of a (.., S, heads, D) tensor (src points at the row-0
-// element of the head), 16 bytes per copy: f32 straight into a swizzled
-// tile, bf16 into a plain [R][D] staging buffer (widen_rows converts it).
+// element of the head), 16 bytes per copy, straight into a swizzled tile.
 // Rows >= S are zero-filled.
-template <typename T, int D, int R, int kThr>
-__device__ __forceinline__ void copy_rows_async(void* dst, const T* src,
+template <int D, int R, int kThr>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* src,
                                                 int64_t row_stride, int row0,
                                                 int S) {
-  constexpr int kPer = 16 / sizeof(T), kChunks = D / kPer;
+  constexpr int kChunks = D / 4;
   for (int e = threadIdx.x; e < R * kChunks; e += kThr) {
-    const int r = e / kChunks, c = (e % kChunks) * kPer, s = row0 + r;
-    const T* from = src + static_cast<int64_t>(s < S ? s : 0) * row_stride + c;
-    void* to;
-    if constexpr (std::is_same<T, float>::value)
-      to = static_cast<float*>(dst) + swz<D>(r, c);
-    else
-      to = static_cast<T*>(dst) + r * D + c;
-    cp_async16(to, from, s < S);
-  }
-}
-
-__device__ __forceinline__ float4 widen4(uint2 raw) {
-  return make_float4(__uint_as_float(raw.x << 16),
-                     __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16),
-                     __uint_as_float(raw.y & 0xffff0000u));
-}
-
-// a bf16 staging buffer [R][D] -> the swizzled f32 tile (exact)
-template <int D, int R, int kThr>
-__device__ __forceinline__ void widen_rows(float* dst,
-                                           const __nv_bfloat16* src) {
-  for (int e = threadIdx.x; e < R * D / 8; e += kThr) {
-    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c);
-    *reinterpret_cast<float4*>(dst + swz<D>(r, c)) =
-        widen4(make_uint2(raw.x, raw.y));
-    *reinterpret_cast<float4*>(dst + swz<D>(r, c + 4)) =
-        widen4(make_uint2(raw.z, raw.w));
+    const int r = e / kChunks, c = (e % kChunks) * 4, s = row0 + r;
+    const float* from =
+        src + static_cast<int64_t>(s < S ? s : 0) * row_stride + c;
+    cp_async16(dst + swz<D>(r, c), from, s < S);
   }
 }
 
 // R rows as copy_rows_async, but loaded now (the CTA's own tiles, read
-// once) and widened to f32 on the way
-template <typename T, int D, int R, int kThr>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// once)
+template <int D, int R, int kThr>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int64_t row_stride, int row0,
                                           int S) {
   for (int e = threadIdx.x; e < R * D / 4; e += kThr) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4, s = row0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < S) {
-      const T* from = src + static_cast<int64_t>(s) * row_stride + c;
-      if constexpr (std::is_same<T, float>::value)
-        x = *reinterpret_cast<const float4*>(from);
-      else
-        x = widen4(*reinterpret_cast<const uint2*>(from));
-    }
+    if (s < S)
+      x = *reinterpret_cast<const float4*>(
+          src + static_cast<int64_t>(s) * row_stride + c);
     *reinterpret_cast<float4*>(dst + swz<D>(r, c)) = x;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
-                                                      float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
 
-// shared memory of a CTA with `own` f32 tiles of `rows` own rows and R rows
-// per streamed tile: two streamed f32 tiles (double-buffered for f32
-// inputs; for bf16 one f32 tile each plus two bf16 staging buffers), and
-// for dk/dv (`dkv`) p and the streamed rows' lse and delta.  f32 tiles have
-// rows of kPitch<D> floats, the bf16 staging buffers plain rows of D.
-template <typename T, int D, int R>
+// shared memory of a CTA with `own` tiles of `rows` own rows and R rows per
+// streamed tile: two double-buffered streamed tiles, and for dk/dv (`dkv`)
+// p and the streamed rows' lse and delta.  Tiles have rows of kPitch<D>
+// floats.
+template <int D, int R>
 constexpr size_t tile_smem_bytes(int own, int rows, bool dkv) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int P = kPitch<D>;
-  return (own * rows * P + 2 * (kF32 ? 2 : 1) * R * P) * sizeof(float) +
-         (kF32 ? 0 : 4 * R * D * sizeof(T)) +
+  return (own * rows * P + 2 * 2 * R * P) * sizeof(float) +
          (dkv ? (rows * R + 4 * R) * sizeof(float) : 0);
 }
 
@@ -426,21 +381,18 @@ constexpr size_t tile_smem_bytes(int own, int rows, bool dkv) {
 // softmax (m, l per row; p = exp(s * scale - m_new), alpha = exp(m -
 // m_new)) and acc = acc * alpha + p v, the tile's p v summed in a fresh
 // accumulator.
-template <typename T, int D, int W, int BK>
+template <int D, int W, int BK>
 __global__ void __launch_bounds__(32 * W, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int H, int Kv,
                  int q0, int causal, int window, float scale) {
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kBufs = kF32 ? 2 : 1;
   constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   float* q_s = reinterpret_cast<float*>(fwd_smem);  // [BQ][P]
-  float* k_s = q_s + BQ * P;                         // [kBufs][BK][P]
-  float* v_s = k_s + kBufs * BK * P;                 // [kBufs][BK][P]
-  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
+  float* k_s = q_s + BQ * P;                         // [2][BK][P]
+  float* v_s = k_s + 2 * BK * P;                     // [2][BK][P]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qb = (Sq + BQ - 1) / BQ - 1 - blockIdx.z;
@@ -462,16 +414,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
-    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * P)
-                    : static_cast<void*>(stage + 2 * buf * BK * D);
-    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
-                    : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
-    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, Sk);
-    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, Sk);
+    copy_rows_async<D, BK, kThr>(k_s + buf * BK * P, k + k_base, k_rs,
+                                 kt * BK, Sk);
+    copy_rows_async<D, BK, kThr>(v_s + buf * BK * P, v + k_base, k_rs,
+                                 kt * BK, Sk);
   };
   prefetch(kt_begin, 0);
   cp_async_commit();
-  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
+  load_rows<D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
 
   // this lane's two rows (g and g + 8 of the warp's 16)
   int qp[2];
@@ -495,13 +445,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();              // this thread's copies of tile kt
     __syncthreads();                 // everyone's
-    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * P;
-    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * P;
-    if constexpr (!kF32) {
-      widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
-      widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
-      __syncthreads();
-    }
+    const float* kt_s = k_s + buf * BK * P;
+    const float* vt_s = v_s + buf * BK * P;
 
     // s: hi * hi terms in s, the cross terms in sl (half the error of
     // one accumulator, at the same speed on an H100)
@@ -512,18 +457,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DT; ++kk) {
-      Frag<4, kF32> qa;
-      Frag<2, kF32> kf[NT];
+      Frag<4, true> qa;
+      Frag<2, true> kf[NT];
       frag_a<D>(qa, q_s, wr, 8 * kk, g, tq);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         frag_b_nk<D>(kf[j], kt_s, 8 * j, 8 * kk, g, tq);
       mma3(s, sl, qa, kf);
     }
-    if constexpr (kF32) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) add4(s[j], sl[j]);
-    }
+    for (int j = 0; j < NT; ++j) add4(s[j], sl[j]);
 
     // online softmax on the C fragments: element e of s[j] is row i = e / 2
     // (g or g + 8), key k0 + 8 j + 2 tq + e % 2; a row's 4 lanes share
@@ -572,7 +515,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Frag<4, true> a[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], s[j]);
-    reduce_rows<D, NT, kF32>(acc, a, vt_s, g, tq);
+    reduce_rows<D, NT, true>(acc, a, vt_s, g, tq);
   }
 
   const int64_t r_base = (static_cast<int64_t>(b) * H + h) * Sq;
@@ -580,11 +523,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     if (qp[i] >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* row = o + q_base + static_cast<int64_t>(qp[i]) * q_rs;
+    float* row = o + q_base + static_cast<int64_t>(qp[i]) * q_rs;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i] / denom,
-                acc[n][2 * i + 1] / denom);
+      store2(row + 8 * n + 2 * tq, acc[n][2 * i] / denom,
+             acc[n][2 * i + 1] / denom);
     if (tq == 0) lse[r_base + qp[i]] = m[i] + logf(denom);
   }
 }
@@ -599,24 +542,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // it computes:
 // s = q k^T and dp = do v^T into C fragments, then in registers
 // p = exp(s * scale - lse), ds = p (dp - delta) scale, dq += ds k.
-template <typename T, int D, int W, int BK>
+template <int D, int W, int BK>
 __global__ void __launch_bounds__(32 * W, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Sk, int H, int Kv, int q0, int causal,
                     int window, float scale) {
   constexpr int kThr = 32 * W, BQ = 16 * W, NT = BK / 8, DT = D / 8;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kBufs = kF32 ? 2 : 1;
   constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   float* q_s = reinterpret_cast<float*>(bwd_smem);  // [BQ][P]
   float* do_s = q_s + BQ * P;                        // [BQ][P]
-  float* k_s = do_s + BQ * P;                        // [kBufs][BK][P]
-  float* v_s = k_s + kBufs * BK * P;                 // [kBufs][BK][P]
-  T* stage = reinterpret_cast<T*>(v_s + kBufs * BK * P);  // bf16 [2][2][BK][D]
+  float* k_s = do_s + BQ * P;                        // [2][BK][P]
+  float* v_s = k_s + 2 * BK * P;                     // [2][BK][P]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qb = (Sq + BQ - 1) / BQ - 1 - blockIdx.z;
@@ -639,17 +580,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_begin = (window && first > 0) ? first / BK : 0;
 
   auto prefetch = [&](int kt, int buf) {
-    void* kd = kF32 ? static_cast<void*>(k_s + buf * BK * P)
-                    : static_cast<void*>(stage + 2 * buf * BK * D);
-    void* vd = kF32 ? static_cast<void*>(v_s + buf * BK * P)
-                    : static_cast<void*>(stage + (2 * buf + 1) * BK * D);
-    copy_rows_async<T, D, BK, kThr>(kd, k + k_base, k_rs, kt * BK, Sk);
-    copy_rows_async<T, D, BK, kThr>(vd, v + k_base, k_rs, kt * BK, Sk);
+    copy_rows_async<D, BK, kThr>(k_s + buf * BK * P, k + k_base, k_rs,
+                                 kt * BK, Sk);
+    copy_rows_async<D, BK, kThr>(v_s + buf * BK * P, v + k_base, k_rs,
+                                 kt * BK, Sk);
   };
   prefetch(kt_begin, 0);
   cp_async_commit();
-  load_rows<T, D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
-  load_rows<T, D, BQ, kThr>(do_s, dout + q_base, q_rs, r0, Sq);
+  load_rows<D, BQ, kThr>(q_s, q + q_base, q_rs, r0, Sq);
+  load_rows<D, BQ, kThr>(do_s, dout + q_base, q_rs, r0, Sq);
 
   int qp[2];
   float lse_r[2], delta_r[2];
@@ -672,13 +611,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();              // this thread's copies of tile kt
     __syncthreads();                 // everyone's
-    const float* kt_s = k_s + (kF32 ? buf : 0) * BK * P;
-    const float* vt_s = v_s + (kF32 ? buf : 0) * BK * P;
-    if constexpr (!kF32) {
-      widen_rows<D, BK, kThr>(k_s, stage + 2 * buf * BK * D);
-      widen_rows<D, BK, kThr>(v_s, stage + (2 * buf + 1) * BK * D);
-      __syncthreads();
-    }
+    const float* kt_s = k_s + buf * BK * P;
+    const float* vt_s = v_s + buf * BK * P;
 
     float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -687,8 +621,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DT; ++kk) {
-      Frag<4, kF32> qa, da;
-      Frag<2, kF32> kf[NT], vf[NT];
+      Frag<4, true> qa, da;
+      Frag<2, true> kf[NT], vf[NT];
       frag_a<D>(qa, q_s, wr, 8 * kk, g, tq);
       frag_a<D>(da, do_s, wr, 8 * kk, g, tq);
 #pragma unroll
@@ -712,16 +646,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Frag<4, true> a[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], s[j]);
-    reduce_rows<D, NT, kF32>(acc, a, kt_s, g, tq);
+    reduce_rows<D, NT, true>(acc, a, kt_s, g, tq);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qp[i] >= Sq) continue;
-    T* row = dq + q_base + static_cast<int64_t>(qp[i]) * q_rs;
+    float* row = dq + q_base + static_cast<int64_t>(qp[i]) * q_rs;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
+      store2(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -740,28 +674,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the same instructions on other tiles, and each warp keeps one D-wide
 // accumulator in registers instead of two.  No atomics: the result is the
 // same bits from run to run.
-template <typename T, int D, int W, int BQ>
+template <int D, int W, int BQ>
 __global__ void __launch_bounds__(32 * W, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Sk, int H, int Kv,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int H, int Kv,
                      int q0, int causal, int window, float scale) {
   constexpr int kThr = 32 * W, BKV = 8 * W, NT = BQ / 8, DT = D / 8;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kBufs = kF32 ? 2 : 1;
   static_assert(W % 2 == 0 && 2 * BQ <= kThr, "warp pairs; lse/delta copies");
   constexpr int P = kPitch<D>;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   float* k_s = reinterpret_cast<float*>(bwd_smem);  // [BKV][P]
   float* v_s = k_s + BKV * P;                        // [BKV][P]
-  float* q_s = v_s + BKV * P;                        // [kBufs][BQ][P]
-  float* do_s = q_s + kBufs * BQ * P;                // [kBufs][BQ][P]
-  float* p_s = do_s + kBufs * BQ * P;                // [BKV * BQ] p, by lane
+  float* q_s = v_s + BKV * P;                        // [2][BQ][P]
+  float* do_s = q_s + 2 * BQ * P;                    // [2][BQ][P]
+  float* p_s = do_s + 2 * BQ * P;                    // [BKV * BQ] p, by lane
   float* lse_s = p_s + BKV * BQ;                     // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;                   // [2][BQ]
-  T* stage = reinterpret_cast<T*>(delta_s + 2 * BQ);  // bf16 [2][2][BQ][D]
 
   const int kvh = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;
   const int G = H / Kv;
@@ -789,12 +721,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hh = kvh * G + it / nt, r0 = (qt_begin + it % nt) * BQ;
     const int64_t q_base = (static_cast<int64_t>(b) * Sq * H + hh) * D;
     const int64_t r_base = (static_cast<int64_t>(b) * H + hh) * Sq;
-    void* qd = kF32 ? static_cast<void*>(q_s + buf * BQ * P)
-                    : static_cast<void*>(stage + 2 * buf * BQ * D);
-    void* dd = kF32 ? static_cast<void*>(do_s + buf * BQ * P)
-                    : static_cast<void*>(stage + (2 * buf + 1) * BQ * D);
-    copy_rows_async<T, D, BQ, kThr>(qd, q + q_base, q_rs, r0, Sq);
-    copy_rows_async<T, D, BQ, kThr>(dd, dout + q_base, q_rs, r0, Sq);
+    copy_rows_async<D, BQ, kThr>(q_s + buf * BQ * P, q + q_base, q_rs, r0,
+                                 Sq);
+    copy_rows_async<D, BQ, kThr>(do_s + buf * BQ * P, dout + q_base, q_rs,
+                                 r0, Sq);
     const int i = threadIdx.x % BQ, qr = r0 + i;
     const int64_t at = r_base + (qr < Sq ? qr : 0);
     if (threadIdx.x < BQ)
@@ -804,8 +734,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   if (n_it > 0) prefetch(0, 0);
   cp_async_commit();
-  load_rows<T, D, BKV, kThr>(k_s, k + k_base, k_rs, k0, Sk);
-  load_rows<T, D, BKV, kThr>(v_s, v + k_base, k_rs, k0, Sk);
+  load_rows<D, BKV, kThr>(k_s, k + k_base, k_rs, k0, Sk);
+  load_rows<D, BKV, kThr>(v_s, v + k_base, k_rs, k0, Sk);
 
   int kp[2];
   float acc[DT][4];
@@ -825,13 +755,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* qt_s = q_s + (kF32 ? buf : 0) * BQ * P;
-    const float* dt_s = do_s + (kF32 ? buf : 0) * BQ * P;
-    if constexpr (!kF32) {
-      widen_rows<D, BQ, kThr>(q_s, stage + 2 * buf * BQ * D);
-      widen_rows<D, BQ, kThr>(do_s, stage + (2 * buf + 1) * BQ * D);
-      __syncthreads();
-    }
+    const float* qt_s = q_s + buf * BQ * P;
+    const float* dt_s = do_s + buf * BQ * P;
     const float* ls = lse_s + buf * BQ;
     const float* dl = delta_s + buf * BQ;
     const int r0 = (qt_begin + it % nt) * BQ;
@@ -846,8 +771,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DT; ++kk) {
-      Frag<4, kF32> af;
-      Frag<2, kF32> bf[NT];
+      Frag<4, true> af;
+      Frag<2, true> bf[NT];
       frag_a<D>(af, a_t, wr, 8 * kk, g, tq);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -885,17 +810,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Frag<4, true> a[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) frag_a_from_c(a[j], c[j]);
-    reduce_rows<D, NT, kF32>(acc, a, b2_t, g, tq);
+    reduce_rows<D, NT, true>(acc, a, b2_t, g, tq);
   }
 
-  T* out = dk_half ? dk : dv;
+  float* out = dk_half ? dk : dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (kp[i] >= Sk) continue;
-    T* row = out + k_base + static_cast<int64_t>(kp[i]) * k_rs;
+    float* row = out + k_base + static_cast<int64_t>(kp[i]) * k_rs;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2<T>(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
+      store2(row + 8 * n + 2 * tq, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -910,59 +835,59 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int Sq, int Sk, int H, int Kv, int q0, int causal, int window,
         float scale, cudaStream_t st) {
   constexpr int W = kFwdWarps, R = kFwdStream;
-  constexpr size_t smem = tile_smem_bytes<T, D, R>(1, 16 * W, false);
-  auto* kernel = flash_fwd_kernel<T, D, W, R>;
+  constexpr size_t smem = tile_smem_bytes<D, R>(1, 16 * W, false);
+  auto* kernel = flash_fwd_kernel<D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (Sq + 16 * W - 1) / (16 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Sq, Sk, H, Kv, q0, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, Kv, q0, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int Sq,
            int Sk, int H, int Kv, int q0, int causal, int window, float scale,
            cudaStream_t st) {
   constexpr int W = kDqWarps, R = kDqStream;
-  constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 16 * W, false);
-  auto* kernel = flash_bwd_dq_kernel<T, D, W, R>;
+  constexpr size_t smem = tile_smem_bytes<D, R>(2, 16 * W, false);
+  auto* kernel = flash_bwd_dq_kernel<D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (Sq + 16 * W - 1) / (16 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Sk, H, Kv, q0, causal, window, scale);
+      static_cast<float*>(dq), Sq, Sk, H, Kv, q0, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
             int Sq, int Sk, int H, int Kv, int q0, int causal, int window,
             float scale, cudaStream_t st) {
   constexpr int W = kDkvWarps, R = kDkvStream;
-  constexpr size_t smem = tile_smem_bytes<T, D, R>(2, 8 * W, true);
-  auto* kernel = flash_bwd_dkv_kernel<T, D, W, R>;
+  constexpr size_t smem = tile_smem_bytes<D, R>(2, 8 * W, true);
+  auto* kernel = flash_bwd_dkv_kernel<D, W, R>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(Kv, B, (Sk + 8 * W - 1) / (8 * W));
   kernel<<<grid, 32 * W, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, Kv, q0, causal,
-      window, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Kv, q0,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -977,62 +902,21 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }
 
-template <typename T>
-int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int Sq, int Sk, int H, int Kv, int D, int q0, int causal,
-            int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_D(D, (fwd<T, kD>(q, k, v, o, lse, B, Sq, Sk, H, Kv, q0,
-                                  causal, window, scale, st)))
-}
-
-template <typename T>
-int dq_any(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int B, int Sq,
-           int Sk, int H, int Kv, int D, int q0, int causal, int window,
-           float scale, void* stream) {
-  if (B <= 0 || Sq <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_D(D, (bwd_dq<T, kD>(q, k, v, dout, lse, delta, dq, B, Sq,
-                                     Sk, H, Kv, q0, causal, window, scale,
-                                     st)))
-}
-
-template <typename T>
-int dkv_any(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int B,
-            int Sq, int Sk, int H, int Kv, int D, int q0, int causal,
-            int window, float scale, void* stream) {
-  if (B <= 0 || Sk <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_D(D, (bwd_dkv<T, kD>(q, k, v, dout, lse, delta, dk, dv, B,
-                                      Sq, Sk, H, Kv, q0, causal, window,
-                                      scale, st)))
-}
-
 }  // namespace
 
-// Forward: q, o (B, Sq, H, D) and k, v (B, Sk, Kv, D) in the named type;
-// lse (B, H, Sq) f32; all contiguous; query row i at position q0 + i.
-// Returns cudaGetLastError() right after the launch
-// (cudaErrorInvalidValue for a head dim with no kernel).
+// Forward: q, o (B, Sq, H, D) and k, v (B, Sk, Kv, D) f32; lse (B, H, Sq)
+// f32; all contiguous; query row i at position q0 + i.  Returns
+// cudaGetLastError() right after the launch (cudaErrorInvalidValue for a
+// head dim with no kernel).
 extern "C" int flash_attn_fwd_f32(const void* q, const void* k,
                                   const void* v, void* o, void* lse, int B,
                                   int Sq, int Sk, int H, int Kv, int D,
                                   int q0, int causal, int window, float scale,
                                   void* stream) {
-  return fwd_any<float>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, q0, causal,
-                        window, scale, stream);
-}
-
-extern "C" int flash_attn_fwd_bf16(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int Sq, int Sk, int H, int Kv, int D,
-                                   int q0, int causal, int window,
-                                   float scale, void* stream) {
-  return fwd_any<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, q0,
-                                causal, window, scale, stream);
+  if (B <= 0 || Sq <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_D(D, (fwd<kD>(q, k, v, o, lse, B, Sq, Sk, H, Kv, q0, causal,
+                               window, scale, st)))
 }
 
 // Backward dq: dout and dq as q; lse and delta (B, H, Sq) f32.
@@ -1042,18 +926,10 @@ extern "C" int flash_attn_dq_f32(const void* q, const void* k, const void* v,
                                  int Sk, int H, int Kv, int D, int q0,
                                  int causal, int window, float scale,
                                  void* stream) {
-  return dq_any<float>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Kv, D, q0,
-                       causal, window, scale, stream);
-}
-
-extern "C" int flash_attn_dq_bf16(const void* q, const void* k,
-                                  const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dq, int B, int Sq, int Sk, int H,
-                                  int Kv, int D, int q0, int causal,
-                                  int window, float scale, void* stream) {
-  return dq_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H,
-                               Kv, D, q0, causal, window, scale, stream);
+  if (B <= 0 || Sq <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_D(D, (bwd_dq<kD>(q, k, v, dout, lse, delta, dq, B, Sq, Sk,
+                                  H, Kv, q0, causal, window, scale, st)))
 }
 
 // Backward dk/dv: dk and dv as k.
@@ -1063,18 +939,11 @@ extern "C" int flash_attn_dkv_f32(const void* q, const void* k,
                                   void* dk, void* dv, int B, int Sq, int Sk,
                                   int H, int Kv, int D, int q0, int causal,
                                   int window, float scale, void* stream) {
-  return dkv_any<float>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Kv,
-                        D, q0, causal, window, scale, stream);
-}
-
-extern "C" int flash_attn_dkv_bf16(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dk, void* dv, int B, int Sq, int Sk,
-                                   int H, int Kv, int D, int q0, int causal,
-                                   int window, float scale, void* stream) {
-  return dkv_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
-                                H, Kv, D, q0, causal, window, scale, stream);
+  if (B <= 0 || Sk <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_D(D, (bwd_dkv<kD>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                   Sk, H, Kv, q0, causal, window, scale,
+                                   st)))
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

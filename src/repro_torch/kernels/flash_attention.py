@@ -7,18 +7,24 @@ Replaces the TPU kernels of ``src/repro/kernels/flash_attention.py``:
 logsumexp residual) and the FlashAttention-2 backward of
 ``_flash_backward``, ``_flash_bwd_dq_kernel`` (q-block-major) and
 ``_flash_bwd_dkv_kernel`` (kv-block-major, the G query heads of a kv head
-folded into its loop).  What bounds them on the H100: operations — at the
-training shape each query row does ~S/2·D·4 f32 operations per ~D·4 bytes
-it reads.  All three (``csrc/flash_attention.cu``) multiply on the tensor
-cores (``mma.sync`` m16n8k8 TF32; f32 operands split into two TF32 parts,
-"3xTF32", which keeps f32 accuracy), keep p (and ds) in registers between
-their two products, and stream the next kv tile (forward, dq) or q/do
-tile (dk/dv) into shared memory with ``cp.async`` while they compute.
-All three skip the kv or q blocks that the causal and window bounds leave
-invisible and mask the ragged edge of S themselves, so the TPU's padding
-of S to a block multiple (``_dims``) does not carry over.  dk/dv
-accumulate in registers across the G query heads: no atomics, the same
-bits from run to run.
+folded into its loop).  Each dtype has a design and a library of its own
+(``_LIBRARIES``); both multiply on the tensor cores, keep p (and ds) in
+registers between their two products, stream the next tiles into shared
+memory with ``cp.async`` while they compute, skip the kv or q blocks that
+the causal and window bounds leave invisible and mask the ragged edge of S
+themselves, so the TPU's padding of S to a block multiple (``_dims``) does
+not carry over.  dk/dv accumulate in registers across the G query heads:
+no atomics, the same bits from run to run.
+
+- f32 (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k8 TF32 with f32
+  operands split into two TF32 parts ("3xTF32", f32 accuracy), tiles
+  widened to f32 in shared memory.  Bound by operations.
+- bf16 (``csrc/flash_attention_bf16.cu``): ``mma.sync`` m16n8k16 bf16 with
+  f32 accumulators, bf16 tiles in shared memory read by ``ldmatrix``; s,
+  the softmax statistics, l, lse and delta in f32, p and ds rounded to
+  bf16 for their products (modelled on the CPU by
+  ``tests/test_torch_flash_bf16.py``).  Bound by bytes at the training
+  shape.
 
 Layouts are the JAX package's: q (B, Sq, H, D), k/v (B, Sk, Kv, D), query
 head h reads kv head h // G; ``lse`` and ``delta`` are (B, H, Sq) f32 — the
@@ -30,16 +36,14 @@ package's ``_cp_attend``), and the causal bound, the window and every
 kernel's tile-skip bounds read positions.  The
 kernels read rows with 16-byte copies, so their tensors must start on a
 16-byte boundary (fresh allocations do).  They are compiled for the head
-dims ``HEAD_DIMS``: 128; h2o-danube-1.8b's 80, whose shared tiles are
-padded to 96 columns; and musicgen-medium's 64 (that of every reduced
-config too); any other head dim raises on the card.
+dims ``HEAD_DIMS``: 128; h2o-danube-1.8b's 80; and musicgen-medium's 64
+(that of every reduced config too); any other head dim raises on the card.
 
 The plain versions walk blocks of positions in a Python loop with the
 kernels' update: the forward ``FWD_BLOCK`` kv positions per online-softmax
-step, as the kernel streams them, so both rescale at the same points; the
-backward ``BLOCK`` (its kernels group the same f32 terms in tiles of 32
-streamed rows).  So the card compares like with like.  They visit every
-block, the kernels only the visible ones: a fully masked block is an
+step, as the f32 kernel streams them, so both rescale at the same points;
+the backward ``BLOCK``.  So the card compares like with like.  They visit
+every block, the kernels only the visible ones: a fully masked block is an
 exact no-op of the update, so both give the same numbers.
 """
 from __future__ import annotations
@@ -53,7 +57,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK = 64                  # rows per block of the plain backward
 FWD_BLOCK = 32              # kv rows per step of the plain forward (the
-#                             kernel's streamed tile, kFwdStream)
+#                             f32 kernel's streamed tile, kFwdStream)
 HEAD_DIMS = (64, 80, 128)   # head dims the CUDA kernels are compiled for
 
 # launches of the CUDA kernels (plain-version calls do not count); a
@@ -72,15 +76,22 @@ def counter_name(name, D, S=1, Sk=1, q0=0):
             + ("_q0" if q0 or S != Sk else ""))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+
+
+def _entry_points(suffix):
     # (B, Sq, Sk, H, Kv, D, q0, causal, window)
-    **{f"flash_attn_fwd_{s}": [_P] * 5 + [_I] * 9 + [_F, _P]
-       for s in ("f32", "bf16")},
-    **{f"flash_attn_dq_{s}": [_P] * 7 + [_I] * 9 + [_F, _P]
-       for s in ("f32", "bf16")},
-    **{f"flash_attn_dkv_{s}": [_P] * 8 + [_I] * 9 + [_F, _P]
-       for s in ("f32", "bf16")},
-}
+    return {f"flash_attn_fwd_{suffix}": [_P] * 5 + [_I] * 9 + [_F, _P],
+            f"flash_attn_dq_{suffix}": [_P] * 7 + [_I] * 9 + [_F, _P],
+            f"flash_attn_dkv_{suffix}": [_P] * 8 + [_I] * 9 + [_F, _P]}
+
+
+_SIGNATURES = _entry_points("f32")          # csrc/flash_attention.cu
+_BF16_SIGNATURES = _entry_points("bf16")    # csrc/flash_attention_bf16.cu
+# the library of each dtype, and the entry points it declares
+_LIBRARIES = {torch.float32: "flash_attention",
+              torch.bfloat16: "flash_attention_bf16"}
+_SIGNATURES_OF = {"flash_attention": _SIGNATURES,
+                  "flash_attention_bf16": _BF16_SIGNATURES}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -244,8 +255,10 @@ def _check_aligned(tensors, what):
                              f"time)")
 
 
-def _lib():
-    return build.load("flash_attention", _SIGNATURES)
+def _lib(dtype):
+    """-> (name, loaded library) of the kernels for ``dtype`` tensors."""
+    name = _LIBRARIES[dtype]
+    return name, build.load(name, _SIGNATURES_OF[name])
 
 
 def _stream(t):
@@ -258,12 +271,12 @@ def forward_cuda(q, k, v, causal=True, window=0, q0=0):
     _check_aligned((("q", q), ("k", k), ("v", v)), "flash-attention forward")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    name, lib = _lib(q.dtype)
     code = getattr(lib, f"flash_attn_fwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, S, Sk, H, Kv, D, int(q0), int(bool(causal)),
         int(window), float(D ** -0.5), _stream(q))
-    build.check(lib, "flash_attention", code, "flash-attention forward launch")
+    build.check(lib, name, code, "flash-attention forward launch")
     build.count_launch(LAUNCHES, counter_name("flash_attention", D, S, Sk,
                                               q0), q.dtype)
     return o, lse
@@ -279,13 +292,13 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     _check_aligned((("q", q), ("k", k), ("v", v), ("do", do)),
                    "flash-attention dq")
     dq = torch.empty_like(q)
-    lib = _lib()
+    name, lib = _lib(q.dtype)
     code = getattr(lib, f"flash_attn_dq_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, Sk, H, Kv, D,
         int(q0), int(bool(causal)), int(window), float(D ** -0.5),
         _stream(q))
-    build.check(lib, "flash_attention", code, "flash-attention dq launch")
+    build.check(lib, name, code, "flash-attention dq launch")
     build.count_launch(LAUNCHES, counter_name("flash_attention_dq", D, S,
                                               Sk, q0), q.dtype)
     return dq
@@ -301,13 +314,13 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
     _check_aligned((("q", q), ("k", k), ("v", v), ("do", do)),
                    "flash-attention dk/dv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _lib()
+    name, lib = _lib(q.dtype)
     code = getattr(lib, f"flash_attn_dkv_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, S, Sk, H, Kv, D, int(q0), int(bool(causal)), int(window),
         float(D ** -0.5), _stream(q))
-    build.check(lib, "flash_attention", code, "flash-attention dk/dv launch")
+    build.check(lib, name, code, "flash-attention dk/dv launch")
     build.count_launch(LAUNCHES, counter_name("flash_attention_dkv", D, S,
                                               Sk, q0), q.dtype)
     return dk, dv
@@ -342,8 +355,11 @@ def dkv_fake(q, k, v, do, lse, delta, causal=True, window=0, q0=0):
 
 def attention_delta(o, do):
     """delta = rowsum(do · o) in f32 -> (B, H, S): the rowwise term of the
-    softmax backward (plain PyTorch, as the JAX package leaves it to XLA)."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    softmax backward (plain PyTorch, as the JAX package leaves it to XLA).
+    o is widened inside the product, not copied first: the same bits as
+    widening both, 0.098 against 0.124 ms in bf16 at the training shape
+    (``flash_bf16_tiles.py``, H100)."""
+    return (do.float() * o).sum(-1).transpose(1, 2).contiguous()
 
 
 class FlashAttentionFn(torch.autograd.Function):

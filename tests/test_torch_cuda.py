@@ -30,15 +30,19 @@ CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
 @pytest.mark.parametrize("name,module", [("rmsnorm", trms),
                                          ("flash_decode", tfd),
                                          ("flash_attention", tfa),
-                                         ("wkv6", twkv)])
+                                         ("wkv6", twkv),
+                                         ("flash_attention_bf16", tfa)])
 def test_c_entry_points_match_bindings(name, module):
     """Every entry point the Python side declares exists in the source with
     the same argument types, in order (ctypes would silently cut a pointer
-    passed where the C side takes an int)."""
+    passed where the C side takes an int).  A module with a library per
+    dtype names each library's entry points in ``_SIGNATURES_OF``."""
     src = (build.CSRC / f"{name}.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    assert set(module._SIGNATURES) <= set(decls)
-    for fn, argtypes in module._SIGNATURES.items():
+    signatures = getattr(module, "_SIGNATURES_OF", {}).get(
+        name, module._SIGNATURES)
+    assert set(signatures) <= set(decls)
+    for fn, argtypes in signatures.items():
         params = [" ".join(p.replace("const ", "").split()[:-1])
                   .replace(" *", "*") for p in decls[fn].split(",")]
         assert [CTYPE[p] for p in params] == list(argtypes), fn
@@ -440,6 +444,58 @@ def test_cuda_flash_attention_matches_plain(case, dtype):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, tfa.dq_cuda(q, k, v, do, lse0, delta, causal,
                                        window))
+
+
+# edges of the bf16 kernels' tiles (flash_attention_bf16.cu: 64 own rows,
+# 64 streamed rows): B, Sq, Sk, H, Kv, D, causal, window, q0 — one row
+# short of a tile and one row past it, at each head dim (D 80: rows of 11
+# 16-byte chunks, a k loop of 5 steps of 16), with a window and at an
+# offset
+BF16_TILE_CASES = [
+    (2, 63, 63, 4, 2, 128, True, 0, 0),
+    (2, 65, 65, 4, 2, 128, True, 0, 0),
+    (1, 127, 127, 8, 2, 128, True, 64, 0),
+    (1, 129, 129, 4, 1, 128, False, 0, 0),
+    (2, 63, 63, 4, 2, 80, True, 0, 0),
+    (2, 65, 65, 8, 2, 80, True, 0, 0),
+    (1, 129, 129, 4, 1, 80, True, 64, 0),
+    (1, 127, 127, 2, 2, 80, False, 0, 0),
+    (2, 65, 65, 4, 4, 64, True, 0, 0),
+    (1, 127, 127, 4, 2, 64, True, 63, 0),
+    (1, 65, 193, 4, 2, 128, True, 0, 128),
+    (1, 63, 190, 4, 2, 80, True, 65, 127),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_TILE_CASES)
+def test_cuda_flash_bf16_tile_edges(case):
+    """The bf16 forward, dq and dk/dv at the edges of their tiles against
+    the plain versions at ``CARD_TOL``, and the same bits from a second
+    launch of each."""
+    dev = _card()
+    B, S, Sk, H, Kv, D, causal, window, q0 = case
+    g = torch.Generator(device=dev).manual_seed(S + Sk + D)
+    q, do = (torch.randn(B, S, H, D, generator=g, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, Sk, Kv, D, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = tfa.forward_cuda(q, k, v, causal, window, q0)
+    o0, lse0 = tfa.forward_plain(q, k, v, causal, window, q0)
+    delta = tfa.attention_delta(o0, do)
+    args = (q, k, v, do, lse0, delta, causal, window, q0)
+    dq, (dk, dv) = tfa.dq_cuda(*args), tfa.dkv_cuda(*args)
+    dq0, (dk0, dv0) = tfa.dq_plain(*args), tfa.dkv_plain(*args)
+    torch.cuda.synchronize()
+    fwd_tol, grad_tol = CARD_TOL[torch.bfloat16]
+    assert _rel_err(o, o0) < fwd_tol
+    assert (lse - lse0).abs().max().item() < 1e-5
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert _rel_err(a, b) < grad_tol
+    o2, lse2 = tfa.forward_cuda(q, k, v, causal, window, q0)
+    dq2, (dk2, dv2) = tfa.dq_cuda(*args), tfa.dkv_cuda(*args)
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
 
 
 # B, S (query rows), Sk (keys), H, Kv, D, q0 (the rows' first position),
